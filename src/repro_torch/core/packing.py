@@ -1,0 +1,128 @@
+"""Packed parameter plane: a model's parameters as one flat X axis.
+
+``PackSpec`` fixes, once per model, where each leaf lives on the X axis.
+Leaves are ordered as ``jax.tree.flatten`` orders a nested dict — keys
+sorted at every level — so a layer's ``b`` comes before its ``w`` and a
+plane packed by the JAX package is a plane of the port, float for float.
+
+    plane = pack(tree, spec)    # leaves (*B, *shape) -> (*B, X) fp32
+    tree  = unpack(plane, spec) # (*B, X) -> leaves (*B, *shape), VIEWS
+
+``unpack`` copies nothing: each leaf is a view of its slice of the plane,
+so writing into a leaf writes the plane, and autograd through a leaf
+reaches only that slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class PackSpec:
+    """Static layout of one model on the X axis."""
+
+    paths: tuple    # per-leaf key paths, e.g. (("layer0", "b"), ...)
+    shapes: tuple   # per-leaf model-dim shapes
+    dtypes: tuple   # per-leaf original dtypes
+    sizes: tuple    # per-leaf flat sizes
+    offsets: tuple  # per-leaf start on the X axis
+    size: int       # X
+
+    @property
+    def model_bytes(self) -> int:
+        """Bytes of one model in its ORIGINAL dtypes: what crosses the
+        wire, whatever the plane's compute dtype."""
+        return int(sum(s * torch.empty((), dtype=d).element_size()
+                       for s, d in zip(self.sizes, self.dtypes)))
+
+
+def _flatten(tree: dict, prefix: tuple = ()) -> list:
+    """(path, leaf) pairs with dict keys sorted at every level."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out.extend(_flatten(v, prefix + (k,)))
+        else:
+            out.append((prefix + (k,), v))
+    return out
+
+
+def make_pack_spec(example: dict) -> PackSpec:
+    """The layout of one (unbatched) model's parameter dict."""
+    flat = _flatten(example)
+    shapes = tuple(tuple(leaf.shape) for _, leaf in flat)
+    sizes = tuple(math.prod(s) for s in shapes)
+    offsets = tuple(sum(sizes[:i]) for i in range(len(sizes)))
+    return PackSpec(
+        paths=tuple(p for p, _ in flat), shapes=shapes,
+        dtypes=tuple(leaf.dtype for _, leaf in flat), sizes=sizes,
+        offsets=offsets, size=sum(sizes),
+    )
+
+
+def pack(tree: dict, spec: PackSpec) -> torch.Tensor:
+    """Leaves ``(*B, *shape)`` -> one new ``(*B, X)`` fp32 tensor."""
+    flat = _flatten(tree)
+    if tuple(p for p, _ in flat) != spec.paths:
+        raise ValueError(
+            f"tree paths {[p for p, _ in flat]} != spec {list(spec.paths)}")
+    parts = []
+    for (_, leaf), shape, size in zip(flat, spec.shapes, spec.sizes):
+        bnd = leaf.dim() - len(shape)
+        if bnd < 0 or tuple(leaf.shape[bnd:]) != shape:
+            raise ValueError(
+                f"leaf shape {tuple(leaf.shape)} does not end with packed "
+                f"shape {shape}")
+        parts.append(leaf.reshape(leaf.shape[:bnd] + (size,)).float())
+    return torch.cat(parts, dim=-1)
+
+
+def unpack(plane: torch.Tensor, spec: PackSpec) -> dict:
+    """``(*B, X)`` -> nested dict of leaves ``(*B, *shape)``, each a view
+    of its slice of ``plane`` (a copy only for a leaf whose original dtype
+    is not fp32)."""
+    if plane.shape[-1] != spec.size:
+        raise ValueError(f"plane width {plane.shape[-1]} != spec X {spec.size}")
+    batch = tuple(plane.shape[:-1])
+    tree: dict = {}
+    for path, o, sz, shape, dt in zip(spec.paths, spec.offsets, spec.sizes,
+                                      spec.shapes, spec.dtypes):
+        leaf = plane[..., o:o + sz].view(batch + shape)
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf if leaf.dtype == dt else leaf.to(dt)
+    return tree
+
+
+def leaves(tree: dict) -> list:
+    """The leaves of a parameter dict in the spec's order."""
+    return [leaf for _, leaf in _flatten(tree)]
+
+
+def flat_grad(loss_fn, vec: torch.Tensor, batch: dict,
+              spec: PackSpec) -> torch.Tensor:
+    """d Σ loss / d vec for a ``(*B, X)`` slab, as one new ``(*B, X)``
+    tensor. ``loss_fn(params, batch)`` returns one loss per batch row
+    (``(N,)`` for N clients); each row's loss depends on its own
+    parameters only, so the gradient of the sum is every row's own
+    gradient.
+
+    Autograd runs to the unpacked leaves, not to the slab: the backward of
+    a slice is a full-width zero pad, so differentiating through the
+    views would build one ``(*B, X)`` buffer per leaf. Each leaf's
+    gradient is written once into its slice of the output instead: no
+    padding and no concatenation."""
+    tree = unpack(vec.detach(), spec)
+    params = leaves(tree)
+    for leaf in params:
+        leaf.requires_grad_(True)
+    grads = torch.autograd.grad(loss_fn(tree, batch).sum(), params)
+    out = torch.empty_like(vec)
+    for view, g in zip(leaves(unpack(out, spec)), grads):
+        view.copy_(g)
+    return out

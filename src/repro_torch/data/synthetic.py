@@ -1,0 +1,146 @@
+"""Synthetic mixture-of-clusters classification data (numpy only).
+
+A copy of the JAX package's generator: the same seed gives the same arrays,
+bit for bit, so both packages train on identical data. Each client's points
+are a U[0.1, 0.9] mixture of S clusters built from Gaussian class
+prototypes; cluster 2 rotates the inputs (``rotate``), permutes the labels
+(``label_split``), or both (S=4, ``both``) — paper Appendix B.1.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class ClientDataset:
+    """Per-client supervised data with ground-truth cluster provenance.
+
+    x: (N, M, ...) inputs    y: (N, M) int labels
+    z_true: (N, M) int true cluster of each point (hidden from algorithms;
+            used only for evaluation of clustering quality)
+    mix_true: (N, S) true mixture fractions
+    x_test/y_test/z_test: per-client held-out split (N, Mt, ...).
+    """
+
+    x: np.ndarray
+    y: np.ndarray
+    z_true: np.ndarray
+    mix_true: np.ndarray
+    x_test: np.ndarray
+    y_test: np.ndarray
+    z_test: np.ndarray
+    n_classes: int
+    n_clusters: int
+
+    @property
+    def n_clients(self) -> int:
+        return self.x.shape[0]
+
+    @property
+    def points_per_client(self) -> int:
+        return self.x.shape[1]
+
+
+def _mixture_counts(
+    rng: np.random.Generator, n_clients: int, s: int, m: int,
+    lo: float = 0.1, hi: float = 0.9,
+) -> np.ndarray:
+    """Counts (N, S) per client per cluster, paper-style U[lo,hi] fractions."""
+    if s == 1:
+        return np.full((n_clients, 1), m, dtype=np.int64)
+    # draw the fraction for a random "primary" split, distribute remainder
+    counts = np.zeros((n_clients, s), dtype=np.int64)
+    for i in range(n_clients):
+        fracs = rng.uniform(lo, hi, size=s)
+        fracs = fracs / fracs.sum()
+        c = np.floor(fracs * m).astype(np.int64)
+        c[rng.integers(s)] += m - c.sum()
+        counts[i] = c
+    return counts
+
+
+def make_mixture_classification(
+    n_clients: int = 20,
+    n_clusters: int = 2,
+    n_per_client: int = 256,
+    n_test_per_client: int = 128,
+    n_classes: int = 10,
+    dim: int = 64,
+    noise: float = 0.45,
+    mode: str = "rotate",  # rotate | label_split | both
+    seed: int = 0,
+) -> ClientDataset:
+    """Gaussian-prototype classification with rotation / label-split clusters."""
+    assert mode in ("rotate", "label_split", "both")
+    if mode == "both":
+        assert n_clusters == 4, "mode='both' composes 2x2 clusters"
+    rng = np.random.default_rng(seed)
+    protos = rng.standard_normal((n_classes, dim)).astype(np.float32)
+    protos /= np.linalg.norm(protos, axis=1, keepdims=True)
+
+    # orthogonal "rotation" transforms, one per rotation-cluster
+    q, _ = np.linalg.qr(rng.standard_normal((dim, dim)))
+    rotations = [np.eye(dim, dtype=np.float32), q.astype(np.float32)]
+    # label permutation for label-split clusters (even/odd-style swap)
+    perm = np.arange(n_classes)
+    perm = np.roll(perm, n_classes // 2)
+
+    def cluster_xform(s: int):
+        if mode == "rotate":
+            return rotations[s % 2], np.arange(n_classes)
+        if mode == "label_split":
+            return rotations[0], (perm if s % 2 else np.arange(n_classes))
+        rot = rotations[s % 2]
+        lab = perm if (s // 2) % 2 else np.arange(n_classes)
+        return rot, lab
+
+    m_tr, m_te = n_per_client, n_test_per_client
+    counts_tr = _mixture_counts(rng, n_clients, n_clusters, m_tr)
+    mix_true = counts_tr / m_tr
+
+    def sample(counts_row):
+        xs, ys, zs = [], [], []
+        for s, c in enumerate(counts_row):
+            if c == 0:
+                continue
+            rot, lab = cluster_xform(s)
+            labels = rng.integers(n_classes, size=c)
+            pts = protos[labels] + noise * rng.standard_normal((c, dim)).astype(
+                np.float32
+            )
+            xs.append(pts @ rot.T)
+            ys.append(lab[labels])
+            zs.append(np.full(c, s, dtype=np.int64))
+        x = np.concatenate(xs)
+        y = np.concatenate(ys)
+        z = np.concatenate(zs)
+        p = rng.permutation(len(x))
+        return x[p], y[p], z[p]
+
+    X, Y, Z = [], [], []
+    Xt, Yt, Zt = [], [], []
+    for i in range(n_clients):
+        x, y, z = sample(counts_tr[i])
+        X.append(x); Y.append(y); Z.append(z)
+        # test split uses the same mixture proportions
+        counts_te = np.maximum(
+            1, np.round(mix_true[i] * m_te)
+        ).astype(np.int64)
+        counts_te[np.argmax(counts_te)] += m_te - counts_te.sum()
+        counts_te = np.maximum(counts_te, 0)
+        xt, yt, zt = sample(counts_te)
+        Xt.append(xt[:m_te]); Yt.append(yt[:m_te]); Zt.append(zt[:m_te])
+
+    return ClientDataset(
+        x=np.stack(X).astype(np.float32),
+        y=np.stack(Y).astype(np.int64),
+        z_true=np.stack(Z),
+        mix_true=mix_true.astype(np.float32),
+        x_test=np.stack(Xt).astype(np.float32),
+        y_test=np.stack(Yt).astype(np.int64),
+        z_test=np.stack(Zt),
+        n_classes=n_classes,
+        n_clusters=n_clusters,
+    )
