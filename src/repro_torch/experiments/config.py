@@ -13,7 +13,7 @@ import dataclasses
 from typing import Any, Optional
 
 _BACKENDS = ("reference", "cuda")
-# options a run may carry (``_``-prefixed keys are the driver's own)
+# the options keys this slice honours; any other key is refused
 _OPTIONS = ("mode", "gossip_backend", "param_plane", "donate", "dp_clip",
             "dp_noise_multiplier", "tau_final", "cos_align_threshold")
 
