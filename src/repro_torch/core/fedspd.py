@@ -18,8 +18,7 @@ selected rows is one advanced-index copy, local SGD runs on that
 ``(N, X)`` slab with every client batched into each forward, the exchange
 is one kernel launch, and the scatter writes the mixed rows back into the
 plane IN PLACE (the counterpart of the JAX engine's donated buffer): a
-state passed to the round step must not be reused unless the step was
-built with ``donate=False``.
+state passed to the round step must not be reused.
 
 Random draws come from ``state.gen`` (a ``torch.Generator`` on the plane's
 device). Every draw can be injected instead — the round's selections,
@@ -36,7 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.clustering import cluster_all_clients
-from repro_torch.core.gossip import GossipSpec, mix_dense, round_comm_bytes
+from repro_torch.core.gossip import GossipSpec, make_mix_fn, round_comm_bytes
 from repro_torch.core.packing import PackSpec, flat_grad, pack, unpack
 from repro_torch.data.pipeline import (
     cluster_batch_indices,
@@ -157,26 +156,24 @@ def _consensus_per_cluster_flat(plane: torch.Tensor) -> torch.Tensor:
 
 def make_round_step(loss_fn: Callable, per_example_loss: Callable,
                     gossip: GossipSpec, cfg: FedSPDConfig, *,
-                    pack_spec: PackSpec, mix_fn: Callable | None = None,
-                    donate: bool = True):
+                    pack_spec: PackSpec, mix_fn: Callable | None = None):
     """Returns ``step(state, data, *, s=None, idx=None, noise=None) ->
     (state, metrics)`` for the "full" regime on the packed plane. ``data``
     is ``{"inputs": (N, M, d), "targets": (N, M)}`` on the plane's device.
 
     Injectable draws: ``s`` ``(N,)`` selections, ``idx`` ``(τ, N, B)``
     batch indices, ``noise`` ``(N, X)`` standard-normal DP noise (used
-    only when σ = dp_clip · dp_noise_multiplier > 0).
+    only when σ = dp_clip · dp_noise_multiplier > 0). ``mix_fn`` comes
+    from ``core/gossip.make_mix_fn`` (the default).
 
-    The mixed rows are scattered into ``state.centers`` in place unless
-    ``donate=False``, which copies the plane first."""
+    The mixed rows are scattered into ``state.centers`` in place."""
     if cfg.regime != "full":
         raise ValueError(
             f"regime {cfg.regime!r} is not ported yet; the port runs the "
             "'full' regime")
     if mix_fn is None:
-        mix_fn = lambda c, sel, adj=None: mix_dense(gossip, c, sel, adj=adj)  # noqa: E731
+        mix_fn = make_mix_fn(gossip)
     sigma = cfg.dp_clip * cfg.dp_noise_multiplier
-    fused = getattr(mix_fn, "fused_dp", None)
     adj_dev: dict = {}  # the static adjacency, moved to the device once
 
     def local_updates(c, data, z, s, gen, lr, idx):
@@ -204,13 +201,8 @@ def make_round_step(loss_fn: Callable, per_example_loss: Callable,
         scatter of the mixed rows back into ``(S, N, X)``."""
         if cfg.dp_clip > 0:
             scale, noise = dp_flat_parts(c_old, c_new, gen, noise)
-            if fused is not None:
-                c_mixed = fused(c_old, c_new, scale, noise, sigma, s, adj=adj)
-            else:
-                c_sel = c_old + scale * (c_new - c_old)
-                if noise is not None:
-                    c_sel = c_sel + sigma * noise
-                c_mixed = mix_fn(c_sel, s, adj=adj)
+            c_mixed = mix_fn.fused_dp(c_old, c_new, scale, noise, sigma, s,
+                                      adj=adj)
         else:
             c_mixed = mix_fn(c_new, s, adj=adj)
         n = s.shape[0]
@@ -219,7 +211,7 @@ def make_round_step(loss_fn: Callable, per_example_loss: Callable,
 
     def step_full_packed(state: FedSPDState, data: dict, *, s=None, idx=None,
                          noise=None):
-        plane = state.centers if donate else state.centers.clone()
+        plane = state.centers
         dev = plane.device
         if dev not in adj_dev:
             adj_dev[dev] = torch.as_tensor(gossip.adj, dtype=torch.float32,

@@ -2,14 +2,12 @@
 
 The dense wiring: the row-stochastic weight matrix W is built on the
 device from the adjacency and this round's cluster selections, then
-applied over the client axis, C_s <- W C_s. Two backends compute the same
-mix:
-
-- ``reference``: a plain fp32 einsum;
-- ``cuda``: the hand-written Hopper kernel ``kernels/gossip_mix`` (the
-  counterpart of the JAX package's ``pallas`` backend), one launch per
-  mix; DP rounds use its fused clip·scale + W·C sibling. On CPU tensors
-  the kernel wrappers run their plain versions.
+applied over the client axis, C_s <- W C_s. The mix is the hand-written
+Hopper kernel ``kernels/gossip_mix`` (the counterpart of the JAX package's
+``pallas`` backend), one launch per mix; DP rounds use its fused
+clip·scale + W·C sibling. The tensor's device picks the execution: on a
+CUDA tensor the wrapper launches the kernel, on a CPU tensor it runs the
+kernel's plain version.
 
 The edge-coloured ``permute`` wiring and cosine alignment are not ported.
 """
@@ -23,7 +21,9 @@ import torch
 from repro_torch.graphs.topology import Graph
 from repro_torch.kernels.gossip_mix import gossip_mix_flat, gossip_mix_fused_dp
 
-MIX_BACKENDS = ("reference", "cuda")
+# "reference" (the JAX package's default name) is another name for the
+# same path: the port has one mix, and the device decides how it runs
+MIX_BACKENDS = ("cuda", "reference")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,34 +58,32 @@ def fedspd_weight_matrix(spec: GossipSpec, s: torch.Tensor,
 
 def mix_dense(spec: GossipSpec, c_sel: torch.Tensor, s: torch.Tensor,
               adj=None) -> torch.Tensor:
-    """Paper-faithful C <- W C over the client axis, fp32."""
+    """Paper-faithful C <- W C over the client axis, fp32: one
+    ``gossip_mix_flat`` launch on a CUDA tensor, its plain version on a
+    CPU tensor."""
     w = fedspd_weight_matrix(spec, s, adj=adj)
-    return torch.einsum("ij,jx->ix", w, c_sel.float()).to(c_sel.dtype)
+    return gossip_mix_flat(w, c_sel).to(c_sel.dtype)
 
 
-def make_mix_fn(spec: GossipSpec, backend: str = "reference"):
+def make_mix_fn(spec: GossipSpec, backend: str = "cuda"):
     """``mix_fn(c_sel, s, adj=None)`` for ``core/fedspd.make_round_step``,
-    over the packed ``(N, X)`` plane (the JAX ``plane=True`` form). The
-    ``cuda`` backend also exposes ``mix_fn.fused_dp(c_old, c_new, scale,
-    noise, sigma, s, adj=None)``, the fused DP kernel, whose W comes from
-    the selections alone."""
-    if backend == "reference":
-        return lambda c_sel, s, adj=None: mix_dense(spec, c_sel, s, adj=adj)
-    if backend != "cuda":
+    over the packed ``(N, X)`` plane (the JAX ``plane=True`` form), with
+    ``mix_fn.fused_dp(c_old, c_new, scale, noise, sigma, s, adj=None)``,
+    the fused DP kernel, whose W comes from the selections alone."""
+    if backend not in MIX_BACKENDS:
         raise ValueError(
             f"unknown gossip backend {backend!r}; the port has {MIX_BACKENDS}")
 
-    def mix_cuda(c_sel, s, adj=None):
-        w = fedspd_weight_matrix(spec, s, adj=adj)
-        return gossip_mix_flat(w, c_sel).to(c_sel.dtype)
+    def mix(c_sel, s, adj=None):
+        return mix_dense(spec, c_sel, s, adj=adj)
 
     def fused_dp(c_old, c_new, scale, noise, sigma, s, adj=None):
         w = fedspd_weight_matrix(spec, s, adj=adj)
         return gossip_mix_fused_dp(w, c_old, c_new, scale, noise,
                                    sigma).to(c_old.dtype)
 
-    mix_cuda.fused_dp = fused_dp
-    return mix_cuda
+    mix.fused_dp = fused_dp
+    return mix
 
 
 def round_comm_bytes(spec: GossipSpec, s: torch.Tensor, model_bytes: int, *,

@@ -1,8 +1,9 @@
 """RunConfig: how a run of the port executes.
 
-The same fields as the JAX package's ``RunConfig``, plus ``device``. This
-slice honours ``gossip_mode="dense"``, ``gossip_backend`` ("reference" |
-"cuda"), ``eval_every``, ``donate``, ``options`` (``dp_clip``,
+The JAX package's ``RunConfig`` fields, less ``donate`` (the port always
+updates the plane in place), plus ``device``. This slice honours
+``gossip_mode="dense"``, ``gossip_backend`` ("cuda", or "reference" as
+another name for it), ``eval_every``, ``options`` (``dp_clip``,
 ``dp_noise_multiplier``, ``tau_final``) and ``device``. Every field that
 selects a feature the port does not have yet is refused with a
 ``ValueError`` that names it; none falls back silently.
@@ -12,23 +13,23 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional
 
-_BACKENDS = ("reference", "cuda")
+from repro_torch.core.gossip import MIX_BACKENDS
+
 # the options keys this slice honours; any other key is refused
-_OPTIONS = ("mode", "gossip_backend", "param_plane", "donate", "dp_clip",
+_OPTIONS = ("mode", "gossip_backend", "param_plane", "dp_clip",
             "dp_noise_multiplier", "tau_final", "cos_align_threshold")
 
 
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
     """gossip_mode     FedSPD wiring: "dense" (the only one ported)
-    gossip_backend  exchange execution: "reference" (plain einsum) |
-                    "cuda" (the hand-written Hopper kernels; the
-                    counterpart of the JAX package's "pallas")
+    gossip_backend  exchange execution: "cuda" (the hand-written Hopper
+                    kernels, the counterpart of the JAX package's
+                    "pallas"; their plain versions on CPU tensors).
+                    "reference" names the same path
     param_plane     the port always runs the packed (S, N, X) plane; False
                     is refused
     eval_every      train-curve cadence (the final round always evaluates)
-    donate          scatter each round's mixed rows into the plane in place
-                    (False copies the plane first)
     options         per-method knobs: dp_clip, dp_noise_multiplier,
                     tau_final (explicit entries win over the fields)
     device          "cuda" (the default: raises without a card) | "cpu"
@@ -42,7 +43,6 @@ class RunConfig:
     comm: Any = None
     scenario: Any = None
     eval_every: int = 10
-    donate: bool = True
     scan_rounds: bool = False
     cohort_size: Optional[int] = None
     sparse: Any = None
@@ -76,7 +76,6 @@ class RunConfig:
             options.setdefault("gossip_backend", self.gossip_backend)
         if self.param_plane is not None:
             options.setdefault("param_plane", self.param_plane)
-        options.setdefault("donate", self.donate)
         if options.get("param_plane", True) is False:
             raise ValueError(
                 "param_plane=False (the per-leaf pytree engine) is not "
@@ -88,10 +87,10 @@ class RunConfig:
         if options.get("cos_align_threshold", -1.0) > -1.0:
             raise ValueError(
                 "cos_align_threshold > -1 (cosine alignment) is not ported yet")
-        backend = options.setdefault("gossip_backend", "reference")
-        if backend not in _BACKENDS:
+        backend = options.setdefault("gossip_backend", "cuda")
+        if backend not in MIX_BACKENDS:
             raise ValueError(
                 f"gossip_backend {backend!r} is not available in the port; "
-                f"use one of {_BACKENDS} ('cuda' is the counterpart of "
+                f"use one of {MIX_BACKENDS} ('cuda' is the counterpart of "
                 "'pallas')")
         return options

@@ -149,8 +149,8 @@ def available_methods() -> tuple[str, ...]:
 
 class FedSPDMethod(Method):
     """Paper Algorithm 1 behind the registry contract, on the packed
-    ``(S, N, X)`` plane; ``gossip_backend`` picks the plain einsum or the
-    CUDA kernels for the exchange."""
+    ``(S, N, X)`` plane; the exchange runs the CUDA kernels (their plain
+    versions on CPU tensors)."""
 
     def __init__(self, name: str):
         self.name = name
@@ -171,10 +171,9 @@ class FedSPDMethod(Method):
 
     def make_step(self, ctx):
         spec = GossipSpec.from_graph(ctx.graph)
-        mix_fn = make_mix_fn(spec, ctx.opt("gossip_backend", "reference"))
+        mix_fn = make_mix_fn(spec, ctx.opt("gossip_backend", "cuda"))
         return make_round_step(ctx.loss_fn, ctx.pel_fn, spec, self._fcfg(ctx),
-                               pack_spec=ctx.pack_spec, mix_fn=mix_fn,
-                               donate=ctx.opt("donate", True))
+                               pack_spec=ctx.pack_spec, mix_fn=mix_fn)
 
     def personalize(self, ctx, state):
         with torch.enable_grad():

@@ -42,6 +42,7 @@ from repro_torch.core.fedspd import (
 from repro_torch.core.gossip import GossipSpec, make_mix_fn
 from repro_torch.core.packing import make_pack_spec, pack
 from repro_torch.interop import params_from_numpy, state_from_numpy
+from repro_torch.kernels.gossip_mix import gossip_mix_flat, reset_launch_counts
 from repro_torch.models.smallnets import make_classifier
 
 N, S, DIM, C, M, BATCH, TAU = 8, 2, 16, 4, 96, 32, 5
@@ -225,18 +226,24 @@ def test_init_state_draws_one_model_per_cluster_and_client(world):
     assert st.gen is not gen and st.round == 0
 
 
-def test_donate_false_leaves_the_input_state_untouched(world, jax_rounds):
-    st1, (s, idx, _), _ = jax_rounds["off"]
+def test_default_mix_is_the_kernel_path_and_scatters_in_place(world, jax_rounds):
+    """Without a ``mix_fn`` the round step takes ``make_mix_fn``'s (the
+    kernels' plain versions on CPU tensors), and writes the mixed rows into
+    the state's own plane."""
+    st1, (s, idx, _), st2 = jax_rounds["off"]
     _, tcfg = _cfgs("off")
     spec = GossipSpec.from_graph(world["graph"])
     step = make_round_step(world["t_loss"], world["t_pel"], spec, tcfg,
-                           pack_spec=world["tps"], donate=False)
+                           pack_spec=world["tps"])
     state = state_from_numpy(st1)
     before = state.centers.clone()
+    reset_launch_counts()
     new, _ = step(state, world["ttrain"], s=torch.as_tensor(s),
                   idx=torch.as_tensor(idx))
-    assert torch.equal(state.centers, before)
-    assert not torch.equal(new.centers, before)
+    assert gossip_mix_flat.launches == 0
+    assert new.centers is state.centers
+    assert not torch.equal(state.centers, before)
+    np.testing.assert_allclose(new.centers.numpy(), st2.centers, atol=1e-5, rtol=0)
 
 
 def test_stream_regime_is_refused(world):

@@ -142,16 +142,21 @@ def test_weight_matrix_and_comm_bytes_match_jax(n, seed):
 
 
 def test_cuda_backend_mix_on_cpu_equals_reference_backend():
+    """"reference" names the same path as "cuda": on CPU tensors both run
+    the kernels' plain versions and launch nothing."""
     g = make_graph("er", 8, 3.0, seed=1)
     spec = GossipSpec.from_graph(g)
-    w, c, cn, sc, nz = _t(*_operands(8, 500))
+    _, c, cn, sc, nz = _t(*_operands(8, 500))
     s = torch.tensor([0, 1, 1, 0, 0, 1, 0, 1])
     reset_launch_counts()
     cuda_mix, ref_mix = make_mix_fn(spec, "cuda"), make_mix_fn(spec, "reference")
+    w = fedspd_weight_matrix(spec, s)
     assert torch.equal(cuda_mix(c, s), ref_mix(c, s))
-    assert hasattr(cuda_mix, "fused_dp") and not hasattr(ref_mix, "fused_dp")
+    assert torch.equal(cuda_mix(c, s), gossip_mix_flat_ref(w, c))
+    assert torch.allclose(cuda_mix(c, s), w @ c, atol=TOL, rtol=0)
     fused = cuda_mix.fused_dp(c, cn, sc, nz, 0.5, s)
-    assert torch.allclose(fused, ref_mix(c + sc * (cn - c) + 0.5 * nz, s),
+    assert torch.equal(fused, ref_mix.fused_dp(c, cn, sc, nz, 0.5, s))
+    assert torch.allclose(fused, cuda_mix(c + sc * (cn - c) + 0.5 * nz, s),
                           atol=TOL, rtol=0)
     assert gossip_mix_flat.launches == 0 and gossip_mix_fused_dp.launches == 0
     with pytest.raises(ValueError, match="pallas"):

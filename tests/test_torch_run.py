@@ -63,18 +63,19 @@ def test_whole_run_matches_jax_within_the_seed_statistical_bound(port_runs):
 
 
 def test_cuda_backend_on_cpu_runs_the_plain_versions(port_runs):
-    """On CPU tensors the "cuda" backend takes the kernels' plain versions:
-    the run equals the reference backend's and launches nothing."""
+    """On CPU tensors the "cuda" backend takes the kernels' plain versions
+    and launches nothing; "reference" and the default name the same path."""
     data, exp = make_mixture_classification(**DATA), PaperExpConfig(**EXP)
     for dp in ({}, {"dp_clip": 1.0, "dp_noise_multiplier": 0.5}):
         reset_launch_counts()
         runs = [run_method("fedspd", data, exp, seed=0,
                            cfg=RunConfig(device="cpu", gossip_backend=b,
                                          eval_every=10**9, options=dp))
-                for b in ("cuda", "reference")]
+                for b in ("cuda", "reference", None)]
         assert gossip_mix_flat.launches == 0
         assert gossip_mix_fused_dp.launches == 0
         if not dp:
             assert runs[0].mean_acc == port_runs[0].mean_acc
-        assert np.array_equal(runs[0].acc_per_client, runs[1].acc_per_client)
-        assert runs[0].comm_bytes == runs[1].comm_bytes
+        for r in runs[1:]:
+            assert np.array_equal(runs[0].acc_per_client, r.acc_per_client)
+            assert runs[0].comm_bytes == r.comm_bytes
