@@ -13,14 +13,29 @@ Phases, in order; any failure exits non-zero before the result line:
    error <= 1e-5, TF32 off) and timed with CUDA events; beside it the
    least time the card could take (bytes over 3.35 TB/s or FLOPs over
    67 TFLOP/s fp32, whichever is larger), the plain version's time, and
-   for the flat mix one ``torch.matmul`` as a yardstick;
+   for the flat mix one ``torch.matmul`` as a yardstick. The serving
+   kernels (``gossip_mix_dequant``, int8; ``mixture_mix_dequant4``, int4)
+   the same way at B = 20, 256 and 1,024 requests over S = 2 clusters of
+   the mlp's plane (qblock 64), with the fp32 serving path's own
+   ``torch.matmul(u, plane)`` and a store of the output alone
+   (``fill_``) timed beside them; ``gossip_mix_dequant``
+   also at the gossip shape (M = N = 20, qblock 256) and at widths whose
+   rows rule out 16- and 8-byte stores, for correctness only;
 3. agreement on a small input: one FedSPD round at full width on the card
    (CUDA kernels) against the same round on the CPU (plain versions), with
    the same injected draws, DP off and on;
 4. the main path: ``run_method("fedspd", ...)`` for 5 rounds through the
-   kernels, DP off and then on, with every launch counter set to 0 just
-   before each run and read just after;
-5. a torch.profiler window over 3 rounds of the main path: device time
+   kernels, DP off (keeping its final state) and then on, with every
+   launch counter set to 0 just before each run and read just after;
+5. serving, the second path: the DP-off run exported (``export_run``) as
+   fp32, int8 and int4 artifacts, each loaded (``load_servable``) into a
+   ``ClusterPlaneServer`` on the card that answers the 20 trained
+   clients' own mixtures (one test input each) and then 20 batches of
+   256 Dirichlet mixtures with Gaussian inputs; outputs checked against
+   the same artifact served on the CPU (plain versions) and, for fp32,
+   against the personalized models materialized in plain PyTorch; every
+   launch counter set to 0 just before each codec and read just after;
+6. a torch.profiler window over 3 rounds of the main path: device time
    per round, the kernels that take it, and the device's busy share.
 
 It then prints one ``{"kernels": [...]}`` line and, last, the
@@ -35,6 +50,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -43,6 +59,15 @@ FP32_FLOPS = 67e12          # H100 SXM, fp32 outside the tensor cores
 TOL = 1e-5
 SHAPES = [(20, 17226), (20, 4194304)]  # (N, X): the main path's, past L2
 ROUNDS = 5
+# serving kernels, (B requests, S clusters, X, qblock): a batch of the 20
+# trained clients, the serving batch of benchmarks/perf_roundstep.py
+# bench_mixture_qps, and a batch whose 70.8 MB output is past the L2
+SERVE_SHAPES = [(20, 2, 17226, 64), (256, 2, 17226, 64), (1024, 2, 17226, 64)]
+SERVE_B = 256
+# gossip_mix_dequant for correctness only: the gossip shape (M = N), and
+# widths padded to Xp = 1,010 (no 16-byte rows) and 999 (odd: no 8-byte rows)
+DEQUANT_CHECKS = [(20, 20, 17226, 256), (37, 5, 1001, 10), (7, 3, 999, 3)]
+SERVE_TOL = 1e-4
 
 
 def fail(msg: str) -> None:
@@ -96,10 +121,16 @@ def graph_ms(fn, reps: int = 100, iters: int = 20) -> float:
     return start.elapsed_time(end) / (iters * reps)
 
 
-def bound(n: int, x: int, kernel: str, noise: bool) -> tuple[float, str]:
+def bound(n: int, x: int, kernel: str, noise: bool = False, m: int = 0,
+          qblock: int = 1) -> tuple[float, str]:
     """(least ms, "bytes" | "operations"): each input read once, each
-    output written once, fp32."""
-    if kernel == "gossip_mix_flat":
+    output written once; fp32 arithmetic. For the dequant kernels ``x`` is
+    the padded width Xp and ``m`` the output rows."""
+    if kernel in ("gossip_mix_dequant", "mixture_mix_dequant4"):
+        plane = n * x if kernel == "gossip_mix_dequant" else n * x // 2
+        nbytes = 4 * m * n + plane + 4 * n * x // qblock + 4 * m * x
+        flops = 2 * m * n * x
+    elif kernel == "gossip_mix_flat":
         nbytes = 4 * (n * n + 2 * n * x)
         flops = 2 * n * n * x
     else:
@@ -158,6 +189,71 @@ def phase_kernels(torch, gm) -> dict:
                     w, c_old, c_new, scale, nz, sigma), iters)))
         del w, c_old, c_new, scale, noise, out
         torch.cuda.empty_cache()
+    for name, rs in rows.items():
+        for r in rs:
+            print(f"kernel {name} " + json.dumps(r), flush=True)
+    return rows
+
+
+def _serve_operands(torch, b: int, s: int, x: int, qblock: int, codec: str, seed: int):
+    """(u (B, S), quantized plane in its kernel's form, scales): Dirichlet
+    mixture rows and a Gaussian plane encoded as the artifacts encode it
+    (nearest rounding, padded to whole blocks)."""
+    import numpy as np
+
+    from repro_torch.comm.codecs import Channel, CommConfig, int4_pack
+
+    rng = np.random.default_rng(seed)
+    u = torch.as_tensor(rng.dirichlet(np.ones(s), size=b).astype(np.float32)).cuda()
+    plane = torch.as_tensor((0.05 * rng.standard_normal((s, x))).astype(np.float32)).cuda()
+    enc = Channel(CommConfig(codec=codec, block=qblock), x).encode(plane, rounding="nearest")
+    q = int4_pack(enc["q"]) if codec == "int4" else enc["q"]
+    return u, q.contiguous(), enc["scale"].contiguous()
+
+
+def phase_dequant_kernels(torch, gm) -> dict:
+    """The serving kernels against their plain versions, timed at the
+    serving shapes; gossip_mix_dequant also checked at DEQUANT_CHECKS."""
+    rows = {"gossip_mix_dequant": [], "mixture_mix_dequant4": []}
+    for name, codec in (("gossip_mix_dequant", "int8"), ("mixture_mix_dequant4", "int4")):
+        kernel, plain = getattr(gm, name), getattr(gm, name + "_ref")
+        shapes = SERVE_SHAPES + (DEQUANT_CHECKS if codec == "int8" else [])
+        for b, s, x, qblock in shapes:
+            u, q, sc = _serve_operands(torch, b, s, x, qblock, codec, seed=b + x)
+            xp = sc.shape[1] * qblock
+            out = kernel(u, q, sc, qblock=qblock)
+            torch.cuda.synchronize()
+            err = float((out - plain(u, q, sc, qblock=qblock)).abs().max())
+            check(bool(torch.isfinite(out).all()) and tuple(out.shape) == (b, xp),
+                  f"{name} B={b} S={s} X={x}: output {tuple(out.shape)} not finite (B, Xp)")
+            check(err <= TOL, f"{name} B={b} S={s} X={x} qblock={qblock}: "
+                              f"max abs err {err} > {TOL}")
+            row = dict(m=b, n=s, x=x, xp=xp, qblock=qblock, max_abs_err=err)
+            if (b, s, x, qblock) in SERVE_SHAPES:
+                small = 4 * b * xp < 32 * 2**20   # graph replay; else events
+                iters = 200 if small else 20
+
+                def timed(fn):
+                    return graph_ms(fn) if small else time_ms(fn, iters)
+
+                # the fp32 artifact's (S, X) plane: the decoded one, cropped
+                plane = plain(torch.eye(s, device=u.device), q, sc, qblock=qblock)[:, :x]
+                plane = plane.contiguous()
+                b_ms, b_by = bound(s, xp, name, m=b, qblock=qblock)
+                # a yardstick, not the function: storing the (B, Xp) output
+                # alone, the write rate this card reaches
+                sink = torch.empty_like(out)
+                row.update(
+                    ms=timed(lambda: kernel(u, q, sc, qblock=qblock)),
+                    plain_ms=timed(lambda: plain(u, q, sc, qblock=qblock)),
+                    library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                    fp32_path_matmul_ms=timed(lambda: torch.matmul(u, plane)),
+                    store_only_ms=timed(lambda: sink.fill_(0.0)),
+                    call_ms=time_ms(lambda: kernel(u, q, sc, qblock=qblock), iters))
+                del plane, sink
+            rows[name].append(row)
+            del u, q, sc, out
+            torch.cuda.empty_cache()
     for name, rs in rows.items():
         for r in rs:
             print(f"kernel {name} " + json.dumps(r), flush=True)
@@ -254,15 +350,15 @@ def phase_profile(torch, round_ms: float) -> None:
               f"x{e.count // rounds}/round {e.key}", flush=True)
 
 
-def phase_main_path(torch, gm) -> tuple[dict, float]:
+def phase_main_path(torch, gm):
     from repro_torch.configs.paper_cnn import PaperExpConfig
     from repro_torch.data.synthetic import make_mixture_classification
     from repro_torch.experiments import RunConfig, run_method
 
     data, exp = make_mixture_classification(), PaperExpConfig(rounds=ROUNDS)
-    launches, medians = {}, []
+    launches, medians, kept = {}, [], None
     for label, opts, kernel in (
-            ("plain", {}, gm.gossip_mix_flat),
+            ("plain", {"keep_state": True}, gm.gossip_mix_flat),
             ("dp", {"dp_clip": 1.0, "dp_noise_multiplier": 0.5}, gm.gossip_mix_fused_dp)):
         gm.reset_launch_counts()
         r = run_method("fedspd", data, exp, cfg=RunConfig(gossip_backend="cuda",
@@ -286,7 +382,88 @@ def phase_main_path(torch, gm) -> tuple[dict, float]:
         u = torch.as_tensor(r.extras["u"])
         check(bool(torch.allclose(u.sum(dim=1), torch.ones(u.shape[0]), atol=1e-5)),
               f"main path ({label}): u rows do not sum to 1")
-    return launches, medians[0]
+        if kept is None:
+            kept = r   # the DP-off run, with its final state
+    return launches, medians[0], kept
+
+
+def phase_serve(torch, gm, result) -> dict:
+    """Serve the DP-off run's trained plane as fp32, int8 and int4."""
+    import numpy as np
+
+    from repro_torch.core.packing import unpack
+    from repro_torch.data.synthetic import make_mixture_classification
+    from repro_torch.experiments import export_run
+    from repro_torch.models.smallnets import make_classifier
+    from repro_torch.serve import ClusterPlaneServer, load_servable
+
+    data = make_mixture_classification()   # phase 4's population
+    spec = result.extras["pack_spec"]
+    apply = make_classifier("mlp", torch.Generator(), data.x.shape[-1], data.n_classes)[1]
+    x_a = data.x_test[:, 0]                 # one test input per trained client
+    y_a = torch.as_tensor(data.y_test[:, 0])
+    s = data.n_clusters
+    rng = np.random.default_rng(0)          # bench_mixture_qps's draws
+    batches = [(rng.dirichlet(np.ones(s), size=SERVE_B).astype(np.float32),
+                rng.normal(size=(SERVE_B, data.x.shape[-1])).astype(np.float32))
+               for _ in range(20)]
+    kernel_of = {"fp32": None, "int8": gm.gossip_mix_dequant,
+                 "int4": gm.mixture_mix_dequant4}
+    launches = {k.__name__: 0 for k in gm.KERNELS}
+    with tempfile.TemporaryDirectory() as tmp:
+        for codec, kernel in kernel_of.items():
+            path = os.path.join(tmp, f"plane_{codec}.npz")
+            man = export_run(result, path, codec=codec, qblock=64)
+            art = load_servable(path, spec)
+            check(man.n_clients == data.n_clients and art.n_clusters == s,
+                  f"serve {codec}: artifact holds {man.n_clients} clients, "
+                  f"{art.n_clusters} clusters")
+            clients = ClusterPlaneServer.from_artifact(art, spec, apply_fn=apply)
+            stream = ClusterPlaneServer.from_artifact(art, spec, apply_fn=apply)
+            gm.reset_launch_counts()
+            out = clients.predict(art.u_table, x_a)
+            for u, x in batches:
+                got = stream.predict(u, x)
+                check(bool(torch.isfinite(got).all())
+                      and tuple(got.shape) == (SERVE_B, data.n_classes),
+                      f"serve {codec}: batch output {tuple(got.shape)} not finite (B, C)")
+            torch.cuda.synchronize()
+            counts = {k.__name__: k.launches for k in gm.KERNELS}
+            for name, c in counts.items():
+                launches[name] += c
+            want = {k.__name__: (21 if k is kernel else 0) for k in gm.KERNELS}
+            check(counts == want, f"serve {codec}: launches {counts}, expected {want} "
+                                  "(one per predict, 1 + 20 predicts)")
+            check(bool(torch.isfinite(out).all()) and tuple(out.shape) == (data.n_clients,
+                                                                           data.n_classes),
+                  f"serve {codec}: client output {tuple(out.shape)} not finite (N, C)")
+            # the same artifact on the CPU (the kernels' plain versions);
+            # fp32 also against the personalized models materialized leaf
+            # by leaf in plain PyTorch. Sums run in other orders on the two
+            # sides and pass through three fp32 layers: 1e-4 on logits of
+            # magnitude ~1.
+            cpu = ClusterPlaneServer.from_artifact(art, spec, apply_fn=apply, device="cpu")
+            err_cpu = float((out.cpu() - cpu.predict(art.u_table.cpu(), x_a)).abs().max())
+            u_b, x_b = batches[-1]
+            err_cpu = max(err_cpu, float((got.cpu() - cpu.predict(u_b, x_b)).abs().max()))
+            check(err_cpu <= SERVE_TOL, f"serve {codec}: card vs CPU max abs err "
+                                        f"{err_cpu} > {SERVE_TOL}")
+            if codec == "fp32":
+                u = art.u_table
+                mat = (u[:, :, None] * art.plane[None]).sum(dim=1)   # (N, X)
+                ref = apply(unpack(mat, spec),
+                            torch.as_tensor(x_a, device=u.device).unsqueeze(1))[:, 0]
+                err_mat = float((out - ref).abs().max())
+                check(err_mat <= SERVE_TOL, f"serve fp32: vs materialized u @ plane "
+                                            f"max abs err {err_mat} > {SERVE_TOL}")
+            acc = float((out.argmax(dim=-1).cpu() == y_a).float().mean())
+            snap = stream.telemetry_snapshot()
+            print(f"serve {codec}: p50_ms {snap['p50_ms']:.4f} p95_ms {snap['p95_ms']:.4f} "
+                  f"qps {snap['qps']:.1f} (B={SERVE_B}, {snap['batches']} batches) "
+                  f"plane_bytes {snap['plane_bytes']} clients_acc {acc:.6f} "
+                  f"clients_ms {clients.latency.percentile(50) * 1e3:.4f} "
+                  f"card_vs_cpu_err {err_cpu:.3g} launches {json.dumps(counts)}", flush=True)
+    return launches
 
 
 def main() -> None:
@@ -325,12 +502,16 @@ def main() -> None:
             print("ptxas " + line.strip(), flush=True)
 
     rows = phase_kernels(torch, gm)
+    serve_rows = phase_dequant_kernels(torch, gm)
     phase_agreement(torch)
-    launches, round_ms = phase_main_path(torch, gm)
+    launches, round_ms, kept = phase_main_path(torch, gm)
+    serve_launches = phase_serve(torch, gm, kept)
     phase_profile(torch, round_ms)
 
     replaces = {"gossip_mix_flat": "src/repro/kernels/gossip_mix.py:63",
-                "gossip_mix_fused_dp": "src/repro/kernels/gossip_mix.py:448"}
+                "gossip_mix_fused_dp": "src/repro/kernels/gossip_mix.py:448",
+                "gossip_mix_dequant": "src/repro/kernels/gossip_mix.py:215",
+                "mixture_mix_dequant4": "src/repro/kernels/gossip_mix.py:362"}
     kernels = []
     for name, rs in rows.items():
         # the main path's own shape; the DP run draws noise (sigma > 0)
@@ -342,6 +523,18 @@ def main() -> None:
             plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
             bound_by=main["bound_by"], library_ms=main["library_ms"],
             shape={"n": main["n"], "x": main["x"]}, card=card, shapes=rs))
+    for name, rs in serve_rows.items():
+        # the serving batch of bench_mixture_qps; launches from the serve path
+        main = next(r for r in rs if r["m"] == SERVE_B)
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/gossip_mix_dequant.cu",
+            replaces=replaces[name], launches=serve_launches[name],
+            max_abs_err=max(r["max_abs_err"] for r in rs), ms=main["ms"],
+            plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+            bound_by=main["bound_by"], library_ms=None,
+            shape={"b": main["m"], "s": main["n"], "x": main["x"], "qblock": main["qblock"]},
+            card=card, shapes=rs))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

@@ -15,6 +15,7 @@ reaches only that slice.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 
 import torch
@@ -37,6 +38,27 @@ class PackSpec:
         wire, whatever the plane's compute dtype."""
         return int(sum(s * torch.empty((), dtype=d).element_size()
                        for s, d in zip(self.sizes, self.dtypes)))
+
+    @property
+    def digest(self) -> str:
+        """Content hash of the layout, the JAX package's ``PackSpec.digest``
+        string for the same model: a servable artifact records it so that
+        a server refuses to unpack a plane through another architecture's
+        layout. Each leaf hashes as ``"{shape}:{dtype}"`` with the shape
+        printed as a Python tuple and the dtype by its numpy name."""
+        parts = [
+            ";".join(f"{tuple(s)}:{_numpy_name(d)}"
+                     for s, d in zip(self.shapes, self.dtypes)),
+            ",".join(map(str, self.sizes)),
+            ",".join(map(str, self.offsets)),
+            str(self.size),
+        ]
+        return hashlib.sha1("|".join(parts).encode()).hexdigest()[:16]
+
+
+def _numpy_name(dtype: torch.dtype) -> str:
+    """numpy's name of a torch dtype: ``torch.float32`` -> ``"float32"``."""
+    return str(dtype).removeprefix("torch.")
 
 
 def _flatten(tree: dict, prefix: tuple = ()) -> list:

@@ -4,9 +4,9 @@ The JAX package's ``RunConfig`` fields, less ``donate`` (the port always
 updates the plane in place), plus ``device``. This slice honours
 ``gossip_mode="dense"``, ``gossip_backend`` ("cuda", or "reference" as
 another name for it), ``eval_every``, ``options`` (``dp_clip``,
-``dp_noise_multiplier``, ``tau_final``) and ``device``. Every field that
-selects a feature the port does not have yet is refused with a
-``ValueError`` that names it; none falls back silently.
+``dp_noise_multiplier``, ``tau_final``, ``keep_state``) and ``device``.
+Every field that selects a feature the port does not have yet is refused
+with a ``ValueError`` that names it; none falls back silently.
 """
 from __future__ import annotations
 
@@ -17,7 +17,8 @@ from repro_torch.core.gossip import MIX_BACKENDS
 
 # the options keys this slice honours; any other key is refused
 _OPTIONS = ("mode", "gossip_backend", "param_plane", "dp_clip",
-            "dp_noise_multiplier", "tau_final", "cos_align_threshold")
+            "dp_noise_multiplier", "tau_final", "cos_align_threshold",
+            "keep_state")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,7 +32,9 @@ class RunConfig:
                     is refused
     eval_every      train-curve cadence (the final round always evaluates)
     options         per-method knobs: dp_clip, dp_noise_multiplier,
-                    tau_final (explicit entries win over the fields)
+                    tau_final (explicit entries win over the fields);
+                    keep_state=True leaves the final state and its
+                    PackSpec in RunResult.extras (what export_run reads)
     device          "cuda" (the default: raises without a card) | "cpu"
 
     comm, scenario, scan_rounds, cohort_size, sparse and telemetry are not

@@ -40,7 +40,8 @@ class RunResult:
     wire_bytes: float   # physical bytes: equal to comm_bytes without a codec
     curve: list         # [(round, mean train acc)]
     wall_s: float
-    extras: dict        # method diagnostics; "round_ms": per-round times
+    extras: dict        # method diagnostics; "round_ms": per-round times;
+                        # "state", "pack_spec" with options["keep_state"]
 
 
 def _result(m: Method, ctx: ExperimentContext, state, aux, acc, curve,
@@ -48,6 +49,11 @@ def _result(m: Method, ctx: ExperimentContext, state, aux, acc, curve,
     comm = float(state.comm_bytes)
     extras = m.extras(ctx, state, aux)
     extras["round_ms"] = round_ms
+    if ctx.opt("keep_state"):
+        # serve export (experiments/export.py) lifts the cluster plane
+        # from the final state through the run's own packing
+        extras["state"] = state
+        extras["pack_spec"] = ctx.pack_spec
     acc = acc.cpu().numpy()
     return RunResult(
         method=m.name, acc_per_client=acc, mean_acc=float(acc.mean()),

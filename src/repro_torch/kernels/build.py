@@ -33,6 +33,12 @@ SIGNATURES = {
     "gossip_mix_fused_dp": ([_P, _P, _P, _P, _P, ctypes.c_float, _P,
                              ctypes.c_int, ctypes.c_longlong, _P],
                             ctypes.c_int),
+    "gossip_mix_dequant": ([_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                            ctypes.c_longlong, ctypes.c_longlong, _P],
+                           ctypes.c_int),
+    "mixture_mix_dequant4": ([_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_longlong, ctypes.c_longlong, _P],
+                             ctypes.c_int),
 }
 
 

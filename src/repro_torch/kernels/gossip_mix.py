@@ -1,6 +1,7 @@
-"""FedSPD's gossip mix C' = W·C as CUDA kernels for Hopper.
+"""FedSPD's gossip mix C' = W·C, and its fused-dequant siblings, as CUDA
+kernels for Hopper.
 
-Two kernels, in ``csrc/gossip_mix.cu``, built by ``kernels/build.py``:
+Four kernels, built by ``kernels/build.py``. In ``csrc/gossip_mix.cu``:
 
 - ``gossip_mix_flat`` replaces the Pallas TPU kernel
   ``src/repro/kernels/gossip_mix.py:gossip_mix_flat``: C' = W·C over the
@@ -16,6 +17,24 @@ Both are memory-bound on an H100 for N below ≈ 80: they move
 once, one thread per column, with W staged in shared memory and fp32 FMA
 accumulation (no TF32); see the source for the design.
 
+In ``csrc/gossip_mix_dequant.cu``:
+
+- ``gossip_mix_dequant`` replaces
+  ``src/repro/kernels/gossip_mix.py:gossip_mix_dequant``:
+  W·(q ⊙ repeat(scale, qblock)) over an int8 ``(N, Xp)`` plane with fp32
+  per-block scales, W rectangular ``(M, N)``; the int8 serving plane
+  (M = B requests, N = S clusters).
+- ``mixture_mix_dequant4`` replaces
+  ``src/repro/kernels/gossip_mix.py:mixture_mix_dequant4``:
+  U·(unpack4(p) ⊙ repeat(scale, qblock)) over the bit-packed int4
+  ``(S, Xp/2)`` plane; the int4 serving plane.
+
+At serving shapes both are bound by their ``(M, Xp)`` fp32 output
+writes: they move 4·M·N + N·Xp·(1 or ½) + 4·N·Xp/qblock + 4·M·Xp bytes
+for 2·M·N·Xp FLOPs. Each thread dequantizes a few columns of the plane
+into registers once and writes them for a block of output rows with
+coalesced vector stores; see the source.
+
 Beside each kernel: its plain PyTorch version (``*_ref``, an fp32 einsum
 with the prologue written out) and a launch counter (``.launches`` on the
 wrapper, raised by one per kernel launch and nowhere else). A wrapper
@@ -26,6 +45,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.comm.codecs import int4_unpack
 from repro_torch.kernels.build import load_library
 
 
@@ -43,6 +63,22 @@ def gossip_mix_fused_dp_ref(w, c_old, c_new, scale, noise,
     return gossip_mix_flat_ref(w, c)
 
 
+def gossip_mix_dequant_ref(w: torch.Tensor, q: torch.Tensor,
+                           scales: torch.Tensor, *, qblock: int) -> torch.Tensor:
+    """Plain W·(q ⊙ repeat(scale, qblock)): decode to fp32, then an fp32
+    einsum."""
+    c = q.float() * scales.float().repeat_interleave(qblock, dim=1)
+    return torch.einsum("mn,nx->mx", w.float(), c)
+
+
+def mixture_mix_dequant4_ref(u: torch.Tensor, packed: torch.Tensor,
+                             scales: torch.Tensor, *, qblock: int) -> torch.Tensor:
+    """Plain U·(unpack4(p) ⊙ repeat(scale, qblock)): decode to fp32, then
+    an fp32 einsum."""
+    q = int4_unpack(packed, 2 * packed.shape[1])
+    return gossip_mix_dequant_ref(u, q, scales, qblock=qblock)
+
+
 def _on_cpu(*ts) -> bool:
     devs = {t.device.type for t in ts}
     if devs == {"cpu"}:
@@ -52,9 +88,10 @@ def _on_cpu(*ts) -> bool:
     return False
 
 
-def _check(name: str, t: torch.Tensor, shape: tuple) -> None:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes float32")
+def _check(name: str, t: torch.Tensor, shape: tuple,
+           dtype: torch.dtype = torch.float32) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes {dtype}")
     if tuple(t.shape) != shape:
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
@@ -118,7 +155,75 @@ def gossip_mix_fused_dp(w: torch.Tensor, c_old: torch.Tensor,
 
 gossip_mix_fused_dp.launches = 0
 
-KERNELS = (gossip_mix_flat, gossip_mix_fused_dp)
+
+def gossip_mix_dequant(w: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
+                       *, qblock: int) -> torch.Tensor:
+    """W·(q ⊙ repeat(scale, qblock)). w ``(M, N)`` fp32, q ``(N, Xp)``
+    int8, scales ``(N, Xp/qblock)`` fp32; returns a new ``(M, Xp)`` fp32.
+    Raises on the shape errors the JAX kernel refuses."""
+    n, xp = q.shape
+    qblock = int(qblock)
+    if w.dim() != 2 or w.shape[1] != n:
+        raise ValueError(f"weights {tuple(w.shape)} do not match plane rows {n}")
+    if qblock <= 0 or xp % qblock != 0 or tuple(scales.shape) != (n, xp // qblock):
+        raise ValueError(
+            f"quantized plane {tuple(q.shape)} / scales {tuple(scales.shape)} "
+            f"do not tile with qblock={qblock}")
+    if _on_cpu(w, q, scales):
+        return gossip_mix_dequant_ref(w, q, scales, qblock=qblock)
+    m = w.shape[0]
+    _check("w", w, (m, n))
+    _check("q", q, (n, xp), torch.int8)
+    _check("scales", scales, (n, xp // qblock))
+    out = torch.empty((m, xp), dtype=torch.float32, device=q.device)
+    lib = load_library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _raise_on(lib.gossip_mix_dequant(w.data_ptr(), q.data_ptr(), scales.data_ptr(),
+                                     out.data_ptr(), m, n, xp, qblock, stream),
+              "gossip_mix_dequant")
+    gossip_mix_dequant.launches += 1
+    return out
+
+
+gossip_mix_dequant.launches = 0
+
+
+def mixture_mix_dequant4(u: torch.Tensor, packed: torch.Tensor,
+                         scales: torch.Tensor, *, qblock: int) -> torch.Tensor:
+    """U·(unpack4(p) ⊙ repeat(scale, qblock)). u ``(B, S)`` fp32, packed
+    ``(S, Xp/2)`` uint8, scales ``(S, Xp/qblock)`` fp32, qblock even;
+    returns a new ``(B, Xp)`` fp32. Raises on the shape errors the JAX
+    kernel refuses."""
+    s, xh = packed.shape
+    xp, qblock = 2 * xh, int(qblock)
+    if qblock <= 0 or qblock % 2 or xp % qblock != 0 \
+            or tuple(scales.shape) != (s, xp // qblock):
+        raise ValueError(
+            f"packed plane {tuple(packed.shape)} / scales {tuple(scales.shape)} "
+            f"do not tile with an even qblock={qblock}")
+    if u.dim() != 2 or u.shape[1] != s:
+        raise ValueError(f"mixture weights {tuple(u.shape)} != (B, {s})")
+    if _on_cpu(u, packed, scales):
+        return mixture_mix_dequant4_ref(u, packed, scales, qblock=qblock)
+    b = u.shape[0]
+    _check("u", u, (b, s))
+    _check("packed", packed, (s, xh), torch.uint8)
+    _check("scales", scales, (s, xp // qblock))
+    out = torch.empty((b, xp), dtype=torch.float32, device=packed.device)
+    lib = load_library()
+    stream = torch.cuda.current_stream(packed.device).cuda_stream
+    _raise_on(lib.mixture_mix_dequant4(u.data_ptr(), packed.data_ptr(),
+                                       scales.data_ptr(), out.data_ptr(), b, s, xp,
+                                       qblock, stream),
+              "mixture_mix_dequant4")
+    mixture_mix_dequant4.launches += 1
+    return out
+
+
+mixture_mix_dequant4.launches = 0
+
+KERNELS = (gossip_mix_flat, gossip_mix_fused_dp, gossip_mix_dequant,
+           mixture_mix_dequant4)
 
 
 def reset_launch_counts() -> None:

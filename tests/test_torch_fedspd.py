@@ -72,7 +72,7 @@ def world():
     jps = j_make_pack_spec(jax.eval_shape(j_init, jax.random.PRNGKey(0)))
     _, _, t_loss, t_pel, _ = make_classifier("mlp", torch.Generator(), DIM, C)
     tps = make_pack_spec(params_from_numpy(
-        jax.tree.map(np.asarray, j_init(jax.random.PRNGKey(0)))))
+        jax.tree.map(np.asarray, j_init(jax.random.PRNGKey(0))), device="cpu"))
     jtrain = {"inputs": jnp.asarray(data.x), "targets": jnp.asarray(data.y)}
     ttrain = {"inputs": torch.as_tensor(data.x), "targets": torch.as_tensor(data.y)}
     return dict(data=data, graph=graph, j_loss=j_loss, j_pel=j_pel,
@@ -167,7 +167,7 @@ def test_one_round_matches_jax_with_injected_draws(world, jax_rounds, dp, backen
     spec = GossipSpec.from_graph(world["graph"])
     step = make_round_step(world["t_loss"], world["t_pel"], spec, tcfg,
                            pack_spec=world["tps"], mix_fn=make_mix_fn(spec, backend))
-    state = state_from_numpy(st1)
+    state = state_from_numpy(st1, device="cpu")
     new, metrics = step(state, world["ttrain"], s=torch.as_tensor(s),
                         idx=torch.as_tensor(idx),
                         noise=None if noise is None else torch.as_tensor(noise))
@@ -199,7 +199,7 @@ def test_final_phase_matches_jax_with_injected_tape(world, jax_rounds):
         np.stack([np.asarray(jax.random.randint(ki, (BATCH,), 0, M))
                   for ki in jax.random.split(k, N)])
         for k in jax.random.split(jst.key, steps)])
-    got = final_phase(state_from_numpy(st1), world["t_loss"], world["ttrain"],
+    got = final_phase(state_from_numpy(st1, device="cpu"), world["t_loss"], world["ttrain"],
                       tcfg, world["tps"], idx_tape=torch.as_tensor(tape))
     np.testing.assert_allclose(pack(got, world["tps"]).numpy(), np.asarray(want),
                                atol=1e-4, rtol=0)
@@ -209,7 +209,7 @@ def test_personalize_matches_jax_eq2(world, jax_rounds):
     st1 = jax_rounds["on"][0]
     want = j_pack(j_personalize(jax.tree.map(jnp.asarray, st1), world["jps"]),
                   world["jps"])
-    got = pack(personalize(state_from_numpy(st1), world["tps"]), world["tps"])
+    got = pack(personalize(state_from_numpy(st1, device="cpu"), world["tps"]), world["tps"])
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=0)
 
 
@@ -235,7 +235,7 @@ def test_default_mix_is_the_kernel_path_and_scatters_in_place(world, jax_rounds)
     spec = GossipSpec.from_graph(world["graph"])
     step = make_round_step(world["t_loss"], world["t_pel"], spec, tcfg,
                            pack_spec=world["tps"])
-    state = state_from_numpy(st1)
+    state = state_from_numpy(st1, device="cpu")
     before = state.centers.clone()
     reset_launch_counts()
     new, _ = step(state, world["ttrain"], s=torch.as_tensor(s),

@@ -1,7 +1,8 @@
 """PyTorch port on the card: each CUDA kernel against its plain PyTorch
 version on the same CUDA tensors (max abs error 1e-5, TF32 off for both
-matmul and cuDNN), the wrappers' checks and launch counters, and a short
-run of the main path through the kernels.
+matmul and cuDNN), the wrappers' checks and launch counters, a short run
+of the main path through the kernels, and a short train → export → serve
+run through the dequant kernels.
 
 Marked ``gpu``: each test asks a fixture for the card and skips without
 one. Run on a machine with an H100: ``python -m pytest -q -m gpu
@@ -12,14 +13,21 @@ import torch
 
 from repro_torch.configs.paper_cnn import PaperExpConfig
 from repro_torch.data.synthetic import make_mixture_classification
-from repro_torch.experiments import RunConfig, run_method
+from repro_torch.core.packing import make_pack_spec
+from repro_torch.experiments import RunConfig, export_run, run_method
 from repro_torch.kernels.gossip_mix import (
+    gossip_mix_dequant,
+    gossip_mix_dequant_ref,
     gossip_mix_flat,
     gossip_mix_flat_ref,
     gossip_mix_fused_dp,
     gossip_mix_fused_dp_ref,
+    mixture_mix_dequant4,
+    mixture_mix_dequant4_ref,
     reset_launch_counts,
 )
+from repro_torch.models.smallnets import make_classifier
+from repro_torch.serve import ClusterPlaneServer, load_servable
 
 pytestmark = pytest.mark.gpu
 
@@ -102,3 +110,88 @@ def test_main_path_launches_one_kernel_per_round(cuda, dp):
     idle = gossip_mix_flat if dp else gossip_mix_fused_dp
     assert launched.launches == exp.rounds and idle.launches == 0
     assert 0.0 <= r.mean_acc <= 1.0 and r.comm_bytes > 0
+
+
+# (M, N, Xp, qblock) for the dequant kernels: serving (B=20 and 256 over
+# S=2, the mlp's Xp), gossip (N=20, qblock 256), M above one 32-row block
+# and N above one 16-row chunk, N = 1, one scale block (Xp/qblock = 1),
+# and widths that rule out 16-byte (Xp % 4 = 2) and 8-byte (odd Xp) rows
+DEQUANT_SHAPES = [(20, 2, 17280, 64), (256, 2, 17280, 64), (20, 20, 17408, 256),
+                  (37, 33, 4096, 64), (70, 1, 640, 16), (5, 3, 16, 16),
+                  (9, 4, 1030, 10), (6, 5, 333, 3)]
+
+
+def _dequant_operands(dev, m, n, xp, qblock, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.rand((m, n), generator=g, device=dev)
+    w = w / w.sum(dim=1, keepdim=True)
+    q = torch.randint(-127, 128, (n, xp), generator=g, device=dev).to(torch.int8)
+    packed = torch.randint(0, 256, (n, xp // 2), generator=g,
+                           device=dev).to(torch.uint8)
+    scales = torch.rand((n, xp // qblock), generator=g, device=dev) / 64
+    return w, q, packed, scales
+
+
+@pytest.mark.parametrize("m,n,xp,qblock", DEQUANT_SHAPES)
+def test_dequant_kernel_matches_plain(cuda, m, n, xp, qblock):
+    w, q, _, scales = _dequant_operands(cuda, m, n, xp, qblock)
+    before = gossip_mix_dequant.launches
+    out = gossip_mix_dequant(w, q, scales, qblock=qblock)
+    assert gossip_mix_dequant.launches == before + 1
+    assert out.shape == (m, xp) and out.dtype == torch.float32
+    assert _max_err(out, gossip_mix_dequant_ref(w, q, scales, qblock=qblock)) <= TOL
+
+
+@pytest.mark.parametrize("m,n,xp,qblock",
+                         [s for s in DEQUANT_SHAPES if s[2] % 2 == 0 and s[3] % 2 == 0])
+def test_dequant4_kernel_matches_plain(cuda, m, n, xp, qblock):
+    u, _, packed, scales = _dequant_operands(cuda, m, n, xp, qblock, seed=1)
+    before = mixture_mix_dequant4.launches
+    out = mixture_mix_dequant4(u, packed, scales, qblock=qblock)
+    assert mixture_mix_dequant4.launches == before + 1
+    assert out.shape == (m, xp) and out.dtype == torch.float32
+    want = mixture_mix_dequant4_ref(u, packed, scales, qblock=qblock)
+    assert _max_err(out, want) <= TOL
+
+
+def test_dequant_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    w, q, packed, scales = _dequant_operands(cuda, 4, 3, 128, 16)
+    with pytest.raises(ValueError, match="plane rows"):
+        gossip_mix_dequant(w[:, :2].contiguous(), q, scales, qblock=16)
+    with pytest.raises(ValueError, match="tile"):
+        gossip_mix_dequant(w, q, scales, qblock=32)
+    with pytest.raises(TypeError, match="int8"):
+        gossip_mix_dequant(w, q.to(torch.int16), scales, qblock=16)
+    with pytest.raises(ValueError, match="contiguous"):
+        gossip_mix_dequant(w.t().contiguous().t(), q, scales, qblock=16)
+    with pytest.raises(ValueError, match="even qblock"):
+        mixture_mix_dequant4(w, packed, scales[:, :1].contiguous(), qblock=64)
+    with pytest.raises(ValueError, match="mixture weights"):
+        mixture_mix_dequant4(w[:, :2].contiguous(), packed, scales, qblock=16)
+    with pytest.raises(TypeError, match="uint8"):
+        mixture_mix_dequant4(w, packed.to(torch.int8), scales, qblock=16)
+
+
+def test_train_export_serve_through_the_dequant_kernels(cuda, tmp_path):
+    data = make_mixture_classification(n_clients=8, n_per_client=64, dim=16,
+                                       n_classes=4)
+    exp = PaperExpConfig(n_clients=8, n_per_client=64, dim=16, n_classes=4,
+                         rounds=2, avg_degree=3.0)
+    res = run_method("fedspd", data, exp,
+                     cfg=RunConfig(options={"keep_state": True}))
+    params, apply, *_ = make_classifier("mlp", torch.Generator(), 16, 4)
+    spec = make_pack_spec(params)
+    x = torch.as_tensor(data.x[:, 0])
+    for codec, kernel in (("int8", gossip_mix_dequant), ("int4", mixture_mix_dequant4)):
+        path = str(tmp_path / f"{codec}.npz")
+        export_run(res, path, codec=codec, qblock=64)
+        art = load_servable(path, spec)
+        assert art.plane_scale.device.type == "cuda"
+        srv = ClusterPlaneServer.from_artifact(art, spec, apply_fn=apply)
+        reset_launch_counts()
+        out = srv.predict(art.u_table, x)
+        assert kernel.launches == 1
+        cpu = ClusterPlaneServer.from_artifact(art, spec, apply_fn=apply, device="cpu")
+        want = cpu.predict(art.u_table.cpu(), x)
+        assert out.shape == (8, 4) and bool(torch.isfinite(out).all())
+        assert float((out.cpu() - want).abs().max()) <= 1e-4

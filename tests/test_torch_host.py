@@ -77,7 +77,7 @@ def _jax_mlp(dim=16, n_classes=4, seed=0):
 def test_pack_spec_matches_jax_layout(dim, n_classes, x):
     jp = _jax_mlp(dim, n_classes)
     js = j_make_pack_spec(jp)
-    ts = make_pack_spec(params_from_numpy(_np_tree(jp)))
+    ts = make_pack_spec(params_from_numpy(_np_tree(jp), device="cpu"))
     assert ts.size == js.size == x
     assert ts.offsets == js.offsets
     assert ts.sizes == js.sizes
@@ -89,7 +89,7 @@ def test_pack_spec_matches_jax_layout(dim, n_classes, x):
 
 def test_pack_unpack_roundtrip_and_views():
     jp = _jax_mlp()
-    spec = make_pack_spec(params_from_numpy(_np_tree(jp)))
+    spec = make_pack_spec(params_from_numpy(_np_tree(jp), device="cpu"))
     rng = np.random.default_rng(0)
     plane = torch.as_tensor(rng.standard_normal((2, 3, spec.size)),
                             dtype=torch.float32)
@@ -107,7 +107,7 @@ def test_jax_plane_unpacked_by_port_equals_jax_unpack():
     js = j_make_pack_spec(jp)
     stacked = jax.tree.map(lambda l: np.stack([l, 2 * l + 1]), jp)
     jplane = np.array(j_pack(stacked, js))
-    ts = make_pack_spec(params_from_numpy(_np_tree(jp)))
+    ts = make_pack_spec(params_from_numpy(_np_tree(jp), device="cpu"))
     got = unpack(torch.as_tensor(jplane), ts)
     want = j_unpack(jplane, js)
     for layer in want:
@@ -138,7 +138,7 @@ def test_run_method_without_device_raises_on_a_host_without_cuda():
     (RunConfig(scan_rounds=True), "scan_rounds"),
     (RunConfig(telemetry=object()), "telemetry"),
     (RunConfig(options={"cos_align_threshold": 0.5}), "cos_align"),
-    (RunConfig(options={"keep_state": True}), "keep_state"),
+    (RunConfig(options={"comm": object()}), "comm"),
 ])
 def test_unported_features_are_refused(cfg, what):
     data = make_mixture_classification(n_clients=4, n_per_client=16)

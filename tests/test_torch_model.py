@@ -39,7 +39,7 @@ def _setup(kind):
     one = jax.tree.map(lambda l: l[0], jparams)
     jspec = j_make_pack_spec(one)
     slab = np.array(j_pack(jparams, jspec))                # (N, X)
-    spec = make_pack_spec(params_from_numpy(jax.tree.map(np.asarray, one)))
+    spec = make_pack_spec(params_from_numpy(jax.tree.map(np.asarray, one), device="cpu"))
     _, t_apply, t_loss, t_pel, t_acc = make_classifier(
         kind, torch.Generator().manual_seed(0), DIM, C)
     rng = np.random.default_rng(1)
