@@ -21,9 +21,13 @@ Phases, in order; any failure exits non-zero before the result line:
    (``fill_``) timed beside them; ``gossip_mix_dequant``
    also at the gossip shape (M = N = 20, qblock 256) and at widths whose
    rows rule out 16- and 8-byte stores, for correctness only;
+   ``gossip_mix_stack`` (the FedEM exchange) the same way at (S, N, X) =
+   (2, 20, 17,226), (2, 20, 4,194,304) and (3, 37, 100,003), with one
+   ``torch.matmul`` broadcast over S as its yardstick;
 3. agreement on a small input: one FedSPD round at full width on the card
    (CUDA kernels) against the same round on the CPU (plain versions), with
-   the same injected draws, DP off and on;
+   the same injected draws, DP off and on; then one ``dfl_fedem`` round
+   the same way (kernel 3 on the card);
 4. the main path: ``run_method("fedspd", ...)`` for 5 rounds through the
    kernels, DP off (keeping its final state) and then on, with every
    launch counter set to 0 just before each run and read just after;
@@ -35,7 +39,14 @@ Phases, in order; any failure exits non-zero before the result line:
    the same artifact served on the CPU (plain versions) and, for fp32,
    against the personalized models materialized in plain PyTorch; every
    launch counter set to 0 just before each codec and read just after;
-6. a torch.profiler window over 3 rounds of the main path: device time
+6. the baselines, the third path: each of the paper's 11 baseline ids
+   (``local``, ``dfl_``/``cfl_`` × fedavg, fedem, ifca, fedsoft, pfedme)
+   runs ``run_method`` for 5 rounds on the card, every launch counter set
+   to 0 just before each id and read just after: ``gossip_mix_stack``
+   launches once per round in the FedEM ids and nowhere else,
+   ``gossip_mix_flat`` once per round in the FedAvg, pFedMe and IFCA ids;
+   accuracy finite in [0, 1] and comm bytes equal to the static formula;
+7. a torch.profiler window over 3 rounds of the main path: device time
    per round, the kernels that take it, and the device's busy share.
 
 It then prints one ``{"kernels": [...]}`` line and, last, the
@@ -68,6 +79,12 @@ SERVE_B = 256
 # widths padded to Xp = 1,010 (no 16-byte rows) and 999 (odd: no 8-byte rows)
 DEQUANT_CHECKS = [(20, 20, 17226, 256), (37, 5, 1001, 10), (7, 3, 999, 3)]
 SERVE_TOL = 1e-4
+# gossip_mix_stack, (S, N, X): the FedEM exchange at the main path's
+# width, past L2, and N above one 32-row chunk with an odd X
+STACK_SHAPES = [(2, 20, 17226), (2, 20, 4194304), (3, 37, 100003)]
+BASELINES = ("local", "dfl_fedavg", "cfl_fedavg", "dfl_fedem", "cfl_fedem",
+             "dfl_ifca", "cfl_ifca", "dfl_fedsoft", "cfl_fedsoft",
+             "dfl_pfedme", "cfl_pfedme")
 
 
 def fail(msg: str) -> None:
@@ -122,11 +139,15 @@ def graph_ms(fn, reps: int = 100, iters: int = 20) -> float:
 
 
 def bound(n: int, x: int, kernel: str, noise: bool = False, m: int = 0,
-          qblock: int = 1) -> tuple[float, str]:
+          qblock: int = 1, s: int = 1) -> tuple[float, str]:
     """(least ms, "bytes" | "operations"): each input read once, each
     output written once; fp32 arithmetic. For the dequant kernels ``x`` is
-    the padded width Xp and ``m`` the output rows."""
-    if kernel in ("gossip_mix_dequant", "mixture_mix_dequant4"):
+    the padded width Xp and ``m`` the output rows; ``s`` is the stack's
+    slab count."""
+    if kernel == "gossip_mix_stack":
+        nbytes = 4 * (n * n + 2 * s * n * x)
+        flops = 2 * s * n * n * x
+    elif kernel in ("gossip_mix_dequant", "mixture_mix_dequant4"):
         plane = n * x if kernel == "gossip_mix_dequant" else n * x // 2
         nbytes = 4 * m * n + plane + 4 * n * x // qblock + 4 * m * x
         flops = 2 * m * n * x
@@ -192,6 +213,44 @@ def phase_kernels(torch, gm) -> dict:
     for name, rs in rows.items():
         for r in rs:
             print(f"kernel {name} " + json.dumps(r), flush=True)
+    return rows
+
+
+def phase_stack_kernel(torch, gm) -> list:
+    """``gossip_mix_stack`` against its plain version at STACK_SHAPES,
+    timed beside its bound, its plain version and one ``torch.matmul``
+    broadcast over the S slabs."""
+    dev = torch.device("cuda")
+    rows = []
+    for s, n, x in STACK_SHAPES:
+        g = torch.Generator(device=dev).manual_seed(s * 7 + n + x)
+        w = torch.rand((n, n), generator=g, device=dev)
+        w = w / w.sum(dim=1, keepdim=True)
+        c = torch.randn((s, n, x), generator=g, device=dev)
+        small = 4 * s * n * x < 32 * 2**20   # graph replay; else events
+        iters = 200 if small else 20
+
+        def timed(fn):
+            return graph_ms(fn) if small else time_ms(fn, iters)
+
+        out = gm.gossip_mix_stack(w, c)
+        torch.cuda.synchronize()
+        err = float((out - gm.gossip_mix_stack_ref(w, c)).abs().max())
+        check(bool(torch.isfinite(out).all()) and out.shape == c.shape,
+              f"gossip_mix_stack S={s} N={n} X={x}: output not finite (S, N, X)")
+        check(err <= TOL, f"gossip_mix_stack S={s} N={n} X={x}: max abs err {err} > {TOL}")
+        b_ms, b_by = bound(n, x, "gossip_mix_stack", s=s)
+        rows.append(dict(
+            s=s, n=n, x=x, max_abs_err=err,
+            ms=timed(lambda: gm.gossip_mix_stack(w, c)),
+            plain_ms=timed(lambda: gm.gossip_mix_stack_ref(w, c)),
+            library_ms=timed(lambda: torch.matmul(w, c)),
+            bound_ms=b_ms, bound_by=b_by,
+            call_ms=time_ms(lambda: gm.gossip_mix_stack(w, c), iters)))
+        del w, c, out
+        torch.cuda.empty_cache()
+    for r in rows:
+        print("kernel gossip_mix_stack " + json.dumps(r), flush=True)
     return rows
 
 
@@ -304,6 +363,25 @@ def phase_agreement(torch) -> None:
         check(agree >= 0.99, f"card vs CPU round: z agreement {agree} < 0.99")
         check(float(bc) == float(bg), "card vs CPU round: comm_bytes differ")
 
+    # one dfl_fedem round, kernel 3 on the card, from one state and draws
+    from repro_torch.experiments.registry import get_method
+
+    fem = get_method("dfl_fedem")
+    st = fem.init(ctxs[cpu], torch.Generator().manual_seed(2))
+    idx = torch.randint(0, m, (data.n_clusters, exp.tau, n, exp.batch), generator=g)
+    out = {}
+    for d in (cpu, gpu):
+        st_d = type(st)(*(t.to(d, copy=True) for t in st))
+        new, _ = fem.make_step(ctxs[d])(st_d, ctxs[d].train, None, exp.lr0, idx=idx.to(d))
+        out[d.type] = [t.cpu() for t in new]
+    (pc, uc), (pg, ug) = out["cpu"], out["cuda"]
+    err, u_err = float((pc - pg).abs().max()), float((uc - ug).abs().max())
+    print(f"agreement dfl_fedem: plane max abs err {err:.3g}, u max abs err {u_err:.3g}, "
+          f"u[:4] {json.dumps(ug[:4].tolist())}", flush=True)
+    check(bool(torch.isfinite(pg).all()), "dfl_fedem: non-finite plane on the card")
+    check(err <= 1e-4 and u_err <= 1e-4,
+          f"card vs CPU dfl_fedem round: plane err {err}, u err {u_err} > 1e-4")
+
 
 def phase_profile(torch, round_ms: float) -> None:
     """Where a round's device time goes: 3 rounds of the main path (DP off,
@@ -323,12 +401,14 @@ def phase_profile(torch, round_ms: float) -> None:
     m = get_method("fedspd")
     state = m.init(ctx, make_generator(dev, 0))
     step = m.make_step(ctx)
+    # FedSPD's step draws from its own state.gen and runs its own lr
+    # schedule: the driver's gen and lr are not used
     for _ in range(2):
-        state, _ = step(state, ctx.train)
+        state, _ = step(state, ctx.train, None, None)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(rounds):
-            state, _ = step(state, ctx.train)
+            state, _ = step(state, ctx.train, None, None)
         torch.cuda.synchronize()
     ka = prof.key_averages()
     kern = sorted((e for e in ka if e.device_type.name == "CUDA"),
@@ -466,6 +546,46 @@ def phase_serve(torch, gm, result) -> dict:
     return launches
 
 
+def phase_baselines(torch, gm) -> dict:
+    """Each baseline id for ROUNDS rounds on the card, the launch counters
+    set to 0 just before each id and read just after. Returns the launches
+    summed over the ids."""
+    from repro_torch.configs.paper_cnn import PaperExpConfig
+    from repro_torch.data.synthetic import make_mixture_classification
+    from repro_torch.experiments import RunConfig, run_method
+    from repro_torch.experiments.registry import build_context, edges_bytes, star_bytes
+
+    data, exp = make_mixture_classification(), PaperExpConfig(rounds=ROUNDS)
+    ctx = build_context(data, exp, torch.device("cpu"))
+    mb, n, s = ctx.pack_spec.model_bytes, ctx.n_clients, ctx.n_clusters
+    total = {k.__name__: 0 for k in gm.KERNELS}
+    for method in BASELINES:
+        models = s if method.endswith("fedem") else 1
+        per_round = (0.0 if method == "local" else
+                     star_bytes(n, mb, models) if method.startswith("cfl_")
+                     else edges_bytes(ctx.graph, mb, models))
+        stack = ROUNDS if method.endswith("fedem") else 0
+        flat = ROUNDS if method.endswith(("fedavg", "pfedme", "ifca")) else 0
+        gm.reset_launch_counts()
+        r = run_method(method, data, exp, cfg=RunConfig(eval_every=10**9))
+        counts = {k.__name__: k.launches for k in gm.KERNELS}
+        for k, c in counts.items():
+            total[k] += c
+        ms = r.extras["round_ms"]
+        print(f"baseline {method}: mean_acc {r.mean_acc:.6f} std_acc {r.std_acc:.6f} "
+              f"comm_bytes {r.comm_bytes:.0f} launches {json.dumps(counts)} "
+              f"round_ms median(rounds 2-{ROUNDS}) {statistics.median(ms[1:]):.3f} "
+              f"first {ms[0]:.3f} wall_s {r.wall_s:.2f}", flush=True)
+        want = {k: 0 for k in counts}
+        want.update(gossip_mix_stack=stack, gossip_mix_flat=flat)
+        check(counts == want, f"baseline {method}: launches {counts}, expected {want}")
+        check(math.isfinite(r.mean_acc) and 0.0 <= r.mean_acc <= 1.0,
+              f"baseline {method}: mean_acc {r.mean_acc} not finite in [0, 1]")
+        check(r.comm_bytes == per_round * ROUNDS,
+              f"baseline {method}: comm_bytes {r.comm_bytes} != {per_round} x {ROUNDS}")
+    return total
+
+
 def main() -> None:
     import torch
 
@@ -502,13 +622,16 @@ def main() -> None:
             print("ptxas " + line.strip(), flush=True)
 
     rows = phase_kernels(torch, gm)
+    stack_rows = phase_stack_kernel(torch, gm)
     serve_rows = phase_dequant_kernels(torch, gm)
     phase_agreement(torch)
     launches, round_ms, kept = phase_main_path(torch, gm)
     serve_launches = phase_serve(torch, gm, kept)
+    baseline_launches = phase_baselines(torch, gm)
     phase_profile(torch, round_ms)
 
     replaces = {"gossip_mix_flat": "src/repro/kernels/gossip_mix.py:63",
+                "gossip_mix_stack": "src/repro/kernels/gossip_mix.py:94",
                 "gossip_mix_fused_dp": "src/repro/kernels/gossip_mix.py:448",
                 "gossip_mix_dequant": "src/repro/kernels/gossip_mix.py:215",
                 "mixture_mix_dequant4": "src/repro/kernels/gossip_mix.py:362"}
@@ -523,6 +646,17 @@ def main() -> None:
             plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
             bound_by=main["bound_by"], library_ms=main["library_ms"],
             shape={"n": main["n"], "x": main["x"]}, card=card, shapes=rs))
+    # the FedEM exchange's own shape; launches from the baselines path
+    main = next(r for r in stack_rows if (r["s"], r["n"], r["x"]) == STACK_SHAPES[0])
+    kernels.append(dict(
+        name="gossip_mix_stack", route="cuda",
+        source="src/repro_torch/kernels/csrc/gossip_mix.cu",
+        replaces=replaces["gossip_mix_stack"],
+        launches=baseline_launches["gossip_mix_stack"],
+        max_abs_err=max(r["max_abs_err"] for r in stack_rows), ms=main["ms"],
+        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=main["library_ms"], shape={"s": main["s"], "n": main["n"], "x": main["x"]},
+        card=card, shapes=stack_rows))
     for name, rs in serve_rows.items():
         # the serving batch of bench_mixture_qps; launches from the serve path
         main = next(r for r in rs if r["m"] == SERVE_B)

@@ -1,0 +1,77 @@
+"""pFedMe [T. Dinh et al. 2020] — personalization via Moreau envelopes.
+
+Each client maintains a "global" iterate w_i; per round it approximately
+solves θ_i = argmin f_i(θ) + λ/2 ||θ - w_i||² with K inner SGD steps, then
+takes the outer step w_i <- w_i - η λ (w_i - θ_i). Decentralized variant
+gossips w with the static Metropolis matrix (one ``gossip_mix_flat``
+launch). Personalized model = θ_i.
+
+w lives on the packed ``(N, X)`` plane: the inner proximal steps and the
+outer Moreau step are single-tensor updates over the plane.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.baselines.common import gossip_avg_comm, init_planes
+from repro_torch.core.packing import PackSpec, flat_grad, unpack
+from repro_torch.data.pipeline import gather_batches, uniform_batch_indices
+
+
+class PFedMeState(NamedTuple):
+    w: torch.Tensor  # (N, X) packed plane
+
+
+def init_state(gen: torch.Generator, model_init: Callable, n_clients: int,
+               pack_spec: PackSpec) -> PFedMeState:
+    return PFedMeState(w=init_planes(gen, model_init, n_clients, pack_spec))
+
+
+def _inner_solve(loss_fn, w, data, gen, k_inner, batch, inner_lr, lam, *,
+                 pack_spec, idx=None):
+    """K SGD steps on f_i(θ) + λ/2||θ - w||², θ init = w; each step is
+    θ ← θ − η·(λ·(θ − w) + g). Injectable ``idx`` ``(K, N, batch)``.
+    Returns θ."""
+    x, y = data["inputs"], data["targets"]
+    n, m = x.shape[0], x.shape[1]
+    theta = w
+    for k in range(k_inner):
+        it = idx[k] if idx is not None else uniform_batch_indices(gen, n, m, batch)
+        g = flat_grad(loss_fn, theta, gather_batches(x, y, it), pack_spec)
+        theta = theta + (-inner_lr) * (lam * (theta - w) + g)
+    return theta
+
+
+def make_step(loss_fn: Callable, w_mix: torch.Tensor, *, tau: int, batch: int,
+              lam: float = 15.0, k_inner: int = 5, inner_lr: float = 5e-2,
+              pack_spec: PackSpec):
+    """``step(state, data, gen, lr, *, idx=None) -> (state, {})``;
+    ``w_mix`` is the ``(N, N)`` mixing matrix on the plane's device.
+    Injectable ``idx`` ``(τ, K, N, batch)``: the inner solve's batch
+    indices at each outer step."""
+
+    def step(state: PFedMeState, data, gen, lr, *, idx=None):
+        # η·λ taken in fp32, as the JAX step multiplies its fp32 lr by λ
+        lr_lam = float(np.float32(lr) * np.float32(lam))
+        w = state.w
+        for t in range(tau):
+            theta = _inner_solve(loss_fn, w, data, gen, k_inner, batch,
+                                 inner_lr, lam, pack_spec=pack_spec,
+                                 idx=None if idx is None else idx[t])
+            w = w - lr_lam * (w - theta)
+        return PFedMeState(w=gossip_avg_comm(w, w_mix)), {}
+
+    return step
+
+
+def personalized_params(state: PFedMeState, loss_fn, data, gen, *, batch=32,
+                        lam=15.0, k_inner=10, inner_lr=5e-2,
+                        pack_spec: PackSpec, idx=None) -> dict:
+    """θ_i from the final w_i (a fresh inner solve on local data, drawing
+    from ``gen``). Injectable ``idx`` ``(k_inner, N, batch)``."""
+    theta = _inner_solve(loss_fn, state.w, data, gen, k_inner, batch,
+                         inner_lr, lam, pack_spec=pack_spec, idx=idx)
+    return unpack(theta, pack_spec)

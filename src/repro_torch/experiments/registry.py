@@ -4,13 +4,21 @@ The driver (experiments/runner.py) knows nothing about individual
 algorithms; each registers a ``Method`` adapter here:
 
     init(ctx, gen)                 -> state
-    make_step(ctx)                 -> step(state, train) -> (state, aux)
-    personalize(ctx, state)        -> params, leaves (N, ...)
-    evaluate(ctx, state, on)       -> (N,) per-client accuracy
+    make_step(ctx)                 -> step(state, train, gen, lr) -> (state, aux)
+    personalize(ctx, state, gen)   -> params, leaves (N, ...)
+    comm_model(ctx)                -> CommModel: static per-round bytes, or
+                                      "tracked" (read from state.comm_bytes)
+    evaluate(ctx, state, on, gen)  -> (N,) per-client accuracy
     extras(ctx, state, aux)        -> dict of host-side diagnostics
 
+``gen`` is a ``torch.Generator`` on the run's device and ``lr`` the
+round's fp32 learning rate, both owned by the driver (FedSPD carries its
+own stream and schedule in its state and ignores them).
+
 The port has FedSPD (``"fedspd"``, paper Algorithm 1 on the packed plane)
-so far; the JAX package's other twelve ids raise ``ValueError``.
+and the paper's six baselines (``"local"``, and ``dfl_``/``cfl_`` ×
+``fedavg``, ``fedem``, ``ifca``, ``fedsoft``, ``pfedme``), all on the
+packed plane; ``"fedspd_permute"`` raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -19,6 +27,8 @@ from typing import Callable
 
 import torch
 
+from repro_torch.baselines import fedavg, fedem, fedsoft, ifca, local, pfedme
+from repro_torch.baselines.common import init_planes, mixing_matrix, per_client_eval
 from repro_torch.configs.paper_cnn import PaperExpConfig
 from repro_torch.core.fedspd import (
     FedSPDConfig,
@@ -29,16 +39,11 @@ from repro_torch.core.fedspd import (
 from repro_torch.core.gossip import GossipSpec, make_mix_fn
 from repro_torch.core.packing import PackSpec, make_pack_spec
 from repro_torch.device import make_generator
-from repro_torch.graphs.topology import Graph, make_graph
+from repro_torch.graphs.topology import Graph, complete, make_graph
 from repro_torch.models.smallnets import make_classifier
 
 # registered by the JAX package and not ported yet
-UNPORTED_METHODS = (
-    "fedspd_permute", "local",
-    "dfl_fedavg", "cfl_fedavg", "dfl_fedem", "cfl_fedem",
-    "dfl_ifca", "cfl_ifca", "dfl_fedsoft", "cfl_fedsoft",
-    "dfl_pfedme", "cfl_pfedme",
-)
+UNPORTED_METHODS = ("fedspd_permute",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,8 +55,9 @@ class ExperimentContext:
     n_clients: int
     n_clusters: int
     model_init: Callable[[torch.Generator], dict]
+    apply_fn: Callable
     loss_fn: Callable
-    pel_fn: Callable        # per-example loss (clustering)
+    pel_fn: Callable        # per-example loss (clustering / EM steps)
     acc_fn: Callable
     pack_spec: PackSpec     # the model's layout; .model_bytes for comm
     train: dict             # {"inputs": (N, M, d), "targets": (N, M)}
@@ -71,7 +77,7 @@ def build_context(data, exp: PaperExpConfig, device: torch.device,
         graph = make_graph(exp.graph_kind, data.n_clients, exp.avg_degree,
                            seed=seed)
     dim, n_classes = data.x.shape[-1], data.n_classes
-    params0, _, loss_fn, pel_fn, acc_fn = make_classifier(
+    params0, apply_fn, loss_fn, pel_fn, acc_fn = make_classifier(
         exp.model, make_generator(device, seed), dim, n_classes)
 
     def model_init(gen):
@@ -85,23 +91,41 @@ def build_context(data, exp: PaperExpConfig, device: torch.device,
 
     return ExperimentContext(
         exp=exp, graph=graph, n_clients=data.n_clients,
-        n_clusters=data.n_clusters, model_init=model_init, loss_fn=loss_fn,
-        pel_fn=pel_fn, acc_fn=acc_fn, pack_spec=spec, train=on_device(data.x, data.y),
+        n_clusters=data.n_clusters, model_init=model_init, apply_fn=apply_fn,
+        loss_fn=loss_fn, pel_fn=pel_fn, acc_fn=acc_fn, pack_spec=spec,
+        train=on_device(data.x, data.y),
         test=on_device(data.x_test, data.y_test), device=device,
         options=dict(options or {}),
     )
 
 
-def per_client_eval(metric_fn: Callable, params: dict, data: dict) -> torch.Tensor:
-    """metric_fn batched over the client axis -> ``(N,)``."""
-    return metric_fn(params, {"x": data["inputs"], "y": data["targets"]})
+@dataclasses.dataclass(frozen=True)
+class CommModel:
+    """How the driver accounts bytes: a static per-round cost, or "tracked"
+    (FedSPD's data-dependent point-to-point cost accumulated in state)."""
+
+    kind: str               # "static" | "tracked"
+    per_round_bytes: float = 0.0
+
+
+def edges_bytes(graph: Graph, model_b: int, models: int = 1) -> float:
+    """Multicast DFL round cost: each client sends ``models`` models per
+    directed neighbor link (the adjacency carries self loops)."""
+    directed_links = float(graph.adj.sum() - graph.n)
+    return directed_links * model_b * models
+
+
+def star_bytes(n: int, model_b: int, models: int = 1) -> float:
+    """Centralized round cost: every client uploads + downloads per model."""
+    return 2.0 * n * model_b * models
 
 
 class Method:
-    """Base adapter; subclasses implement init/make_step/personalize. A
-    state carries its cumulative logical bytes in ``state.comm_bytes``."""
+    """Base adapter; subclasses implement init/make_step/personalize/
+    comm_model; evaluate and extras have defaults."""
 
     name: str = ""
+    centralized: bool = False
 
     def init(self, ctx: ExperimentContext, gen: torch.Generator):
         raise NotImplementedError
@@ -109,16 +133,38 @@ class Method:
     def make_step(self, ctx: ExperimentContext) -> Callable:
         raise NotImplementedError
 
-    def personalize(self, ctx: ExperimentContext, state) -> dict:
+    def personalize(self, ctx: ExperimentContext, state,
+                    gen: torch.Generator | None = None) -> dict:
         raise NotImplementedError
 
-    def evaluate(self, ctx: ExperimentContext, state, on: dict) -> torch.Tensor:
+    def comm_model(self, ctx: ExperimentContext) -> CommModel:
+        raise NotImplementedError
+
+    def evaluate(self, ctx: ExperimentContext, state, on: dict,
+                 gen: torch.Generator | None = None) -> torch.Tensor:
         """Per-client accuracy of the personalized models on ``on``."""
+        params = self.personalize(ctx, state, gen)
         with torch.no_grad():
-            return per_client_eval(ctx.acc_fn, self.personalize(ctx, state), on)
+            return per_client_eval(ctx.acc_fn, params, on)
 
     def extras(self, ctx: ExperimentContext, state, aux: dict) -> dict:
         return {}
+
+    def mixing(self, ctx: ExperimentContext) -> torch.Tensor:
+        """(N, N) averaging weights on the run's device: exact global mean
+        (centralized) or Metropolis gossip over the client graph
+        (decentralized)."""
+        return torch.as_tensor(
+            mixing_matrix(ctx.graph, ctx.n_clients, self.centralized),
+            device=ctx.device)
+
+    def _static_comm(self, ctx: ExperimentContext, models: int = 1) -> CommModel:
+        """Every client ships ``models`` models per round: over each
+        directed link (decentralized) or up and down to a server."""
+        mb = ctx.pack_spec.model_bytes
+        per_round = (star_bytes(ctx.n_clients, mb, models) if self.centralized
+                     else edges_bytes(ctx.graph, mb, models))
+        return CommModel(kind="static", per_round_bytes=per_round)
 
 
 _REGISTRY: dict[str, Method] = {}
@@ -172,13 +218,25 @@ class FedSPDMethod(Method):
     def make_step(self, ctx):
         spec = GossipSpec.from_graph(ctx.graph)
         mix_fn = make_mix_fn(spec, ctx.opt("gossip_backend", "cuda"))
-        return make_round_step(ctx.loss_fn, ctx.pel_fn, spec, self._fcfg(ctx),
+        step = make_round_step(ctx.loss_fn, ctx.pel_fn, spec, self._fcfg(ctx),
                                pack_spec=ctx.pack_spec, mix_fn=mix_fn)
 
-    def personalize(self, ctx, state):
+        def wrapped(state, train, gen, lr):
+            # the round step draws from state.gen and runs its own lr
+            # schedule; the driver's gen and lr are for the uniform
+            # signature
+            del gen, lr
+            return step(state, train)
+
+        return wrapped
+
+    def personalize(self, ctx, state, gen=None):
         with torch.enable_grad():
             return final_phase(state, ctx.loss_fn, ctx.train, self._fcfg(ctx),
                                ctx.pack_spec)
+
+    def comm_model(self, ctx):
+        return CommModel(kind="tracked")
 
     def extras(self, ctx, state, aux):
         out = {"u": state.u.cpu().numpy()}
@@ -187,4 +245,159 @@ class FedSPDMethod(Method):
         return out
 
 
+# --------------------------------------------------------------------------
+# Baselines
+# --------------------------------------------------------------------------
+
+
+class LocalMethod(Method):
+    name = "local"
+
+    def init(self, ctx, gen):
+        return init_planes(gen, ctx.model_init, ctx.n_clients, ctx.pack_spec)
+
+    def make_step(self, ctx):
+        return local.make_step(ctx.loss_fn, tau=ctx.exp.tau,
+                               batch=ctx.exp.batch, pack_spec=ctx.pack_spec)
+
+    def personalize(self, ctx, state, gen=None):
+        return local.personalized_params(state, ctx.pack_spec)
+
+    def comm_model(self, ctx):
+        return CommModel(kind="static", per_round_bytes=0.0)
+
+
+class _PairedMethod(Method):
+    """A baseline registered as a ``dfl_`` and a ``cfl_`` variant."""
+
+    def __init__(self, name: str, centralized: bool):
+        self.name = name
+        self.centralized = centralized
+
+
+class FedAvgMethod(_PairedMethod):
+    def init(self, ctx, gen):
+        return init_planes(gen, ctx.model_init, ctx.n_clients, ctx.pack_spec)
+
+    def make_step(self, ctx):
+        return fedavg.make_step(ctx.loss_fn, self.mixing(ctx), tau=ctx.exp.tau,
+                                batch=ctx.exp.batch, pack_spec=ctx.pack_spec)
+
+    def personalize(self, ctx, state, gen=None):
+        return fedavg.personalized_params(state, ctx.pack_spec)
+
+    def comm_model(self, ctx):
+        return self._static_comm(ctx)
+
+
+class FedEMMethod(_PairedMethod):
+    """Trains and exchanges ALL S cluster models per round (S× comm);
+    personalized prediction is the u-weighted probability mixture, so
+    ``evaluate`` overrides the personalize-based default."""
+
+    def init(self, ctx, gen):
+        return fedem.init_state(gen, ctx.model_init, ctx.n_clients,
+                                ctx.n_clusters, ctx.pack_spec)
+
+    def make_step(self, ctx):
+        return fedem.make_step(ctx.pel_fn, self.mixing(ctx), tau=ctx.exp.tau,
+                               batch=ctx.exp.batch, s_clusters=ctx.n_clusters,
+                               pack_spec=ctx.pack_spec)
+
+    def personalize(self, ctx, state, gen=None):
+        """The u-weighted parameter average, for serve-style export;
+        accuracy uses the probability mixture."""
+        return fedem.personalize(state, ctx.pack_spec)
+
+    def evaluate(self, ctx, state, on, gen=None):
+        with torch.no_grad():
+            return fedem.personalized_accuracy(ctx.apply_fn, state, on,
+                                               ctx.pack_spec)
+
+    def comm_model(self, ctx):
+        return self._static_comm(ctx, models=ctx.n_clusters)
+
+    def extras(self, ctx, state, aux):
+        return {"u": state.u.cpu().numpy()}
+
+
+class IFCAMethod(_PairedMethod):
+    def init(self, ctx, gen):
+        return ifca.init_state(gen, ctx.model_init, ctx.n_clients,
+                               ctx.n_clusters, ctx.pack_spec)
+
+    def make_step(self, ctx):
+        g_eff = complete(ctx.n_clients) if self.centralized else ctx.graph
+        return ifca.make_step(ctx.loss_fn, ctx.pel_fn, GossipSpec.from_graph(g_eff),
+                              tau=ctx.exp.tau, batch=ctx.exp.batch,
+                              pack_spec=ctx.pack_spec)
+
+    def personalize(self, ctx, state, gen=None):
+        return ifca.personalized_params(state, ctx.pack_spec)
+
+    def comm_model(self, ctx):
+        return self._static_comm(ctx)
+
+    def extras(self, ctx, state, aux):
+        return {"choice": state.choice.cpu().numpy()}
+
+
+class FedSoftMethod(_PairedMethod):
+    def init(self, ctx, gen):
+        return fedsoft.init_state(gen, ctx.model_init, ctx.n_clients,
+                                  ctx.n_clusters, ctx.pack_spec)
+
+    def make_step(self, ctx):
+        return fedsoft.make_step(ctx.loss_fn, ctx.pel_fn, self.mixing(ctx),
+                                 tau=ctx.exp.tau, batch=ctx.exp.batch,
+                                 s_clusters=ctx.n_clusters,
+                                 pack_spec=ctx.pack_spec)
+
+    def personalize(self, ctx, state, gen=None):
+        return fedsoft.personalized_params(state, ctx.pack_spec)
+
+    def comm_model(self, ctx):
+        return self._static_comm(ctx)
+
+    def extras(self, ctx, state, aux):
+        return {"u": state.u.cpu().numpy()}
+
+
+class PFedMeMethod(_PairedMethod):
+    def init(self, ctx, gen):
+        return pfedme.init_state(gen, ctx.model_init, ctx.n_clients,
+                                 ctx.pack_spec)
+
+    def make_step(self, ctx):
+        return pfedme.make_step(ctx.loss_fn, self.mixing(ctx), tau=ctx.exp.tau,
+                                batch=ctx.exp.batch, pack_spec=ctx.pack_spec)
+
+    def personalize(self, ctx, state, gen=None):
+        """A fresh inner solve from the final w, drawing from ``gen``
+        (the driver hands a copy of the run's stream)."""
+        if gen is None:
+            raise ValueError("pFedMe's personalization draws batches: pass gen")
+        with torch.enable_grad():
+            return pfedme.personalized_params(state, ctx.loss_fn, ctx.train, gen,
+                                              batch=ctx.exp.batch,
+                                              pack_spec=ctx.pack_spec)
+
+    def comm_model(self, ctx):
+        return self._static_comm(ctx)
+
+
+# --------------------------------------------------------------------------
+# Registrations: FedSPD + all six baselines, dfl_ and cfl_ variants
+# --------------------------------------------------------------------------
+
 register(FedSPDMethod("fedspd"))
+register(LocalMethod())
+for _cls, _base in (
+    (FedAvgMethod, "fedavg"),
+    (FedEMMethod, "fedem"),
+    (IFCAMethod, "ifca"),
+    (FedSoftMethod, "fedsoft"),
+    (PFedMeMethod, "pfedme"),
+):
+    register(_cls(f"dfl_{_base}", centralized=False))
+    register(_cls(f"cfl_{_base}", centralized=True))

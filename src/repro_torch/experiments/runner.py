@@ -1,14 +1,21 @@
 """Experiment driver: the loop engine behind ``run_method``.
 
 ``run_method`` resolves the method through the registry and owns the round
-loop, the eval cadence, curve collection and communication accounting. A
-round is one call of the method's step; every ``eval_every`` rounds (and
-after the last) the driver evaluates the personalized models on the
-training data. The final result evaluates them on the test split.
+loop, the learning-rate schedule, the eval cadence, curve collection and
+communication accounting. A round is one call of the method's step; every
+``eval_every`` rounds (and after the last) the driver evaluates the
+personalized models on the training data. The final result evaluates them
+on the test split.
 
-The run's generators: one seeded from ``seed`` initialises the state (which
-forks its own stream for the rounds); evaluation draws from copies of the
-state's stream, so it does not change the training trajectory.
+The run's generators: one seeded from ``seed`` initialises the state, and
+a stream forked from it after the init feeds the rounds (FedSPD forks its
+own into its state instead). Evaluation draws (pFedMe's personalization)
+come from a copy of the run's stream, so evaluating does not change the
+training trajectory.
+
+Communication: a method's ``comm_model`` is either "tracked" (FedSPD's
+data-dependent bytes, read from ``state.comm_bytes``) or "static"
+(per-round bytes × rounds), as in the JAX package.
 """
 from __future__ import annotations
 
@@ -19,7 +26,13 @@ import numpy as np
 
 from repro_torch.configs.paper_cnn import PaperExpConfig
 from repro_torch.data.synthetic import ClientDataset
-from repro_torch.device import make_generator, resolve_device, synchronize
+from repro_torch.device import (
+    copy_generator,
+    fork_generator,
+    make_generator,
+    resolve_device,
+    synchronize,
+)
 from repro_torch.experiments.config import RunConfig
 from repro_torch.experiments.registry import (
     ExperimentContext,
@@ -44,9 +57,20 @@ class RunResult:
                         # "state", "pack_spec" with options["keep_state"]
 
 
+def _lr_schedule(exp: PaperExpConfig) -> np.ndarray:
+    """The rounds' learning rates lr0 · decay^r, taken in Python floats and
+    stored in fp32 (the JAX driver's tape)."""
+    return np.asarray([exp.lr0 * (exp.lr_decay ** r) for r in range(exp.rounds)],
+                      np.float32)
+
+
 def _result(m: Method, ctx: ExperimentContext, state, aux, acc, curve,
             t0: float, round_ms: list) -> RunResult:
-    comm = float(state.comm_bytes)
+    comm_model = m.comm_model(ctx)
+    if comm_model.kind == "tracked":
+        comm = float(state.comm_bytes)
+    else:
+        comm = comm_model.per_round_bytes * ctx.exp.rounds
     extras = m.extras(ctx, state, aux)
     extras["round_ms"] = round_ms
     if ctx.opt("keep_state"):
@@ -70,19 +94,22 @@ def _drive(method: str, data: ClientDataset, exp: PaperExpConfig,
     device = resolve_device(cfg.device)
     ctx = build_context(data, exp, device, graph=graph, seed=seed,
                         options=options)
-    state = m.init(ctx, make_generator(device, seed))
+    gen = make_generator(device, seed)
+    state = m.init(ctx, gen)
+    gen = fork_generator(gen)
     step = m.make_step(ctx)
+    lrs = _lr_schedule(exp)
     curve, round_ms, aux = [], [], None
     for r in range(exp.rounds):
         synchronize(device)
         t = time.perf_counter()
-        state, aux = step(state, ctx.train)
+        state, aux = step(state, ctx.train, gen, float(lrs[r]))
         synchronize(device)
         round_ms.append((time.perf_counter() - t) * 1e3)
         if r % cfg.eval_every == 0 or r == exp.rounds - 1:
-            acc = m.evaluate(ctx, state, ctx.train)
+            acc = m.evaluate(ctx, state, ctx.train, copy_generator(gen))
             curve.append((r, float(acc.mean())))
-    acc = m.evaluate(ctx, state, ctx.test)
+    acc = m.evaluate(ctx, state, ctx.test, copy_generator(gen))
     return _result(m, ctx, state, aux, acc, curve, t0, round_ms)
 
 

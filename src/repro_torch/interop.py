@@ -1,6 +1,6 @@
 """Weights and state carried across from the JAX package.
 
-Both functions take numpy arrays (``np.asarray`` of JAX arrays), so the
+Every function takes numpy arrays (``np.asarray`` of JAX arrays), so the
 port never imports JAX. Like every entry point of the port they put the
 result on the card unless the caller asks for ``device="cpu"``, and raise
 without a card. Layouts are the same in both packages (dense
@@ -12,6 +12,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.baselines.fedem import FedEMState
+from repro_torch.baselines.fedsoft import FedSoftState
+from repro_torch.baselines.ifca import IFCAState
+from repro_torch.baselines.pfedme import PFedMeState
 from repro_torch.core.fedspd import FedSPDState
 from repro_torch.device import make_generator, resolve_device
 
@@ -48,3 +52,46 @@ def state_from_numpy(state, *, device: str | torch.device = "cuda",
         comm_bytes=torch.as_tensor(np.array(state.comm_bytes),
                                    dtype=torch.float32, device=device),
     )
+
+
+# the JAX package's baseline states, by class name, and their port twins
+_BASELINE_STATES = {cls.__name__: cls for cls in
+                    (FedEMState, IFCAState, FedSoftState, PFedMeState)}
+
+
+def _as_tensor(a, device: torch.device) -> torch.Tensor:
+    a = np.array(a)
+    dtype = torch.int64 if np.issubdtype(a.dtype, np.integer) else torch.float32
+    return torch.as_tensor(a, dtype=dtype, device=device)
+
+
+def baseline_state_from_numpy(state, *, device: str | torch.device = "cuda"):
+    """A port baseline state from a JAX one whose fields are numpy arrays
+    on the packed plane: a bare ``(N, X)`` plane (FedAvg, Local) becomes
+    one fp32 tensor; a ``FedEMState``, ``IFCAState``, ``FedSoftState`` or
+    ``PFedMeState`` becomes the port's state of that name (integer fields
+    int64, the rest fp32). A state carrying an error-feedback residual
+    (``ef``, a wire codec's) is refused: comm is not ported."""
+    device = resolve_device(device)
+    if not isinstance(state, tuple):
+        plane = _as_tensor(state, device)
+        if plane.dim() != 2:
+            raise ValueError(
+                f"a bare state must be the packed (N, X) plane, got shape "
+                f"{tuple(plane.shape)}")
+        return plane
+    cls = _BASELINE_STATES.get(type(state).__name__)
+    if cls is None:
+        raise ValueError(
+            f"no port baseline state for {type(state).__name__}; the port "
+            f"has {sorted(_BASELINE_STATES)}")
+    if getattr(state, "ef", None) is not None:
+        raise ValueError(
+            "the state carries an error-feedback residual (ef): comm is not "
+            "ported yet")
+    out = cls(**{f: _as_tensor(getattr(state, f), device) for f in cls._fields})
+    if hasattr(out, "centers") and out.centers.dim() != 3:
+        raise ValueError(
+            f"centers must be the packed (S, N, X) plane, got shape "
+            f"{tuple(out.centers.shape)}")
+    return out

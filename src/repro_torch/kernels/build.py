@@ -30,6 +30,9 @@ _P = ctypes.c_void_p
 SIGNATURES = {
     "gossip_mix_flat": ([_P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P],
                         ctypes.c_int),
+    "gossip_mix_stack": ([_P, _P, _P, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_longlong, _P],
+                         ctypes.c_int),
     "gossip_mix_fused_dp": ([_P, _P, _P, _P, _P, ctypes.c_float, _P,
                              ctypes.c_int, ctypes.c_longlong, _P],
                             ctypes.c_int),

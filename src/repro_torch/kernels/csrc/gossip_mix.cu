@@ -2,8 +2,9 @@
 // Hopper (sm_90a), with a plain C interface loaded through ctypes.
 //
 // Replaces the Pallas TPU kernels src/repro/kernels/gossip_mix.py:
-// gossip_mix_flat (W·C) and gossip_mix_fused_dp
-// (W·(c_old + scale ⊙ (c_new − c_old) + σ·noise)).
+// gossip_mix_flat (W·C), gossip_mix_fused_dp
+// (W·(c_old + scale ⊙ (c_new − c_old) + σ·noise)) and gossip_mix_stack
+// (W·C_s for every slab s of an (S, N, X) stack, in one launch).
 //
 // What bounds it: every output column reads the N inputs of its column
 // once and writes N outputs, 2N FLOPs per input element, so the
@@ -29,6 +30,13 @@
 // TF32. The fused-DP prologue rounds each step as the plain PyTorch
 // version does (no contraction), so the two differ only in the order of
 // the sum over j.
+//
+// The stack mix is the same kernel over a 2-D grid: blockIdx.y selects
+// the slab s, whose offset s·N·X is taken in int64_t (at S = 4, N = 32,
+// X = 2^24 it passes 2^31). Every slab shares the one W; each block
+// stages its chunks of W as above, so a slab with N > 32 re-reads its
+// plane once per chunk of 32 output rows, like a flat plane. A flat plane
+// is the stack of one slab (gridDim.y = 1).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -38,10 +46,12 @@ namespace {
 constexpr int kThreads = 128;  // columns per block
 constexpr int kGroup = 4;      // input rows whose loads are in flight together
 
+// A prologue reads input row j at element offset k of the plane (or
+// stack) and returns the value the mix consumes.
 struct Identity {
   const float* c;
-  __device__ __forceinline__ float operator()(int j, int64_t x, int64_t col) const {
-    return __ldg(c + j * x + col);
+  __device__ __forceinline__ float operator()(int j, int64_t k) const {
+    return __ldg(c + k);
   }
 };
 
@@ -52,8 +62,7 @@ struct FusedDP {
   const float* scale;  // (N,) per-client clip scale
   const float* noise;  // (N, X); unused unless kNoise
   float sigma;
-  __device__ __forceinline__ float operator()(int j, int64_t x, int64_t col) const {
-    const int64_t k = j * x + col;
+  __device__ __forceinline__ float operator()(int j, int64_t k) const {
     const float co = __ldg(c_old + k);
     float v = __fadd_rn(co, __fmul_rn(__ldg(scale + j), __fsub_rn(__ldg(c_new + k), co)));
     if (kNoise) v = __fadd_rn(v, __fmul_rn(sigma, __ldg(noise + k)));
@@ -61,7 +70,8 @@ struct FusedDP {
   }
 };
 
-// out[i, col] = sum_j w[i, j] * prologue(j, col), one thread per column.
+// out[s, i, col] = sum_j w[i, j] * prologue(row j of slab s, col), one
+// thread per column of slab s = blockIdx.y.
 template <int NB, class Prologue>
 __global__ void __launch_bounds__(kThreads)
 mix_kernel(const float* __restrict__ w, Prologue in, float* __restrict__ out,
@@ -69,6 +79,7 @@ mix_kernel(const float* __restrict__ w, Prologue in, float* __restrict__ out,
   static_assert(NB % kGroup == 0, "a group never reads past the staged W chunk");
   __shared__ float sw[NB][NB];
   const int64_t col = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t base = static_cast<int64_t>(blockIdx.y) * n * x + col;  // slab + column
   const bool live = col < x;
   for (int i0 = 0; i0 < n; i0 += NB) {
     float acc[NB];
@@ -87,7 +98,8 @@ mix_kernel(const float* __restrict__ w, Prologue in, float* __restrict__ out,
         float v[kGroup];  // kGroup independent loads in flight, then kGroup·NB FMAs
 #pragma unroll
         for (int jj = 0; jj < kGroup; ++jj) {
-          v[jj] = (live && jg + jj < jn) ? in(j0 + jg + jj, x, col) : 0.f;
+          const int j = j0 + jg + jj;
+          v[jj] = (live && jg + jj < jn) ? in(j, base + j * x) : 0.f;
         }
 #pragma unroll
         for (int jj = 0; jj < kGroup; ++jj) {
@@ -99,32 +111,34 @@ mix_kernel(const float* __restrict__ w, Prologue in, float* __restrict__ out,
     if (live) {
 #pragma unroll
       for (int ii = 0; ii < NB; ++ii) {
-        if (i0 + ii < n) out[static_cast<int64_t>(i0 + ii) * x + col] = acc[ii];
+        if (i0 + ii < n) out[base + (i0 + ii) * x] = acc[ii];
       }
     }
   }
 }
 
 template <int NB, class Prologue>
-void launch_nb(const float* w, Prologue in, float* out, int n, int64_t x,
+void launch_nb(const float* w, Prologue in, float* out, int slabs, int n, int64_t x,
                cudaStream_t stream) {
-  const int64_t blocks = (x + kThreads - 1) / kThreads;
-  mix_kernel<NB, Prologue><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      w, in, out, n, x);
+  const dim3 grid(static_cast<unsigned>((x + kThreads - 1) / kThreads),
+                  static_cast<unsigned>(slabs));
+  mix_kernel<NB, Prologue><<<grid, kThreads, 0, stream>>>(w, in, out, n, x);
 }
 
+// Mixes `slabs` consecutive (n, x) planes with the same W.
 template <class Prologue>
-int launch(const float* w, Prologue in, float* out, int n, int64_t x, void* stream) {
-  if (n > 0 && x > 0) {
+int launch(const float* w, Prologue in, float* out, int slabs, int n, int64_t x,
+           void* stream) {
+  if (slabs > 0 && n > 0 && x > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (n <= 8) {
-      launch_nb<8>(w, in, out, n, x, s);
+      launch_nb<8>(w, in, out, slabs, n, x, s);
     } else if (n <= 16) {
-      launch_nb<16>(w, in, out, n, x, s);
+      launch_nb<16>(w, in, out, slabs, n, x, s);
     } else if (n <= 24) {
-      launch_nb<24>(w, in, out, n, x, s);
+      launch_nb<24>(w, in, out, slabs, n, x, s);
     } else {
-      launch_nb<32>(w, in, out, n, x, s);
+      launch_nb<32>(w, in, out, slabs, n, x, s);
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -137,7 +151,14 @@ extern "C" {
 // C' = W · C. w (n, n), c and out (n, x), fp32, contiguous, on the device.
 int gossip_mix_flat(const float* w, const float* c, float* out, int n,
                     long long x, void* stream) {
-  return launch(w, Identity{c}, out, n, x, stream);
+  return launch(w, Identity{c}, out, 1, n, x, stream);
+}
+
+// C'_s = W · C_s for every s. w (n, n); c and out (s, n, x), fp32,
+// contiguous, on the device; s <= 65535 (the grid's y extent).
+int gossip_mix_stack(const float* w, const float* c, float* out, int s, int n,
+                     long long x, void* stream) {
+  return launch(w, Identity{c}, out, s, n, x, stream);
 }
 
 // C' = W · (c_old + scale ⊙ (c_new − c_old) [+ sigma · noise]); noise is
@@ -146,9 +167,11 @@ int gossip_mix_fused_dp(const float* w, const float* c_old, const float* c_new,
                         const float* scale, const float* noise, float sigma,
                         float* out, int n, long long x, void* stream) {
   if (sigma > 0.f) {
-    return launch(w, FusedDP<true>{c_old, c_new, scale, noise, sigma}, out, n, x, stream);
+    return launch(w, FusedDP<true>{c_old, c_new, scale, noise, sigma}, out, 1, n, x,
+                  stream);
   }
-  return launch(w, FusedDP<false>{c_old, c_new, scale, nullptr, 0.f}, out, n, x, stream);
+  return launch(w, FusedDP<false>{c_old, c_new, scale, nullptr, 0.f}, out, 1, n, x,
+                stream);
 }
 
 }  // extern "C"

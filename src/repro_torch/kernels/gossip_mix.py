@@ -1,21 +1,27 @@
 """FedSPD's gossip mix C' = W·C, and its fused-dequant siblings, as CUDA
 kernels for Hopper.
 
-Four kernels, built by ``kernels/build.py``. In ``csrc/gossip_mix.cu``:
+Five kernels, built by ``kernels/build.py``. In ``csrc/gossip_mix.cu``:
 
 - ``gossip_mix_flat`` replaces the Pallas TPU kernel
   ``src/repro/kernels/gossip_mix.py:gossip_mix_flat``: C' = W·C over the
-  packed ``(N, X)`` plane, once per round on the main path.
+  packed ``(N, X)`` plane, once per round on the main path (and in the
+  FedAvg, pFedMe and IFCA baselines' exchange).
+- ``gossip_mix_stack`` replaces
+  ``src/repro/kernels/gossip_mix.py:gossip_mix_stack``: C'_s = W·C_s for
+  every slab of an ``(S, N, X)`` stack in one launch (grid.y = S), the
+  FedEM exchange, once per round.
 - ``gossip_mix_fused_dp`` replaces
   ``src/repro/kernels/gossip_mix.py:gossip_mix_fused_dp``:
   W·(c_old + scale ⊙ (c_new − c_old) + σ·noise) in one pass, once per DP
   round. The noise is drawn outside the kernel; with σ = 0 there is no
   noise operand.
 
-Both are memory-bound on an H100 for N below ≈ 80: they move
-4·(N² + 2NX) bytes (flat) for 2N²X FLOPs. The kernel streams the plane
-once, one thread per column, with W staged in shared memory and fp32 FMA
-accumulation (no TF32); see the source for the design.
+All three are memory-bound on an H100 for N below ≈ 80: they move
+4·(N² + 2NX) bytes (flat; 4·(N² + 2SNX) for the stack) for 2N²X
+(2SN²X) FLOPs. The kernel streams the plane once, one thread per
+column, with W staged in shared memory and fp32 FMA accumulation (no
+TF32); see the source for the design.
 
 In ``csrc/gossip_mix_dequant.cu``:
 
@@ -52,6 +58,11 @@ from repro_torch.kernels.build import load_library
 def gossip_mix_flat_ref(w: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """Plain C' = W·C, fp32 accumulation."""
     return torch.einsum("ij,jx->ix", w.float(), c.float())
+
+
+def gossip_mix_stack_ref(w: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Plain C'_s = W·C_s for every s, fp32 accumulation."""
+    return torch.einsum("ij,sjx->six", w.float(), c.float())
 
 
 def gossip_mix_fused_dp_ref(w, c_old, c_new, scale, noise,
@@ -120,6 +131,33 @@ def gossip_mix_flat(w: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 
 gossip_mix_flat.launches = 0
+
+
+def gossip_mix_stack(w: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """C'_s = W·C_s for every s, in one launch. w ``(N, N)``, c
+    ``(S, N, X)``, fp32; returns a new ``(S, N, X)``. Raises on the shape
+    errors the JAX kernel refuses."""
+    if c.dim() != 3:
+        raise ValueError(f"c: shape {tuple(c.shape)}, expected a (S, N, X) stack")
+    s, n, x = c.shape
+    if tuple(w.shape) != (n, n):
+        raise ValueError(f"w: shape {tuple(w.shape)}, expected {(n, n)}")
+    if _on_cpu(w, c):
+        return gossip_mix_stack_ref(w, c)
+    _check("w", w, (n, n))
+    _check("c", c, (s, n, x))
+    if s > 65535:
+        raise ValueError(f"c: {s} slabs, the kernel takes at most 65535")
+    out = torch.empty_like(c)
+    lib = load_library()
+    stream = torch.cuda.current_stream(c.device).cuda_stream
+    _raise_on(lib.gossip_mix_stack(w.data_ptr(), c.data_ptr(), out.data_ptr(),
+                                   s, n, x, stream), "gossip_mix_stack")
+    gossip_mix_stack.launches += 1
+    return out
+
+
+gossip_mix_stack.launches = 0
 
 
 def gossip_mix_fused_dp(w: torch.Tensor, c_old: torch.Tensor,
@@ -222,8 +260,8 @@ def mixture_mix_dequant4(u: torch.Tensor, packed: torch.Tensor,
 
 mixture_mix_dequant4.launches = 0
 
-KERNELS = (gossip_mix_flat, gossip_mix_fused_dp, gossip_mix_dequant,
-           mixture_mix_dequant4)
+KERNELS = (gossip_mix_flat, gossip_mix_stack, gossip_mix_fused_dp,
+           gossip_mix_dequant, mixture_mix_dequant4)
 
 
 def reset_launch_counts() -> None:

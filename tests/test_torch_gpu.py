@@ -1,8 +1,9 @@
 """PyTorch port on the card: each CUDA kernel against its plain PyTorch
 version on the same CUDA tensors (max abs error 1e-5, TF32 off for both
 matmul and cuDNN), the wrappers' checks and launch counters, a short run
-of the main path through the kernels, and a short train → export → serve
-run through the dequant kernels.
+of the main path through the kernels, a short run of each baseline family
+through its exchange kernel, and a short train → export → serve run
+through the dequant kernels.
 
 Marked ``gpu``: each test asks a fixture for the card and skips without
 one. Run on a machine with an H100: ``python -m pytest -q -m gpu
@@ -22,6 +23,8 @@ from repro_torch.kernels.gossip_mix import (
     gossip_mix_flat_ref,
     gossip_mix_fused_dp,
     gossip_mix_fused_dp_ref,
+    gossip_mix_stack,
+    gossip_mix_stack_ref,
     mixture_mix_dequant4,
     mixture_mix_dequant4_ref,
     reset_launch_counts,
@@ -109,6 +112,68 @@ def test_main_path_launches_one_kernel_per_round(cuda, dp):
     launched = gossip_mix_fused_dp if dp else gossip_mix_flat
     idle = gossip_mix_flat if dp else gossip_mix_fused_dp
     assert launched.launches == exp.rounds and idle.launches == 0
+    assert 0.0 <= r.mean_acc <= 1.0 and r.comm_bytes > 0
+
+
+@pytest.mark.parametrize("x", [1001, 4098])   # odd; X % 4 = 2
+@pytest.mark.parametrize("n", [1, 5, 20, 33])
+@pytest.mark.parametrize("s", [1, 2, 4])
+def test_stack_kernel_matches_plain(cuda, s, n, x):
+    g = torch.Generator(device=cuda).manual_seed(s * 1000 + n)
+    w = torch.rand((n, n), generator=g, device=cuda)
+    w = w / w.sum(dim=1, keepdim=True)
+    c = torch.randn((s, n, x), generator=g, device=cuda)
+    before = gossip_mix_stack.launches
+    out = gossip_mix_stack(w, c)
+    assert gossip_mix_stack.launches == before + 1
+    assert out.shape == c.shape and out.dtype == torch.float32
+    assert _max_err(out, gossip_mix_stack_ref(w, c)) <= TOL
+
+
+def test_stack_kernel_past_2_to_the_31_elements(cuda):
+    """S·N·X = 2,147,483,776 > 2^31: the last slab's offsets need int64
+    (8.6 GB each way). Checked slab by slab against the flat plain mix."""
+    s, n, x = 4, 32, 16_777_217
+    g = torch.Generator(device=cuda).manual_seed(5)
+    w = torch.rand((n, n), generator=g, device=cuda)
+    w = w / w.sum(dim=1, keepdim=True)
+    c = torch.randn((s, n, x), generator=g, device=cuda)
+    out = gossip_mix_stack(w, c)
+    torch.cuda.synchronize()
+    for k in range(s):
+        assert _max_err(out[k], gossip_mix_flat_ref(w, c[k])) <= TOL, k
+
+
+def test_stack_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    w = torch.rand((6, 6), generator=g, device=cuda)
+    c = torch.randn((2, 6, 64), generator=g, device=cuda)
+    with pytest.raises(ValueError, match="stack"):
+        gossip_mix_stack(w, c[0])
+    with pytest.raises(ValueError, match="shape"):
+        gossip_mix_stack(w[:4, :4].contiguous(), c)
+    with pytest.raises(TypeError, match="float32"):
+        gossip_mix_stack(w.double(), c.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        gossip_mix_stack(w, c.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="devices"):
+        gossip_mix_stack(w.cpu(), c)
+
+
+@pytest.mark.parametrize("method,kernel", [
+    ("dfl_fedem", gossip_mix_stack), ("cfl_fedem", gossip_mix_stack),
+    ("dfl_fedavg", gossip_mix_flat), ("cfl_pfedme", gossip_mix_flat),
+    ("dfl_ifca", gossip_mix_flat)])
+def test_baselines_launch_their_exchange_kernel_once_per_round(cuda, method, kernel):
+    data = make_mixture_classification(n_clients=8, n_per_client=64, dim=16,
+                                       n_classes=4)
+    exp = PaperExpConfig(n_clients=8, n_per_client=64, dim=16, n_classes=4,
+                         rounds=3, avg_degree=3.0)
+    reset_launch_counts()
+    r = run_method(method, data, exp)
+    assert kernel.launches == exp.rounds
+    other = gossip_mix_flat if kernel is gossip_mix_stack else gossip_mix_stack
+    assert other.launches == 0
     assert 0.0 <= r.mean_acc <= 1.0 and r.comm_bytes > 0
 
 
