@@ -19,8 +19,8 @@ Phases, in order; any failure exits non-zero before the result line:
    the mlp's plane (qblock 64), with the fp32 serving path's own
    ``torch.matmul(u, plane)`` and a store of the output alone
    (``fill_``) timed beside them; ``gossip_mix_dequant``
-   also at the gossip shape (M = N = 20, qblock 256) and at widths whose
-   rows rule out 16- and 8-byte stores, for correctness only;
+   also at the int8 exchange's shape (M = N = 20, qblock 256), and at
+   widths whose rows rule out 16- and 8-byte stores for correctness only;
    ``gossip_mix_stack`` (the FedEM exchange) the same way at (S, N, X) =
    (2, 20, 17,226), (2, 20, 4,194,304) and (3, 37, 100,003), with one
    ``torch.matmul`` broadcast over S as its yardstick;
@@ -46,8 +46,24 @@ Phases, in order; any failure exits non-zero before the result line:
    launches once per round in the FedEM ids and nowhere else,
    ``gossip_mix_flat`` once per round in the FedAvg, pFedMe and IFCA ids;
    accuracy finite in [0, 1] and comm bytes equal to the static formula;
-7. a torch.profiler window over 3 rounds of the main path: device time
-   per round, the kernels that take it, and the device's busy share.
+7. the sparse and compressed exchange, the fourth path: the sparse mix
+   (``gossip_mix_sparse``) and the masked dequant mix
+   (``gossip_mix_dequant_masked``) against their plain versions (max abs
+   error <= 1e-5, inactive columns exact zeros) and timed, at N = 20
+   with density-0.2 masks and int8 at block 256: X = 17,226 (the mlp),
+   random masks and every client's support in one shared 20 % band (80 %
+   of the slabs dead), and X = 4,194,304 (past L2) both ways, beside
+   their bounds, plain versions and, for the sparse mix, one
+   ``torch.matmul(w, c)``; one full-width sparse + int8 + error-feedback
+   round on the card against the CPU with the same injected draws; then
+   ``run_method("fedspd", ...)`` for 5 rounds with dense int8 + error
+   feedback, dense topk + error feedback, sparse d0.2 (DisPFL, RigL at
+   round 4) and sparse d0.2 + int8 + error feedback, every launch
+   counter set to 0 just before each run and read just after, launches
+   and ``wire_bytes`` checked exactly;
+8. a torch.profiler window over 3 rounds of the main path, and one of the
+   sparse + int8 path: device time per round, the kernels that take it,
+   and the device's busy share.
 
 It then prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line. Needs one card and no network; it
@@ -75,9 +91,11 @@ ROUNDS = 5
 # bench_mixture_qps, and a batch whose 70.8 MB output is past the L2
 SERVE_SHAPES = [(20, 2, 17226, 64), (256, 2, 17226, 64), (1024, 2, 17226, 64)]
 SERVE_B = 256
-# gossip_mix_dequant for correctness only: the gossip shape (M = N), and
-# widths padded to Xp = 1,010 (no 16-byte rows) and 999 (odd: no 8-byte rows)
-DEQUANT_CHECKS = [(20, 20, 17226, 256), (37, 5, 1001, 10), (7, 3, 999, 3)]
+# gossip_mix_dequant also at the int8 exchange's shape (M = N = 20, timed),
+# and for correctness only at widths padded to Xp = 1,010 (no 16-byte
+# rows) and 999 (odd: no 8-byte rows)
+GOSSIP_DEQUANT = (20, 20, 17226, 256)
+DEQUANT_CHECKS = [GOSSIP_DEQUANT, (37, 5, 1001, 10), (7, 3, 999, 3)]
 SERVE_TOL = 1e-4
 # gossip_mix_stack, (S, N, X): the FedEM exchange at the main path's
 # width, past L2, and N above one 32-row chunk with an odd X
@@ -85,6 +103,17 @@ STACK_SHAPES = [(2, 20, 17226), (2, 20, 4194304), (3, 37, 100003)]
 BASELINES = ("local", "dfl_fedavg", "cfl_fedavg", "dfl_fedem", "cfl_fedem",
              "dfl_ifca", "cfl_ifca", "dfl_fedsoft", "cfl_fedsoft",
              "dfl_pfedme", "cfl_pfedme")
+# the sparse lane of benchmarks/perf_roundstep.py (fedspd/sparse_d20)
+SPARSE = dict(density=0.2, prune_rate=0.2, regrow="rigl", update_every=4)
+QBLOCK = 256   # CommConfig's default block
+# kernels 5 and 6, (N, X, mask layout): the mlp's width with random
+# density-0.2 masks and with every client's support in one shared 20 %
+# band (80 % of the slabs dead), and the same past the 50 MB L2
+SPARSE_SHAPES = [(20, 17226, "random"), (20, 17226, "band"),
+                 (20, 4194304, "random"), (20, 4194304, "band")]
+# wire bytes per message of the mlp (X = 17,226, 68,904 model bytes) on
+# the four sparse/comm runs: dense int8, dense topk, sparse fp32, sparse int8
+WIRE_PER_MSG = {"int8": 17498, "topk": 8608, "sparse": 15934, "sparse_int8": 5655}
 
 
 def fail(msg: str) -> None:
@@ -139,11 +168,12 @@ def graph_ms(fn, reps: int = 100, iters: int = 20) -> float:
 
 
 def bound(n: int, x: int, kernel: str, noise: bool = False, m: int = 0,
-          qblock: int = 1, s: int = 1) -> tuple[float, str]:
+          qblock: int = 1, s: int = 1, live: int = 0, width: int = 0) -> tuple[float, str]:
     """(least ms, "bytes" | "operations"): each input read once, each
     output written once; fp32 arithmetic. For the dequant kernels ``x`` is
     the padded width Xp and ``m`` the output rows; ``s`` is the stack's
-    slab count."""
+    slab count; ``live`` the sparse kernels' live columns (the work this
+    run's masks need), ``width`` the masked dequant's logical width X."""
     if kernel == "gossip_mix_stack":
         nbytes = 4 * (n * n + 2 * s * n * x)
         flops = 2 * s * n * n * x
@@ -154,6 +184,16 @@ def bound(n: int, x: int, kernel: str, noise: bool = False, m: int = 0,
     elif kernel == "gossip_mix_flat":
         nbytes = 4 * (n * n + 2 * n * x)
         flops = 2 * n * n * x
+    elif kernel == "gossip_mix_sparse":
+        # W, the activity vector, the live columns of C, the whole output
+        nbytes = 4 * (n * n + x + n * live + n * x)
+        flops = 2 * n * n * live
+    elif kernel == "gossip_mix_dequant_masked":
+        # the payload, scales and fp32 mask on the live columns, an
+        # activity vector over the width, the whole (M, Xp) output
+        nbytes = (4 * m * n + n * live + 4 * n * live // qblock + 4 * n * live
+                  + 4 * width + 4 * m * x)
+        flops = 2 * m * n * live
     else:
         nbytes = 4 * (n * n + n + 3 * n * x + (n * x if noise else 0))
         flops = 2 * n * n * x + n * x * (5 if noise else 3)
@@ -288,7 +328,7 @@ def phase_dequant_kernels(torch, gm) -> dict:
             check(err <= TOL, f"{name} B={b} S={s} X={x} qblock={qblock}: "
                               f"max abs err {err} > {TOL}")
             row = dict(m=b, n=s, x=x, xp=xp, qblock=qblock, max_abs_err=err)
-            if (b, s, x, qblock) in SERVE_SHAPES:
+            if (b, s, x, qblock) in SERVE_SHAPES + [GOSSIP_DEQUANT]:
                 small = 4 * b * xp < 32 * 2**20   # graph replay; else events
                 iters = 200 if small else 20
 
@@ -317,6 +357,212 @@ def phase_dequant_kernels(torch, gm) -> dict:
         for r in rs:
             print(f"kernel {name} " + json.dumps(r), flush=True)
     return rows
+
+
+def _sparse_operands(torch, n: int, x: int, layout: str, seed: int):
+    """(w, mask, c, col_active, enc): a row-stochastic W, density-0.2 masks
+    (``random``: every client its own k_active columns; ``band``: every
+    client the same k_active-wide band in the middle of X), C zero off the
+    mask, and C encoded as the int8 exchange encodes it (block 256,
+    stochastic rounding)."""
+    from repro_torch.comm.codecs import Channel, CommConfig
+    from repro_torch.core.sparse import SparseConfig, column_activity, init_masks
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.rand((n, n), generator=g, device=dev)
+    w = w / w.sum(dim=1, keepdim=True)
+    sp = SparseConfig(density=SPARSE["density"])
+    if layout == "random":
+        mask = init_masks(g, n, x, sp)
+    else:
+        k = sp.k_active(x)
+        lo = (x - k) // 2
+        mask = torch.zeros((n, x), device=dev)
+        mask[:, lo:lo + k] = 1.0
+    c = torch.randn((n, x), generator=g, device=dev) * mask
+    enc = Channel(CommConfig(codec="int8", block=QBLOCK), x).encode(c, g)
+    return w, mask, c, column_activity(mask), enc
+
+
+def phase_sparse_kernels(torch, gm) -> dict:
+    """Kernels 5 and 6 against their plain versions at SPARSE_SHAPES, the
+    inactive columns exact zeros, timed beside their bounds."""
+    rows = {"gossip_mix_sparse": [], "gossip_mix_dequant_masked": []}
+    for n, x, layout in SPARSE_SHAPES:
+        w, mask, c, act, enc = _sparse_operands(torch, n, x, layout, seed=n + x)
+        q, sc = enc["q"], enc["scale"]
+        xp = q.shape[1]
+        small = 4 * n * x < 32 * 2**20   # graph replay; else events
+        iters = 200 if small else 20
+
+        def timed(fn):
+            return graph_ms(fn) if small else time_ms(fn, iters)
+
+        live = int(act.sum())
+        slabs = torch.nn.functional.pad(act, (0, -x % 128)).view(-1, 128).amax(dim=1)
+        dead_share = 1.0 - float(slabs.mean())
+        dead = act == 0
+        out = gm.gossip_mix_sparse(w, c, act)
+        torch.cuda.synchronize()
+        err = float((out - gm.gossip_mix_sparse_ref(w, c, act)).abs().max())
+        check(err <= TOL, f"gossip_mix_sparse N={n} X={x} {layout}: max abs err {err} > {TOL}")
+        check(bool((out[:, dead] == 0).all()),
+              f"gossip_mix_sparse N={n} X={x} {layout}: inactive columns not exact zeros")
+        b_ms, b_by = bound(n, x, "gossip_mix_sparse", live=live)
+        rows["gossip_mix_sparse"].append(dict(
+            n=n, x=x, layout=layout, x_live=live, dead_slab_share=dead_share,
+            max_abs_err=err, ms=timed(lambda: gm.gossip_mix_sparse(w, c, act)),
+            plain_ms=timed(lambda: gm.gossip_mix_sparse_ref(w, c, act)),
+            library_ms=timed(lambda: torch.matmul(w, c)), bound_ms=b_ms, bound_by=b_by,
+            call_ms=time_ms(lambda: gm.gossip_mix_sparse(w, c, act), iters)))
+
+        out = gm.gossip_mix_dequant_masked(w, q, sc, mask, act, qblock=QBLOCK)
+        torch.cuda.synchronize()
+        want = gm.gossip_mix_dequant_masked_ref(w, q, sc, mask, act, qblock=QBLOCK)
+        err = float((out - want).abs().max())
+        check(err <= TOL, f"gossip_mix_dequant_masked N={n} X={x} {layout}: "
+                          f"max abs err {err} > {TOL}")
+        check(bool((out[:, :x][:, dead] == 0).all()) and bool((out[:, x:] == 0).all()),
+              f"gossip_mix_dequant_masked N={n} X={x} {layout}: inactive columns not "
+              "exact zeros")
+        b_ms, b_by = bound(n, xp, "gossip_mix_dequant_masked", m=n, qblock=QBLOCK, live=live,
+                           width=x)
+        rows["gossip_mix_dequant_masked"].append(dict(
+            m=n, n=n, x=x, xp=xp, qblock=QBLOCK, layout=layout, x_live=live,
+            dead_slab_share=dead_share, max_abs_err=err,
+            ms=timed(lambda: gm.gossip_mix_dequant_masked(w, q, sc, mask, act,
+                                                          qblock=QBLOCK)),
+            plain_ms=timed(lambda: gm.gossip_mix_dequant_masked_ref(w, q, sc, mask, act,
+                                                                    qblock=QBLOCK)),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            call_ms=time_ms(lambda: gm.gossip_mix_dequant_masked(w, q, sc, mask, act,
+                                                                 qblock=QBLOCK), iters)))
+        del w, mask, c, act, enc, q, sc, out, want
+        torch.cuda.empty_cache()
+    for name, rs in rows.items():
+        for r in rs:
+            print(f"kernel {name} " + json.dumps(r), flush=True)
+    return rows
+
+
+def phase_sparse_agreement(torch) -> None:
+    """One full-width sparse + int8 + error-feedback round on the card
+    against the CPU, from one state with the same injected draws: the
+    round after a first (CPU) round, so the residual is not zero; RigL
+    does not fire in it (update_every = 4). Both sides round
+    stochastically from their own fp32 inputs, which differ in the last
+    bits: where an input sits within that distance of a rounding step,
+    the two round one quantum apart (a near-tie, seen as a residual that
+    differs by more than 1e-5). Those columns are counted and left out;
+    every other column must agree within 1e-5."""
+    from repro_torch.comm.codecs import CommConfig
+    from repro_torch.configs.paper_cnn import PaperExpConfig
+    from repro_torch.core.fedspd import FedSPDConfig, make_round_step, seeded_init
+    from repro_torch.core.gossip import GossipSpec, make_mix_fn
+    from repro_torch.core.sparse import SparseConfig, init_masks
+    from repro_torch.data.synthetic import make_mixture_classification
+    from repro_torch.experiments.registry import build_context
+
+    data, exp = make_mixture_classification(), PaperExpConfig()
+    cpu, gpu = torch.device("cpu"), torch.device("cuda")
+    ctxs = {d: build_context(data, exp, d) for d in (cpu, gpu)}
+    n, m, ps = ctxs[cpu].n_clients, data.x.shape[1], ctxs[cpu].pack_spec
+    sp, comm = SparseConfig(**SPARSE), CommConfig(codec="int8", error_feedback=True)
+    cfg = FedSPDConfig(n_clients=n, n_clusters=data.n_clusters, tau=exp.tau, batch=exp.batch)
+    g = torch.Generator().manual_seed(3)
+    st = seeded_init(torch.Generator().manual_seed(0), ctxs[cpu].model_init, cfg,
+                     ctxs[cpu].loss_fn, ctxs[cpu].train, ps, epochs=2)
+    st = st._replace(mask=init_masks(g, n, ps.size, sp),
+                     ef=torch.zeros((n, ps.size)))
+    steps = {}
+    for d in (cpu, gpu):
+        ctx = ctxs[d]
+        spec = GossipSpec.from_graph(ctx.graph)
+        steps[d] = make_round_step(ctx.loss_fn, ctx.pel_fn, spec, cfg, pack_spec=ps,
+                                   mix_fn=make_mix_fn(spec, "cuda", comm=comm),
+                                   comm=comm, sparse=sp)
+    st, _ = steps[cpu](st._replace(gen=torch.Generator().manual_seed(4)), ctxs[cpu].train)
+    check(st.round == 1 and not sp.update_due(st.round), "agreement: round 1 must not fire RigL")
+    s = torch.randint(0, data.n_clusters, (n,), generator=g)
+    idx = torch.randint(0, m, (cfg.tau, n, cfg.batch), generator=g)
+    u = torch.rand((n, -(-ps.size // QBLOCK), QBLOCK), generator=g)
+    out = {}
+    for d in (cpu, gpu):
+        st_d = st._replace(centers=st.centers.to(d, copy=True), u=st.u.to(d), z=st.z.to(d),
+                           comm_bytes=st.comm_bytes.to(d), ef=st.ef.to(d),
+                           mask=st.mask.to(d), gen=torch.Generator(device=d))
+        new, _ = steps[d](st_d, ctxs[d].train, s=s.to(d), idx=idx.to(d), comm_u=u.to(d))
+        out[d.type] = [t.cpu() for t in (new.centers, new.ef, new.mask, new.u, new.z,
+                                         new.comm_bytes)]
+    (pc, ec, mc, uc, zc, bc), (pg, eg, mg, ug, zg, bg) = out["cpu"], out["cuda"]
+    ties = (ec - eg).abs() > TOL
+    clean = ~ties.any(dim=0)            # columns no near-tie touches
+    n_active = int(st.mask.sum())
+    plane_err = float((pc - pg)[..., clean].abs().max())
+    ef_err = float((ec - eg)[..., clean].abs().max())
+    agree = float((zc == zg).float().mean())
+    print(f"agreement sparse+int8+ef: plane max abs err {plane_err:.3g}, ef max abs err "
+          f"{ef_err:.3g} (near-ties {int(ties.sum())} of {n_active} active entries, "
+          f"{int((~clean).sum())} of {ps.size} columns left out, max tie diff "
+          f"{float((ec - eg).abs().max()):.3g}), masks equal {bool(torch.equal(mc, mg))}, "
+          f"z agreement {agree:.6f}, u max abs err {float((uc - ug).abs().max()):.3g}, "
+          f"comm_bytes {float(bc)} vs {float(bg)}", flush=True)
+    check(bool(torch.isfinite(pg).all()) and bool(torch.isfinite(eg).all()),
+          "sparse agreement: non-finite plane or residual on the card")
+    check(int(ties.sum()) <= max(8, n_active // 10000),
+          f"sparse agreement: {int(ties.sum())} near-ties, more than rounding noise explains")
+    check(plane_err <= TOL and ef_err <= TOL,
+          f"sparse agreement: plane err {plane_err}, ef err {ef_err} > {TOL}")
+    check(torch.equal(mc, mg), "sparse agreement: masks differ")
+    check(agree >= 0.99, f"sparse agreement: z agreement {agree} < 0.99")
+    check(float(bc) == float(bg), "sparse agreement: comm_bytes differ")
+
+
+def phase_sparse_comm_path(torch, gm) -> tuple[dict, float]:
+    """The fourth path: FedSPD for ROUNDS rounds with a wire codec and with
+    DisPFL masks. Returns the launches summed over its runs and the
+    sparse + int8 run's median round ms."""
+    from repro_torch.comm.codecs import CommConfig
+    from repro_torch.configs.paper_cnn import PaperExpConfig
+    from repro_torch.core.sparse import SparseConfig
+    from repro_torch.data.synthetic import make_mixture_classification
+    from repro_torch.experiments import RunConfig, run_method
+
+    data, exp = make_mixture_classification(), PaperExpConfig(rounds=ROUNDS)
+    sp = SparseConfig(**SPARSE)
+    int8, topk = (CommConfig(codec=c, error_feedback=True) for c in ("int8", "topk"))
+    total, sparse_ms = {k.__name__: 0 for k in gm.KERNELS}, None
+    for label, kw, wire, want in (
+            ("dense int8+ef", dict(comm=int8), "int8", {"gossip_mix_dequant": ROUNDS}),
+            ("dense topk+ef", dict(comm=topk), "topk", {"gossip_mix_flat": ROUNDS}),
+            ("sparse d0.2", dict(sparse=sp), "sparse", {"gossip_mix_sparse": 2 * ROUNDS}),
+            ("sparse d0.2 int8+ef", dict(sparse=sp, comm=int8), "sparse_int8",
+             {"gossip_mix_dequant_masked": ROUNDS, "gossip_mix_sparse": ROUNDS})):
+        gm.reset_launch_counts()
+        r = run_method("fedspd", data, exp, cfg=RunConfig(gossip_backend="cuda", **kw))
+        counts = {k.__name__: k.launches for k in gm.KERNELS}
+        for k, c in counts.items():
+            total[k] += c
+        ms = r.extras["round_ms"]
+        med = statistics.median(ms[1:])
+        if label == "sparse d0.2 int8+ef":
+            sparse_ms = med
+        print(f"sparse/comm {label}: mean_acc {r.mean_acc:.6f} std_acc {r.std_acc:.6f} "
+              f"comm_bytes {r.comm_bytes:.0f} wire_bytes {r.wire_bytes:.1f} "
+              f"wire/comm {r.wire_bytes / r.comm_bytes:.6f} launches {json.dumps(counts)} "
+              f"round_ms median(rounds 2-{ROUNDS}) {med:.3f} first {ms[0]:.3f} "
+              f"all {json.dumps([round(v, 3) for v in ms])} wall_s {r.wall_s:.2f}", flush=True)
+        expect = {k: 0 for k in counts}
+        expect.update(want)
+        check(counts == expect, f"sparse/comm {label}: launches {counts}, expected {expect}")
+        check(r.wire_bytes == r.comm_bytes * (WIRE_PER_MSG[wire] / 68904.0),
+              f"sparse/comm {label}: wire_bytes {r.wire_bytes} != comm_bytes "
+              f"{r.comm_bytes} x {WIRE_PER_MSG[wire]}/68904")
+        check(math.isfinite(r.mean_acc) and 0.0 <= r.mean_acc <= 1.0,
+              f"sparse/comm {label}: mean_acc {r.mean_acc} not finite in [0, 1]")
+        check(r.comm_bytes > 0, f"sparse/comm {label}: no bytes accounted")
+    return total, sparse_ms
 
 
 def phase_agreement(torch) -> None:
@@ -383,10 +629,11 @@ def phase_agreement(torch) -> None:
           f"card vs CPU dfl_fedem round: plane err {err}, u err {u_err} > 1e-4")
 
 
-def phase_profile(torch, round_ms: float) -> None:
+def phase_profile(torch, round_ms: float, label: str = "main", **run) -> None:
     """Where a round's device time goes: 3 rounds of the main path (DP off,
-    after 2 rounds of warm-up) under torch.profiler. The busy share is the
-    profiled device time per round over the unprofiled round time."""
+    after 2 rounds of warm-up; ``run``: RunConfig fields of another path)
+    under torch.profiler. The busy share is the profiled device time per
+    round over the unprofiled round time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.paper_cnn import PaperExpConfig
@@ -397,7 +644,7 @@ def phase_profile(torch, round_ms: float) -> None:
 
     dev, rounds = torch.device("cuda"), 3
     ctx = build_context(make_mixture_classification(), PaperExpConfig(), dev,
-                        options=RunConfig(gossip_backend="cuda").resolve_options())
+                        options=RunConfig(gossip_backend="cuda", **run).resolve_options())
     m = get_method("fedspd")
     state = m.init(ctx, make_generator(dev, 0))
     step = m.make_step(ctx)
@@ -416,17 +663,19 @@ def phase_profile(torch, round_ms: float) -> None:
     check(bool(kern), "profile: the profiler recorded no device kernel")
     dev_ms = sum(e.self_device_time_total for e in kern) / 1e3 / rounds
     launches = sum(e.count for e in kern) / rounds
-    gossip_ms = sum(e.self_device_time_total for e in kern if "mix_kernel" in e.key) / 1e3 / rounds
-    print(f"profile: device_ms_per_round {dev_ms:.4f} kernels_per_round {launches:.0f} "
+    gossip_ms = sum(e.self_device_time_total for e in kern
+                    if "mix_kernel" in e.key or "mix_dequant_kernel" in e.key) / 1e3 / rounds
+    prefix = "profile" if label == "main" else f"profile {label}"
+    print(f"{prefix}: device_ms_per_round {dev_ms:.4f} kernels_per_round {launches:.0f} "
           f"gossip_ms_per_round {gossip_ms:.4f} unprofiled round_ms {round_ms:.3f} "
           f"device_busy_share {dev_ms / round_ms:.4f}", flush=True)
     for e in kern[:10]:
-        print(f"profile kernel {e.self_device_time_total / 1e3 / rounds:.4f} ms/round "
+        print(f"{prefix} kernel {e.self_device_time_total / 1e3 / rounds:.4f} ms/round "
               f"x{e.count // rounds}/round {e.key[:90]}", flush=True)
     ops = sorted((e for e in ka if e.device_type.name == "CPU" and e.key.startswith("aten::")),
                  key=lambda e: -e.device_time_total)
     for e in ops[:8]:
-        print(f"profile op {e.device_time_total / 1e3 / rounds:.4f} device ms/round "
+        print(f"{prefix} op {e.device_time_total / 1e3 / rounds:.4f} device ms/round "
               f"x{e.count // rounds}/round {e.key}", flush=True)
 
 
@@ -609,6 +858,8 @@ def main() -> None:
           f"{sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}",
           flush=True)
 
+    from repro_torch.comm.codecs import CommConfig
+    from repro_torch.core.sparse import SparseConfig
     from repro_torch.kernels import build
     from repro_torch.kernels import gossip_mix as gm
 
@@ -624,17 +875,29 @@ def main() -> None:
     rows = phase_kernels(torch, gm)
     stack_rows = phase_stack_kernel(torch, gm)
     serve_rows = phase_dequant_kernels(torch, gm)
+    sparse_rows = phase_sparse_kernels(torch, gm)
     phase_agreement(torch)
+    phase_sparse_agreement(torch)
     launches, round_ms, kept = phase_main_path(torch, gm)
     serve_launches = phase_serve(torch, gm, kept)
     baseline_launches = phase_baselines(torch, gm)
+    sparse_launches, sparse_round_ms = phase_sparse_comm_path(torch, gm)
     phase_profile(torch, round_ms)
+    phase_profile(torch, sparse_round_ms, label="sparse+int8", sparse=SparseConfig(**SPARSE),
+                  comm=CommConfig(codec="int8", error_feedback=True))
 
+    # every launch on the driven paths: the FedSPD main path (DP off and
+    # on), serving, the baselines and the sparse/comm runs
+    for path in (serve_launches, baseline_launches, sparse_launches):
+        for name, c in path.items():
+            launches[name] = launches.get(name, 0) + c
     replaces = {"gossip_mix_flat": "src/repro/kernels/gossip_mix.py:63",
                 "gossip_mix_stack": "src/repro/kernels/gossip_mix.py:94",
                 "gossip_mix_fused_dp": "src/repro/kernels/gossip_mix.py:448",
                 "gossip_mix_dequant": "src/repro/kernels/gossip_mix.py:215",
-                "mixture_mix_dequant4": "src/repro/kernels/gossip_mix.py:362"}
+                "mixture_mix_dequant4": "src/repro/kernels/gossip_mix.py:362",
+                "gossip_mix_sparse": "src/repro/kernels/gossip_mix.py:160",
+                "gossip_mix_dequant_masked": "src/repro/kernels/gossip_mix.py:290"}
     kernels = []
     for name, rs in rows.items():
         # the main path's own shape; the DP run draws noise (sigma > 0)
@@ -652,7 +915,7 @@ def main() -> None:
         name="gossip_mix_stack", route="cuda",
         source="src/repro_torch/kernels/csrc/gossip_mix.cu",
         replaces=replaces["gossip_mix_stack"],
-        launches=baseline_launches["gossip_mix_stack"],
+        launches=launches["gossip_mix_stack"],
         max_abs_err=max(r["max_abs_err"] for r in stack_rows), ms=main["ms"],
         plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
         library_ms=main["library_ms"], shape={"s": main["s"], "n": main["n"], "x": main["x"]},
@@ -663,11 +926,22 @@ def main() -> None:
         kernels.append(dict(
             name=name, route="cuda",
             source="src/repro_torch/kernels/csrc/gossip_mix_dequant.cu",
-            replaces=replaces[name], launches=serve_launches[name],
+            replaces=replaces[name], launches=launches[name],
             max_abs_err=max(r["max_abs_err"] for r in rs), ms=main["ms"],
             plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
             bound_by=main["bound_by"], library_ms=None,
             shape={"b": main["m"], "s": main["n"], "x": main["x"], "qblock": main["qblock"]},
+            card=card, shapes=rs))
+    for name, rs in sparse_rows.items():
+        # the sparse exchange's own shape: the mlp, random density-0.2 masks
+        main = next(r for r in rs if r["x"] == SPARSE_SHAPES[0][1] and r["layout"] == "random")
+        kernels.append(dict(
+            name=name, route="cuda", source="src/repro_torch/kernels/csrc/gossip_mix.cu",
+            replaces=replaces[name], launches=launches[name],
+            max_abs_err=max(r["max_abs_err"] for r in rs), ms=main["ms"],
+            plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            library_ms=main["library_ms"],
+            shape={"n": main["n"], "x": main["x"], "layout": main["layout"]},
             card=card, shapes=rs))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

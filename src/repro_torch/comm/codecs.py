@@ -1,49 +1,51 @@
-"""Quantized wire codecs for the packed parameter plane: the subset that
-ships a plane.
+"""Wire codecs for the packed parameter plane: what crosses an edge when
+a round exchanges its ``(N, X)`` slab, and the exact bytes it costs.
 
-The JAX package's ``comm/codecs.py`` for the ``int8`` and ``int4``
-codecs: per-block scales along the flat X axis (``max|x| / qmax`` per
-``block`` columns), rounding ``"nearest"`` (``floor(y + 1/2)``, what a
-one-time export uses) or ``"stochastic"`` (``floor(y + u)``, u uniform in
-[0, 1), unbiased), and the exact wire image of an encoded batch
-(``Channel.serialize_payload``): int8 quanta as raw bytes, or int4 as
-paired two's-complement nibbles (element 2i in the low nibble), followed
-by the scales in fp32 (int8) or fp16 (int4). The bytes equal the JAX
-package's for the same input, so an artifact written by either package
-loads in the other.
+The JAX package's ``comm/codecs.py``:
+
+- ``fp32``: the uncompressed exchange; ``make_channel`` returns ``None``
+  for it, so every call site keeps its uncompressed code path.
+- ``int8`` / ``int4``: per-block scales along the flat X axis
+  (``max|x| / qmax`` per ``block`` columns), rounding ``"nearest"``
+  (``floor(y + 1/2)``, what a one-time export uses) or ``"stochastic"``
+  (``floor(y + u)``, u uniform in [0, 1), unbiased). The wire image of an
+  encoded batch (``Channel.serialize_payload``) is int8 quanta as raw
+  bytes, or int4 as paired two's-complement nibbles (element 2i in the
+  low nibble), followed by the scales in fp32 (int8) or fp16 (int4). The
+  bytes equal the JAX package's for the same input, so an artifact
+  written by either package loads in the other.
+- ``topk``: the k largest-|x| entries of each message as (value, index)
+  pairs, 8k bytes; ties go to the lower index, as ``jax.lax.top_k``
+  breaks them, on the CPU and on the card alike.
+
+Error feedback: the channel carries a per-client residual e; each round
+sends encode(x + e) and keeps e' = (x + e) − decode(encode(x + e)).
 
 Stochastic rounding takes its uniform draw as a ``torch.Generator`` or as
 an injected tensor of the blocked shape ``(..., Xp / block, block)``, so
 a test can feed both packages the same draw.
-
-Not ported yet (each raises ``ValueError`` naming itself): the ``topk``
-codec, error feedback (``init_residual``, ``encode_stream``,
-``split_ef``/``join_ef``), ``exchange``, ``make_channel`` and
-``sparse_wire_model_bytes``. They arrive with the comm slice, when
-``RunConfig.comm`` runs the round's exchange through the codecs.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-CODECS = ("fp32", "int8", "int4")
+from repro_torch.core.sparse import top_k
 
-
-def _unported(what: str):
-    raise ValueError(
-        f"{what} is not ported yet; the port's comm/codecs.py has the "
-        "plane-shipping subset (int8/int4 quantization and its wire format)")
+CODECS = ("fp32", "int8", "int4", "topk")
 
 
 @dataclasses.dataclass(frozen=True)
 class CommConfig:
-    """Communication-compression knob: ``codec`` and ``block``, the
-    quantization-scale granularity along X (one scale per block)."""
+    """Communication-compression knob (``RunConfig(comm=...)``).
+
+    ``block`` is the quantization-scale granularity along X (one scale per
+    block); ``k`` the survivors per message for ``topk`` (default X // 16);
+    ``error_feedback`` carries the residual through the round loop."""
 
     codec: str = "fp32"
     block: int = 256
@@ -51,17 +53,13 @@ class CommConfig:
     error_feedback: bool = False
 
     def __post_init__(self):
-        if self.codec == "topk":
-            _unported("codec 'topk' (top-k sparsification)")
         if self.codec not in CODECS:
             raise ValueError(
                 f"unknown codec {self.codec!r}; expected one of {CODECS}")
         if self.block <= 0:
             raise ValueError(f"block must be positive, got {self.block}")
-        if self.k is not None:
-            _unported("CommConfig.k (top-k sparsification)")
-        if self.error_feedback:
-            _unported("CommConfig.error_feedback (error-feedback residuals)")
+        if self.k is not None and self.k <= 0:
+            raise ValueError(f"k must be positive, got {self.k}")
 
 
 def _quant_bits(codec: str) -> int:
@@ -137,22 +135,43 @@ def int4_unpack(packed: torch.Tensor, width: int) -> torch.Tensor:
     return v[..., :width].to(torch.int8)
 
 
-def topk_encode(x, k):
-    _unported("topk_encode (the topk codec)")
+def topk_encode(x: torch.Tensor, k: int) -> dict:
+    """x ``(..., X)`` -> {"v": ``(..., k)`` fp32, "i": ``(..., k)`` int32}:
+    the k largest |x| per message, ties to the lower index."""
+    x = x.float()
+    idx = top_k(x.abs(), k)
+    return {"v": torch.gather(x, -1, idx), "i": idx.to(torch.int32)}
 
 
-def topk_decode(enc, *, x_width):
-    _unported("topk_decode (the topk codec)")
+def topk_decode(enc: dict, *, x_width: int) -> torch.Tensor:
+    """Scatter the (value, index) pairs into zeros of width ``x_width``."""
+    v = enc["v"].float()
+    out = torch.zeros(v.shape[:-1] + (x_width,), dtype=torch.float32,
+                      device=v.device)
+    return out.scatter_(-1, enc["i"].long(), v)
 
 
 @dataclasses.dataclass(frozen=True)
 class Channel:
-    """One quantized codec bound to a flat message width X.
-    ``wire_model_bytes`` is the exact physical payload of one message:
-    what ``serialize_payload`` emits per row."""
+    """One codec bound to a flat message width X. ``wire_model_bytes`` is
+    the exact physical payload of one message (for int8/int4: what
+    ``serialize_payload`` emits per row). ``fused`` marks the codecs whose
+    encoded payload the fused dequantize+mix kernel reads directly."""
 
     cfg: CommConfig
     x: int  # logical flat message width
+
+    @property
+    def has_ef(self) -> bool:
+        return self.cfg.error_feedback
+
+    @property
+    def fused(self) -> bool:
+        return self.cfg.codec in ("int8", "int4")
+
+    @property
+    def k(self) -> int:
+        return self.cfg.k if self.cfg.k is not None else max(1, self.x // 16)
 
     @property
     def scale_wire_dtype(self) -> torch.dtype:
@@ -173,18 +192,31 @@ class Channel:
             return 4 * self.x
         if c.codec == "int8":
             return int(self.x + self.scale_bytes)
-        return int(-(-self.x // 2) + self.scale_bytes)   # int4: paired nibbles
+        if c.codec == "int4":
+            return int(-(-self.x // 2) + self.scale_bytes)   # paired nibbles
+        return int(8 * min(self.k, self.x))  # topk: fp32 value + int32 index
+
+    def wire_ratio(self, logical_model_bytes: int) -> float:
+        """Wire over logical bytes per message (exact, static per model)."""
+        return self.wire_model_bytes / float(logical_model_bytes)
 
     def encode(self, x: torch.Tensor, key=None, *,
                rounding: str = "stochastic") -> dict:
+        """int8/int4: ``key`` is the stochastic rounding's draw (see
+        ``quant_encode``); topk takes none."""
         c = self.cfg
-        if c.codec not in ("int8", "int4"):
-            raise ValueError(f"codec {c.codec!r} has no encoded form")
-        return quant_encode(x, key, bits=_quant_bits(c.codec), block=c.block,
-                            scale_dtype=self.scale_wire_dtype,
-                            rounding=rounding)
+        if c.codec in ("int8", "int4"):
+            return quant_encode(x, key, bits=_quant_bits(c.codec),
+                                block=c.block,
+                                scale_dtype=self.scale_wire_dtype,
+                                rounding=rounding)
+        if c.codec == "topk":
+            return topk_encode(x, min(self.k, self.x))
+        raise ValueError(f"codec {c.codec!r} has no encoded form")
 
     def decode(self, enc: dict) -> torch.Tensor:
+        if self.cfg.codec == "topk":
+            return topk_decode(enc, x_width=self.x)
         return quant_decode(enc, block=self.cfg.block, x_width=self.x)
 
     def serialize_payload(self, enc: dict) -> bytes:
@@ -230,28 +262,95 @@ class Channel:
         sc = np.frombuffer(data[split:], dtype=wire).reshape(batch + (nq,))
         return {"q": q, "scale": torch.from_numpy(sc.astype(np.float32))}
 
-    def init_residual(self, batch_prefix: tuple):
-        _unported("Channel.init_residual (error feedback)")
+    def init_residual(self, batch_prefix: tuple, *,
+                      device: str | torch.device) -> Optional[torch.Tensor]:
+        """The error-feedback residual carried in the round loop: fp32 zeros
+        of shape ``batch_prefix + (X,)`` on ``device``, or None without
+        error feedback."""
+        if not self.has_ef:
+            return None
+        return torch.zeros(tuple(batch_prefix) + (self.x,), dtype=torch.float32,
+                           device=device)
 
-    def encode_stream(self, x, key, ef, *, need_hat: bool = False):
-        _unported("Channel.encode_stream (error feedback)")
+    def encode_stream(self, x: torch.Tensor, key,
+                      ef: Optional[torch.Tensor], *, need_hat: bool = False):
+        """One channel use: returns (enc, x_hat or None, ef'). The decode
+        ``x_hat`` is made only when error feedback or the caller
+        (``need_hat``) needs it: the fused kernel path without error
+        feedback never decodes outside the kernel."""
+        msg = x.float() + ef if ef is not None else x
+        enc = self.encode(msg, key)
+        x_hat = self.decode(enc) if self.has_ef or need_hat else None
+        if self.has_ef:
+            ef = msg.float() - x_hat
+        return enc, x_hat, ef
+
+    def roundtrip(self, x: torch.Tensor, key, ef: Optional[torch.Tensor]):
+        """decode(encode(x + ef)) and the residual update: what the
+        receivers see, and what the sender keeps. Returns (x_hat, ef')."""
+        _, x_hat, ef = self.encode_stream(x, key, ef, need_hat=True)
+        return x_hat, ef
 
 
-def sparse_wire_model_bytes(cfg, x, k_active):
-    _unported("sparse_wire_model_bytes (sparse wire accounting)")
+def sparse_wire_model_bytes(cfg: Optional[CommConfig], x: int,
+                            k_active: int) -> int:
+    """Exact bytes of one sparse (DisPFL) message: the ``k_active`` active
+    values gathered into a compact run and encoded (scales cover the run,
+    never dead columns), after a ``ceil(X/8)``-byte support bitmap:
+
+    - fp32: ``4·k + ceil(X/8)``
+    - int8: ``k + 4·ceil(k/block) + ceil(X/8)``
+    - int4: ``ceil(k/2) + 2·ceil(k/block) + ceil(X/8)``
+    - topk: ``8·min(topk_k, k)``, no bitmap (the pairs carry indices)."""
+    bitmap = -(-x // 8)
+    if cfg is None or cfg.codec == "fp32":
+        return int(4 * k_active + bitmap)
+    if cfg.codec == "int8":
+        return int(k_active + 4 * -(-k_active // cfg.block) + bitmap)
+    if cfg.codec == "int4":
+        return int(-(-k_active // 2) + 2 * -(-k_active // cfg.block) + bitmap)
+    k_top = cfg.k if cfg.k is not None else max(1, x // 16)
+    return int(8 * min(k_top, k_active))
 
 
-def make_channel(cfg, x_width):
-    _unported("make_channel (codecs in the round's exchange)")
+def make_channel(cfg: Optional[CommConfig], x_width: int) -> Optional[Channel]:
+    """The channel for a flat message width, or None for no compression
+    (``codec="fp32"`` included: the uncompressed exchange keeps its own
+    code path, with no residual and no draw)."""
+    if cfg is None or cfg.codec == "fp32":
+        return None
+    return Channel(cfg=cfg, x=int(x_width))
 
 
-def split_ef(state, channel):
-    _unported("split_ef (error feedback)")
+class WithEF(NamedTuple):
+    """A bare-tensor state and its error-feedback residual, carried
+    together through the round loop."""
+
+    x: Any
+    ef: Any
 
 
-def join_ef(x, ef, channel):
-    _unported("join_ef (error feedback)")
+def split_ef(state, channel: Optional[Channel]):
+    """(payload, residual) from a state that may be ``WithEF``-wrapped."""
+    if channel is not None and channel.has_ef:
+        return state.x, state.ef
+    return state, None
 
 
-def exchange(channel, x, mix, key, ef):
-    _unported("exchange (codecs in the round's exchange)")
+def join_ef(x, ef, channel: Optional[Channel]):
+    """Inverse of ``split_ef``: wrap only when the channel carries error
+    feedback."""
+    if channel is not None and channel.has_ef:
+        return WithEF(x, ef)
+    return x
+
+
+def exchange(channel: Optional[Channel], x: torch.Tensor, mix, key,
+             ef: Optional[torch.Tensor]):
+    """The reference compressed exchange, mix(decode(encode(x + ef))):
+    ``mix`` is any callable on the decoded slab. With ``channel=None`` it
+    is exactly ``mix(x)``. Returns (mixed, ef')."""
+    if channel is None:
+        return mix(x), ef
+    x_hat, ef = channel.roundtrip(x, key, ef)
+    return mix(x_hat), ef

@@ -20,11 +20,20 @@ is one kernel launch, and the scatter writes the mixed rows back into the
 plane IN PLACE (the counterpart of the JAX engine's donated buffer): a
 state passed to the round step must not be reused.
 
+With a wire codec (``make_round_step(comm=...)``) the exchange sends the
+encoded slab and mixes what receivers decode; with error feedback the
+per-client residual rides ``state.ef``. With DisPFL sparse training
+(``sparse=...``, density < 1) every client carries a binary mask over X in
+``state.mask``: local SGD trains on the masked support, the exchange is
+mask-then-encode with a support-renormalised mix, and a RigL prune/regrow
+updates the mask every ``update_every`` rounds.
+
 Random draws come from ``state.gen`` (a ``torch.Generator`` on the plane's
 device). Every draw can be injected instead — the round's selections,
-batch indices and DP noise; ``seeded_init``'s seed clients, initial
-parameters and index tape; ``final_phase``'s index tape — so tests can
-feed both packages the same numbers.
+batch indices, DP noise, the codec's rounding draw, RigL's dense-gradient
+batch indices and its random-regrow scores; ``seeded_init``'s seed
+clients, initial parameters and index tape; ``final_phase``'s index tape —
+so tests can feed both packages the same numbers.
 """
 from __future__ import annotations
 
@@ -34,9 +43,16 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.comm.codecs import CommConfig, make_channel
 from repro_torch.core.clustering import cluster_all_clients
-from repro_torch.core.gossip import GossipSpec, make_mix_fn, round_comm_bytes
+from repro_torch.core.gossip import (
+    GossipSpec,
+    fedspd_weight_matrix,
+    make_mix_fn,
+    round_comm_bytes,
+)
 from repro_torch.core.packing import PackSpec, flat_grad, pack, unpack
+from repro_torch.core.sparse import SparseConfig, column_activity, rigl_update
 from repro_torch.data.pipeline import (
     cluster_batch_indices,
     gather_batches,
@@ -53,6 +69,8 @@ class FedSPDState(NamedTuple):
     round: int
     gen: torch.Generator      # the run's random stream (JAX: state.key)
     comm_bytes: torch.Tensor  # () fp32 cumulative logical bytes
+    ef: torch.Tensor | None = None    # (N, X) error-feedback residual
+    mask: torch.Tensor | None = None  # (N, X) fp32 {0,1} sparse masks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,33 +174,68 @@ def _consensus_per_cluster_flat(plane: torch.Tensor) -> torch.Tensor:
 
 def make_round_step(loss_fn: Callable, per_example_loss: Callable,
                     gossip: GossipSpec, cfg: FedSPDConfig, *,
-                    pack_spec: PackSpec, mix_fn: Callable | None = None):
-    """Returns ``step(state, data, *, s=None, idx=None, noise=None) ->
-    (state, metrics)`` for the "full" regime on the packed plane. ``data``
-    is ``{"inputs": (N, M, d), "targets": (N, M)}`` on the plane's device.
+                    pack_spec: PackSpec, mix_fn: Callable | None = None,
+                    comm: CommConfig | None = None,
+                    sparse: SparseConfig | None = None):
+    """Returns ``step(state, data, *, s=None, idx=None, noise=None,
+    comm_u=None, rigl_idx=None, regrow_scores=None) -> (state, metrics)``
+    for the "full" regime on the packed plane. ``data`` is ``{"inputs":
+    (N, M, d), "targets": (N, M)}`` on the plane's device.
 
     Injectable draws: ``s`` ``(N,)`` selections, ``idx`` ``(τ, N, B)``
     batch indices, ``noise`` ``(N, X)`` standard-normal DP noise (used
-    only when σ = dp_clip · dp_noise_multiplier > 0). ``mix_fn`` comes
-    from ``core/gossip.make_mix_fn`` (the default).
+    only when σ = dp_clip · dp_noise_multiplier > 0), ``comm_u`` ``(N,
+    Xp/block, block)`` the int8/int4 codec's uniform rounding draw,
+    ``rigl_idx`` ``(N, B)`` the batch indices of RigL's dense gradient,
+    ``regrow_scores`` ``(N, X)`` the uniform scores of ``regrow="random"``.
+
+    ``mix_fn`` comes from ``core/gossip.make_mix_fn(comm=comm)`` (the
+    default); with a codec it must be comm-aware, with sparse it must
+    carry ``sparse_matmul`` (and, with int8/int4, ``sparse_dequant``).
+
+    ``comm`` runs the exchange through a wire codec (``state.ef`` carries
+    the residual with error feedback). A DP round with a codec sanitizes
+    first, then encodes: the fused DP kernel is for the uncompressed
+    exchange only. ``state.comm_bytes`` keeps counting logical bytes.
+
+    ``sparse`` (density < 1) runs DisPFL on ``state.mask``: the gathered
+    rows are projected on the mask and gradients masked every step; the
+    exchange (with the old mask) mixes num = W·(M⊙Ĉ) and den = W·M and
+    keeps ``where(M ∧ den > 0, num / den, own value)``; RigL on the
+    post-update rows stores the new mask every ``update_every`` rounds.
+    Density 1.0 runs the dense paths bit for bit, the mask riding along.
 
     The mixed rows are scattered into ``state.centers`` in place."""
     if cfg.regime != "full":
         raise ValueError(
             f"regime {cfg.regime!r} is not ported yet; the port runs the "
             "'full' regime")
+    channel = make_channel(comm, pack_spec.size)
+    sparse_on = sparse is not None and sparse.enabled
     if mix_fn is None:
-        mix_fn = make_mix_fn(gossip)
+        mix_fn = make_mix_fn(gossip, comm=comm)
+    if (channel is not None) != bool(getattr(mix_fn, "comm_aware", False)):
+        raise ValueError(
+            "mix_fn must be core/gossip.make_mix_fn(comm=...) for the same "
+            f"codec (comm={comm})")
+    if sparse_on and not hasattr(mix_fn, "sparse_matmul"):
+        raise ValueError(
+            "sparse training needs a mix_fn with sparse_matmul "
+            "(core/gossip.make_mix_fn)")
     sigma = cfg.dp_clip * cfg.dp_noise_multiplier
     adj_dev: dict = {}  # the static adjacency, moved to the device once
 
-    def local_updates(c, data, z, s, gen, lr, idx):
-        """τ SGD steps on the ``(N, X)`` slab, cluster-conditional batches."""
+    def local_updates(c, data, z, s, gen, lr, idx, grad_mask):
+        """τ SGD steps on the ``(N, X)`` slab, cluster-conditional batches;
+        with ``grad_mask`` every step's gradient is projected on it."""
         for t in range(cfg.tau):
             it = (idx[t] if idx is not None else
                   cluster_batch_indices(gen, z, s, cfg.batch))
             batch = gather_batches(data["inputs"], data["targets"], it)
-            c = sgd_update(c, flat_grad(loss_fn, c, batch, pack_spec), lr)
+            g = flat_grad(loss_fn, c, batch, pack_spec)
+            if grad_mask is not None:
+                g = g * grad_mask
+            c = sgd_update(c, g, lr)
         return c
 
     def dp_flat_parts(c_old, c_new, gen, noise):
@@ -196,21 +249,83 @@ def make_round_step(loss_fn: Callable, per_example_loss: Callable,
                                 device=c_new.device)
         return scale, noise
 
-    def exchange_packed(plane, c_old, c_new, s, gen, noise, adj):
-        """Steps (2)+(3): DP sanitize, the Eq. (1) mix, and the in-place
-        scatter of the mixed rows back into ``(S, N, X)``."""
-        if cfg.dp_clip > 0:
+    def dp_sanitized(c_old, c_new, gen, noise):
+        """c_old + scale ⊙ (c_new − c_old) [+ σ·noise], unfused."""
+        scale, noise = dp_flat_parts(c_old, c_new, gen, noise)
+        c_sel = c_old + scale * (c_new - c_old)
+        if noise is not None:
+            c_sel = c_sel + sigma * noise
+        return c_sel
+
+    def channel_mix(c_sel, s, key, ef, adj):
+        if channel is None:
+            return mix_fn(c_sel, s, adj=adj), ef
+        return mix_fn(c_sel, s, key, ef, adj=adj)
+
+    def exchange_packed(plane, c_old, c_new, s, gen, noise, key, ef, adj):
+        """Steps (2)+(3): DP sanitize, the codec, the Eq. (1) mix, and the
+        in-place scatter of the mixed rows back into ``(S, N, X)``. A DP
+        round without a codec is one fused kernel. Returns (plane, ef')."""
+        if cfg.dp_clip > 0 and channel is None:
             scale, noise = dp_flat_parts(c_old, c_new, gen, noise)
             c_mixed = mix_fn.fused_dp(c_old, c_new, scale, noise, sigma, s,
                                       adj=adj)
         else:
-            c_mixed = mix_fn(c_new, s, adj=adj)
-        n = s.shape[0]
-        plane[s, torch.arange(n, device=s.device)] = c_mixed.to(plane.dtype)
-        return plane
+            c_sel = (dp_sanitized(c_old, c_new, gen, noise) if cfg.dp_clip > 0
+                     else c_new)
+            c_mixed, ef = channel_mix(c_sel, s, key, ef, adj)
+        plane[s, torch.arange(s.shape[0], device=s.device)] = c_mixed.to(plane.dtype)
+        return plane, ef
+
+    def exchange_sparse(plane, c_old, c_new, s, smask, gen, noise, key, ef,
+                        adj):
+        """The sparse steps (2)+(3): DP sanitize then re-mask (noise must
+        not densify the support), mask-then-encode, and the
+        support-renormalised mix num = W·(M⊙Ĉ), den = W·M; a receiver
+        keeps its own value where its mask is dead or no sender covers
+        the coordinate. The residual is masked after every update.
+        Returns (plane, ef')."""
+        if cfg.dp_clip > 0:
+            c_sel = smask * dp_sanitized(c_old, c_new, gen, noise)
+        else:
+            c_sel = c_new  # masked start + masked gradients: on the support
+        w = fedspd_weight_matrix(gossip, s, adj=adj)
+        colact = column_activity(smask)
+        if channel is None:
+            num = mix_fn.sparse_matmul(w, c_sel, colact)
+        else:
+            enc, x_hat, ef = channel.encode_stream(
+                c_sel, key, ef, need_hat=channel.has_ef or not channel.fused)
+            if ef is not None:
+                ef = smask * ef
+            if channel.fused:
+                num = mix_fn.sparse_dequant(w, enc, smask, colact)
+            else:
+                num = mix_fn.sparse_matmul(w, smask * x_hat, colact)
+        den = mix_fn.sparse_matmul(w, smask, colact)
+        c_mixed = torch.where((smask > 0) & (den > 0),
+                              num / den.clamp_min(1e-12), c_sel)
+        plane[s, torch.arange(s.shape[0], device=s.device)] = c_mixed.to(plane.dtype)
+        return plane, ef
+
+    def sparse_mask_update(state, c_new, data, s, rigl_idx, regrow_scores):
+        """RigL prune/regrow on the post-update rows, on the rounds
+        ``sparse.update_due`` names (the dense gradient is taken only
+        then)."""
+        if not sparse.update_due(state.round):
+            return state.mask
+        grads = None
+        if sparse.regrow == "rigl":
+            it = (rigl_idx if rigl_idx is not None else
+                  cluster_batch_indices(state.gen, state.z, s, cfg.batch))
+            batch = gather_batches(data["inputs"], data["targets"], it)
+            grads = flat_grad(loss_fn, c_new, batch, pack_spec)
+        key = regrow_scores if regrow_scores is not None else state.gen
+        return rigl_update(state.mask, c_new, grads, key, sparse)
 
     def step_full_packed(state: FedSPDState, data: dict, *, s=None, idx=None,
-                         noise=None):
+                         noise=None, comm_u=None, rigl_idx=None,
+                         regrow_scores=None):
         plane = state.centers
         dev = plane.device
         if dev not in adj_dev:
@@ -219,16 +334,32 @@ def make_round_step(loss_fn: Callable, per_example_loss: Callable,
         adj = adj_dev[dev]
         gen = state.gen
         lr = round_lr(cfg, state.round)
+        if sparse_on and state.mask is None:
+            raise ValueError(
+                "sparse training needs state.mask (core/sparse.init_masks)")
 
-        # (1) selection, gather (an advanced-index copy), τ local steps
+        # (1) selection, gather (an advanced-index copy), τ local steps,
+        # on the mask's support when sparse
         if s is None:
             s = select_clusters(gen, state.u)
         s = torch.as_tensor(s, device=dev).long()
         c_old = plane[s, torch.arange(s.shape[0], device=dev)]
-        c_new = local_updates(c_old, data, state.z, s, gen, lr, idx)
+        grad_mask = None
+        if sparse_on:
+            c_old, grad_mask = state.mask * c_old, state.mask
+        c_new = local_updates(c_old, data, state.z, s, gen, lr, idx, grad_mask)
 
-        # (2)+(3) sanitize + mix + scatter
-        plane = exchange_packed(plane, c_old, c_new, s, gen, noise, adj)
+        # (2)+(3) sanitize + codec + mix + scatter
+        key = comm_u if comm_u is not None else gen
+        if sparse_on:
+            mask = sparse_mask_update(state, c_new, data, s, rigl_idx,
+                                      regrow_scores)
+            plane, ef = exchange_sparse(plane, c_old, c_new, s, state.mask,
+                                        gen, noise, key, state.ef, adj)
+        else:
+            mask = state.mask
+            plane, ef = exchange_packed(plane, c_old, c_new, s, gen, noise,
+                                        key, state.ef, adj)
 
         # (4) re-cluster every local point under the new centers
         z, u = cluster_all_clients(
@@ -240,7 +371,7 @@ def make_round_step(loss_fn: Callable, per_example_loss: Callable,
             adj=adj)
         new_state = FedSPDState(centers=plane, u=u, z=z,
                                 round=state.round + 1, gen=gen,
-                                comm_bytes=comm)
+                                comm_bytes=comm, ef=ef, mask=mask)
         metrics = {"lr": lr, "selected": s,
                    "consensus": _consensus_per_cluster_flat(plane),
                    "comm_bytes": comm}

@@ -1,10 +1,11 @@
 """RunConfig: how a run of the port executes.
 
 The JAX package's ``RunConfig`` fields, less ``donate`` (the port always
-updates the plane in place), plus ``device``. This slice honours
+updates the plane in place), plus ``device``. The port honours
 ``gossip_mode="dense"``, ``gossip_backend`` ("cuda", or "reference" as
-another name for it), ``eval_every``, ``options`` (``dp_clip``,
-``dp_noise_multiplier``, ``tau_final``, ``keep_state``) and ``device``.
+another name for it), ``comm`` and ``sparse`` (FedSPD only),
+``eval_every``, ``options`` (``dp_clip``, ``dp_noise_multiplier``,
+``tau_final``, ``keep_state``, ``comm``, ``sparse``) and ``device``.
 Every field that selects a feature the port does not have yet is refused
 with a ``ValueError`` that names it; none falls back silently.
 """
@@ -13,12 +14,47 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional
 
+from repro_torch.comm.codecs import CommConfig
 from repro_torch.core.gossip import MIX_BACKENDS
+from repro_torch.core.sparse import SparseConfig
 
-# the options keys this slice honours; any other key is refused
+# the options keys the port honours; any other key is refused
 _OPTIONS = ("mode", "gossip_backend", "param_plane", "dp_clip",
             "dp_noise_multiplier", "tau_final", "cos_align_threshold",
-            "keep_state")
+            "keep_state", "comm", "sparse")
+
+
+def _normalize_comm(options: dict) -> None:
+    """A compressing codec works on packed plane slices: it implies the
+    plane, and refuses ``param_plane=False`` rather than flip it."""
+    comm = options.get("comm")
+    if comm is None:
+        return
+    if not isinstance(comm, CommConfig):
+        raise ValueError(
+            f"comm must be a comm.codecs.CommConfig, got {type(comm).__name__}")
+    if comm.codec != "fp32" and options.get("param_plane") is False:
+        raise ValueError(
+            f"comm codec {comm.codec!r} requires the packed parameter "
+            "plane, but param_plane=False was requested — drop one of the "
+            "two (fp32 is the only pytree-safe codec)")
+
+
+def _normalize_sparse(options: dict) -> None:
+    """Sparse masks live on the packed X axis: an enabled ``SparseConfig``
+    implies the plane, and refuses ``param_plane=False``."""
+    sparse = options.get("sparse")
+    if sparse is None:
+        return
+    if not isinstance(sparse, SparseConfig):
+        raise ValueError(
+            "sparse must be a core.sparse.SparseConfig, got "
+            f"{type(sparse).__name__}")
+    if sparse.enabled and options.get("param_plane") is False:
+        raise ValueError(
+            f"sparse training (density={sparse.density}) requires the "
+            "packed parameter plane, but param_plane=False was requested "
+            "— drop one of the two")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +66,8 @@ class RunConfig:
                     "reference" names the same path
     param_plane     the port always runs the packed (S, N, X) plane; False
                     is refused
+    comm            comm.codecs.CommConfig wire codec (FedSPD only)
+    sparse          core.sparse.SparseConfig DisPFL masks (FedSPD only)
     eval_every      train-curve cadence (the final round always evaluates)
     options         per-method knobs: dp_clip, dp_noise_multiplier,
                     tau_final (explicit entries win over the fields);
@@ -37,8 +75,8 @@ class RunConfig:
                     PackSpec in RunResult.extras (what export_run reads)
     device          "cuda" (the default: raises without a card) | "cpu"
 
-    comm, scenario, scan_rounds, cohort_size, sparse and telemetry are not
-    ported yet; setting any of them raises ``ValueError``."""
+    scenario, scan_rounds, cohort_size and telemetry are not ported yet;
+    setting any of them raises ``ValueError``."""
 
     gossip_mode: Optional[str] = None
     gossip_backend: Optional[str] = None
@@ -58,12 +96,10 @@ class RunConfig:
         over the typed fields); raises ``ValueError`` for what the port
         does not run yet."""
         unported = {
-            "comm (wire codecs)": self.comm is not None,
             "scenario (dynamic graphs, dropout, heterogeneity)":
                 self.scenario is not None,
             "scan_rounds (the whole-run engine)": self.scan_rounds,
             "cohort_size (client subsampling)": self.cohort_size is not None,
-            "sparse (DisPFL masks)": self.sparse is not None,
             "telemetry": self.telemetry is not None,
         }
         for what, on in unported.items():
@@ -79,6 +115,12 @@ class RunConfig:
             options.setdefault("gossip_backend", self.gossip_backend)
         if self.param_plane is not None:
             options.setdefault("param_plane", self.param_plane)
+        if self.comm is not None:
+            options.setdefault("comm", self.comm)
+        if self.sparse is not None:
+            options.setdefault("sparse", self.sparse)
+        _normalize_comm(options)
+        _normalize_sparse(options)
         if options.get("param_plane", True) is False:
             raise ValueError(
                 "param_plane=False (the per-leaf pytree engine) is not "

@@ -15,10 +15,12 @@ algorithms; each registers a ``Method`` adapter here:
 round's fp32 learning rate, both owned by the driver (FedSPD carries its
 own stream and schedule in its state and ignores them).
 
-The port has FedSPD (``"fedspd"``, paper Algorithm 1 on the packed plane)
-and the paper's six baselines (``"local"``, and ``dfl_``/``cfl_`` ×
-``fedavg``, ``fedem``, ``ifca``, ``fedsoft``, ``pfedme``), all on the
-packed plane; ``"fedspd_permute"`` raises ``ValueError``.
+The port has FedSPD (``"fedspd"``, paper Algorithm 1 on the packed plane,
+with a wire codec and DisPFL sparse masks as options) and the paper's six
+baselines (``"local"``, and ``dfl_``/``cfl_`` × ``fedavg``, ``fedem``,
+``ifca``, ``fedsoft``, ``pfedme``), all on the packed plane;
+``"fedspd_permute"`` raises ``ValueError``, and so does a baseline given
+``comm`` or ``sparse``.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import torch
 
 from repro_torch.baselines import fedavg, fedem, fedsoft, ifca, local, pfedme
 from repro_torch.baselines.common import init_planes, mixing_matrix, per_client_eval
+from repro_torch.comm.codecs import Channel, make_channel
 from repro_torch.configs.paper_cnn import PaperExpConfig
 from repro_torch.core.fedspd import (
     FedSPDConfig,
@@ -38,6 +41,7 @@ from repro_torch.core.fedspd import (
 )
 from repro_torch.core.gossip import GossipSpec, make_mix_fn
 from repro_torch.core.packing import PackSpec, make_pack_spec
+from repro_torch.core.sparse import SparseConfig, init_masks
 from repro_torch.device import make_generator
 from repro_torch.graphs.topology import Graph, complete, make_graph
 from repro_torch.models.smallnets import make_classifier
@@ -122,10 +126,12 @@ def star_bytes(n: int, model_b: int, models: int = 1) -> float:
 
 class Method:
     """Base adapter; subclasses implement init/make_step/personalize/
-    comm_model; evaluate and extras have defaults."""
+    comm_model; evaluate and extras have defaults. ``features`` names the
+    ``RunConfig`` options the method takes beyond the common ones."""
 
     name: str = ""
     centralized: bool = False
+    features: tuple = ()
 
     def init(self, ctx: ExperimentContext, gen: torch.Generator):
         raise NotImplementedError
@@ -196,7 +202,10 @@ def available_methods() -> tuple[str, ...]:
 class FedSPDMethod(Method):
     """Paper Algorithm 1 behind the registry contract, on the packed
     ``(S, N, X)`` plane; the exchange runs the CUDA kernels (their plain
-    versions on CPU tensors)."""
+    versions on CPU tensors). Takes ``comm`` (a wire codec) and
+    ``sparse`` (DisPFL masks)."""
+
+    features = ("comm", "sparse")
 
     def __init__(self, name: str):
         self.name = name
@@ -211,15 +220,34 @@ class FedSPDMethod(Method):
             dp_noise_multiplier=ctx.opt("dp_noise_multiplier", 0.0),
         )
 
+    def _channel(self, ctx: ExperimentContext) -> Channel | None:
+        """The run's wire channel, or None without a compressing codec."""
+        return make_channel(ctx.opt("comm"), ctx.pack_spec.size)
+
+    def _sparse(self, ctx: ExperimentContext) -> SparseConfig | None:
+        return ctx.opt("sparse")
+
     def init(self, ctx, gen):
-        return seeded_init(gen, ctx.model_init, self._fcfg(ctx), ctx.loss_fn,
-                           ctx.train, ctx.pack_spec)
+        state = seeded_init(gen, ctx.model_init, self._fcfg(ctx), ctx.loss_fn,
+                            ctx.train, ctx.pack_spec)
+        ch = self._channel(ctx)
+        if ch is not None and ch.has_ef:
+            state = state._replace(
+                ef=ch.init_residual((ctx.n_clients,), device=ctx.device))
+        sp = self._sparse(ctx)
+        if sp is not None:
+            # masks ride along even at density 1.0 (all ones, no draw)
+            state = state._replace(
+                mask=init_masks(gen, ctx.n_clients, ctx.pack_spec.size, sp))
+        return state
 
     def make_step(self, ctx):
         spec = GossipSpec.from_graph(ctx.graph)
-        mix_fn = make_mix_fn(spec, ctx.opt("gossip_backend", "cuda"))
+        comm = ctx.opt("comm")
+        mix_fn = make_mix_fn(spec, ctx.opt("gossip_backend", "cuda"), comm=comm)
         step = make_round_step(ctx.loss_fn, ctx.pel_fn, spec, self._fcfg(ctx),
-                               pack_spec=ctx.pack_spec, mix_fn=mix_fn)
+                               pack_spec=ctx.pack_spec, mix_fn=mix_fn,
+                               comm=comm, sparse=self._sparse(ctx))
 
         def wrapped(state, train, gen, lr):
             # the round step draws from state.gen and runs its own lr

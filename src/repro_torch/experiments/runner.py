@@ -15,7 +15,10 @@ training trajectory.
 
 Communication: a method's ``comm_model`` is either "tracked" (FedSPD's
 data-dependent bytes, read from ``state.comm_bytes``) or "static"
-(per-round bytes × rounds), as in the JAX package.
+(per-round bytes × rounds), as in the JAX package. These are logical
+bytes (the models' own dtypes); ``RunResult.wire_bytes`` is the physical
+count under the run's codec and sparse format, an exact static ratio of
+the logical one.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import time
 
 import numpy as np
 
+from repro_torch.comm.codecs import make_channel, sparse_wire_model_bytes
 from repro_torch.configs.paper_cnn import PaperExpConfig
 from repro_torch.data.synthetic import ClientDataset
 from repro_torch.device import (
@@ -64,6 +68,23 @@ def _lr_schedule(exp: PaperExpConfig) -> np.ndarray:
                       np.float32)
 
 
+def _wire_bytes(ctx: ExperimentContext, logical: float) -> float:
+    """Physical bytes under the run's codec: every message is one model's
+    plane slice, so the per-message ratio (``Channel.wire_model_bytes``
+    over the logical model bytes) scales the logical count exactly. A
+    sparse run (density < 1) ships the mask-then-encode format instead:
+    nnz payload plus support bitmap (``sparse_wire_model_bytes``)."""
+    cfg, sp = ctx.opt("comm"), ctx.opt("sparse")
+    x, model_b = ctx.pack_spec.size, ctx.pack_spec.model_bytes
+    if sp is not None and sp.enabled:
+        per_msg = sparse_wire_model_bytes(cfg, x, sp.k_active(x))
+        return logical * (per_msg / float(model_b))
+    ch = make_channel(cfg, x)
+    if ch is None:
+        return logical
+    return logical * ch.wire_ratio(model_b)
+
+
 def _result(m: Method, ctx: ExperimentContext, state, aux, acc, curve,
             t0: float, round_ms: list) -> RunResult:
     comm_model = m.comm_model(ctx)
@@ -81,7 +102,8 @@ def _result(m: Method, ctx: ExperimentContext, state, aux, acc, curve,
     acc = acc.cpu().numpy()
     return RunResult(
         method=m.name, acc_per_client=acc, mean_acc=float(acc.mean()),
-        std_acc=float(acc.std()), comm_bytes=comm, wire_bytes=comm,
+        std_acc=float(acc.std()), comm_bytes=comm,
+        wire_bytes=_wire_bytes(ctx, comm),
         curve=curve, wall_s=time.time() - t0, extras=extras,
     )
 
@@ -91,6 +113,12 @@ def _drive(method: str, data: ClientDataset, exp: PaperExpConfig,
     t0 = time.time()
     m = get_method(method)
     options = cfg.resolve_options()
+    for feature in ("comm", "sparse"):
+        if options.get(feature) is not None and feature not in m.features:
+            raise ValueError(
+                f"RunConfig.{feature} on {method!r} is not ported: the port "
+                f"runs {feature} in FedSPD only (the baselines' compressed "
+                "exchange comes later)")
     device = resolve_device(cfg.device)
     ctx = build_context(data, exp, device, graph=graph, seed=seed,
                         options=options)

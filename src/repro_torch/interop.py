@@ -34,9 +34,10 @@ def state_from_numpy(state, *, device: str | torch.device = "cuda",
                      seed: int = 0) -> FedSPDState:
     """A port ``FedSPDState`` from a JAX ``FedSPDState`` whose fields are
     numpy arrays and whose ``centers`` is the packed ``(S, N, X)`` plane.
-    The plane, ``u``, ``z``, ``round`` and ``comm_bytes`` carry over; the
-    key is replaced by ``gen`` (default: a generator seeded with
-    ``seed``)."""
+    The plane, ``u``, ``z``, ``round``, ``comm_bytes`` and, where the
+    state has them, the error-feedback residual ``ef`` and the sparse
+    masks ``mask`` carry over; the key is replaced by ``gen`` (default: a
+    generator seeded with ``seed``)."""
     centers = np.array(state.centers)
     if centers.ndim != 3:
         raise ValueError(
@@ -51,7 +52,15 @@ def state_from_numpy(state, *, device: str | torch.device = "cuda",
         gen=gen if gen is not None else make_generator(device, seed),
         comm_bytes=torch.as_tensor(np.array(state.comm_bytes),
                                    dtype=torch.float32, device=device),
+        ef=_optional_plane(getattr(state, "ef", None), device),
+        mask=_optional_plane(getattr(state, "mask", None), device),
     )
+
+
+def _optional_plane(a, device: torch.device) -> torch.Tensor | None:
+    if a is None:
+        return None
+    return torch.as_tensor(np.array(a), dtype=torch.float32, device=device)
 
 
 # the JAX package's baseline states, by class name, and their port twins

@@ -42,6 +42,12 @@ SIGNATURES = {
     "mixture_mix_dequant4": ([_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
                               ctypes.c_longlong, ctypes.c_longlong, _P],
                              ctypes.c_int),
+    "gossip_mix_sparse": ([_P, _P, _P, _P, ctypes.c_int, ctypes.c_longlong, _P],
+                          ctypes.c_int),
+    "gossip_mix_dequant_masked": ([_P, _P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                                   ctypes.c_longlong, ctypes.c_longlong,
+                                   ctypes.c_longlong, _P],
+                                  ctypes.c_int),
 }
 
 

@@ -3,33 +3,37 @@
 //
 // Replaces the Pallas TPU kernels src/repro/kernels/gossip_mix.py:
 // gossip_mix_flat (W·C), gossip_mix_fused_dp
-// (W·(c_old + scale ⊙ (c_new − c_old) + σ·noise)) and gossip_mix_stack
-// (W·C_s for every slab s of an (S, N, X) stack, in one launch).
+// (W·(c_old + scale ⊙ (c_new − c_old) + σ·noise)), gossip_mix_stack
+// (W·C_s for every slab s of an (S, N, X) stack, in one launch),
+// gossip_mix_sparse (W·C for the sparse exchange, skipping dead slabs) and
+// gossip_mix_dequant_masked (W·(q ⊙ repeat(scale) ⊙ M) over an int8
+// payload, the sparse exchange's numerator with an int8/int4 codec).
 //
 // What bounds it: every output column reads the N inputs of its column
-// once and writes N outputs, 2N FLOPs per input element, so the
-// arithmetic intensity is N/4 FLOP/B in fp32 — memory-bound on an H100
-// (3.35 TB/s, 67 TFLOP/s fp32 without tensor cores) below N ≈ 80.
+// once and writes M outputs (M = N but for the masked dequant mix), 2MN
+// FLOPs per column, so the arithmetic intensity is about N/4 FLOP/B in
+// fp32 — memory-bound on an H100 (3.35 TB/s, 67 TFLOP/s fp32 without
+// tensor cores) below N ≈ 80.
 //
 // Design: one thread owns one column of X, so the plane is streamed once
 // with coalesced 4-byte loads (rows of an odd X are not 16-byte aligned,
 // which rules out vector loads on every row). N is cut into chunks of NB
-// rows (NB = 8, 16, 24 or 32, the smallest that holds N when N <= 32); a
-// block stages the matching NB×NB chunk of W in shared memory (every
-// thread reads the same W entry: a broadcast), and each thread keeps NB
-// fp32 accumulators for one chunk of output rows. The column's inputs are
-// read through a per-element prologue in groups of kGroup = 4 rows: the
-// group's loads are issued together, then kGroup·NB FMAs consume them.
-// Small groups keep a thread at 36–78 registers, so many warps per SM
-// carry loads in flight, while each warp touches only a few rows at a
+// rows (NB = 8, 16, 24 or 32, the smallest that holds max(M, N) when it is
+// <= 32); a block stages the matching NB×NB chunk of W in shared memory
+// (every thread reads the same W entry: a broadcast), and each thread
+// keeps NB fp32 accumulators for one chunk of output rows. The column's
+// inputs are read through a per-element prologue in groups of kGroup = 4
+// rows: the group's loads are issued together, then kGroup·NB FMAs consume
+// them. Small groups keep a thread at 36–78 registers, so many warps per
+// SM carry loads in flight, while each warp touches only a few rows at a
 // time; on the H100, loading all NB rows (or 8) at once measured slower
 // at X = 4,194,304, for the flat mix and more so for the fused DP mix,
-// which reads three arrays per row. For N <= 32 there is one chunk and
-// the plane is read exactly once; a larger N re-reads it once per chunk
+// which reads three arrays per row. For M, N <= 32 there is one chunk and
+// the plane is read exactly once; a larger M re-reads it once per chunk
 // of output rows. Accumulation is fp32 FMA on the CUDA cores, never
-// TF32. The fused-DP prologue rounds each step as the plain PyTorch
-// version does (no contraction), so the two differ only in the order of
-// the sum over j.
+// TF32. The fused-DP and dequant prologues round each step as the plain
+// PyTorch versions do (no contraction), so the two differ only in the
+// order of the sum over j.
 //
 // The stack mix is the same kernel over a 2-D grid: blockIdx.y selects
 // the slab s, whose offset s·N·X is taken in int64_t (at S = 4, N = 32,
@@ -37,6 +41,25 @@
 // stages its chunks of W as above, so a slab with N > 32 re-reads its
 // plane once per chunk of 32 output rows, like a flat plane. A flat plane
 // is the stack of one slab (gridDim.y = 1).
+//
+// The sparse mixes add a per-block activity test: the block's 128
+// columns read their entries of the column-activity vector (a column is
+// live iff any client keeps it), and __syncthreads_or decides on the
+// device, with no host sync, whether any is live. A dead block writes
+// exact zeros to its outputs and never reads the plane (the plane is
+// zero on dead columns, so the mix is zero there anyway: the skip saves
+// the read, it does not change the result). A live block runs the mix
+// unchanged. gossip_mix_sparse's least traffic is 4·(N² + X + N·X_live +
+// N·X) bytes: W, the activity vector, the live columns of C, and the
+// whole output. gossip_mix_dequant_masked reads, per live column, N int8
+// quanta, N fp32 mask entries and the N scales of its block (L1-resident
+// across the block's 128 columns), so its fp32 mask is 4× its int8
+// payload: 4·M·N + N·Xp_live + 4·N·Xp_live/qblock + 4·N·X_live + 4·X +
+// 4·M·Xp bytes. An earlier version on the serving kernel's template
+// (gossip_mix_dequant.cu: output rows in blocks of 8, a block's columns
+// dequantized once per row block, activity found by scanning the mask)
+// re-read the payload and mask once per row block and measured 2.35 ms
+// past L2 against a 0.229 ms bound, slower than its plain version.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,16 +70,56 @@ constexpr int kThreads = 128;  // columns per block
 constexpr int kGroup = 4;      // input rows whose loads are in flight together
 
 // A prologue reads input row j at element offset k of the plane (or
-// stack) and returns the value the mix consumes.
+// stack) and returns the value the mix consumes. A prologue with kSkip
+// also says whether column col is live (any client keeps it).
 struct Identity {
+  static constexpr bool kSkip = false;
   const float* c;
   __device__ __forceinline__ float operator()(int j, int64_t k) const {
     return __ldg(c + k);
   }
 };
 
+// The sparse exchange's plane: zero on the columns active[col] == 0.
+struct SparseIdentity {
+  static constexpr bool kSkip = true;
+  const float* c;
+  const float* active;  // (X,) fp32 {0,1}
+  __device__ __forceinline__ float operator()(int j, int64_t k) const {
+    return __ldg(c + k);
+  }
+  __device__ __forceinline__ bool live(int64_t col) const {
+    return __ldg(active + col) != 0.f;
+  }
+};
+
+// q ⊙ repeat(scale, qblock) ⊙ mask on the int8 payload (N, Xp); the mask
+// and the activity vector have the logical width x <= xp, and columns
+// past it are dead. The column index fits 32 bits (the wrapper checks
+// Xp < 2^31).
+struct MaskedDequant {
+  static constexpr bool kSkip = true;
+  const int8_t* q;      // (N, Xp)
+  const float* scale;   // (N, Xp / qblock)
+  const float* mask;    // (N, X)
+  const float* active;  // (X,)
+  int64_t x, xp;
+  uint32_t nq, qblock;
+  __device__ __forceinline__ float operator()(int j, int64_t k) const {
+    const uint32_t col = static_cast<uint32_t>(k - static_cast<int64_t>(j) * xp);
+    const float v = __fmul_rn(static_cast<float>(__ldg(q + k)),
+                              __ldg(scale + static_cast<int64_t>(j) * nq + col / qblock));
+    const float m = col < x ? __ldg(mask + static_cast<int64_t>(j) * x + col) : 0.f;
+    return __fmul_rn(v, m);
+  }
+  __device__ __forceinline__ bool live(int64_t col) const {
+    return col < x && __ldg(active + col) != 0.f;
+  }
+};
+
 template <bool kNoise>
 struct FusedDP {
+  static constexpr bool kSkip = false;
   const float* c_old;
   const float* c_new;
   const float* scale;  // (N,) per-client clip scale
@@ -70,18 +133,31 @@ struct FusedDP {
   }
 };
 
-// out[s, i, col] = sum_j w[i, j] * prologue(row j of slab s, col), one
-// thread per column of slab s = blockIdx.y.
+// out[s, i, col] = sum_j w[i, j] * prologue(row j of slab s, col) for the
+// m output rows over n input rows, one thread per column of slab s =
+// blockIdx.y. With Prologue::kSkip, a block none of whose columns is live
+// writes zeros and reads no input.
 template <int NB, class Prologue>
 __global__ void __launch_bounds__(kThreads)
-mix_kernel(const float* __restrict__ w, Prologue in, float* __restrict__ out,
+mix_kernel(const float* __restrict__ w, Prologue in, float* __restrict__ out, int m,
            int n, int64_t x) {
   static_assert(NB % kGroup == 0, "a group never reads past the staged W chunk");
   __shared__ float sw[NB][NB];
   const int64_t col = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const int64_t base = static_cast<int64_t>(blockIdx.y) * n * x + col;  // slab + column
+  const int64_t base = static_cast<int64_t>(blockIdx.y) * n * x + col;   // input slab + column
+  const int64_t obase = static_cast<int64_t>(blockIdx.y) * m * x + col;  // output slab + column
   const bool live = col < x;
-  for (int i0 = 0; i0 < n; i0 += NB) {
+  if constexpr (Prologue::kSkip) {
+    // every thread of the block reaches this barrier, so the whole block
+    // takes the same branch
+    if (!__syncthreads_or(live && in.live(col))) {
+      if (live) {
+        for (int i = 0; i < m; ++i) out[obase + static_cast<int64_t>(i) * x] = 0.f;
+      }
+      return;
+    }
+  }
+  for (int i0 = 0; i0 < m; i0 += NB) {
     float acc[NB];
 #pragma unroll
     for (int ii = 0; ii < NB; ++ii) acc[ii] = 0.f;
@@ -89,7 +165,7 @@ mix_kernel(const float* __restrict__ w, Prologue in, float* __restrict__ out,
       __syncthreads();  // the previous chunk's readers of sw are done
       for (int t = threadIdx.x; t < NB * NB; t += kThreads) {
         const int i = i0 + t / NB, j = j0 + t % NB;
-        sw[t / NB][t % NB] = (i < n && j < n) ? w[static_cast<int64_t>(i) * n + j] : 0.f;
+        sw[t / NB][t % NB] = (i < m && j < n) ? w[static_cast<int64_t>(i) * n + j] : 0.f;
       }
       __syncthreads();
       const int jn = min(NB, n - j0);
@@ -111,34 +187,36 @@ mix_kernel(const float* __restrict__ w, Prologue in, float* __restrict__ out,
     if (live) {
 #pragma unroll
       for (int ii = 0; ii < NB; ++ii) {
-        if (i0 + ii < n) out[base + (i0 + ii) * x] = acc[ii];
+        if (i0 + ii < m) out[obase + static_cast<int64_t>(i0 + ii) * x] = acc[ii];
       }
     }
   }
 }
 
 template <int NB, class Prologue>
-void launch_nb(const float* w, Prologue in, float* out, int slabs, int n, int64_t x,
+void launch_nb(const float* w, Prologue in, float* out, int slabs, int m, int n, int64_t x,
                cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>((x + kThreads - 1) / kThreads),
                   static_cast<unsigned>(slabs));
-  mix_kernel<NB, Prologue><<<grid, kThreads, 0, stream>>>(w, in, out, n, x);
+  mix_kernel<NB, Prologue><<<grid, kThreads, 0, stream>>>(w, in, out, m, n, x);
 }
 
-// Mixes `slabs` consecutive (n, x) planes with the same W.
+// Mixes `slabs` consecutive (n, x) planes into (m, x) outputs with the
+// same (m, n) W.
 template <class Prologue>
-int launch(const float* w, Prologue in, float* out, int slabs, int n, int64_t x,
+int launch(const float* w, Prologue in, float* out, int slabs, int m, int n, int64_t x,
            void* stream) {
-  if (slabs > 0 && n > 0 && x > 0) {
+  if (slabs > 0 && m > 0 && n > 0 && x > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (n <= 8) {
-      launch_nb<8>(w, in, out, slabs, n, x, s);
-    } else if (n <= 16) {
-      launch_nb<16>(w, in, out, slabs, n, x, s);
-    } else if (n <= 24) {
-      launch_nb<24>(w, in, out, slabs, n, x, s);
+    const int rows = max(m, n);
+    if (rows <= 8) {
+      launch_nb<8>(w, in, out, slabs, m, n, x, s);
+    } else if (rows <= 16) {
+      launch_nb<16>(w, in, out, slabs, m, n, x, s);
+    } else if (rows <= 24) {
+      launch_nb<24>(w, in, out, slabs, m, n, x, s);
     } else {
-      launch_nb<32>(w, in, out, slabs, n, x, s);
+      launch_nb<32>(w, in, out, slabs, m, n, x, s);
     }
   }
   return static_cast<int>(cudaGetLastError());
@@ -151,14 +229,35 @@ extern "C" {
 // C' = W · C. w (n, n), c and out (n, x), fp32, contiguous, on the device.
 int gossip_mix_flat(const float* w, const float* c, float* out, int n,
                     long long x, void* stream) {
-  return launch(w, Identity{c}, out, 1, n, x, stream);
+  return launch(w, Identity{c}, out, 1, n, n, x, stream);
 }
 
 // C'_s = W · C_s for every s. w (n, n); c and out (s, n, x), fp32,
 // contiguous, on the device; s <= 65535 (the grid's y extent).
 int gossip_mix_stack(const float* w, const float* c, float* out, int s, int n,
                      long long x, void* stream) {
-  return launch(w, Identity{c}, out, s, n, x, stream);
+  return launch(w, Identity{c}, out, s, n, n, x, stream);
+}
+
+// C' = W · C for C zero on the columns where col_active (x,) is 0; a block
+// of 128 columns all inactive writes zeros without reading C.
+int gossip_mix_sparse(const float* w, const float* c, const float* col_active, float* out,
+                      int n, long long x, void* stream) {
+  return launch(w, SparseIdentity{c, col_active}, out, 1, n, n, x, stream);
+}
+
+// out (m, xp) = w (m, n) · (q (n, xp) int8 ⊙ repeat(scales (n, xp/qblock), qblock)
+// ⊙ mask (n, x)), the mask read as 0 on columns >= x; a block of 128
+// columns none of which col_active (x,) marks live writes zeros without
+// reading q, the scales or the mask. All contiguous on the device;
+// x <= xp < 2^31, xp % qblock == 0.
+int gossip_mix_dequant_masked(const float* w, const int8_t* q, const float* scales,
+                              const float* mask, const float* col_active, float* out, int m,
+                              int n, long long x, long long xp, long long qblock,
+                              void* stream) {
+  const MaskedDequant in{q, scales, mask, col_active, x, xp,
+                         static_cast<uint32_t>(xp / qblock), static_cast<uint32_t>(qblock)};
+  return launch(w, in, out, 1, m, n, xp, stream);
 }
 
 // C' = W · (c_old + scale ⊙ (c_new − c_old) [+ sigma · noise]); noise is
@@ -167,10 +266,10 @@ int gossip_mix_fused_dp(const float* w, const float* c_old, const float* c_new,
                         const float* scale, const float* noise, float sigma,
                         float* out, int n, long long x, void* stream) {
   if (sigma > 0.f) {
-    return launch(w, FusedDP<true>{c_old, c_new, scale, noise, sigma}, out, 1, n, x,
+    return launch(w, FusedDP<true>{c_old, c_new, scale, noise, sigma}, out, 1, n, n, x,
                   stream);
   }
-  return launch(w, FusedDP<false>{c_old, c_new, scale, nullptr, 0.f}, out, 1, n, x,
+  return launch(w, FusedDP<false>{c_old, c_new, scale, nullptr, 0.f}, out, 1, n, n, x,
                 stream);
 }
 

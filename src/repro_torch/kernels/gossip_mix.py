@@ -1,7 +1,7 @@
 """FedSPD's gossip mix C' = W·C, and its fused-dequant siblings, as CUDA
 kernels for Hopper.
 
-Five kernels, built by ``kernels/build.py``. In ``csrc/gossip_mix.cu``:
+Seven kernels, built by ``kernels/build.py``. In ``csrc/gossip_mix.cu``:
 
 - ``gossip_mix_flat`` replaces the Pallas TPU kernel
   ``src/repro/kernels/gossip_mix.py:gossip_mix_flat``: C' = W·C over the
@@ -16,6 +16,19 @@ Five kernels, built by ``kernels/build.py``. In ``csrc/gossip_mix.cu``:
   W·(c_old + scale ⊙ (c_new − c_old) + σ·noise) in one pass, once per DP
   round. The noise is drawn outside the kernel; with σ = 0 there is no
   noise operand.
+- ``gossip_mix_sparse`` replaces
+  ``src/repro/kernels/gossip_mix.py:gossip_mix_sparse``: W·C for the
+  sparse (DisPFL) exchange, C zero on dead columns, given the column
+  activity (X,); a block of 128 columns that no client keeps writes exact
+  zeros without reading C. Twice per sparse round without a codec (the
+  numerator W·(M⊙C) and the support count W·M), once with int8/int4.
+- ``gossip_mix_dequant_masked`` replaces
+  ``src/repro/kernels/gossip_mix.py:gossip_mix_dequant_masked``:
+  W·(q ⊙ repeat(scale, qblock) ⊙ M) over an int8 payload with the
+  per-sender mask ``(N, X)``, X ≤ Xp (columns past X count as 0), the
+  sparse exchange's numerator with an int8/int4 codec, once per such
+  round; it takes the same column activity as ``gossip_mix_sparse`` and
+  skips dead blocks the same way.
 
 All three are memory-bound on an H100 for N below ≈ 80: they move
 4·(N² + 2NX) bytes (flat; 4·(N² + 2SNX) for the stack) for 2N²X
@@ -34,6 +47,8 @@ In ``csrc/gossip_mix_dequant.cu``:
   ``src/repro/kernels/gossip_mix.py:mixture_mix_dequant4``:
   U·(unpack4(p) ⊙ repeat(scale, qblock)) over the bit-packed int4
   ``(S, Xp/2)`` plane; the int4 serving plane.
+``gossip_mix_dequant`` also runs the dense exchange with an int8/int4
+codec, on the square W (M = N), once per round.
 
 At serving shapes both are bound by their ``(M, Xp)`` fp32 output
 writes: they move 4·M·N + N·Xp·(1 or ½) + 4·N·Xp/qblock + 4·M·Xp bytes
@@ -50,6 +65,7 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.comm.codecs import int4_unpack
 from repro_torch.kernels.build import load_library
@@ -88,6 +104,27 @@ def mixture_mix_dequant4_ref(u: torch.Tensor, packed: torch.Tensor,
     an fp32 einsum."""
     q = int4_unpack(packed, 2 * packed.shape[1])
     return gossip_mix_dequant_ref(u, q, scales, qblock=qblock)
+
+
+def gossip_mix_sparse_ref(w: torch.Tensor, c: torch.Tensor,
+                          col_active: torch.Tensor) -> torch.Tensor:
+    """Plain W·C with the inactive columns zero: the sparse mix for a C
+    that is zero on them."""
+    return torch.where(col_active > 0, gossip_mix_flat_ref(w, c), 0.0)
+
+
+def gossip_mix_dequant_masked_ref(w: torch.Tensor, q: torch.Tensor,
+                                  scales: torch.Tensor, mask: torch.Tensor,
+                                  col_active: torch.Tensor, *,
+                                  qblock: int) -> torch.Tensor:
+    """Plain W·(q ⊙ repeat(scale, qblock) ⊙ M) with the inactive columns
+    zero, the mask and the activity zero-padded from X to Xp: decode,
+    mask, then an fp32 einsum."""
+    pad = q.shape[1] - mask.shape[1]
+    c = q.float() * scales.float().repeat_interleave(qblock, dim=1)
+    c = c * F.pad(mask.float(), (0, pad))
+    return torch.where(F.pad(col_active, (0, pad)) > 0,
+                       torch.einsum("mn,nx->mx", w.float(), c), 0.0)
 
 
 def _on_cpu(*ts) -> bool:
@@ -260,8 +297,105 @@ def mixture_mix_dequant4(u: torch.Tensor, packed: torch.Tensor,
 
 mixture_mix_dequant4.launches = 0
 
+def gossip_mix_sparse(w: torch.Tensor, c: torch.Tensor,
+                      col_active: torch.Tensor) -> torch.Tensor:
+    """W·C for a C that is zero on the columns where ``col_active`` ``(X,)``
+    is 0: all-inactive blocks of columns are written as zeros without
+    reading C. w ``(N, N)``, c ``(N, X)``, col_active ``(X,)``, fp32;
+    returns a new ``(N, X)``. Raises on the shape errors the JAX kernel
+    refuses."""
+    n, x = c.shape
+    if tuple(col_active.shape) != (x,):
+        raise ValueError(
+            f"column activity {tuple(col_active.shape)} does not match plane "
+            f"width {x}")
+    if _on_cpu(w, c, col_active):
+        return gossip_mix_sparse_ref(w, c, col_active)
+    _check("w", w, (n, n))
+    _check("c", c, (n, x))
+    _check("col_active", col_active, (x,))
+    out = torch.empty_like(c)
+    lib = load_library()
+    stream = torch.cuda.current_stream(c.device).cuda_stream
+    _raise_on(lib.gossip_mix_sparse(w.data_ptr(), c.data_ptr(), col_active.data_ptr(),
+                                    out.data_ptr(), n, x, stream), "gossip_mix_sparse")
+    gossip_mix_sparse.launches += 1
+    return out
+
+
+gossip_mix_sparse.launches = 0
+
+
+def gossip_mix_dequant_masked(w: torch.Tensor, q: torch.Tensor,
+                              scales: torch.Tensor, mask: torch.Tensor,
+                              col_active: torch.Tensor, *,
+                              qblock: int) -> torch.Tensor:
+    """W·(q ⊙ repeat(scale, qblock) ⊙ M) for a mask zero on the columns
+    where ``col_active`` ``(X,)`` is 0: all-inactive blocks of columns are
+    written as zeros without reading the payload. w ``(M, N)`` fp32, q
+    ``(N, Xp)`` int8, scales ``(N, Xp/qblock)`` fp32, mask ``(N, X)`` fp32
+    {0, 1} with X ≤ Xp (columns past X count as 0); returns a new ``(M,
+    Xp)`` fp32. Raises on the shape errors the JAX kernel refuses."""
+    n, xp = q.shape
+    qblock = int(qblock)
+    if w.dim() != 2 or w.shape[1] != n:
+        raise ValueError(f"weights {tuple(w.shape)} do not match plane rows {n}")
+    if qblock <= 0 or xp % qblock != 0 or tuple(scales.shape) != (n, xp // qblock):
+        raise ValueError(
+            f"quantized plane {tuple(q.shape)} / scales {tuple(scales.shape)} "
+            f"do not tile with qblock={qblock}")
+    if mask.dim() != 2 or mask.shape[0] != n or mask.shape[1] > xp:
+        raise ValueError(
+            f"mask {tuple(mask.shape)} does not match quantized plane {tuple(q.shape)}")
+    x = mask.shape[1]
+    if tuple(col_active.shape) != (x,):
+        raise ValueError(
+            f"column activity {tuple(col_active.shape)} does not match mask width {x}")
+    if _on_cpu(w, q, scales, mask, col_active):
+        return gossip_mix_dequant_masked_ref(w, q, scales, mask, col_active, qblock=qblock)
+    m = w.shape[0]
+    _check("w", w, (m, n))
+    _check("q", q, (n, xp), torch.int8)
+    _check("scales", scales, (n, xp // qblock))
+    _check("mask", mask, (n, x))
+    _check("col_active", col_active, (x,))
+    if xp >= 2**31:
+        raise ValueError(f"quantized plane width {xp}: the kernel takes Xp < 2^31")
+    out = torch.empty((m, xp), dtype=torch.float32, device=q.device)
+    lib = load_library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _raise_on(lib.gossip_mix_dequant_masked(
+        w.data_ptr(), q.data_ptr(), scales.data_ptr(), mask.data_ptr(),
+        col_active.data_ptr(), out.data_ptr(), m, n, x, xp, qblock, stream),
+        "gossip_mix_dequant_masked")
+    gossip_mix_dequant_masked.launches += 1
+    return out
+
+
+gossip_mix_dequant_masked.launches = 0
+
+
+def gossip_mix_encoded(w: torch.Tensor, enc: dict, *, qblock: int,
+                       x_out: int) -> torch.Tensor:
+    """The fused compressed exchange: one ``gossip_mix_dequant`` over an
+    int8/int4 payload ``{"q", "scale"}`` (``comm/codecs.quant_encode``),
+    cropped to the logical width ``x_out``."""
+    return gossip_mix_dequant(w, enc["q"], enc["scale"], qblock=qblock)[:, :x_out]
+
+
+def gossip_mix_encoded_masked(w: torch.Tensor, enc: dict, mask: torch.Tensor,
+                              col_active: torch.Tensor, *, qblock: int) -> torch.Tensor:
+    """The sparse exchange's numerator W·(M⊙Ĉ): one
+    ``gossip_mix_dequant_masked`` over the payload, cropped to the mask's
+    width X."""
+    mixed = gossip_mix_dequant_masked(w, enc["q"], enc["scale"], mask, col_active,
+                                      qblock=qblock)
+    return mixed[:, :mask.shape[1]]
+
+
 KERNELS = (gossip_mix_flat, gossip_mix_stack, gossip_mix_fused_dp,
-           gossip_mix_dequant, mixture_mix_dequant4)
+           gossip_mix_dequant, mixture_mix_dequant4, gossip_mix_sparse,
+           gossip_mix_dequant_masked)
 
 
 def reset_launch_counts() -> None:

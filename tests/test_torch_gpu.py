@@ -2,8 +2,9 @@
 version on the same CUDA tensors (max abs error 1e-5, TF32 off for both
 matmul and cuDNN), the wrappers' checks and launch counters, a short run
 of the main path through the kernels, a short run of each baseline family
-through its exchange kernel, and a short train → export → serve run
-through the dequant kernels.
+through its exchange kernel, a short train → export → serve run through
+the dequant kernels, and a short run of each codec and sparse path
+through its kernels.
 
 Marked ``gpu``: each test asks a fixture for the card and skips without
 one. Run on a machine with an H100: ``python -m pytest -q -m gpu
@@ -12,17 +13,24 @@ only PyTorch is installed."""
 import pytest
 import torch
 
+from repro_torch.comm.codecs import Channel, CommConfig
 from repro_torch.configs.paper_cnn import PaperExpConfig
 from repro_torch.data.synthetic import make_mixture_classification
 from repro_torch.core.packing import make_pack_spec
 from repro_torch.experiments import RunConfig, export_run, run_method
+from repro_torch.core.sparse import SparseConfig, column_activity, init_masks
 from repro_torch.kernels.gossip_mix import (
+    KERNELS,
     gossip_mix_dequant,
+    gossip_mix_dequant_masked,
+    gossip_mix_dequant_masked_ref,
     gossip_mix_dequant_ref,
     gossip_mix_flat,
     gossip_mix_flat_ref,
     gossip_mix_fused_dp,
     gossip_mix_fused_dp_ref,
+    gossip_mix_sparse,
+    gossip_mix_sparse_ref,
     gossip_mix_stack,
     gossip_mix_stack_ref,
     mixture_mix_dequant4,
@@ -260,3 +268,145 @@ def test_train_export_serve_through_the_dequant_kernels(cuda, tmp_path):
         want = cpu.predict(art.u_table.cpu(), x)
         assert out.shape == (8, 4) and bool(torch.isfinite(out).all())
         assert float((out.cpu() - want).abs().max()) <= 1e-4
+
+
+# --------------------------------------- kernels 5 and 6: sparse exchange
+
+# (N, X, mask): the main path's shape, an odd X, N one more than a 32-row
+# chunk of kernel 5 (and past kernel 6's 16-row chunks), and all-dead,
+# all-live and one-band masks
+SPARSE_SHAPES = [(20, 17226, "random"), (5, 1001, "random"), (33, 4099, "random"),
+                 (20, 17226, "dead"), (20, 17226, "live"), (8, 10692, "band")]
+
+
+def _sparse_operands(dev, n, x, layout, m=None, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = torch.rand((m or n, n), generator=g, device=dev)
+    w = w / w.sum(dim=1, keepdim=True)
+    if layout == "random":
+        mask = init_masks(g, n, x, SparseConfig(density=0.2))
+    else:
+        mask = torch.full((n, x), 1.0 if layout == "live" else 0.0, device=dev)
+        if layout == "band":
+            mask[:, x // 3: x // 3 + x // 5] = 1.0
+    c = torch.randn((n, x), generator=g, device=dev) * mask
+    return w, mask, c, column_activity(mask), g
+
+
+@pytest.mark.parametrize("n,x,layout", SPARSE_SHAPES)
+def test_sparse_kernel_matches_plain(cuda, n, x, layout):
+    w, mask, c, act, _ = _sparse_operands(cuda, n, x, layout, seed=n + x)
+    before = gossip_mix_sparse.launches
+    out = gossip_mix_sparse(w, c, act)
+    assert gossip_mix_sparse.launches == before + 1
+    assert out.shape == c.shape and out.dtype == torch.float32
+    assert _max_err(out, gossip_mix_sparse_ref(w, c, act)) <= TOL
+    assert bool((out[:, act == 0] == 0).all())   # exact zeros, not roundoff
+    den = gossip_mix_sparse(w, mask, act)          # the exchange's W·M
+    assert _max_err(den, gossip_mix_sparse_ref(w, mask, act)) <= TOL
+
+
+def test_sparse_kernel_past_2_to_the_31_elements(cuda):
+    """N·X = 2,181,038,080 > 2^31: the last row's offsets need int64
+    (8.7 GB each way). Four slabs of five are dead; checked in column
+    chunks against the plain version."""
+    n, x = 32, 2**26 + 2**20
+    g = torch.Generator(device=cuda).manual_seed(7)
+    w = torch.rand((n, n), generator=g, device=cuda)
+    w = w / w.sum(dim=1, keepdim=True)
+    act = ((torch.arange(x, device=cuda) // 128) % 5 == 0).float()
+    c = torch.randn((n, x), generator=g, device=cuda) * act
+    out = gossip_mix_sparse(w, c, act)
+    torch.cuda.synchronize()
+    step = 2**23
+    for lo in range(0, x, step):
+        sl = slice(lo, min(lo + step, x))
+        assert _max_err(out[:, sl], gossip_mix_sparse_ref(w, c[:, sl], act[sl])) <= TOL, lo
+    assert bool((out[:, act == 0] == 0).all())
+
+
+# (M, N, X, qblock, mask): the main path's shape (Xp = 17,408), M != N
+# with X < Xp, M and N past one 32-row chunk, odd widths, all-dead,
+# all-live and band masks
+DEQUANT_MASKED_SHAPES = [(20, 20, 17226, 256, "random"), (7, 20, 1001, 16, "random"),
+                         (40, 17, 4099, 64, "random"), (9, 33, 4099, 64, "random"),
+                         (9, 4, 999, 3, "random"),
+                         (20, 20, 17226, 256, "dead"), (20, 20, 17226, 256, "live"),
+                         (5, 8, 10692, 256, "band")]
+
+
+@pytest.mark.parametrize("m,n,x,qblock,layout", DEQUANT_MASKED_SHAPES)
+def test_dequant_masked_kernel_matches_plain(cuda, m, n, x, qblock, layout):
+    w, mask, c, act, g = _sparse_operands(cuda, n, x, layout, m=m, seed=m + x)
+    enc = Channel(CommConfig(codec="int8", block=qblock), x).encode(c, g)
+    q, sc = enc["q"], enc["scale"]
+    xp = q.shape[1]
+    before = gossip_mix_dequant_masked.launches
+    out = gossip_mix_dequant_masked(w, q, sc, mask, act, qblock=qblock)
+    assert gossip_mix_dequant_masked.launches == before + 1
+    assert out.shape == (m, xp) and out.dtype == torch.float32
+    want = gossip_mix_dequant_masked_ref(w, q, sc, mask, act, qblock=qblock)
+    assert _max_err(out, want) <= TOL
+    assert bool((out[:, :x][:, act == 0] == 0).all()) and bool((out[:, x:] == 0).all())
+
+
+def test_sparse_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    w, mask, c, act, g = _sparse_operands(cuda, 6, 300, "random")
+    enc = Channel(CommConfig(codec="int8", block=64), 300).encode(c, g)
+    q, sc = enc["q"], enc["scale"]
+    with pytest.raises(ValueError, match="column activity"):
+        gossip_mix_sparse(w, c, act[:-1].contiguous())
+    with pytest.raises(TypeError, match="float32"):
+        gossip_mix_sparse(w, c, act.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        gossip_mix_sparse(w, c.t().contiguous().t(), act)
+    with pytest.raises(ValueError, match="shape"):
+        gossip_mix_sparse(w[:4, :4].contiguous(), c, act)
+    with pytest.raises(ValueError, match="devices"):
+        gossip_mix_sparse(w, c, act.cpu())
+    with pytest.raises(ValueError, match="mask"):
+        gossip_mix_dequant_masked(w, q, sc, mask[:4].contiguous(), act, qblock=64)
+    with pytest.raises(TypeError, match="float32"):
+        gossip_mix_dequant_masked(w, q, sc, mask.bool(), act, qblock=64)
+    with pytest.raises(TypeError, match="float32"):
+        gossip_mix_dequant_masked(w, q, sc, mask, act.double(), qblock=64)
+    with pytest.raises(ValueError, match="contiguous"):
+        gossip_mix_dequant_masked(w, q, sc, mask.t().contiguous().t(), act, qblock=64)
+    with pytest.raises(TypeError, match="int8"):
+        gossip_mix_dequant_masked(w, q.to(torch.int16), sc, mask, act, qblock=64)
+    with pytest.raises(ValueError, match="tile"):
+        gossip_mix_dequant_masked(w, q, sc, mask, act, qblock=128)
+    with pytest.raises(ValueError, match="column activity"):
+        gossip_mix_dequant_masked(w, q, sc, mask, act[:-1].contiguous(), qblock=64)
+
+
+SP = SparseConfig(density=0.25, prune_rate=0.3, update_every=2)
+INT8 = CommConfig(codec="int8", error_feedback=True)
+
+
+@pytest.mark.parametrize("label,kw,want", [
+    ("int8-ef", dict(comm=INT8), {"gossip_mix_dequant": 1}),
+    ("int4-ef", dict(comm=CommConfig(codec="int4", error_feedback=True)),
+     {"gossip_mix_dequant": 1}),
+    ("topk-ef", dict(comm=CommConfig(codec="topk", error_feedback=True)),
+     {"gossip_mix_flat": 1}),
+    ("sparse", dict(sparse=SP), {"gossip_mix_sparse": 2}),
+    ("sparse-int8-ef", dict(sparse=SP, comm=INT8),
+     {"gossip_mix_dequant_masked": 1, "gossip_mix_sparse": 1}),
+    ("sparse-topk-ef", dict(sparse=SP, comm=CommConfig(codec="topk", error_feedback=True)),
+     {"gossip_mix_sparse": 2}),
+    ("sparse-int8-dp", dict(sparse=SP, comm=INT8,
+                            options={"dp_clip": 1.0, "dp_noise_multiplier": 0.5}),
+     {"gossip_mix_dequant_masked": 1, "gossip_mix_sparse": 1}),
+])
+def test_codec_and_sparse_paths_launch_their_kernels(cuda, label, kw, want):
+    data = make_mixture_classification(n_clients=8, n_per_client=64, dim=16,
+                                       n_classes=4)
+    exp = PaperExpConfig(n_clients=8, n_per_client=64, dim=16, n_classes=4,
+                         rounds=3, avg_degree=3.0)
+    reset_launch_counts()
+    r = run_method("fedspd", data, exp, cfg=RunConfig(**kw))
+    counts = {k.__name__: k.launches for k in KERNELS}
+    expect = {k: exp.rounds * want.get(k, 0) for k in counts}
+    assert counts == expect, label
+    assert 0.0 <= r.mean_acc <= 1.0 and 0 < r.wire_bytes < r.comm_bytes

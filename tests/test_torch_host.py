@@ -1,5 +1,6 @@
 """PyTorch port, host side: the numpy-only copies, the packed-plane layout,
-and the entry points' device and feature refusals, held against the JAX
+and the entry points' device and feature refusals (and the features that
+were refused until their slice, which now run), held against the JAX
 package (JAX on the CPU, the port with device="cpu")."""
 import dataclasses
 
@@ -15,8 +16,10 @@ from repro.core.packing import unpack as j_unpack
 from repro.data.synthetic import make_mixture_classification as j_data
 from repro.graphs.topology import make_graph as j_graph
 from repro.models.smallnets import make_classifier as j_classifier
+from repro_torch.comm.codecs import CommConfig
 from repro_torch.configs.paper_cnn import PaperExpConfig
 from repro_torch.core.packing import make_pack_spec, pack, unpack
+from repro_torch.core.sparse import SparseConfig
 from repro_torch.data.synthetic import make_mixture_classification
 from repro_torch.device import resolve_device
 from repro_torch.experiments import RunConfig, run_method
@@ -126,25 +129,35 @@ def test_run_method_without_device_raises_on_a_host_without_cuda():
     assert resolve_device("cpu").type == "cpu"
 
 
+# what = "comm" / "sparse": a feature refused until its slice, which now
+# runs; any other: the refusal's message names it
 @pytest.mark.parametrize("cfg,what", [
     (RunConfig(param_plane=False), "param_plane"),
     (RunConfig(gossip_mode="permute"), "permute"),
     (RunConfig(gossip_backend="pallas"), "pallas"),
     (RunConfig(gossip_backend="ppermute"), "ppermute"),
-    (RunConfig(comm=object()), "comm"),
-    (RunConfig(sparse=object()), "sparse"),
+    (RunConfig(comm=CommConfig(codec="int8", error_feedback=True)), "comm"),
+    (RunConfig(sparse=SparseConfig(density=0.5, update_every=1)), "sparse"),
     (RunConfig(scenario=object()), "scenario"),
     (RunConfig(cohort_size=4), "cohort_size"),
     (RunConfig(scan_rounds=True), "scan_rounds"),
     (RunConfig(telemetry=object()), "telemetry"),
     (RunConfig(options={"cos_align_threshold": 0.5}), "cos_align"),
-    (RunConfig(options={"comm": object()}), "comm"),
+    (RunConfig(options={"comm": CommConfig(codec="topk")}), "comm"),
+    (RunConfig(sparse=SparseConfig(density=0.5), param_plane=False), "param_plane"),
+    (RunConfig(comm=CommConfig(codec="int8"), param_plane=False), "param_plane"),
+    (RunConfig(comm=object()), "CommConfig"),
+    (RunConfig(sparse=object()), "SparseConfig"),
 ])
 def test_unported_features_are_refused(cfg, what):
     data = make_mixture_classification(n_clients=4, n_per_client=16)
+    cfg = dataclasses.replace(cfg, device="cpu")
+    if what in ("comm", "sparse"):
+        r = run_method("fedspd", data, PaperExpConfig(rounds=2), cfg=cfg)
+        assert np.isfinite(r.mean_acc) and 0 < r.wire_bytes < r.comm_bytes
+        return
     with pytest.raises(ValueError, match=what):
-        run_method("fedspd", data, PaperExpConfig(rounds=1),
-                   cfg=dataclasses.replace(cfg, device="cpu"))
+        run_method("fedspd", data, PaperExpConfig(rounds=1), cfg=cfg)
 
 
 def _run_batch():
@@ -153,19 +166,27 @@ def _run_batch():
 
 
 @pytest.mark.parametrize("case", ["dfl_fedavg-comm", "fedspd_permute",
-                                  "run_method_batch"])
+                                  "run_method_batch", "cfl_fedem-sparse",
+                                  "local-comm-fp32"])
 def test_unported_method_ids_are_refused(case):
     """What the slices so far leave out stays refused, naming itself: the
-    permute wiring's id, a wire codec on a baseline's exchange, and the
-    multi-seed batch driver."""
+    permute wiring's id, a wire codec or sparse masks on a baseline (the
+    JAX baselines would ignore ``sparse`` and still charge sparse wire
+    bytes), and the multi-seed batch driver."""
     data = make_mixture_classification(n_clients=4, n_per_client=16)
     if case == "run_method_batch":
         with pytest.raises(ImportError, match="run_method_batch"):
             _run_batch()
         return
     method, cfg, what = {
-        "dfl_fedavg-comm": ("dfl_fedavg", RunConfig(device="cpu", comm=object()),
-                               "comm"),
+        "dfl_fedavg-comm": ("dfl_fedavg", RunConfig(device="cpu",
+                                                    comm=CommConfig(codec="int8")),
+                            "comm.*dfl_fedavg"),
+        "cfl_fedem-sparse": ("cfl_fedem", RunConfig(device="cpu",
+                                                    sparse=SparseConfig(density=0.5)),
+                             "sparse.*cfl_fedem"),
+        "local-comm-fp32": ("local", RunConfig(device="cpu", comm=CommConfig()),
+                            "comm.*local"),
         "fedspd_permute": ("fedspd_permute", RunConfig(device="cpu"),
                            "fedspd_permute"),
     }[case]
