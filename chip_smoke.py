@@ -63,7 +63,30 @@ Phases, in order; any failure exits non-zero before the result line:
    and ``wire_bytes`` checked exactly;
 8. a torch.profiler window over 3 rounds of the main path, and one of the
    sparse + int8 path: device time per round, the kernels that take it,
-   and the device's busy share.
+   and the device's busy share;
+9. the LM kernels: ``flash_attention`` (kernel 8) at olmo-1b's prefill
+   (B = 4 requests, L = 512, 16 heads, hd 128, bf16; also fp32), a
+   danube-like GQA 32/8 hd-80 layer with a 256 window and a gemma3-like
+   hd-256 layer over one kv head, and ``ssd_scan`` (kernel 9) at
+   mamba2-370m's prefill layer (B = 4, L = 512, H = 32, P = 64, N = 128,
+   chunk 128, bf16; also fp32 and with an initial state), each against its
+   plain version (attention 2e-5 fp32 / 2e-2 bf16, SSD 2e-3 and one bf16
+   step, 2^-7 of the value, on a bf16 y) and timed by CUDA-graph replay beside its bound (bytes over
+   3.35 TB/s or FLOPs over 989 TFLOP/s bf16 / 67 TFLOP/s fp32), its plain
+   version and, for attention, ``scaled_dot_product_attention``;
+10. LM generation, the fifth path: ``olmo-1b`` and ``mamba2-370m`` at full
+   width, ``launch/serve``'s random S = 2 plane (``build_server``) in
+   fp32, int8 and int4, B = 4 requests with their own mixtures, prompt
+   512, 16 greedy tokens, every launch counter set to 0 just before each
+   ``generate`` and read just after (one ``flash_attention`` launch per
+   olmo layer, three ``ssd_scan`` launches per mamba2 layer, one dequant
+   launch per int8/int4 call); the tokens against the same card's tokens
+   through the plain versions of kernels 8 and 9 (where a bf16 near-tie
+   flips one, the logit gap at that step must be under 5e-2 or two bf16
+   steps at the logits' magnitude); prefill and decode times, plane bytes
+   and peak memory; a torch.profiler window over one 4-token generate per
+   model (int8): device time by kernel and the busy share; then ``python
+   -m repro_torch.launch.serve`` once.
 
 It then prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line. Needs one card and no network; it
@@ -71,6 +94,7 @@ imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -83,6 +107,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 FP32_FLOPS = 67e12          # H100 SXM, fp32 outside the tensor cores
+BF16_FLOPS = 989e12         # H100 SXM, bf16 dense tensor cores
 TOL = 1e-5
 SHAPES = [(20, 17226), (20, 4194304)]  # (N, X): the main path's, past L2
 ROUNDS = 5
@@ -114,6 +139,21 @@ SPARSE_SHAPES = [(20, 17226, "random"), (20, 17226, "band"),
 # wire bytes per message of the mlp (X = 17,226, 68,904 model bytes) on
 # the four sparse/comm runs: dense int8, dense topk, sparse fp32, sparse int8
 WIRE_PER_MSG = {"int8": 17498, "topk": 8608, "sparse": 15934, "sparse_int8": 5655}
+# kernel 8, (B, L, Hq, Hkv, hd, window, dtype): olmo-1b's prefill layer
+# (the main row) in bf16 and fp32, a danube-like GQA layer with a window
+# shorter than L, a gemma3-like hd-256 layer over one kv head
+FLASH_SHAPES = [(4, 512, 16, 16, 128, None, "bfloat16"), (4, 512, 16, 16, 128, None, "float32"),
+                (4, 512, 32, 8, 80, 256, "bfloat16"), (4, 512, 4, 1, 256, None, "bfloat16")]
+# kernel 9, (B, L, H, G, P, N, chunk, dtype, initial state): mamba2-370m's
+# prefill layer (the main row), in fp32, and with an initial state
+SSD_SHAPES = [(4, 512, 32, 1, 64, 128, 128, "bfloat16", False),
+              (4, 512, 32, 1, 64, 128, 128, "float32", False),
+              (4, 512, 32, 1, 64, 128, 128, "float32", True)]
+LM_ARCHS = {"olmo-1b": 1_280_311_296, "mamba2-370m": 420_136_448}   # X of each plane
+LM_B, LM_PROMPT, LM_GEN = 4, 512, 16
+LM_MIXTURE = [[0.7, 0.3], [0.5, 0.5], [0.1, 0.9], [1.0, 0.0]]
+BF16_GAP = 5e-2   # a greedy flip between kernel and plain runs must be a near-tie:
+# a logit gap under this, or under two bf16 steps at the logits' magnitude
 
 
 def fail(msg: str) -> None:
@@ -835,6 +875,320 @@ def phase_baselines(torch, gm) -> dict:
     return total
 
 
+def _flash_bound(b, l, hq, hkv, hd, window, dtype) -> tuple[float, str, int]:
+    """(least ms, bound_by, live (q, k) pairs): q, k, v read once and out
+    written once; 4·B·Hq·hd FLOPs per live pair (q·k and p·v), at the bf16
+    tensor-core peak for bf16 inputs, the fp32 peak for fp32."""
+    pos = list(range(l))
+    live = sum(min(q + 1, window if window else q + 1) for q in pos)
+    size = 2 if dtype == "bfloat16" else 4
+    nbytes = size * (2 * b * l * hq * hd + 2 * b * l * hkv * hd)
+    flops = 4 * b * hq * hd * live
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / (BF16_FLOPS if size == 2 else FP32_FLOPS)
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations"), live
+
+
+def _ssd_bound(b, l, h, g, p, n, q, dtype, state) -> tuple[float, str]:
+    """(least ms, bound_by): x, B, C, dt, A (and s0) read once, y and the
+    final state written once; per (batch, chunk, head) the chunked dual
+    form's four products, C·Bᵀ and (C·Bᵀ ⊙ L)·(x·dt) over the Q(Q+1)/2
+    causal pairs, C·S_in and the chunk state over Q·P·N each."""
+    size = 2 if dtype == "bfloat16" else 4
+    nbytes = (size * (2 * b * l * h * p + 2 * b * l * g * n) + 4 * (b * l * h + h)
+              + 4 * b * h * p * n * (2 if state else 1))
+    pairs = q * (q + 1) // 2
+    flops = b * (l // q) * h * (2 * pairs * (n + p) + 4 * q * p * n)
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / (BF16_FLOPS if size == 2 else FP32_FLOPS)
+    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+
+
+def phase_lm_kernels(torch) -> dict:
+    """Kernels 8 and 9 against their plain versions at the LM path's
+    shapes, timed by CUDA-graph replay beside bound, plain and library."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
+
+    dev = torch.device("cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {"flash_attention": [], "ssd_scan": []}
+    for b, l, hq, hkv, hd, window, dt in FLASH_SHAPES:
+        dtype = getattr(torch, dt)
+        g = torch.Generator(device=dev).manual_seed(l + hq + hd)
+        q = torch.randn((b, l, hq, hd), generator=g, device=dev).to(dtype)
+        k, v = (torch.randn((b, l, hkv, hd), generator=g, device=dev).to(dtype)
+                for _ in range(2))
+        out = flash_attention(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        want = flash_attention_ref(q, k, v, causal=True, window=window)
+        err = float((out.float() - want.float()).abs().max())
+        tol = 2e-5 if dt == "float32" else 2e-2
+        check(bool(torch.isfinite(out).all()), f"flash_attention {dt} {tuple(q.shape)}: not finite")
+        check(err <= tol, f"flash_attention {dt} B={b} L={l} {hq}/{hkv} hd={hd} "
+                          f"window={window}: max abs err {err} > {tol}")
+        # the yardstick: one SDPA call, (B, H, L, hd), kv heads repeated
+        # for GQA and the window as a boolean mask (made outside the timing)
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (x.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).contiguous()
+                  for x in (k, v))
+        if window is None:
+            def lib():
+                return sdpa(qt, kt, vt, is_causal=True)
+        else:
+            i = torch.arange(l, device=dev)
+            mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
+
+            def lib():
+                return sdpa(qt, kt, vt, attn_mask=mask)
+        b_ms, b_by, live = _flash_bound(b, l, hq, hkv, hd, window, dt)
+        rows["flash_attention"].append(dict(
+            b=b, l=l, hq=hq, hkv=hkv, hd=hd, window=window, dtype=dt, live_pairs=live,
+            max_abs_err=err,
+            ms=graph_ms(lambda: flash_attention(q, k, v, causal=True, window=window), 20, 10),
+            plain_ms=graph_ms(lambda: flash_attention_ref(q, k, v, causal=True,
+                                                          window=window), 5, 5),
+            library_ms=graph_ms(lib, 20, 10), bound_ms=b_ms, bound_by=b_by))
+        del q, k, v, out, want, qt, kt, vt
+        torch.cuda.empty_cache()
+    for b, l, h, gr, p, n, chunk, dt, state in SSD_SHAPES:
+        dtype = getattr(torch, dt)
+        g = torch.Generator(device=dev).manual_seed(l + h + n + int(state))
+        x = torch.randn((b, l, h, p), generator=g, device=dev).to(dtype)
+        dts = torch.nn.functional.softplus(torch.randn((b, l, h), generator=g, device=dev)) * 0.1
+        a = -torch.exp(torch.rand((h,), generator=g, device=dev))
+        bm, cm = (torch.randn((b, l, gr, n), generator=g, device=dev).to(dtype)
+                  for _ in range(2))
+        s0 = torch.randn((b, h, p, n), generator=g, device=dev) if state else None
+        y, s = ssd_scan(x, dts, a, bm, cm, chunk=chunk, initial_state=s0)
+        torch.cuda.synchronize()
+        yr, sr = ssd_chunked(x, dts, a, bm, cm, chunk, s0)
+        # 2e-3 abs + rel; y in bf16 may also differ by one bf16 step (at
+        # most 2^-7 of the value)
+        rtol = 2e-3 if dt == "float32" else 2e-3 + 2.0 ** -7
+        y_ok = bool(((y.float() - yr.float()).abs() <= 2e-3 + rtol * yr.float().abs()).all())
+        s_ok = bool(((s - sr).abs() <= 2e-3 + 2e-3 * sr.abs()).all())
+        err = max(float((y.float() - yr.float()).abs().max()), float((s - sr).abs().max()))
+        check(bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all()),
+              f"ssd_scan {dt}: not finite")
+        check(y_ok and s_ok, f"ssd_scan {dt} B={b} L={l} H={h} P={p} N={n} state={state}: "
+                             f"max abs err {err} outside 2e-3 (+ rtol {rtol})")
+        b_ms, b_by = _ssd_bound(b, l, h, gr, p, n, chunk, dt, state)
+        rows["ssd_scan"].append(dict(
+            b=b, l=l, h=h, g=gr, p=p, n=n, chunk=chunk, dtype=dt, initial_state=state,
+            max_abs_err=err, launches_per_call=3,
+            ms=graph_ms(lambda: ssd_scan(x, dts, a, bm, cm, chunk=chunk, initial_state=s0),
+                        20, 10),
+            plain_ms=graph_ms(lambda: ssd_chunked(x, dts, a, bm, cm, chunk, s0), 5, 5),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by))
+        del x, dts, bm, cm, s0, y, s, yr, sr
+        torch.cuda.empty_cache()
+    for name, rs in rows.items():
+        for r in rs:
+            print(f"kernel {name} " + json.dumps(r), flush=True)
+    return rows
+
+
+class _PlainLMKernels:
+    """Within the block the LM models run the plain versions of kernels 8
+    and 9 on the card (the comparison side of the LM serve phase)."""
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import flash_attention_ref
+        from repro_torch.kernels.ssd_scan import ssd_chunked
+        from repro_torch.models import attention, ssm
+
+        self.saved = (attention.flash_attention, ssm.ssd_scan)
+        attention.flash_attention = flash_attention_ref
+        ssm.ssd_scan = lambda x, dt, A, B, C, *, chunk, initial_state=None: ssd_chunked(
+            x, dt, A, B, C, chunk, initial_state)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import attention, ssm
+
+        attention.flash_attention, ssm.ssd_scan = self.saved
+
+
+def _first_flip(torch, server, bundle, u, prompts, got, want) -> tuple[str, float]:
+    """Tokens of the kernel run (``got``) against the plain run
+    (``want``): ("equal", 0), or the first step where they differ and the
+    kernel run's logit gap there between the two tokens, replayed through
+    the server's own steps (mix, cast, prefill, re-score, decode ``got``'s
+    tokens), which must be a bf16 near-tie."""
+    from repro_torch.models.layers import cast_params_for_compute
+
+    if torch.equal(got, want):
+        return "equal", 0.0
+    step = int((got != want).any(dim=0).nonzero()[0])
+    row = int((got[:, step] != want[:, step]).nonzero()[0])
+    b, lp = prompts.shape
+    with torch.no_grad():
+        params = cast_params_for_compute(server.personalized(u),
+                                         bundle.cfg.compute_dtype_torch())
+        cache = bundle.init_cache(b, lp + LM_GEN + 1, device=prompts.device)
+        cache = bundle.prefill(params, {"tokens": prompts}, cache)
+        cache["pos"] = lp - 1
+        logits, cache = bundle.decode_step(params, cache, prompts[:, -1:])
+        for i in range(step):
+            logits, cache = bundle.decode_step(params, cache, got[:, i:i + 1].long())
+    a, b_ = (float(logits[row, -1, int(t[row, step])]) for t in (got, want))
+    gap = abs(a - b_)
+    # two bf16 steps (8 significant bits) at the larger logit's magnitude
+    steps = 2.0 ** (math.floor(math.log2(max(abs(a), abs(b_), 1e-30))) - 6)
+    return (f"first flip at step {step} (request {row}), logit gap {gap:.4g} (logits "
+            f"{a:.4g}, {b_:.4g}; two bf16 steps {steps:.4g})", gap / max(BF16_GAP, steps))
+
+
+def phase_lm_serve(torch, gm) -> dict:
+    """The fifth path: LM generation at full width. Returns the launches
+    summed over its generate calls (every kernel, kernels 8 and 9
+    included)."""
+    import numpy as np
+
+    from repro_torch.core.packing import make_pack_spec
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import ServeConfig
+
+    kernels = gm.KERNELS + (flash_attention, ssd_scan)
+    total = {k.__name__: 0 for k in kernels}
+    dev = torch.device("cuda")
+    for arch, x_want in LM_ARCHS.items():
+        cfg0 = ServeConfig(arch=arch, smoke=False, batch=LM_B, prompt_len=LM_PROMPT,
+                           gen=LM_GEN, mixture=np.array(LM_MIXTURE, np.float32)).resolve()
+        arch_cfg = cfg0.arch_config()
+        bundle = build_model(arch_cfg, attn_mode="cuda")
+        spec = make_pack_spec(bundle.init(None))
+        check(spec.size == x_want, f"{arch}: X = {spec.size}, expected {x_want}")
+        prompts = torch.randint(0, arch_cfg.vocab, (LM_B, LM_PROMPT),
+                                generator=torch.Generator(device=dev).manual_seed(0),
+                                device=dev)
+        kernel, per_layer = ((ssd_scan, 3) if arch_cfg.family == "ssm"
+                             else (flash_attention, 1))
+        for codec in ("fp32", "int8", "int4"):
+            cfg = dataclasses.replace(cfg0, codec=codec)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            server, u = launch_serve.build_server(cfg, bundle, spec, device=dev)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+            server.generate(u, prompts, gen=1)                       # first use
+            for k in kernels:
+                k.launches = 0
+            toks = server.generate(u, prompts, gen=LM_GEN)
+            counts = {k.__name__: k.launches for k in kernels}
+            for name, c in counts.items():
+                total[name] += c
+            gen_ms = server.latency.latencies_s[-1] * 1e3
+            peak = torch.cuda.max_memory_allocated()
+            # a generate of one token is the mix, the prefill and the
+            # re-score of the last prompt token; the other 15 are decodes
+            one_ms = _timed_generate(server, u, prompts, 1)
+            decode_ms = (gen_ms - one_ms) / (LM_GEN - 1)
+            mix_ms = _timed_call(torch, lambda: server.personalized(u))
+            with _PlainLMKernels():
+                plain = server.generate(u, prompts, gen=LM_GEN)
+            verdict, gap_ratio = _first_flip(torch, server, bundle, u, prompts, toks, plain)
+            want = {k.__name__: 0 for k in kernels}
+            want[kernel.__name__] = arch_cfg.n_layers * per_layer
+            if codec == "int8":
+                want["gossip_mix_dequant"] = 1
+            if codec == "int4":
+                want["mixture_mix_dequant4"] = 1
+            print(f"lm serve {arch} {codec}: prefill_ms {one_ms - decode_ms:.3f} "
+                  f"decode_ms_per_token {decode_ms:.4f} tok_s {LM_B * LM_GEN / gen_ms * 1e3:.1f} "
+                  f"generate_ms {gen_ms:.3f} (B={LM_B}, prompt {LM_PROMPT}, gen {LM_GEN}) "
+                  f"mix_ms {mix_ms:.3f} plane_bytes {server.plane_bytes} "
+                  f"max_memory_allocated {peak} build_s {build_s:.2f} tokens vs plain: "
+                  f"{verdict} launches {json.dumps(counts)} tokens[0] "
+                  f"{json.dumps(toks[0].tolist())}", flush=True)
+            check(tuple(toks.shape) == (LM_B, LM_GEN) and int(toks.min()) >= 0
+                  and int(toks.max()) < arch_cfg.vocab,
+                  f"lm serve {arch} {codec}: tokens {tuple(toks.shape)} out of range")
+            check(counts == want, f"lm serve {arch} {codec}: launches {counts}, expected {want}")
+            check(gap_ratio <= 1.0, f"lm serve {arch} {codec}: kernel and plain tokens "
+                                    f"differ, {verdict}: not a bf16 near-tie")
+            del server, toks, plain
+        del bundle
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_lm_profile(torch) -> None:
+    """Where a generate's time goes: one 4-token int8 generate per LM
+    model under torch.profiler, after one unprofiled."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.packing import make_pack_spec
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import ServeConfig
+
+    dev = torch.device("cuda")
+    for arch in LM_ARCHS:
+        cfg = ServeConfig(arch=arch, smoke=False, batch=LM_B, prompt_len=LM_PROMPT, gen=4,
+                          codec="int8", mixture=np.array(LM_MIXTURE, np.float32)).resolve()
+        bundle = build_model(cfg.arch_config(), attn_mode="cuda")
+        spec = make_pack_spec(bundle.init(None))
+        server, u = launch_serve.build_server(cfg, bundle, spec, device=dev)
+        prompts = torch.randint(0, cfg.arch_config().vocab, (LM_B, LM_PROMPT), device=dev,
+                                generator=torch.Generator(device=dev).manual_seed(0))
+        server.generate(u, prompts, gen=4)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            server.generate(u, prompts, gen=4)
+        wall_ms = server.latency.latencies_s[-1] * 1e3
+        kern = sorted((e for e in prof.key_averages() if e.device_type.name == "CUDA"),
+                      key=lambda e: -e.self_device_time_total)
+        check(bool(kern), "lm profile: the profiler recorded no device kernel")
+        dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+        print(f"lm profile {arch} int8 gen 4: device_ms {dev_ms:.3f} kernels "
+              f"{sum(e.count for e in kern)} profiled generate_ms {wall_ms:.3f} "
+              f"device_busy_share {dev_ms / wall_ms:.4f}", flush=True)
+        for e in kern[:12]:
+            print(f"lm profile {arch} kernel {e.self_device_time_total / 1e3:.4f} ms "
+                  f"x{e.count} {e.key[:100]}", flush=True)
+        ops = sorted((e for e in prof.key_averages()
+                      if e.device_type.name == "CPU" and e.key.startswith("aten::")),
+                     key=lambda e: -e.device_time_total)
+        for e in ops[:10]:
+            print(f"lm profile {arch} op {e.device_time_total / 1e3:.4f} device ms "
+                  f"{e.cpu_time_total / 1e3:.4f} cpu ms x{e.count} {e.key}", flush=True)
+        del server, bundle
+        torch.cuda.empty_cache()
+
+
+def _timed_call(torch, fn) -> float:
+    """Host milliseconds of one call to device completion."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _timed_generate(server, u, prompts, gen: int) -> float:
+    server.generate(u, prompts, gen=gen)
+    return server.latency.latencies_s[-1] * 1e3
+
+
+def phase_lm_cli() -> None:
+    """``python -m repro_torch.launch.serve`` at full width, once."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "olmo-1b",
+           "--prompt-len", str(LM_PROMPT), "--gen", str(LM_GEN), "--codec", "int8",
+           "--mixture", "0.7,0.3"]
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    r = subprocess.run(cmd, capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+    lines = r.stdout.strip().splitlines()
+    print("lm cli: " + " | ".join(lines[:2]), flush=True)
+    check(r.returncode == 0, f"launch.serve exited {r.returncode}: {r.stderr[-2000:]}")
+    check(any(line.startswith("generated 16 tokens") for line in lines),
+          "launch.serve printed no generation line")
+
+
 def main() -> None:
     import torch
 
@@ -885,10 +1239,14 @@ def main() -> None:
     phase_profile(torch, round_ms)
     phase_profile(torch, sparse_round_ms, label="sparse+int8", sparse=SparseConfig(**SPARSE),
                   comm=CommConfig(codec="int8", error_feedback=True))
+    lm_rows = phase_lm_kernels(torch)
+    lm_launches = phase_lm_serve(torch, gm)
+    phase_lm_profile(torch)
+    phase_lm_cli()
 
     # every launch on the driven paths: the FedSPD main path (DP off and
     # on), serving, the baselines and the sparse/comm runs
-    for path in (serve_launches, baseline_launches, sparse_launches):
+    for path in (serve_launches, baseline_launches, sparse_launches, lm_launches):
         for name, c in path.items():
             launches[name] = launches.get(name, 0) + c
     replaces = {"gossip_mix_flat": "src/repro/kernels/gossip_mix.py:63",
@@ -897,7 +1255,9 @@ def main() -> None:
                 "gossip_mix_dequant": "src/repro/kernels/gossip_mix.py:215",
                 "mixture_mix_dequant4": "src/repro/kernels/gossip_mix.py:362",
                 "gossip_mix_sparse": "src/repro/kernels/gossip_mix.py:160",
-                "gossip_mix_dequant_masked": "src/repro/kernels/gossip_mix.py:290"}
+                "gossip_mix_dequant_masked": "src/repro/kernels/gossip_mix.py:290",
+                "flash_attention": "src/repro/kernels/flash_attention.py:100",
+                "ssd_scan": "src/repro/kernels/ssd_scan.py:94"}
     kernels = []
     for name, rs in rows.items():
         # the main path's own shape; the DP run draws noise (sigma > 0)
@@ -942,6 +1302,18 @@ def main() -> None:
             plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
             library_ms=main["library_ms"],
             shape={"n": main["n"], "x": main["x"], "layout": main["layout"]},
+            card=card, shapes=rs))
+    for name, rs in lm_rows.items():
+        # the LM path's own shape: olmo-1b's / mamba2-370m's prefill layer, bf16
+        main = rs[0]
+        kernels.append(dict(
+            name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{name}.cu",
+            replaces=replaces[name], launches=launches[name],
+            max_abs_err=max(r["max_abs_err"] for r in rs), ms=main["ms"],
+            plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            library_ms=main["library_ms"],
+            shape={k: main[k] for k in main if k in ("b", "l", "hq", "hkv", "h", "p", "n",
+                                                     "hd", "chunk", "dtype")},
             card=card, shapes=rs))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -22,7 +22,9 @@ from repro_torch.device import make_generator, resolve_device
 
 def params_from_numpy(tree, device: str | torch.device = "cuda") -> dict:
     """A nested dict of numpy arrays -> the same dict of tensors on
-    ``device`` (dtype kept)."""
+    ``device`` (dtype kept). It carries a JAX ``bundle.init`` tree of the
+    LM zoo as it is: stacked ``(L, ...)`` layer leaves, and olmo's empty
+    norm dicts as empty dicts (they pack to no leaves)."""
     device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}

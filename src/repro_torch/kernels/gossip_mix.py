@@ -69,6 +69,9 @@ import torch.nn.functional as F
 
 from repro_torch.comm.codecs import int4_unpack
 from repro_torch.kernels.build import load_library
+from repro_torch.kernels.common import check as _check
+from repro_torch.kernels.common import on_cpu as _on_cpu
+from repro_torch.kernels.common import raise_on as _raise_on
 
 
 def gossip_mix_flat_ref(w: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -125,30 +128,6 @@ def gossip_mix_dequant_masked_ref(w: torch.Tensor, q: torch.Tensor,
     c = c * F.pad(mask.float(), (0, pad))
     return torch.where(F.pad(col_active, (0, pad)) > 0,
                        torch.einsum("mn,nx->mx", w.float(), c), 0.0)
-
-
-def _on_cpu(*ts) -> bool:
-    devs = {t.device.type for t in ts}
-    if devs == {"cpu"}:
-        return True
-    if devs != {"cuda"} or len({t.device for t in ts}) != 1:
-        raise ValueError(f"gossip mix operands on mixed or unsupported devices: {devs}")
-    return False
-
-
-def _check(name: str, t: torch.Tensor, shape: tuple,
-           dtype: torch.dtype = torch.float32) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, the kernel takes {dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: the kernel takes a contiguous tensor")
-
-
-def _raise_on(rc: int, kernel: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError {rc}")
 
 
 def gossip_mix_flat(w: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

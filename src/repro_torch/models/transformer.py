@@ -1,0 +1,278 @@
+"""Decoder-only transformer (dense and VLM backbone) with GQA, RoPE, qk-norm,
+sliding-window and local:global attention, and a KV-cache decode path.
+
+One implementation covers olmo-1b, h2o-danube, gemma3-1b, granite-3-8b
+and chameleon-34b (the VLM backbone reads VQ image tokens through the same
+vocab), as the JAX package's ``models/transformer.py`` does; MoE layers
+(olmoe, phi3.5-moe) wait for the MoE slice and raise.
+
+The layer stack keeps the JAX package's stacked ``(L, ...)`` leaves and
+runs them as a Python loop. Each layer's window is therefore a static
+Python int: gemma3's per-layer local/global windows reach the flash
+kernel as each layer's own static window, the counterpart of the JAX
+package's traced ``dyn_window`` (which its ``"pallas"`` mode refuses).
+
+Every function also takes request-batched params (each leaf with a
+leading ``(B,)`` axis, ``models/layers.py``): B requests, each through its
+own weights, in one batched forward. The decode path updates the cache's
+k/v tensors in place (one row per step) and returns a cache dict whose
+``pos`` (a Python int) has moved on by one.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.attention import attention, decode_attention
+from repro_torch.models.layers import (
+    apply_mlp,
+    apply_norm,
+    apply_rope,
+    cast_params_for_compute,
+    dense_init,
+    embed_init,
+    embed_lookup,
+    init_device,
+    init_mlp,
+    layer_slice,
+    linear,
+    next_token_loss,
+    rmsnorm_init,
+    stack_init,
+)
+
+
+def _refuse_moe(cfg: ArchConfig) -> None:
+    if cfg.n_experts > 0:
+        raise ValueError(
+            f"{cfg.name}: MoE layers (n_experts={cfg.n_experts}) wait for the MoE "
+            "slice of the port (models/moe.py is not ported yet)")
+
+
+def _norm_params(cfg: ArchConfig, dtype, device) -> dict:
+    return rmsnorm_init(cfg.d_model, dtype, device) if cfg.norm == "rmsnorm" else {}
+
+
+def layer_windows(cfg: ArchConfig) -> np.ndarray:
+    """Per-layer window sizes; -1 = full causal attention.
+
+    gemma3: repeating pattern of ``local_global_ratio`` local layers
+    (window=local_window) followed by one global layer.
+    """
+    if cfg.local_global_ratio > 0:
+        pat = [cfg.local_window] * cfg.local_global_ratio + [-1]
+        w = [pat[i % len(pat)] for i in range(cfg.n_layers)]
+        return np.array(w, dtype=np.int32)
+    if cfg.window is not None:
+        return np.full(cfg.n_layers, cfg.window, dtype=np.int32)
+    return np.full(cfg.n_layers, -1, dtype=np.int32)
+
+
+def static_window(cfg: ArchConfig) -> Optional[int]:
+    """A single static window if all layers share one."""
+    w = layer_windows(cfg)
+    if (w == w[0]).all():
+        return None if w[0] < 0 else int(w[0])
+    return None
+
+
+def _window(cfg: ArchConfig, i: int) -> Optional[int]:
+    """Layer i's own static window (None: full causal)."""
+    w = int(layer_windows(cfg)[i])
+    return None if w < 0 else w
+
+
+def init_layer(gen: torch.Generator | None, cfg: ArchConfig) -> dict:
+    _refuse_moe(cfg)
+    dtype, dev, hd = cfg.param_dtype_torch(), init_device(gen), cfg.head_dim
+    p = {
+        "ln1": _norm_params(cfg, dtype, dev),
+        "ln2": _norm_params(cfg, dtype, dev),
+        "attn": {
+            "wq": dense_init(gen, cfg.d_model, cfg.n_heads * hd, dtype),
+            "wk": dense_init(gen, cfg.d_model, cfg.n_kv_heads * hd, dtype),
+            "wv": dense_init(gen, cfg.d_model, cfg.n_kv_heads * hd, dtype),
+            "wo": dense_init(gen, cfg.n_heads * hd, cfg.d_model, dtype),
+        },
+        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype),
+    }
+    if cfg.qk_norm:
+        p["attn"]["q_norm"] = rmsnorm_init(hd, dtype, dev)
+        p["attn"]["k_norm"] = rmsnorm_init(hd, dtype, dev)
+    return p
+
+
+def init_transformer(gen: torch.Generator | None, cfg: ArchConfig) -> dict:
+    """Random parameters drawn from ``gen`` on its device (``gen=None``:
+    the tree on the meta device, shapes and dtypes only)."""
+    _refuse_moe(cfg)
+    dtype = cfg.param_dtype_torch()
+    params = {
+        "embed": embed_init(gen, cfg.vocab_padded, cfg.d_model, dtype),
+        "layers": stack_init(lambda g: init_layer(g, cfg), gen, cfg.n_layers),
+        "ln_f": _norm_params(cfg, dtype, init_device(gen)),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = dense_init(gen, cfg.d_model, cfg.vocab_padded, dtype)
+    return params
+
+
+def _project_qkv(p_attn: dict, h: torch.Tensor, cfg: ArchConfig):
+    b, l, _ = h.shape
+    hd = cfg.head_dim
+    q = linear(h, p_attn["wq"]).reshape(b, l, cfg.n_heads, hd)
+    k = linear(h, p_attn["wk"]).reshape(b, l, cfg.n_kv_heads, hd)
+    v = linear(h, p_attn["wv"]).reshape(b, l, cfg.n_kv_heads, hd)
+    if cfg.qk_norm:
+        q = apply_norm("rmsnorm", p_attn["q_norm"], q)
+        k = apply_norm("rmsnorm", p_attn["k_norm"], k)
+    return q, k, v
+
+
+def apply_layer(p: dict, h: torch.Tensor, *, cfg: ArchConfig, positions: torch.Tensor,
+                mode: str, window: Optional[int]):
+    """Full-sequence layer. Returns (h, (k, v), aux)."""
+    x = apply_norm(cfg.norm, p.get("ln1"), h)
+    q, k, v = _project_qkv(p["attn"], x, cfg)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    attn_out = attention(q, k, v, mode=mode, causal=True, window=window)
+    b, l = attn_out.shape[:2]
+    h = h + linear(attn_out.reshape(b, l, -1), p["attn"]["wo"])
+    x2 = apply_norm(cfg.norm, p.get("ln2"), h)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h + apply_mlp(p["mlp"], x2, cfg.act), (k, v), aux
+
+
+def _head(params: dict, cfg: ArchConfig, compute: torch.dtype) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return params["embed"].transpose(-1, -2).to(compute)
+    return params["head"]
+
+
+def _run_layers(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *, attn_mode: str,
+                keep_kv: bool):
+    """Embed, the layer stack, the final norm. Returns (h, compute-cast
+    params, per-layer (k, v) list or None)."""
+    _refuse_moe(cfg)
+    compute = cfg.compute_dtype_torch()
+    batched = params["embed"].dim() == 3
+    h = embed_lookup(params["embed"], tokens).to(compute)
+    params = cast_params_for_compute(params, compute)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    kvs = [] if keep_kv else None
+    for i in range(cfg.n_layers):
+        h, kv, _ = apply_layer(layer_slice(params["layers"], i, batched), h, cfg=cfg,
+                               positions=positions, mode=attn_mode, window=_window(cfg, i))
+        if keep_kv:
+            kvs.append(kv)
+    return apply_norm(cfg.norm, params.get("ln_f"), h), params, kvs
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
+            attn_mode: str = "cuda", return_cache: bool = False):
+    """Full forward. Returns (logits, aux, cache_or_None); cache leaves
+    carry a leading (n_layers,) axis: k/v ``(L_layers, B, L, Hkv, hd)``."""
+    h, params, kvs = _run_layers(params, tokens, cfg, attn_mode=attn_mode,
+                                 keep_kv=return_cache)
+    logits = linear(h, _head(params, cfg, h.dtype))
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if return_cache:
+        cache = {"k": torch.stack([k for k, _ in kvs]),
+                 "v": torch.stack([v for _, v in kvs]),
+                 "pos": tokens.shape[1]}
+        return logits, aux, cache
+    return logits, aux, None
+
+
+def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig, cache: dict, *,
+            attn_mode: str = "cuda") -> dict:
+    """Run the prompt ``(B, L)`` and write its k/v into rows ``[0, L)`` of
+    ``cache`` (in place); returns the cache at ``pos = L``. The logits are
+    not computed (the JAX package's prefill computes and drops them)."""
+    _, _, kvs = _run_layers(params, tokens, cfg, attn_mode=attn_mode, keep_kv=True)
+    l = tokens.shape[1]
+    for i, (k, v) in enumerate(kvs):
+        cache["k"][i, :, :l] = k
+        cache["v"][i, :, :l] = v
+    return {"k": cache["k"], "v": cache["v"], "pos": l}
+
+
+# --------------------------------------------------------------------------
+# Decode path
+# --------------------------------------------------------------------------
+
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None, *,
+               device: str | torch.device = "cuda") -> dict:
+    _refuse_moe(cfg)
+    dtype = dtype or cfg.compute_dtype_torch()
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev),
+            "pos": 0}
+
+
+def decode_layer(p: dict, h: torch.Tensor, layer_cache: dict, *, cfg: ArchConfig,
+                 cur_pos: int, window: Optional[int]):
+    """One-token layer step. layer_cache: dict(k=(B, Lc, Hkv, hd), v=...),
+    row ``cur_pos`` written in place."""
+    x = apply_norm(cfg.norm, p.get("ln1"), h)
+    q, k, v = _project_qkv(p["attn"], x, cfg)     # (B, 1, H, hd)
+    pos = torch.full((1,), cur_pos, device=h.device)
+    q = apply_rope(q, pos, cfg.rope_theta)
+    k = apply_rope(k, pos, cfg.rope_theta)
+    kc, vc = layer_cache["k"], layer_cache["v"]
+    kc[:, cur_pos] = k[:, 0].to(kc.dtype)
+    vc[:, cur_pos] = v[:, 0].to(vc.dtype)
+    attn_out = decode_attention(q, kc, vc, cur_pos, window=window)
+    b = attn_out.shape[0]
+    h = h + linear(attn_out.reshape(b, 1, -1), p["attn"]["wo"])
+    x2 = apply_norm(cfg.norm, p.get("ln2"), h)
+    return h + apply_mlp(p["mlp"], x2, cfg.act), {"k": kc, "v": vc}
+
+
+def decode_step(params: dict, cache: dict, tokens: torch.Tensor, cfg: ArchConfig):
+    """tokens: (B, 1). Returns (logits (B, 1, V), cache at pos + 1)."""
+    _refuse_moe(cfg)
+    compute = cfg.compute_dtype_torch()
+    batched = params["embed"].dim() == 3
+    h = embed_lookup(params["embed"], tokens).to(compute)
+    params = cast_params_for_compute(params, compute)
+    cur_pos = int(cache["pos"])
+    for i in range(cfg.n_layers):
+        h, _ = decode_layer(layer_slice(params["layers"], i, batched), h,
+                            {"k": cache["k"][i], "v": cache["v"][i]}, cfg=cfg,
+                            cur_pos=cur_pos, window=_window(cfg, i))
+    h = apply_norm(cfg.norm, params.get("ln_f"), h)
+    logits = linear(h, _head(params, cfg, compute))
+    return logits, {"k": cache["k"], "v": cache["v"], "pos": cur_pos + 1}
+
+
+# --------------------------------------------------------------------------
+# Losses
+# --------------------------------------------------------------------------
+
+
+def _mask_pad_vocab(logits: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    if cfg.vocab_padded == cfg.vocab:
+        return logits
+    bias = torch.zeros((cfg.vocab_padded,), dtype=logits.dtype, device=logits.device)
+    bias[cfg.vocab:] = -1e30
+    return logits + bias
+
+
+def lm_loss(params, batch, cfg: ArchConfig, *, attn_mode="cuda", aux_weight: float = 0.01):
+    logits, aux, _ = forward(params, batch["tokens"], cfg, attn_mode=attn_mode)
+    per_seq = next_token_loss(_mask_pad_vocab(logits, cfg), batch["tokens"])
+    return per_seq.mean() + aux_weight * aux
+
+
+def lm_per_example_loss(params, batch, cfg: ArchConfig, *, attn_mode="cuda"):
+    logits, _, _ = forward(params, batch["tokens"], cfg, attn_mode=attn_mode)
+    return next_token_loss(_mask_pad_vocab(logits, cfg), batch["tokens"])   # (B,)

@@ -11,13 +11,13 @@ and an input, by contracting the rows with the plane:
                                           mix, half a byte per parameter)
 
 The ``(B, X)`` personalized parameters are unpacked through PackSpec views
-into ``(B, ...)`` leaves and go straight into one batched forward of the
-classifier (the counterpart of the JAX package's ``jax.vmap``). Each call
-is one mix launch and one forward, eager; ``n_dispatches`` counts calls
-and ``dequant_calls`` the calls that ran a dequant kernel.
-
-``generate`` and ``serve_client`` decode with a language model and wait
-for the LM model zoo; they, and ``bundle=``, raise ``ValueError``.
+into ``(B, ...)`` leaves and go straight into one batched forward (the
+counterpart of the JAX package's ``jax.vmap``): ``predict`` runs a
+classifier (``apply_fn``), ``generate`` and ``serve_client`` decode with a
+language model (``bundle``, a ``models/registry`` ModelBundle of the
+dense, vlm or ssm family). Each call is one mix launch and eager work
+after it; ``n_dispatches`` counts calls and ``dequant_calls`` the calls
+that ran a dequant kernel.
 """
 from __future__ import annotations
 
@@ -30,11 +30,9 @@ import torch
 from repro_torch.core.packing import PackSpec, unpack
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.kernels.gossip_mix import gossip_mix_dequant, mixture_mix_dequant4
+from repro_torch.models.layers import cast_params_for_compute
 from repro_torch.serve.artifact import ServableArtifact
 from repro_torch.telemetry.counters import LatencyStats
-
-_LM_ZOO = ("needs the LM model zoo (models/registry.py bundles), which is not "
-           "ported yet (ROADMAP queue 1 item 16)")
 
 
 class ClusterPlaneServer:
@@ -43,22 +41,22 @@ class ClusterPlaneServer:
     ``device="cpu"``).
 
     Construct from a loaded artifact (``from_artifact``) or from a plane
-    in one of the shipping forms. ``apply_fn`` (a batched forward such as
-    smallnets' ``apply_mlp_classifier``: leaves ``(B, ...)``, inputs
-    ``(B, 1, ...)``) enables ``predict``.
+    in one of the shipping forms. ``bundle`` (a models/registry
+    ModelBundle) enables ``generate``; ``apply_fn`` (a batched forward
+    such as smallnets' ``apply_mlp_classifier``: leaves ``(B, ...)``,
+    inputs ``(B, 1, ...)``) enables ``predict``.
     """
 
     def __init__(self, spec: PackSpec, *, codec: str = "fp32", qblock: int = 64,
                  plane=None, plane_q=None, plane_scale=None, plane_packed=None,
                  u_table=None, bundle=None, apply_fn: Optional[Callable] = None,
                  device: str | torch.device = "cuda"):
-        if bundle is not None:
-            raise ValueError(f"bundle= (LM generation) {_LM_ZOO}")
         self.device = resolve_device(device)
         self.spec = spec
         self.codec = codec
         self.qblock = int(qblock)
         self.apply_fn = apply_fn
+        self.bundle = bundle
         self.u_table = None if u_table is None else self._tensor(u_table, torch.float32)
         x = spec.size
         if codec == "fp32":
@@ -164,12 +162,85 @@ class ClusterPlaneServer:
 
         return self._timed(run, u.shape[0])
 
-    def generate(self, u, prompts, *, gen: int, temperature: float = 0.0, key=None):
-        raise ValueError(f"generate {_LM_ZOO}")
+    def generate(self, u, prompts, *, gen: int, temperature: float = 0.0, key=None,
+                 noise=None) -> torch.Tensor:
+        """Batched personalized generation: B requests, each decoded with
+        its own mixture row's weights. u ``(B, S)``, prompts ``(B, Lp)``
+        token ids; returns ``(B, gen)`` int32 tokens on the server's
+        device.
 
-    def serve_client(self, client: int, prompts, *, gen: int,
-                     temperature: float = 0.0, key=None):
-        raise ValueError(f"serve_client {_LM_ZOO}")
+        The JAX server's steps: mix and unpack to ``(B, ...)`` leaves; one
+        prefill of the B prompts, each through its own weights; ``pos`` set
+        back to ``Lp - 1`` and the last prompt token re-scored; then
+        ``gen`` tokens, each the argmax of the logits cut to the vocab
+        (greedy), or at ``temperature > 0`` the argmax of ``logits /
+        temperature + g`` with Gumbel draws g (Gumbel-max sampling, as
+        ``jax.random.categorical``). ``noise`` ``(gen, B, vocab)`` gives
+        the draws (a test injects the JAX ones); otherwise they come from
+        ``key``, a ``torch.Generator`` on the server's device or an int
+        seed (default 0). The caches hold ``Lp + gen + 1`` positions. The
+        step that would follow the last token is not run (its logits
+        would be dropped)."""
+        if self.bundle is None:
+            raise ValueError("generate needs bundle= at construction")
+        u = self._tensor(u, torch.float32)
+        prompts = self._tensor(prompts, torch.int64)
+        gen, temperature = int(gen), float(temperature)
+        b, lp = prompts.shape
+        vocab = self.bundle.cfg.vocab
+        if temperature > 0:
+            noise = self._gumbel(noise, key, (gen, b, vocab))
+
+        def run():
+            with torch.no_grad():
+                return self._generate(u, prompts, gen, temperature, noise, lp + gen + 1)
+
+        return self._timed(run, b)
+
+    def _gumbel(self, noise, key, shape: tuple) -> torch.Tensor:
+        if noise is not None:
+            noise = self._tensor(noise, torch.float32)
+            if tuple(noise.shape) != shape:
+                raise ValueError(f"noise {tuple(noise.shape)} != (gen, B, vocab) {shape}")
+            return noise
+        if not isinstance(key, torch.Generator):
+            key = torch.Generator(device=self.device).manual_seed(int(key or 0))
+        uni = torch.rand(shape, generator=key, device=self.device).clamp_min(1e-20)
+        return -torch.log(-torch.log(uni))
+
+    def _generate(self, u, prompts, gen, temperature, noise, max_len):
+        bundle, vocab = self.bundle, self.bundle.cfg.vocab
+        params = unpack(self._mix(u), self.spec)
+        # cast once for the prefill and every decode step (the model's own
+        # cast of an already cast leaf is then no copy)
+        compute = bundle.cfg.compute_dtype_torch()
+        params = cast_params_for_compute(params, compute)
+        b, lp = prompts.shape
+        cache = bundle.init_cache(b, max_len, device=self.device)
+        cache = bundle.prefill(params, {"tokens": prompts}, cache)
+        cache["pos"] = lp - 1
+        logits, cache = bundle.decode_step(params, cache, prompts[:, -1:])
+        toks = []
+        for i in range(gen):
+            lg = logits[:, -1, :vocab]
+            if temperature > 0:
+                lg = lg / temperature + noise[i].to(lg.dtype)
+            tok = lg.argmax(dim=-1)
+            toks.append(tok)
+            if i + 1 < gen:
+                logits, cache = bundle.decode_step(params, cache, tok[:, None])
+        return torch.stack(toks, dim=1).to(torch.int32)
+
+    def serve_client(self, client: int, prompts, *, gen: int, temperature: float = 0.0,
+                     key=None, noise=None) -> torch.Tensor:
+        """Generate for one trained client: its u-table row broadcast over
+        the request batch."""
+        if self.u_table is None:
+            raise ValueError("serve_client needs u_table= at construction")
+        row = self.u_table[int(client)]
+        u = row.expand(len(prompts), row.shape[0])
+        return self.generate(u, prompts, gen=gen, temperature=temperature, key=key,
+                             noise=noise)
 
     # -- accounting ----------------------------------------------------------
 

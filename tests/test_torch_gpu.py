@@ -1,10 +1,11 @@
 """PyTorch port on the card: each CUDA kernel against its plain PyTorch
-version on the same CUDA tensors (max abs error 1e-5, TF32 off for both
-matmul and cuDNN), the wrappers' checks and launch counters, a short run
+version on the same CUDA tensors (max abs error 1e-5 for the mixes, TF32
+off for both matmul and cuDNN; flash attention 2e-5 fp32 / 2e-2 bf16, the
+SSD scan 2e-3 and, on a bf16 y, one bf16 step), the wrappers' checks and launch counters, a short run
 of the main path through the kernels, a short run of each baseline family
 through its exchange kernel, a short train → export → serve run through
-the dequant kernels, and a short run of each codec and sparse path
-through its kernels.
+the dequant kernels, a short run of each codec and sparse path
+through its kernels, and LM generation through kernels 8 and 9.
 
 Marked ``gpu``: each test asks a fixture for the card and skips without
 one. Run on a machine with an H100: ``python -m pytest -q -m gpu
@@ -16,6 +17,7 @@ import torch
 from repro_torch.comm.codecs import Channel, CommConfig
 from repro_torch.configs.paper_cnn import PaperExpConfig
 from repro_torch.data.synthetic import make_mixture_classification
+from repro_torch.configs.base import get_smoke_config
 from repro_torch.core.packing import make_pack_spec
 from repro_torch.experiments import RunConfig, export_run, run_method
 from repro_torch.core.sparse import SparseConfig, column_activity, init_masks
@@ -37,6 +39,10 @@ from repro_torch.kernels.gossip_mix import (
     mixture_mix_dequant4_ref,
     reset_launch_counts,
 )
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
+from repro_torch.launch.serve import encode_plane, random_plane
+from repro_torch.models.registry import build_model
 from repro_torch.models.smallnets import make_classifier
 from repro_torch.serve import ClusterPlaneServer, load_servable
 
@@ -410,3 +416,149 @@ def test_codec_and_sparse_paths_launch_their_kernels(cuda, label, kw, want):
     expect = {k: exp.rounds * want.get(k, 0) for k in counts}
     assert counts == expect, label
     assert 0.0 <= r.mean_acc <= 1.0 and 0 < r.wire_bytes < r.comm_bytes
+
+
+# kernel 8: the CPU sweep's shapes (tests/test_kernels.py), then the card's
+# own: olmo-1b's prefill, a danube-like GQA 32/8 hd-80 layer with a window
+# shorter than L, hd 256 over one kv head (gemma3), the smoke widths (hd
+# 16, 32), Lq != Lkv both ways, and fully masked rows (Lq > Lkv + window)
+FLASH_SHAPES = [
+    (2, 256, 256, 4, 2, 64, None), (1, 256, 256, 4, 4, 64, 128),
+    (2, 128, 128, 8, 2, 32, None), (1, 512, 512, 2, 1, 64, 256),
+    (1, 384, 384, 4, 4, 128, None),
+    (4, 512, 512, 16, 16, 128, None), (2, 1024, 1024, 32, 8, 80, 300),
+    (2, 512, 512, 4, 1, 256, None), (2, 32, 32, 8, 2, 16, 64), (1, 96, 96, 4, 1, 32, 32),
+    (1, 128, 256, 4, 2, 96, None), (1, 512, 128, 4, 2, 64, 64),
+]
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _qkv(dev, b, lq, lkv, hq, hkv, hd, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn((b, lq, hq, hd), generator=g, device=dev).to(dtype),
+            torch.randn((b, lkv, hkv, hd), generator=g, device=dev).to(dtype),
+            torch.randn((b, lkv, hkv, hd), generator=g, device=dev).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,lq,lkv,hq,hkv,hd,window", FLASH_SHAPES)
+def test_flash_kernel_matches_plain(cuda, b, lq, lkv, hq, hkv, hd, window, dtype):
+    q, k, v = _qkv(cuda, b, lq, lkv, hq, hkv, hd, dtype)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=True, window=window)
+    assert flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    want = flash_attention_ref(q, k, v, causal=True, window=window)
+    assert _max_err(out.float(), want.float()) <= FLASH_TOL[dtype]
+    if window is not None and lq > lkv + window:   # rows with no live key are 0
+        assert bool((out[:, lkv + window:] == 0).all())
+
+
+def test_flash_kernel_without_causal_mask(cuda):
+    q, k, v = _qkv(cuda, 2, 128, 384, 4, 2, 64, torch.float32, seed=1)
+    out = flash_attention(q, k, v, causal=False)
+    assert _max_err(out, flash_attention_ref(q, k, v, causal=False)) <= 2e-5
+
+
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    q, k, v = _qkv(cuda, 1, 256, 256, 4, 2, 64, torch.float32)
+    with pytest.raises(ValueError, match="multiple of min"):
+        flash_attention(q[:, :200].contiguous(), k, v)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(*_qkv(cuda, 1, 64, 64, 2, 1, 48, torch.float32))
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    with pytest.raises(TypeError, match="dtypes"):
+        flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="window"):
+        flash_attention(q, k, v, window=0)
+
+
+# kernel 9: the CPU sweep's shapes, then mamba2-370m's prefill layer (H =
+# 32, P = 64, N = 128, L = 512, chunk 128) at B = 1 and 4, a prompt shorter
+# than one chunk, and groups < heads
+SSD_SHAPES = [
+    (1, 128, 8, 2, 32, 16, 64), (2, 256, 4, 1, 64, 64, 128),
+    (2, 256, 4, 4, 64, 128, 128), (1, 512, 2, 1, 64, 64, 128),
+    (4, 512, 32, 1, 64, 128, 128), (1, 512, 32, 1, 64, 128, 128),
+    (2, 16, 8, 1, 32, 16, 128), (2, 384, 16, 4, 64, 128, 128),
+]
+
+
+def _ssd_inputs(dev, b, l, h, g, p, n, dtype, seed=0, state=False, per_request=False):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, l, h, p), generator=gen, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn((b, l, h), generator=gen, device=dev)) * 0.1
+    a = -torch.exp(torch.rand((b, h) if per_request else (h,), generator=gen, device=dev))
+    bm = torch.randn((b, l, g, n), generator=gen, device=dev).to(dtype)
+    cm = torch.randn((b, l, g, n), generator=gen, device=dev).to(dtype)
+    s0 = torch.randn((b, h, p, n), generator=gen, device=dev) if state else None
+    return x, dt, a, bm, cm, s0
+
+
+def _assert_ssd_close(got, want, dtype):
+    """fp32: 2e-3 abs + rel (tests/test_kernels.py's SSD bound). bf16: y
+    is rounded to bf16 on both sides from fp32 sums taken in other orders,
+    so it may also differ by one bf16 step (at most 2^-7 of the value:
+    8 significant bits); the fp32 final state is held at 2e-3."""
+    (y, s), (yr, sr) = got, want
+    torch.cuda.synchronize()
+    rtol = 2e-3 if dtype == torch.float32 else 2e-3 + 2.0 ** -7
+    torch.testing.assert_close(y.float(), yr.float(), atol=2e-3, rtol=rtol)
+    torch.testing.assert_close(s, sr, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,l,h,g,p,n,chunk", SSD_SHAPES)
+def test_ssd_kernel_matches_plain(cuda, b, l, h, g, p, n, chunk, dtype):
+    x, dt, a, bm, cm, _ = _ssd_inputs(cuda, b, l, h, g, p, n, dtype)
+    before = ssd_scan.launches
+    y, s = ssd_scan(x, dt, a, bm, cm, chunk=chunk)
+    assert ssd_scan.launches == before + 3      # chunk states, state pass, outputs
+    assert y.dtype == dtype and y.shape == x.shape and s.dtype == torch.float32
+    _assert_ssd_close((y, s), ssd_chunked(x, dt, a, bm, cm, min(chunk, l)), dtype)
+
+
+@pytest.mark.parametrize("per_request", [False, True])
+def test_ssd_kernel_with_an_initial_state(cuda, per_request):
+    x, dt, a, bm, cm, s0 = _ssd_inputs(cuda, 4, 512, 32, 1, 64, 128, torch.float32, seed=3,
+                                       state=True, per_request=per_request)
+    got = ssd_scan(x, dt, a, bm, cm, chunk=128, initial_state=s0)
+    _assert_ssd_close(got, ssd_chunked(x, dt, a, bm, cm, 128, s0), torch.float32)
+
+
+def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x, dt, a, bm, cm, _ = _ssd_inputs(cuda, 1, 512, 4, 1, 64, 128, torch.float32)
+    with pytest.raises(ValueError, match="not divisible"):
+        ssd_scan(x, dt, a, bm, cm, chunk=96)
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd_scan(x, dt, a, bm, cm, chunk=256)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan(torch.zeros((1, 512, 4, 128), device=cuda)[..., :64], dt, a, bm, cm)
+    with pytest.raises(TypeError, match="dtypes"):
+        ssd_scan(x, dt, a, bm.bfloat16(), cm)
+
+
+@pytest.mark.parametrize("arch,launches", [("olmo-1b", 1), ("gemma3-1b", 1),
+                                           ("mamba2-370m", 3)])
+@pytest.mark.parametrize("codec", ["fp32", "int8", "int4"])
+def test_lm_generate_runs_the_kernels_and_matches_the_cpu(cuda, arch, launches, codec):
+    """Generation on the card (kernels 8/9, and 4/7 for int8/int4) gives
+    the CPU's tokens (plain versions) on the smoke arch in fp32: one
+    flash launch, or three SSD-scan launches, per layer per generate."""
+    cfg = get_smoke_config(arch)
+    bundle = build_model(cfg, attn_mode="cuda")
+    spec = make_pack_spec(bundle.init(None))
+    plane = random_plane(bundle, spec, seed=0, device="cpu")
+    prompts = torch.randint(0, cfg.vocab, (4, 64), generator=torch.Generator().manual_seed(1))
+    u = torch.tensor([[0.7, 0.3], [0.5, 0.5], [0.0, 1.0], [0.2, 0.8]])
+    toks = {}
+    for dev in ("cpu", "cuda"):
+        server = ClusterPlaneServer(spec, codec=codec, bundle=bundle, device=dev,
+                                    **encode_plane(plane, codec))
+        reset_launch_counts()
+        flash_attention.launches = ssd_scan.launches = 0
+        toks[dev] = server.generate(u, prompts, gen=8).cpu()
+        kernel = ssd_scan if cfg.family == "ssm" else flash_attention
+        assert kernel.launches == (cfg.n_layers * launches if dev == "cuda" else 0)
+    assert torch.equal(toks["cpu"], toks["cuda"])

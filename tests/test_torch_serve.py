@@ -351,12 +351,14 @@ def test_server_predict_and_personalized_equal_jax(world, codec):
 
 def test_server_refuses_what_needs_the_lm_zoo_and_bad_planes(world):
     _, tsrv = _servers(world, "fp32")
+    # the LM zoo is ported (tests/test_torch_lm_serve.py): a server takes a
+    # bundle, and generation without one is refused
     for call in (lambda: tsrv.generate(world.u, np.zeros((B, 4)), gen=2),
-                 lambda: tsrv.serve_client(0, np.zeros((B, 4)), gen=2),
-                 lambda: ClusterPlaneServer(world.tspec, plane=world.plane, bundle=object(),
-                                            device="cpu")):
-        with pytest.raises(ValueError, match="LM model zoo"):
+                 lambda: tsrv.serve_client(0, np.zeros((B, 4)), gen=2)):
+        with pytest.raises(ValueError, match="needs (bundle|u_table)= at construction"):
             call()
+    assert ClusterPlaneServer(world.tspec, plane=world.plane, bundle=object(),
+                              device="cpu").bundle is not None
     with pytest.raises(ValueError, match="apply_fn"):
         ClusterPlaneServer(world.tspec, plane=world.plane, device="cpu").predict(world.u, world.x)
     with pytest.raises(ValueError, match="plane_q"):
