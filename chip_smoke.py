@@ -22,8 +22,8 @@ Phases, in order; any failure exits non-zero before the result line:
    also at the int8 exchange's shape (M = N = 20, qblock 256), and at
    widths whose rows rule out 16- and 8-byte stores for correctness only;
    ``gossip_mix_stack`` (the FedEM exchange) the same way at (S, N, X) =
-   (2, 20, 17,226), (2, 20, 4,194,304) and (3, 37, 100,003), with one
-   ``torch.matmul`` broadcast over S as its yardstick;
+   (2, 20, 17,226), (2, 20, 4,194,304), (3, 37, 100,003) and (3, 64,
+   100,003), with one ``torch.matmul`` broadcast over S as its yardstick;
 3. agreement on a small input: one FedSPD round at full width on the card
    (CUDA kernels) against the same round on the CPU (plain versions), with
    the same injected draws, DP off and on; then one ``dfl_fedem`` round
@@ -67,13 +67,17 @@ Phases, in order; any failure exits non-zero before the result line:
 9. the LM kernels: ``flash_attention`` (kernel 8) at olmo-1b's prefill
    (B = 4 requests, L = 512, 16 heads, hd 128, bf16; also fp32), a
    danube-like GQA 32/8 hd-80 layer with a 256 window and a gemma3-like
-   hd-256 layer over one kv head, and ``ssd_scan`` (kernel 9) at
-   mamba2-370m's prefill layer (B = 4, L = 512, H = 32, P = 64, N = 128,
-   chunk 128, bf16; also fp32 and with an initial state), each against its
-   plain version (attention 2e-5 fp32 / 2e-2 bf16, SSD 2e-3 and one bf16
-   step, 2^-7 of the value, on a bf16 y) and timed by CUDA-graph replay beside its bound (bytes over
-   3.35 TB/s or FLOPs over 989 TFLOP/s bf16 / 67 TFLOP/s fp32), its plain
-   version and, for attention, ``scaled_dot_product_attention``;
+   hd-256 layer over one kv head, each bf16 row beside the count of
+   tensor-core instructions (``HMMA``/``HGMMA``, by ``cuobjdump -sass`` of
+   the built library) in the bf16 kernel it runs, which must not be 0
+   (checked for every head dim right after the build), and ``ssd_scan``
+   (kernel 9) at mamba2-370m's prefill layer (B = 4, L = 512, H = 32, P =
+   64, N = 128, chunk 128, bf16; also fp32 and with an initial state),
+   each against its plain version (attention 2e-5 fp32 / 2e-2 bf16, SSD
+   2e-3 and one bf16 step, 2^-7 of the value, on a bf16 y) and timed by
+   CUDA-graph replay beside its bound (bytes over 3.35 TB/s or FLOPs over
+   989 TFLOP/s bf16 / 67 TFLOP/s fp32), its plain version and, for
+   attention, ``scaled_dot_product_attention``;
 10. LM generation, the fifth path: ``olmo-1b`` and ``mamba2-370m`` at full
    width, ``launch/serve``'s random S = 2 plane (``build_server``) in
    fp32, int8 and int4, B = 4 requests with their own mixtures, prompt
@@ -98,6 +102,8 @@ import dataclasses
 import json
 import math
 import os
+import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -123,8 +129,9 @@ GOSSIP_DEQUANT = (20, 20, 17226, 256)
 DEQUANT_CHECKS = [GOSSIP_DEQUANT, (37, 5, 1001, 10), (7, 3, 999, 3)]
 SERVE_TOL = 1e-4
 # gossip_mix_stack, (S, N, X): the FedEM exchange at the main path's
-# width, past L2, and N above one 32-row chunk with an odd X
-STACK_SHAPES = [(2, 20, 17226), (2, 20, 4194304), (3, 37, 100003)]
+# width, past L2, N above 32 (one 40-row chunk) with an odd X, and N = 64
+# (one 64-row chunk)
+STACK_SHAPES = [(2, 20, 17226), (2, 20, 4194304), (3, 37, 100003), (3, 64, 100003)]
 BASELINES = ("local", "dfl_fedavg", "cfl_fedavg", "dfl_fedem", "cfl_fedem",
              "dfl_ifca", "cfl_ifca", "dfl_fedsoft", "cfl_fedsoft",
              "dfl_pfedme", "cfl_pfedme")
@@ -902,9 +909,31 @@ def _ssd_bound(b, l, h, g, p, n, q, dtype, state) -> tuple[float, str]:
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
-def phase_lm_kernels(torch) -> dict:
+def tensor_core_counts(build, lib_path) -> dict:
+    """{hd: count of HMMA/HGMMA instructions} in each instantiation of
+    the bf16 flash kernel (``flash_mma_kernel<hd>``) of the built
+    library, from ``cuobjdump -sass`` (beside ``nvcc``)."""
+    cuobjdump = pathlib.Path(build.find_nvcc()).parent / "cuobjdump"
+    r = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
+                       text=True, timeout=300)
+    check(r.returncode == 0, f"cuobjdump -sass failed: {r.stderr.strip()[-500:]}")
+    counts, hd = {}, None
+    for line in r.stdout.splitlines():
+        if "Function :" in line:
+            m = re.search(r"flash_mma_kernelILi(\d+)E", line)
+            hd = int(m.group(1)) if m else None
+            if hd is not None:
+                counts[hd] = 0
+        elif hd is not None and re.search(r"\bHG?MMA\b", line):
+            counts[hd] += 1
+    return counts
+
+
+def phase_lm_kernels(torch, mma_counts: dict) -> dict:
     """Kernels 8 and 9 against their plain versions at the LM path's
-    shapes, timed by CUDA-graph replay beside bound, plain and library."""
+    shapes, timed by CUDA-graph replay beside bound, plain and library;
+    each bf16 flash row carries its kernel's tensor-core instruction
+    count."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
     from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
 
@@ -942,6 +971,7 @@ def phase_lm_kernels(torch) -> dict:
         b_ms, b_by, live = _flash_bound(b, l, hq, hkv, hd, window, dt)
         rows["flash_attention"].append(dict(
             b=b, l=l, hq=hq, hkv=hkv, hd=hd, window=window, dtype=dt, live_pairs=live,
+            tensor_core_instructions=mma_counts[hd] if dt == "bfloat16" else 0,
             max_abs_err=err,
             ms=graph_ms(lambda: flash_attention(q, k, v, causal=True, window=window), 20, 10),
             plain_ms=graph_ms(lambda: flash_attention_ref(q, k, v, causal=True,
@@ -1151,6 +1181,10 @@ def phase_lm_profile(torch) -> None:
         for e in kern[:12]:
             print(f"lm profile {arch} kernel {e.self_device_time_total / 1e3:.4f} ms "
                   f"x{e.count} {e.key[:100]}", flush=True)
+        for e in kern:   # the port's own LM kernels, wherever they rank
+            if any(k in e.key for k in ("flash_mma_kernel", "flash_kernel", "ssd_")):
+                print(f"lm profile {arch} port kernel {e.self_device_time_total / 1e3:.4f} "
+                      f"ms x{e.count} {e.key[:100]}", flush=True)
         ops = sorted((e for e in prof.key_averages()
                       if e.device_type.name == "CPU" and e.key.startswith("aten::")),
                      key=lambda e: -e.device_time_total)
@@ -1225,6 +1259,14 @@ def main() -> None:
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("ptxas " + line.strip(), flush=True)
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+
+    mma_counts = tensor_core_counts(build, lib_path)
+    print("sass flash_mma_kernel (bf16) HMMA/HGMMA per head dim: "
+          + json.dumps({str(hd): mma_counts.get(hd, 0) for hd in HEAD_DIMS}), flush=True)
+    for hd in HEAD_DIMS:
+        check(mma_counts.get(hd, 0) > 0,
+              f"the bf16 flash kernel for hd {hd} holds no tensor-core instruction")
 
     rows = phase_kernels(torch, gm)
     stack_rows = phase_stack_kernel(torch, gm)
@@ -1239,7 +1281,7 @@ def main() -> None:
     phase_profile(torch, round_ms)
     phase_profile(torch, sparse_round_ms, label="sparse+int8", sparse=SparseConfig(**SPARSE),
                   comm=CommConfig(codec="int8", error_feedback=True))
-    lm_rows = phase_lm_kernels(torch)
+    lm_rows = phase_lm_kernels(torch, mma_counts)
     lm_launches = phase_lm_serve(torch, gm)
     phase_lm_profile(torch)
     phase_lm_cli()

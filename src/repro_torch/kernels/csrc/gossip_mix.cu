@@ -18,43 +18,60 @@
 // Design: one thread owns one column of X, so the plane is streamed once
 // with coalesced 4-byte loads (rows of an odd X are not 16-byte aligned,
 // which rules out vector loads on every row). N is cut into chunks of NB
-// rows (NB = 8, 16, 24 or 32, the smallest that holds max(M, N) when it is
-// <= 32); a block stages the matching NB×NB chunk of W in shared memory
-// (every thread reads the same W entry: a broadcast), and each thread
-// keeps NB fp32 accumulators for one chunk of output rows. The column's
-// inputs are read through a per-element prologue in groups of kGroup = 4
-// rows: the group's loads are issued together, then kGroup·NB FMAs consume
-// them. Small groups keep a thread at 36–78 registers, so many warps per
-// SM carry loads in flight, while each warp touches only a few rows at a
-// time; on the H100, loading all NB rows (or 8) at once measured slower
-// at X = 4,194,304, for the flat mix and more so for the fused DP mix,
-// which reads three arrays per row. For M, N <= 32 there is one chunk and
-// the plane is read exactly once; a larger M re-reads it once per chunk
-// of output rows. Accumulation is fp32 FMA on the CUDA cores, never
-// TF32. The fused-DP and dequant prologues round each step as the plain
-// PyTorch versions do (no contraction), so the two differ only in the
-// order of the sum over j.
+// rows (NB = 8, 16, 24, 32, 40, 48 or 64, the smallest that holds max(M,
+// N) when it is <= 64, else 64); a block stages the matching NB×NB chunk
+// of W in shared memory (every thread reads the same W entry: a
+// broadcast), and each thread keeps NB fp32 accumulators for one chunk of
+// output rows. The column's inputs are read through a per-element
+// prologue in groups of kGroup = 4 rows: the group's loads are issued
+// together, then kGroup·NB FMAs consume them. Small groups keep a thread
+// at 36–78 registers (up to 32 rows), so many warps per SM carry loads in
+// flight, while each warp touches only a few rows at a time; on the H100,
+// loading all NB rows (or 8) at once measured slower at X = 4,194,304,
+// for the flat mix and more so for the fused DP mix, which reads three
+// arrays per row. For M, N <= 64 there is one chunk and the plane is read
+// exactly once; a larger M re-reads it once per chunk of 64 output rows.
+// Accumulation is fp32 FMA on the CUDA cores, never TF32. The fused-DP
+// and dequant prologues round each step as the plain PyTorch versions do
+// (no contraction), so the two differ only in the order of the sum over j.
+//
+// Past 32 rows: mix_kernel_wide. Up to 32 rows mix_kernel is the first
+// design, unchanged. The 40-, 48- and 64-row chunks replace two passes
+// over the plane at N in (32, 64], the second of which kept only N − 32
+// of its 32 accumulators busy (at N = 37, 5). The chunk alone did not
+// beat torch.matmul at (S, N, X) = (3, 37, 100,003), and neither did
+// threads that split a column's rows (they share the column's loads, so
+// they add no distinct bytes in flight). What did (tools/mix_variants.py,
+// on the H100): each thread loads the next group of 4 rows while it mixes
+// the current one; the 40-row chunk mixes 2 columns 128 apart a thread
+// (kPer, 80 accumulators) with no branch around that prefetch
+// (kBranchless); the 48- and 64-row chunks cap their registers through
+// __launch_bounds__'s blocks-per-SM hint (kMinBlocks). Each output's FMAs
+// run in the same order as in mix_kernel, so the results are the same
+// bits. Folding this into mix_kernel's template, even compiled to one
+// column and no prefetch, slowed its N = 20 rows past L2 by 26–44 %
+// (chip_smoke.py): the two kernels stay apart.
 //
 // The stack mix is the same kernel over a 2-D grid: blockIdx.y selects
 // the slab s, whose offset s·N·X is taken in int64_t (at S = 4, N = 32,
 // X = 2^24 it passes 2^31). Every slab shares the one W; each block
-// stages its chunks of W as above, so a slab with N > 32 re-reads its
-// plane once per chunk of 32 output rows, like a flat plane. A flat plane
-// is the stack of one slab (gridDim.y = 1).
+// stages its chunks of W as above, so a slab with N <= 64 is read once
+// and one with N > 64 once per chunk of 64 output rows, like a flat
+// plane. A flat plane is the stack of one slab (gridDim.y = 1).
 //
-// The sparse mixes add a per-block activity test: the block's 128
-// columns read their entries of the column-activity vector (a column is
-// live iff any client keeps it), and __syncthreads_or decides on the
-// device, with no host sync, whether any is live. A dead block writes
-// exact zeros to its outputs and never reads the plane (the plane is
-// zero on dead columns, so the mix is zero there anyway: the skip saves
-// the read, it does not change the result). A live block runs the mix
-// unchanged. gossip_mix_sparse's least traffic is 4·(N² + X + N·X_live +
-// N·X) bytes: W, the activity vector, the live columns of C, and the
-// whole output. gossip_mix_dequant_masked reads, per live column, N int8
-// quanta, N fp32 mask entries and the N scales of its block (L1-resident
-// across the block's 128 columns), so its fp32 mask is 4× its int8
-// payload: 4·M·N + N·Xp_live + 4·N·Xp_live/qblock + 4·N·X_live + 4·X +
+// The sparse mixes add a per-block activity test: the block's columns
+// (128; 256 in the 40-row chunk) read their entries of the
+// column-activity vector (a column is live iff any client keeps it), and
+// __syncthreads_or decides on the device, with no host sync, whether any
+// is live. A dead block writes exact zeros to its outputs and never reads
+// the plane (the plane is zero on dead columns, so the mix is zero there
+// anyway: the skip saves the read, it does not change the result). A live
+// block runs the mix unchanged. gossip_mix_sparse's least traffic is
+// 4·(N² + X + N·X_live + N·X) bytes: W, the activity vector, the live
+// columns of C, and the whole output. gossip_mix_dequant_masked reads,
+// per live column, N int8 quanta, N fp32 mask entries and the N scales of
+// its block (L1-resident across the block's columns), so its fp32 mask is
+// 4× its int8 payload: 4·M·N + N·Xp_live + 4·N·Xp_live/qblock + 4·N·X_live + 4·X +
 // 4·M·Xp bytes. An earlier version on the serving kernel's template
 // (gossip_mix_dequant.cu: output rows in blocks of 8, a block's columns
 // dequantized once per row block, activity found by scanning the mask)
@@ -193,12 +210,126 @@ mix_kernel(const float* __restrict__ w, Prologue in, float* __restrict__ out, in
   }
 }
 
+// The chunks past 32 rows (see the header). The 40-row chunk mixes 2
+// columns a thread and prefetches without a branch (chip_smoke.py at (3,
+// 37, 100,003): 0.0581 ms; with the branch, 0.0672); the 48- and 64-row
+// chunks mix one, prefetch behind a branch and cap registers at 102 and
+// 128 (tools/mix_variants.py: without the branch or the cap, slower).
+template <int NB>
+constexpr int kPer = NB == 40 ? 2 : 1;  // columns one thread mixes, kThreads apart
+template <int NB>
+constexpr bool kBranchless = NB == 40;  // no branch around the prefetch
+template <int NB>
+constexpr int kMinBlocks = NB == 48 ? 5 : NB == 64 ? 4 : 1;  // 1: no cap
+
+// mix_kernel for NB = 40, 48 or 64: each thread mixes kPer<NB> columns
+// and loads the next group of rows while it mixes the current one.
+template <int NB, class Prologue>
+__global__ void __launch_bounds__(kThreads, kMinBlocks<NB>)
+mix_kernel_wide(const float* __restrict__ w, Prologue in, float* __restrict__ out, int m,
+                int n, int64_t x) {
+  static_assert(NB > 32 && NB % kGroup == 0, "the chunks past 32 rows");
+  constexpr int C = kPer<NB>;
+  __shared__ float sw[NB][NB];
+  const int64_t col = static_cast<int64_t>(blockIdx.x) * kThreads * C + threadIdx.x;
+  const int64_t base = static_cast<int64_t>(blockIdx.y) * n * x + col;   // input slab + column
+  const int64_t obase = static_cast<int64_t>(blockIdx.y) * m * x + col;  // output slab + column
+  bool live[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) live[c] = col + c * kThreads < x;
+  if constexpr (Prologue::kSkip) {
+    bool any = false;
+#pragma unroll
+    for (int c = 0; c < C; ++c) any = any || (live[c] && in.live(col + c * kThreads));
+    if (!__syncthreads_or(any)) {  // as in mix_kernel
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        if (live[c]) {
+          for (int i = 0; i < m; ++i) {
+            out[obase + c * kThreads + static_cast<int64_t>(i) * x] = 0.f;
+          }
+        }
+      }
+      return;
+    }
+  }
+  for (int i0 = 0; i0 < m; i0 += NB) {
+    float acc[NB][C];
+#pragma unroll
+    for (int ii = 0; ii < NB; ++ii) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[ii][c] = 0.f;
+    }
+    for (int j0 = 0; j0 < n; j0 += NB) {
+      __syncthreads();  // the previous chunk's readers of sw are done
+      for (int t = threadIdx.x; t < NB * NB; t += kThreads) {
+        const int i = i0 + t / NB, j = j0 + t % NB;
+        sw[t / NB][t % NB] = (i < m && j < n) ? w[static_cast<int64_t>(i) * n + j] : 0.f;
+      }
+      __syncthreads();
+      const int jn = min(NB, n - j0);
+      // kGroup·C loads in flight while kGroup·NB·C FMAs consume the last ones
+      float v[kGroup][C], ahead[kGroup][C];
+      auto load = [&](int jg, float (&dst)[kGroup][C]) {
+#pragma unroll
+        for (int jj = 0; jj < kGroup; ++jj) {
+          const int j = j0 + jg + jj;
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            dst[jj][c] = (live[c] && jg + jj < jn) ? in(j, base + c * kThreads + j * x) : 0.f;
+          }
+        }
+      };
+      load(0, ahead);
+#pragma unroll 1
+      for (int jg = 0; jg < jn; jg += kGroup) {
+#pragma unroll
+        for (int jj = 0; jj < kGroup; ++jj) {
+#pragma unroll
+          for (int c = 0; c < C; ++c) v[jj][c] = ahead[jj][c];
+        }
+        // rows past jn read as 0, so the branch only skips the last group's
+        // loads; without it the loads and the FMAs below are one basic
+        // block, which ptxas schedules loads first (with it, it placed the
+        // 40-row chunk's loads after the FMAs)
+        if (kBranchless<NB> || jg + kGroup < jn) load(jg + kGroup, ahead);
+#pragma unroll
+        for (int jj = 0; jj < kGroup; ++jj) {
+#pragma unroll
+          for (int ii = 0; ii < NB; ++ii) {
+            const float wv = sw[ii][jg + jj];
+#pragma unroll
+            for (int c = 0; c < C; ++c) acc[ii][c] = fmaf(wv, v[jj][c], acc[ii][c]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      if (live[c]) {
+#pragma unroll
+        for (int ii = 0; ii < NB; ++ii) {
+          if (i0 + ii < m) {
+            out[obase + c * kThreads + static_cast<int64_t>(i0 + ii) * x] = acc[ii][c];
+          }
+        }
+      }
+    }
+  }
+}
+
 template <int NB, class Prologue>
 void launch_nb(const float* w, Prologue in, float* out, int slabs, int m, int n, int64_t x,
                cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>((x + kThreads - 1) / kThreads),
-                  static_cast<unsigned>(slabs));
-  mix_kernel<NB, Prologue><<<grid, kThreads, 0, stream>>>(w, in, out, m, n, x);
+  if constexpr (NB <= 32) {
+    const dim3 grid(static_cast<unsigned>((x + kThreads - 1) / kThreads),
+                    static_cast<unsigned>(slabs));
+    mix_kernel<NB, Prologue><<<grid, kThreads, 0, stream>>>(w, in, out, m, n, x);
+  } else {
+    constexpr int64_t cols = kThreads * kPer<NB>;  // per block
+    const dim3 grid(static_cast<unsigned>((x + cols - 1) / cols), static_cast<unsigned>(slabs));
+    mix_kernel_wide<NB, Prologue><<<grid, kThreads, 0, stream>>>(w, in, out, m, n, x);
+  }
 }
 
 // Mixes `slabs` consecutive (n, x) planes into (m, x) outputs with the
@@ -215,8 +346,14 @@ int launch(const float* w, Prologue in, float* out, int slabs, int m, int n, int
       launch_nb<16>(w, in, out, slabs, m, n, x, s);
     } else if (rows <= 24) {
       launch_nb<24>(w, in, out, slabs, m, n, x, s);
-    } else {
+    } else if (rows <= 32) {
       launch_nb<32>(w, in, out, slabs, m, n, x, s);
+    } else if (rows <= 40) {
+      launch_nb<40>(w, in, out, slabs, m, n, x, s);
+    } else if (rows <= 48) {
+      launch_nb<48>(w, in, out, slabs, m, n, x, s);
+    } else {
+      launch_nb<64>(w, in, out, slabs, m, n, x, s);
     }
   }
   return static_cast<int>(cudaGetLastError());

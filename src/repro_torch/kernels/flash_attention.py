@@ -11,15 +11,18 @@ window ``pos_q - pos_k < window``; a row with no live key is 0. It runs
 every prefill layer of the dense/VLM transformer (``models/attention.py``
 modes ``"cuda"``, ``"pallas"`` and ``"blocked"``): one launch per layer,
 the B requests of a batch in one grid. The source is
-``csrc/flash_attention.cu``; its header says what bounds it and how it is
-built.
+``csrc/flash_attention.cu``: bf16 runs both products on the tensor cores
+(``mma.sync`` m16n8k16, FlashAttention-2 style, the G query heads of a kv
+head folded into one block's rows), fp32 on the CUDA cores; its header
+says what bounds each and how it is built.
 
 Beside it: its plain version ``flash_attention_ref`` (a materialized fp32
 softmax whose masked entries are zeroed, so a fully masked row is 0 as in
-the kernel; the counterpart of ``kernels/ref.flash_attention_ref``) and
-the launch counter ``flash_attention.launches``. The wrapper takes the
-plain version only for tensors on the CPU; for CUDA tensors it launches
-the kernel or raises. It accepts exactly the shapes
+the kernel; the counterpart of ``kernels/ref.flash_attention_ref``; for
+bf16 inputs it rounds p to bf16 before p·v and sums the rounded p, as the
+kernel does) and the launch counter ``flash_attention.launches``. The
+wrapper takes the plain version only for tensors on the CPU; for CUDA
+tensors it launches the kernel or raises. It accepts exactly the shapes
 ``ops.flash_attention`` accepts (``Lq % min(128, Lq) == 0``, the same for
 ``Lkv``) and raises on the rest; the kernel picks its own tiles.
 """
@@ -52,7 +55,9 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, window: int | None = None) -> torch.Tensor:
     """Plain GQA attention with materialized fp32 ``(Lq, Lkv)`` scores:
     masked scores to -1e30, p = exp(s - rowmax) zeroed where masked, out =
-    p·v / max(Σp, 1e-30), in q's dtype."""
+    p·v / max(Σp, 1e-30), in q's dtype. For bf16 inputs p is rounded to
+    bf16 first (the kernel's P·V operand on the tensor cores) and the sum
+    is of the rounded p; each weight moves by at most 2^-9 of itself."""
     b, lq, hq, hd = q.shape
     n_kv = k.shape[2]
     qg = q.reshape(b, lq, n_kv, hq // n_kv, hd).float()
@@ -60,6 +65,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     mask = _mask(lq, k.shape[1], causal, window, q.device)
     s = torch.where(mask, s, NEG_INF)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * mask
+    if q.dtype == torch.bfloat16:
+        p = p.to(torch.bfloat16).float()
     out = torch.einsum("bkglm,bmkd->blkgd", p, v.float())
     den = p.sum(dim=-1).clamp_min(1e-30)                  # (B, Hkv, G, Lq)
     out = out / den.permute(0, 3, 1, 2)[..., None]
@@ -106,6 +113,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name}: the kernel takes a contiguous tensor")
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{name}: the bf16 kernel's 16-byte copies need a "
+                             "16-byte aligned start")
     out = torch.empty_like(q)
     lib = load_library()
     stream = torch.cuda.current_stream(q.device).cuda_stream

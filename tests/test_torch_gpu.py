@@ -49,9 +49,12 @@ from repro_torch.serve import ClusterPlaneServer, load_servable
 pytestmark = pytest.mark.gpu
 
 TOL = 1e-5
-# the main path's shape, the CPU tests' shape, odd X, N above one 32-row
-# chunk of the kernel, N = 64 (the straggler lane's population), N = 1
-SHAPES = [(20, 17226), (8, 10692), (5, 1001), (37, 129), (64, 4099), (1, 7)]
+# the main path's shape, the CPU tests' shape, odd X, N in the 40-row chunk
+# of the kernel, N = 64 (the straggler lane's population, one 64-row
+# chunk), N = 1; then N at each edge of the chunks past 32: 33 and 40
+# (40 rows), 65 and 100 (two chunks of 64 rows)
+SHAPES = [(20, 17226), (8, 10692), (5, 1001), (37, 129), (64, 4099), (1, 7),
+          (33, 1001), (40, 4099), (65, 999), (100, 1031)]
 
 
 @pytest.fixture
@@ -130,7 +133,7 @@ def test_main_path_launches_one_kernel_per_round(cuda, dp):
 
 
 @pytest.mark.parametrize("x", [1001, 4098])   # odd; X % 4 = 2
-@pytest.mark.parametrize("n", [1, 5, 20, 33])
+@pytest.mark.parametrize("n", [1, 5, 20, 33, 40, 64, 65, 100])   # chunks of 32, 40, 64, 2 × 64
 @pytest.mark.parametrize("s", [1, 2, 4])
 def test_stack_kernel_matches_plain(cuda, s, n, x):
     g = torch.Generator(device=cuda).manual_seed(s * 1000 + n)
@@ -279,10 +282,13 @@ def test_train_export_serve_through_the_dequant_kernels(cuda, tmp_path):
 # --------------------------------------- kernels 5 and 6: sparse exchange
 
 # (N, X, mask): the main path's shape, an odd X, N one more than a 32-row
-# chunk of kernel 5 (and past kernel 6's 16-row chunks), and all-dead,
-# all-live and one-band masks
+# chunk of kernel 5, and all-dead, all-live and one-band masks; then N at
+# the edges of the 40- and 64-row chunks and past them (65, 100: two
+# chunks of 64 rows)
 SPARSE_SHAPES = [(20, 17226, "random"), (5, 1001, "random"), (33, 4099, "random"),
-                 (20, 17226, "dead"), (20, 17226, "live"), (8, 10692, "band")]
+                 (20, 17226, "dead"), (20, 17226, "live"), (8, 10692, "band"),
+                 (40, 1001, "random"), (64, 4099, "band"), (65, 999, "random"),
+                 (100, 4099, "random")]
 
 
 def _sparse_operands(dev, n, x, layout, m=None, seed=0):
@@ -333,12 +339,16 @@ def test_sparse_kernel_past_2_to_the_31_elements(cuda):
 
 # (M, N, X, qblock, mask): the main path's shape (Xp = 17,408), M != N
 # with X < Xp, M and N past one 32-row chunk, odd widths, all-dead,
-# all-live and band masks
+# all-live and band masks; then M, N at the edges of the 40- and 64-row
+# chunks and past them (65, 100: two chunks of 64 rows)
 DEQUANT_MASKED_SHAPES = [(20, 20, 17226, 256, "random"), (7, 20, 1001, 16, "random"),
                          (40, 17, 4099, 64, "random"), (9, 33, 4099, 64, "random"),
                          (9, 4, 999, 3, "random"),
                          (20, 20, 17226, 256, "dead"), (20, 20, 17226, 256, "live"),
-                         (5, 8, 10692, 256, "band")]
+                         (5, 8, 10692, 256, "band"),
+                         (33, 33, 1001, 16, "random"), (40, 40, 4099, 64, "random"),
+                         (64, 64, 4099, 64, "random"), (65, 65, 999, 3, "random"),
+                         (100, 100, 4099, 64, "random"), (20, 100, 1001, 16, "random")]
 
 
 @pytest.mark.parametrize("m,n,x,qblock,layout", DEQUANT_MASKED_SHAPES)
@@ -421,7 +431,11 @@ def test_codec_and_sparse_paths_launch_their_kernels(cuda, label, kw, want):
 # kernel 8: the CPU sweep's shapes (tests/test_kernels.py), then the card's
 # own: olmo-1b's prefill, a danube-like GQA 32/8 hd-80 layer with a window
 # shorter than L, hd 256 over one kv head (gemma3), the smoke widths (hd
-# 16, 32), Lq != Lkv both ways, and fully masked rows (Lq > Lkv + window)
+# 16, 32), Lq != Lkv both ways, and fully masked rows (Lq > Lkv + window).
+# Then the tensor-core kernel's edges: GQA 8 (and 4 at hd 256, whose kv
+# tile is 32 keys), windows shorter than one kv tile (16 < 64, 20 < 32),
+# L = 48 and 96 (not multiples of its 64 rows or 64 keys), Lq != Lkv both
+# ways under GQA, and fully masked rows folded with GQA
 FLASH_SHAPES = [
     (2, 256, 256, 4, 2, 64, None), (1, 256, 256, 4, 4, 64, 128),
     (2, 128, 128, 8, 2, 32, None), (1, 512, 512, 2, 1, 64, 256),
@@ -429,6 +443,10 @@ FLASH_SHAPES = [
     (4, 512, 512, 16, 16, 128, None), (2, 1024, 1024, 32, 8, 80, 300),
     (2, 512, 512, 4, 1, 256, None), (2, 32, 32, 8, 2, 16, 64), (1, 96, 96, 4, 1, 32, 32),
     (1, 128, 256, 4, 2, 96, None), (1, 512, 128, 4, 2, 64, 64),
+    (2, 256, 256, 8, 1, 64, None), (1, 256, 256, 16, 2, 128, 16),
+    (1, 128, 128, 4, 1, 256, 20), (2, 48, 48, 4, 1, 64, None), (1, 48, 48, 2, 2, 80, 16),
+    (2, 96, 96, 8, 1, 96, None), (1, 96, 256, 8, 1, 16, None), (1, 256, 96, 2, 1, 256, None),
+    (1, 256, 48, 8, 1, 128, 16), (1, 96, 48, 4, 2, 32, 8),
 ]
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -454,10 +472,12 @@ def test_flash_kernel_matches_plain(cuda, b, lq, lkv, hq, hkv, hd, window, dtype
         assert bool((out[:, lkv + window:] == 0).all())
 
 
-def test_flash_kernel_without_causal_mask(cuda):
-    q, k, v = _qkv(cuda, 2, 128, 384, 4, 2, 64, torch.float32, seed=1)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_without_causal_mask(cuda, dtype):
+    q, k, v = _qkv(cuda, 2, 128, 384, 4, 2, 64, dtype, seed=1)
     out = flash_attention(q, k, v, causal=False)
-    assert _max_err(out, flash_attention_ref(q, k, v, causal=False)) <= 2e-5
+    want = flash_attention_ref(q, k, v, causal=False)
+    assert _max_err(out.float(), want.float()) <= FLASH_TOL[dtype]
 
 
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
@@ -472,6 +492,9 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         flash_attention(q, k.bfloat16(), v)
     with pytest.raises(ValueError, match="window"):
         flash_attention(q, k, v, window=0)
+    flat = torch.zeros(q.numel() + 8, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):   # 2 bytes past a 16-byte line
+        flash_attention(flat[1:1 + q.numel()].view(q.shape), k.bfloat16(), v.bfloat16())
 
 
 # kernel 9: the CPU sweep's shapes, then mamba2-370m's prefill layer (H =
