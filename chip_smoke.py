@@ -13,7 +13,10 @@ Phases, in order; any failure exits non-zero before the result line:
    error <= 1e-5, TF32 off) and timed with CUDA events; beside it the
    least time the card could take (bytes over 3.35 TB/s or FLOPs over
    67 TFLOP/s fp32, whichever is larger), the plain version's time, and
-   for the flat mix one ``torch.matmul`` as a yardstick. The serving
+   for the flat mix one ``torch.matmul`` as a yardstick; first the launch
+   floor (``launch_floor_ms``: a one-element ``zero_()`` replayed in a
+   CUDA graph), timed again beside the flat and sparse mixes at X = 17,226
+   (``floor_ms``). The serving
    kernels (``gossip_mix_dequant``, int8; ``mixture_mix_dequant4``, int4)
    the same way at B = 20, 256 and 1,024 requests over S = 2 clusters of
    the mlp's plane (qblock 64), with the fp32 serving path's own
@@ -248,9 +251,18 @@ def bound(n: int, x: int, kernel: str, noise: bool = False, m: int = 0,
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def launch_floor(torch):
+    """A ``zero_()`` of one element: the least device time a launch takes
+    in a CUDA graph, timed beside the µs kernels."""
+    z = torch.zeros(1, device="cuda")
+    return lambda: z.zero_()
+
+
 def phase_kernels(torch, gm) -> dict:
     dev = torch.device("cuda")
     rows = {"gossip_mix_flat": [], "gossip_mix_fused_dp": []}
+    floor = launch_floor(torch)
+    print("launch_floor_ms " + json.dumps({"ms": graph_ms(floor)}), flush=True)
     for n, x in SHAPES:
         g = torch.Generator(device=dev).manual_seed(n * 7 + x)
         w = torch.rand((n, n), generator=g, device=dev)
@@ -276,7 +288,8 @@ def phase_kernels(torch, gm) -> dict:
             plain_ms=timed(lambda: gm.gossip_mix_flat_ref(w, c_old)),
             library_ms=timed(lambda: torch.matmul(w, c_old)),
             bound_ms=b_ms, bound_by=b_by,
-            call_ms=time_ms(lambda: gm.gossip_mix_flat(w, c_old), iters)))
+            call_ms=time_ms(lambda: gm.gossip_mix_flat(w, c_old), iters),
+            **({"floor_ms": timed(floor)} if x == SHAPES[0][1] else {})))
 
         for sigma in (0.0, 0.5):
             nz = noise if sigma > 0 else None
@@ -436,6 +449,7 @@ def phase_sparse_kernels(torch, gm) -> dict:
     """Kernels 5 and 6 against their plain versions at SPARSE_SHAPES, the
     inactive columns exact zeros, timed beside their bounds."""
     rows = {"gossip_mix_sparse": [], "gossip_mix_dequant_masked": []}
+    floor = launch_floor(torch)
     for n, x, layout in SPARSE_SHAPES:
         w, mask, c, act, enc = _sparse_operands(torch, n, x, layout, seed=n + x)
         q, sc = enc["q"], enc["scale"]
@@ -462,7 +476,8 @@ def phase_sparse_kernels(torch, gm) -> dict:
             max_abs_err=err, ms=timed(lambda: gm.gossip_mix_sparse(w, c, act)),
             plain_ms=timed(lambda: gm.gossip_mix_sparse_ref(w, c, act)),
             library_ms=timed(lambda: torch.matmul(w, c)), bound_ms=b_ms, bound_by=b_by,
-            call_ms=time_ms(lambda: gm.gossip_mix_sparse(w, c, act), iters)))
+            call_ms=time_ms(lambda: gm.gossip_mix_sparse(w, c, act), iters),
+            **({"floor_ms": timed(floor)} if x == SPARSE_SHAPES[0][1] else {})))
 
         out = gm.gossip_mix_dequant_masked(w, q, sc, mask, act, qblock=QBLOCK)
         torch.cuda.synchronize()

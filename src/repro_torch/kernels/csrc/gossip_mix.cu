@@ -52,6 +52,26 @@
 // column and no prefetch, slowed its N = 20 rows past L2 by 26–44 %
 // (chip_smoke.py): the two kernels stay apart.
 //
+// The narrow plane: mix_kernel_narrow. At the main path's width (N = 20,
+// X = 17,226, 1.4 MB, resident in L2) a call takes a few µs and is bound
+// by latency, not bytes: mix_kernel runs 135 blocks of 4 warps on 132 SMs,
+// and each thread waits on 6 dependent round trips (W staged, then five
+// groups of 4 rows), 7 in the sparse mix (the activity first). The flat
+// and sparse mixes of N <= 32 rows below kNarrowMaxX columns take a kernel
+// of their own. Every load a thread needs (its share of W, its rows of its
+// column and, sparse, the column's activity) is issued before the block's
+// one barrier. Past 8 rows four threads share a column (a block: 32
+// columns, one warp per row group; 539 blocks at X = 17,226), meet in a
+// shared tile and each mix NB/4 output rows from all N rows; up to 8 rows
+// one thread mixes its column from registers. NB is N rounded up to 4, not
+// 8: at N = 20 mix_kernel's 24-row chunk issues 20 % more FMAs. Each
+// output sums j ascending from 0.f, as in mix_kernel: the same bits.
+// tools/mix_variants.py at (20, 17,226), ms: mix_kernel 0.00436; one round
+// trip, a thread a column 0.00369, NB 20 0.00330; 4 threads a column
+// 0.00268; torch.matmul 0.00360; float2 loads of the tile gained little.
+// Kernels 2, 3 and 6, and every plane past the narrow one, keep the
+// kernels above.
+//
 // The stack mix is the same kernel over a 2-D grid: blockIdx.y selects
 // the slab s, whose offset s·N·X is taken in int64_t (at S = 4, N = 32,
 // X = 2^24 it passes 2^31). Every slab shares the one W; each block
@@ -60,15 +80,21 @@
 // plane. A flat plane is the stack of one slab (gridDim.y = 1).
 //
 // The sparse mixes add a per-block activity test: the block's columns
-// (128; 256 in the 40-row chunk) read their entries of the
-// column-activity vector (a column is live iff any client keeps it), and
-// __syncthreads_or decides on the device, with no host sync, whether any
-// is live. A dead block writes exact zeros to its outputs and never reads
-// the plane (the plane is zero on dead columns, so the mix is zero there
-// anyway: the skip saves the read, it does not change the result). A live
-// block runs the mix unchanged. gossip_mix_sparse's least traffic is
-// 4·(N² + X + N·X_live + N·X) bytes: W, the activity vector, the live
-// columns of C, and the whole output. gossip_mix_dequant_masked reads,
+// (128; 256 in the 40-row chunk; 32 or 128 in the narrow kernel) read
+// their entries of the column-activity vector (a column is live iff any
+// client keeps it), and __syncthreads_or decides on the device, with no
+// host sync, whether any is live. A dead block writes exact zeros to its
+// outputs and never reads the plane (the plane is zero on dead columns, so
+// the mix is zero there anyway: the skip saves the read, it does not
+// change the result). A live block runs the mix unchanged. In the narrow
+// kernel the test is its one barrier, so a dead block has loaded its rows
+// already and drops them: below kNarrowMaxX the plane (at most 8 MB) sits
+// in L2, and a second round trip for the live blocks cost more than those
+// reads (tools/mix_variants.py, (20, 17,226), 80 % of the blocks dead:
+// 0.00234 against 0.00255 ms; random d0.2 masks 0.00280 against 0.00283).
+// gossip_mix_sparse's least traffic is 4·(N² + X + N·X_live + N·X)
+// bytes: W, the activity vector, the live columns of C, and the whole
+// output. gossip_mix_dequant_masked reads,
 // per live column, N int8 quanta, N fp32 mask entries and the N scales of
 // its block (L1-resident across the block's columns), so its fp32 mask is
 // 4× its int8 payload: 4·M·N + N·Xp_live + 4·N·Xp_live/qblock + 4·N·X_live + 4·X +
@@ -318,6 +344,130 @@ mix_kernel_wide(const float* __restrict__ w, Prologue in, float* __restrict__ ou
   }
 }
 
+// The narrow plane (see the header): the flat and sparse mixes of N <= 32
+// rows below kNarrowMaxX columns, NB = N rounded up to 4.
+constexpr int kNarrowThreads = 128;
+// Threads a column: past 8 rows 4 (32 columns a block, one warp a row
+// group); up to 8 one, which keeps its column's rows in registers.
+template <int NB>
+constexpr int kNarrowSplit = NB <= 8 ? 1 : 4;
+// The width below which the flat and sparse mixes take mix_kernel_narrow:
+// the first width at which it lost to mix_kernel at some N. Measured by
+// tools/mix_variants.py crossover (H100 80GB HBM3, 700 W; mix_kernel_narrow
+// ÷ mix_kernel at N = 1, 4, 8, …, 32, X = 17,226 to 4,194,304): 0.60–0.76
+// at X = 17,226 and 0.71–0.85 at 32,768, every N; at 65,536 1.04 and 1.05
+// at N = 24 and 32.
+constexpr int64_t kNarrowMaxX = 65536;
+
+// out[i, col] = sum_j w[i, j] * prologue(row j, col) for the n rows of a
+// flat plane. Every load of the block is issued before its one barrier:
+// W, the thread's rows tr, tr + S, … of its column and, with
+// Prologue::kSkip, the column's activity, so a block none of whose
+// columns is live writes zeros after the barrier and drops the rows it
+// loaded. Past 8 rows the S = 4 threads of a column meet in a shared tile
+// (sc) and thread (tc, tr) mixes output rows tr·NB/4 … of column tc from
+// all n rows; each output sums j ascending from 0.f, as mix_kernel does.
+template <int NB, class Prologue>
+__global__ void __launch_bounds__(kNarrowThreads)
+mix_kernel_narrow(const float* __restrict__ w, Prologue in, float* __restrict__ out, int n,
+                  int64_t x) {
+  constexpr int S = kNarrowSplit<NB>;
+  constexpr int BC = kNarrowThreads / S;                                // columns a block
+  constexpr int RB = NB / S;                                            // output rows a thread
+  constexpr int WPT = (NB * NB + kNarrowThreads - 1) / kNarrowThreads;  // W entries a thread
+  static_assert(NB % kGroup == 0 && NB % S == 0 && NB <= 32, "the narrow chunks");
+  __shared__ float sw[NB][NB];
+  __shared__ float sc[S == 1 ? 1 : NB][S == 1 ? 1 : BC];  // the column tile, past 8 rows
+  const int tc = threadIdx.x % BC, tr = threadIdx.x / BC;
+  const int64_t col = static_cast<int64_t>(blockIdx.x) * BC + tc;
+  const bool live = col < x;
+  float wv[WPT], cv[RB];
+#pragma unroll
+  for (int k = 0; k < WPT; ++k) {
+    const int t = threadIdx.x + k * kNarrowThreads, i = t / NB, j = t % NB;
+    wv[k] = (i < n && j < n) ? __ldg(w + i * n + j) : 0.f;
+  }
+#pragma unroll
+  for (int k = 0; k < RB; ++k) {
+    const int j = tr + k * S;
+    cv[k] = (live && j < n) ? in(j, j * x + col) : 0.f;
+  }
+  bool any = false;
+  if constexpr (Prologue::kSkip) any = live && in.live(col);
+#pragma unroll
+  for (int k = 0; k < WPT; ++k) {
+    const int t = threadIdx.x + k * kNarrowThreads;
+    if (t < NB * NB) sw[t / NB][t % NB] = wv[k];
+  }
+  if constexpr (S > 1) {
+#pragma unroll
+    for (int k = 0; k < RB; ++k) sc[tr + k * S][tc] = cv[k];
+  }
+  const int r0 = tr * RB;
+  if constexpr (Prologue::kSkip) {
+    if (!__syncthreads_or(any)) {  // the whole block takes the same branch
+      if (live) {
+        for (int i = r0; i < min(n, r0 + RB); ++i) out[static_cast<int64_t>(i) * x + col] = 0.f;
+      }
+      return;
+    }
+  } else {
+    __syncthreads();
+  }
+  float acc[RB];
+#pragma unroll
+  for (int ii = 0; ii < RB; ++ii) acc[ii] = 0.f;
+#pragma unroll
+  for (int jg = 0; jg < NB; jg += kGroup) {
+    if (jg < n) {  // rows past n are 0 in sw and in the column
+      float v[kGroup];
+#pragma unroll
+      for (int jj = 0; jj < kGroup; ++jj) {
+        if constexpr (S == 1) {
+          v[jj] = cv[jg + jj];
+        } else {
+          v[jj] = sc[jg + jj][tc];
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < kGroup; ++jj) {
+#pragma unroll
+        for (int ii = 0; ii < RB; ++ii) acc[ii] = fmaf(sw[r0 + ii][jg + jj], v[jj], acc[ii]);
+      }
+    }
+  }
+  if (live) {
+#pragma unroll
+    for (int ii = 0; ii < RB; ++ii) {
+      if (r0 + ii < n) out[static_cast<int64_t>(r0 + ii) * x + col] = acc[ii];
+    }
+  }
+}
+
+template <int NB, class Prologue>
+void launch_narrow_nb(const float* w, Prologue in, float* out, int n, int64_t x,
+                      cudaStream_t stream) {
+  constexpr int64_t cols = kNarrowThreads / kNarrowSplit<NB>;  // per block
+  const unsigned grid = static_cast<unsigned>((x + cols - 1) / cols);
+  mix_kernel_narrow<NB, Prologue><<<grid, kNarrowThreads, 0, stream>>>(w, in, out, n, x);
+}
+
+// mix_kernel_narrow with NB = n rounded up to 4 (n <= 32)
+template <class Prologue>
+void launch_narrow(const float* w, Prologue in, float* out, int n, int64_t x,
+                   cudaStream_t stream) {
+  switch ((n + kGroup - 1) / kGroup) {
+    case 1: launch_narrow_nb<4>(w, in, out, n, x, stream); break;
+    case 2: launch_narrow_nb<8>(w, in, out, n, x, stream); break;
+    case 3: launch_narrow_nb<12>(w, in, out, n, x, stream); break;
+    case 4: launch_narrow_nb<16>(w, in, out, n, x, stream); break;
+    case 5: launch_narrow_nb<20>(w, in, out, n, x, stream); break;
+    case 6: launch_narrow_nb<24>(w, in, out, n, x, stream); break;
+    case 7: launch_narrow_nb<28>(w, in, out, n, x, stream); break;
+    default: launch_narrow_nb<32>(w, in, out, n, x, stream); break;
+  }
+}
+
 template <int NB, class Prologue>
 void launch_nb(const float* w, Prologue in, float* out, int slabs, int m, int n, int64_t x,
                cudaStream_t stream) {
@@ -333,14 +483,17 @@ void launch_nb(const float* w, Prologue in, float* out, int slabs, int m, int n,
 }
 
 // Mixes `slabs` consecutive (n, x) planes into (m, x) outputs with the
-// same (m, n) W.
-template <class Prologue>
+// same (m, n) W. With kNarrow (the flat and sparse mixes), a plane of at
+// most 32 rows narrower than kNarrowMaxX takes mix_kernel_narrow.
+template <bool kNarrow = false, class Prologue>
 int launch(const float* w, Prologue in, float* out, int slabs, int m, int n, int64_t x,
            void* stream) {
   if (slabs > 0 && m > 0 && n > 0 && x > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int rows = max(m, n);
-    if (rows <= 8) {
+    if (kNarrow && slabs == 1 && m == n && n <= 32 && x < kNarrowMaxX) {
+      if constexpr (kNarrow) launch_narrow(w, in, out, n, x, s);
+    } else if (rows <= 8) {
       launch_nb<8>(w, in, out, slabs, m, n, x, s);
     } else if (rows <= 16) {
       launch_nb<16>(w, in, out, slabs, m, n, x, s);
@@ -366,7 +519,7 @@ extern "C" {
 // C' = W · C. w (n, n), c and out (n, x), fp32, contiguous, on the device.
 int gossip_mix_flat(const float* w, const float* c, float* out, int n,
                     long long x, void* stream) {
-  return launch(w, Identity{c}, out, 1, n, n, x, stream);
+  return launch<true>(w, Identity{c}, out, 1, n, n, x, stream);
 }
 
 // C'_s = W · C_s for every s. w (n, n); c and out (s, n, x), fp32,
@@ -377,10 +530,11 @@ int gossip_mix_stack(const float* w, const float* c, float* out, int s, int n,
 }
 
 // C' = W · C for C zero on the columns where col_active (x,) is 0; a block
-// of 128 columns all inactive writes zeros without reading C.
+// of 128 columns all inactive writes zeros without reading C (narrower
+// than kNarrowMaxX: of 32 or 128 columns, after reading it).
 int gossip_mix_sparse(const float* w, const float* c, const float* col_active, float* out,
                       int n, long long x, void* stream) {
-  return launch(w, SparseIdentity{c, col_active}, out, 1, n, n, x, stream);
+  return launch<true>(w, SparseIdentity{c, col_active}, out, 1, n, n, x, stream);
 }
 
 // out (m, xp) = w (m, n) · (q (n, xp) int8 ⊙ repeat(scales (n, xp/qblock), qblock)

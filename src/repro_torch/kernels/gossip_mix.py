@@ -19,9 +19,10 @@ Seven kernels, built by ``kernels/build.py``. In ``csrc/gossip_mix.cu``:
 - ``gossip_mix_sparse`` replaces
   ``src/repro/kernels/gossip_mix.py:gossip_mix_sparse``: W·C for the
   sparse (DisPFL) exchange, C zero on dead columns, given the column
-  activity (X,); a block of 128 columns that no client keeps writes exact
-  zeros without reading C. Twice per sparse round without a codec (the
-  numerator W·(M⊙C) and the support count W·M), once with int8/int4.
+  activity (X,); a block of columns that no client keeps writes exact
+  zeros (past the narrow plane without reading C). Twice per sparse round
+  without a codec (the numerator W·(M⊙C) and the support count W·M), once
+  with int8/int4.
 - ``gossip_mix_dequant_masked`` replaces
   ``src/repro/kernels/gossip_mix.py:gossip_mix_dequant_masked``:
   W·(q ⊙ repeat(scale, qblock) ⊙ M) over an int8 payload with the
@@ -30,11 +31,19 @@ Seven kernels, built by ``kernels/build.py``. In ``csrc/gossip_mix.cu``:
   round; it takes the same column activity as ``gossip_mix_sparse`` and
   skips dead blocks the same way.
 
-All three are memory-bound on an H100 for N below ≈ 80: they move
+All five are memory-bound on an H100 for N below ≈ 80: they move
 4·(N² + 2NX) bytes (flat; 4·(N² + 2SNX) for the stack) for 2N²X
 (2SN²X) FLOPs. The kernel streams the plane once, one thread per
 column, with W staged in shared memory and fp32 FMA accumulation (no
 TF32); see the source for the design.
+
+The narrow plane: ``gossip_mix_flat`` and ``gossip_mix_sparse`` on N ≤ 32
+rows narrower than 65,536 columns (``kNarrowMaxX`` in the source; the
+main path's N = 20, X = 17,226 plane is one) take a kernel of their own,
+chosen in the C ``launch()`` from the shape. A call there takes a few µs
+and is bound by latency: every load of a block is issued before its one
+barrier, and past 8 rows four threads share a column. Its results are
+the same bits as the wide kernel's.
 
 In ``csrc/gossip_mix_dequant.cu``:
 
@@ -279,10 +288,13 @@ mixture_mix_dequant4.launches = 0
 def gossip_mix_sparse(w: torch.Tensor, c: torch.Tensor,
                       col_active: torch.Tensor) -> torch.Tensor:
     """W·C for a C that is zero on the columns where ``col_active`` ``(X,)``
-    is 0: all-inactive blocks of columns are written as zeros without
-    reading C. w ``(N, N)``, c ``(N, X)``, col_active ``(X,)``, fp32;
-    returns a new ``(N, X)``. Raises on the shape errors the JAX kernel
-    refuses."""
+    is 0: all-inactive blocks of columns are written as zeros. From 65,536
+    columns (or past 32 rows) such a block never reads C; below it, at
+    N ≤ 32, the activity test shares one round trip with the loads of C,
+    so a dead block has read its columns and drops them (the plane is in
+    L2 there, and a second round trip cost more than those reads). w
+    ``(N, N)``, c ``(N, X)``, col_active ``(X,)``, fp32; returns a new
+    ``(N, X)``. Raises on the shape errors the JAX kernel refuses."""
     n, x = c.shape
     if tuple(col_active.shape) != (x,):
         raise ValueError(

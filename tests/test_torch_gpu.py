@@ -11,6 +11,9 @@ Marked ``gpu``: each test asks a fixture for the card and skips without
 one. Run on a machine with an H100: ``python -m pytest -q -m gpu
 tests/test_torch_gpu.py``. This file imports no JAX, so it runs where
 only PyTorch is installed."""
+import pathlib
+import re
+
 import pytest
 import torch
 
@@ -49,12 +52,24 @@ from repro_torch.serve import ClusterPlaneServer, load_servable
 pytestmark = pytest.mark.gpu
 
 TOL = 1e-5
+# The width below which the flat and sparse mixes of N <= 32 rows take
+# mix_kernel_narrow (kNarrowMaxX in the kernel's source).
+NARROW_MAX_X = int(re.search(
+    r"constexpr int64_t kNarrowMaxX = (\d+);",
+    (pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels" / "csrc"
+     / "gossip_mix.cu").read_text()).group(1))
+# N and X on both sides of that width: N across the narrow chunks (NB = N
+# rounded up to 4: 4 and 8, a thread a column; 20, 24 and 32, four), X
+# from one column to past the width
+NARROW_N = [1, 5, 8, 20, 24, 32]
+NARROW_X = [1, 7, 127, 129, 1001, 17226, NARROW_MAX_X - 1, NARROW_MAX_X, NARROW_MAX_X + 1]
 # the main path's shape, the CPU tests' shape, odd X, N in the 40-row chunk
 # of the kernel, N = 64 (the straggler lane's population, one 64-row
 # chunk), N = 1; then N at each edge of the chunks past 32: 33 and 40
-# (40 rows), 65 and 100 (two chunks of 64 rows)
+# (40 rows), 65 and 100 (two chunks of 64 rows); then the narrow grid
 SHAPES = [(20, 17226), (8, 10692), (5, 1001), (37, 129), (64, 4099), (1, 7),
-          (33, 1001), (40, 4099), (65, 999), (100, 1031)]
+          (33, 1001), (40, 4099), (65, 999), (100, 1031)] + [
+    (n, x) for n in NARROW_N for x in NARROW_X if (n, x) not in ((20, 17226), (1, 7))]
 
 
 @pytest.fixture
@@ -102,6 +117,21 @@ def test_fused_dp_kernel_matches_plain(cuda, n, x, sigma):
     assert gossip_mix_fused_dp.launches == before + 1
     want = gossip_mix_fused_dp_ref(w, co, cn, sc, noise, sigma)
     assert _max_err(out, want) <= TOL
+
+
+@pytest.mark.parametrize("x", [7, 1001, 17226, NARROW_MAX_X - 1])
+@pytest.mark.parametrize("n", NARROW_N)
+def test_narrow_flat_kernel_is_mix_kernel_bit_for_bit(cuda, n, x):
+    """Below kNarrowMaxX the flat mix runs mix_kernel_narrow, the fused DP
+    mix mix_kernel, whose prologue gives c back exactly at c_old = 0,
+    scale = 1: both sum each output over j ascending from 0 in fp32 FMAs,
+    so the two agree bit for bit."""
+    w, c, *_ = _operands(cuda, n, x, seed=2)
+    out = gossip_mix_flat(w, c)
+    old = gossip_mix_fused_dp(w, torch.zeros_like(c), c, torch.ones((n, 1), device=cuda),
+                              None, 0.0)
+    torch.cuda.synchronize()
+    assert torch.equal(out, old)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -284,11 +314,15 @@ def test_train_export_serve_through_the_dequant_kernels(cuda, tmp_path):
 # (N, X, mask): the main path's shape, an odd X, N one more than a 32-row
 # chunk of kernel 5, and all-dead, all-live and one-band masks; then N at
 # the edges of the 40- and 64-row chunks and past them (65, 100: two
-# chunks of 64 rows)
+# chunks of 64 rows); then the narrow grid with every layout, "single"
+# one live column
 SPARSE_SHAPES = [(20, 17226, "random"), (5, 1001, "random"), (33, 4099, "random"),
                  (20, 17226, "dead"), (20, 17226, "live"), (8, 10692, "band"),
                  (40, 1001, "random"), (64, 4099, "band"), (65, 999, "random"),
-                 (100, 4099, "random")]
+                 (100, 4099, "random")] + [
+    (n, x, layout) for n in NARROW_N for x in NARROW_X
+    for layout in ("dead", "live", "band", "random", "single")
+    if (n, x, layout) not in ((20, 17226, "random"), (20, 17226, "dead"), (20, 17226, "live"))]
 
 
 def _sparse_operands(dev, n, x, layout, m=None, seed=0):
@@ -301,6 +335,8 @@ def _sparse_operands(dev, n, x, layout, m=None, seed=0):
         mask = torch.full((n, x), 1.0 if layout == "live" else 0.0, device=dev)
         if layout == "band":
             mask[:, x // 3: x // 3 + x // 5] = 1.0
+        elif layout == "single":
+            mask[n // 2, x // 2] = 1.0
     c = torch.randn((n, x), generator=g, device=dev) * mask
     return w, mask, c, column_activity(mask), g
 

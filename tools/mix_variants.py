@@ -1,17 +1,40 @@
 #!/usr/bin/env python3
-"""Time variants of the gossip mix template side by side on one GPU.
+"""Time variants of the gossip mix side by side on one GPU.
 
-    python3 tools/mix_variants.py
+    python3 tools/mix_variants.py [wide] [narrow] [crossover]
 
-Builds ``tools/mix_variants.cu`` with ``nvcc`` (``sm_90a``) into
-``build/mix_variants/`` and times each variant at the (S, N, X) shapes
-below with CUDA events (mean of 30 back-to-back calls after 3 warm-ups),
-beside one ``torch.matmul(w, c)`` before and after them, and checks each
-against that matmul (TF32 off). Prints the card's name and power limit
-first, then one JSON line per shape. The variants differ in how a thread
-reads its column (see the .cu); ``src/repro_torch/kernels/csrc/
-gossip_mix.cu`` takes the design that wins past 32 rows. Needs a CUDA
-device.
+Builds ``tools/mix_variants.cu`` (which includes the shipped
+``src/repro_torch/kernels/csrc/gossip_mix.cu``) with ``nvcc``
+(``sm_90a``) into ``build/mix_variants/`` and prints the card's name and
+power limit, then one JSON line per shape. Needs a CUDA device.
+
+``wide`` (past 32 rows, ``SHAPES``): each variant at the (S, N, X)
+shapes below, timed with CUDA events (mean of 30 back-to-back calls
+after 3 warm-ups) beside one ``torch.matmul(w, c)`` before and after
+them; ``src/repro_torch/kernels/csrc/gossip_mix.cu`` takes the design
+that wins past 32 rows.
+
+``narrow`` (N <= 32, ``NARROW``): at the main path's (N, X) = (20,
+17,226) and at wider X, the candidates for the narrow plane beside
+``mix_kernel`` as shipped (``first_flat``, ``first_sparse``),
+``mix_kernel_narrow`` (``narrow_flat``, ``narrow_sparse``: launched
+whatever the width), the shipped entry points (``gossip_mix_flat``,
+``gossip_mix_sparse``), one ``torch.matmul(w, c)`` and an empty kernel
+(one block, the least a launch costs; also once as
+``launch_floor_ms``). ``crossover`` (``CROSSOVER``): ``mix_kernel``
+against ``mix_kernel_narrow`` (and, up to X = 262,144, other splits of a
+column's rows) at N = 1 to 32 and X from 17,226 to 4,194,304, which
+places the crossover width ``kNarrowMaxX``. Every call
+is timed by CUDA-graph replay (100 calls captured, 20 past 32 MiB, the
+graph replayed 20 times), twice, in turns (forward, then reversed), and
+each entry holds both times. The sparse entries run on density-0.2 masks
+drawn as the sparse exchange draws them (``random``) and on one shared
+20 % band (``band``); ``bound_ms`` is the flat mix's byte bound.
+
+Every variant is held against ``torch.matmul`` within 1e-5 (TF32 off)
+and, bit for bit (``torch.equal``), against the shipped kernel's
+output; the script prints every row first and exits non-zero if any
+variant differed.
 """
 from __future__ import annotations
 
@@ -31,6 +54,38 @@ SHAPES = {
                       "nb64_prefetch_cap4_nobranch"],
     (2, 20, 4194304): ["nb24_first", "nb24_prefetch", "nb24_prefetch_2col"],
 }
+_N20 = ["n24_t128_s1", "n24_t64_s1", "n24_t32_s1", "n20_t128_s1", "n20_t64_s1", "n24_t128_s2",
+        "n24_t128_s4", "n24_t256_s4", "n24_t96_s3", "n20_t128_s4", "n20_t160_s5",
+        "n20_t128_s2"]
+_N20_EVEN = ["n24_t128_s4_f2", "n20_t160_s5_f2"]   # float2 tiles: X even only
+_N20_SPARSE = ["n24_t128_s1_sp1", "n24_t128_s1_sp2", "n24_t64_s1_sp1", "n24_t128_s4_sp1",
+               "n24_t128_s4_sp2", "n20_t128_s4_sp1", "n20_t128_s4_sp2"]
+# (N, X, layout): layout None is the dense mix (kernel 1), else the sparse
+# mix (kernel 5) on that mask; the main path's width first, then wider X
+# to place the narrow kernel's crossover width
+NARROW = {
+    (20, 17226, None): ["first_flat", "gossip_mix_flat", "narrow_flat"] + _N20 + _N20_EVEN,
+    (20, 17226, "random"): ["first_sparse", "gossip_mix_sparse", "narrow_sparse"] + _N20_SPARSE,
+    (20, 17226, "band"): ["first_sparse", "gossip_mix_sparse", "narrow_sparse"] + _N20_SPARSE,
+    (8, 17226, None): ["first_flat", "gossip_mix_flat", "narrow_flat", "n8_t128_s1", "n8_t128_s2",
+                       "n8_t64_s1"],
+    (32, 17226, None): ["first_flat", "gossip_mix_flat", "narrow_flat", "n32_t128_s1",
+                        "n32_t128_s4", "n32_t64_s1"],
+    (20, 33792, None): ["first_flat", "gossip_mix_flat", "narrow_flat"] + _N20 + _N20_EVEN,
+    (20, 100003, None): ["first_flat", "gossip_mix_flat", "narrow_flat"] + _N20,
+    (20, 100003, "random"): ["first_sparse", "gossip_mix_sparse", "narrow_sparse"] + _N20_SPARSE,
+    (20, 1000000, None): ["first_flat", "gossip_mix_flat", "narrow_flat"] + _N20 + _N20_EVEN,
+}
+# the crossover: mix_kernel as shipped against mix_kernel_narrow at N
+# across the narrow chunk sizes and X up to past L2
+_SPLITS = {1: ["n4_t128_s1", "n4_t128_s2"], 4: ["n4_t128_s1", "n4_t128_s2"],
+           8: ["n8_t128_s1", "n8_t128_s2"], 20: ["n20_t128_s2"], 24: ["n24_t128_s2"],
+           32: ["n32_t128_s1", "n32_t128_s2"]}   # other splits of a column's rows
+CROSSOVER = {(n, x, None): ["first_flat", "narrow_flat"]
+             + (_SPLITS.get(n, []) if x <= 262144 else [])
+             for n in (1, 4, 8, 12, 16, 20, 24, 28, 32)
+             for x in (17226, 32768, 65536, 65537, 100003, 131072, 163840, 196608, 262144,
+                       524288, 1048576, 2097152, 4194304)}
 TOL = 1e-5
 
 
@@ -46,6 +101,13 @@ def build() -> pathlib.Path:
                        capture_output=True, text=True)
     if r.returncode != 0:
         sys.exit(f"nvcc failed:\n{r.stdout}{r.stderr}")
+    # ptxas -v: each kernel's registers and spills, after its mangled name
+    fn = ""
+    for line in r.stderr.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1] if "'" in line else line
+        elif "registers" in line and ("mixn" in fn or "mix_kernel" in fn):
+            print(f"ptxas {fn}: {line.split(':', 1)[-1].strip()}", flush=True)
     return lib
 
 
@@ -62,24 +124,42 @@ def time_ms(torch, fn, iters: int = 30) -> float:
     return start.elapsed_time(end) / iters
 
 
-def main() -> None:
-    import torch
+def graph_ms(torch, fn, reps: int = 100, iters: int = 20) -> float:
+    """Device ms per call: ``reps`` calls captured in one CUDA graph,
+    replayed ``iters`` times (as chip_smoke.py's ``graph_ms``)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (iters * reps)
 
-    if not torch.cuda.is_available():
-        sys.exit("mix_variants: needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
-    lib = ctypes.CDLL(str(build()))
-    dev = torch.device("cuda")
+
+def stream(torch) -> int:
+    """The current stream, read at each call: inside a graph capture it is
+    the capturing stream."""
+    return torch.cuda.current_stream().cuda_stream
+
+
+def wide(torch, lib, dev, bad: list) -> None:
     for (s, n, x), names in SHAPES.items():
         g = torch.Generator(device=dev).manual_seed(s * 7 + n + x)
         w = torch.rand((n, n), generator=g, device=dev)
         w = w / w.sum(dim=1, keepdim=True)
         c = torch.randn((s, n, x), generator=g, device=dev)
         want = torch.matmul(w, c)
-        stream = torch.cuda.current_stream().cuda_stream
+        shipped = torch.empty_like(c)
+        lib.gossip_mix_stack(w.data_ptr(), c.data_ptr(), shipped.data_ptr(), s, n, x,
+                             stream(torch))
         row = {"s": s, "n": n, "x": x, "matmul_ms": time_ms(torch, lambda: torch.matmul(w, c))}
         for name in names:
             fn = getattr(lib, name)
@@ -88,7 +168,7 @@ def main() -> None:
             out = torch.empty_like(c)
 
             def call():
-                return fn(w.data_ptr(), c.data_ptr(), out.data_ptr(), s, n, x, stream)
+                return fn(w.data_ptr(), c.data_ptr(), out.data_ptr(), s, n, x, stream(torch))
 
             if call() != 0:
                 sys.exit(f"{name}: launch failed")
@@ -96,9 +176,107 @@ def main() -> None:
             err = float((out - want).abs().max())
             if err > TOL:
                 sys.exit(f"{name} at {(s, n, x)}: max abs err {err} > {TOL}")
+            if not torch.equal(out, shipped):
+                bad.append(f"{name} at {(s, n, x)}")
             row[name + "_ms"] = time_ms(torch, call)
         row["matmul_again_ms"] = time_ms(torch, lambda: torch.matmul(w, c))
         print(json.dumps(row), flush=True)
+
+
+def narrow_operands(torch, dev, n: int, x: int, layout):
+    from repro_torch.core.sparse import SparseConfig, column_activity, init_masks
+
+    g = torch.Generator(device=dev).manual_seed(n * 7 + x)
+    w = torch.rand((n, n), generator=g, device=dev)
+    w = w / w.sum(dim=1, keepdim=True)
+    c = torch.randn((n, x), generator=g, device=dev)
+    if layout is None:
+        return w, c, torch.ones(x, device=dev)
+    sp = SparseConfig(density=0.2)
+    if layout == "random":
+        mask = init_masks(g, n, x, sp)
+    else:
+        k = sp.k_active(x)
+        mask = torch.zeros((n, x), device=dev)
+        mask[:, (x - k) // 2:(x - k) // 2 + k] = 1.0
+    return w, c * mask, column_activity(mask)
+
+
+def narrow(torch, lib, dev, bad: list, shapes: dict) -> None:
+    lib.empty.argtypes = [ctypes.c_void_p]
+    floor = [graph_ms(torch, lambda: lib.empty(stream(torch))) for _ in range(2)]
+    print(json.dumps({"launch_floor_ms": floor}), flush=True)
+    sig = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+    for (n, x, layout), names in shapes.items():
+        w, c, act = narrow_operands(torch, dev, n, x, layout)
+        want = torch.matmul(w, c)
+        calls = {"matmul": lambda: torch.matmul(w, c),
+                 "empty": lambda: lib.empty(stream(torch))}
+        shipped = None
+        for name in ["gossip_mix_flat" if layout is None else "gossip_mix_sparse"] + names:
+            out = torch.empty_like(c)
+            fn = getattr(lib, name)
+            if name == "gossip_mix_flat":   # the only entry point without the activity
+                args = (w.data_ptr(), c.data_ptr(), out.data_ptr(), n, x)
+            else:
+                if name != "gossip_mix_sparse":
+                    fn.argtypes = sig
+                args = (w.data_ptr(), c.data_ptr(), act.data_ptr(), out.data_ptr(), n, x)
+
+            def call(fn=fn, args=args, out=out):   # out: kept alive with its pointer
+                return fn(*args, stream(torch))
+
+            if call() != 0:
+                sys.exit(f"{name}: launch failed")
+            torch.cuda.synchronize()
+            err = float((out - want).abs().max())
+            if err > TOL:
+                sys.exit(f"{name} at {(n, x, layout)}: max abs err {err} > {TOL}")
+            if shipped is None:
+                shipped = out   # the shipped entry point, run first
+                continue
+            if not torch.equal(out, shipped):
+                bad.append(f"{name} at {(n, x, layout)}")
+            calls[name] = call
+        order = list(calls)
+        times = {k: [] for k in order}
+        for seq in (order, order[::-1]):
+            for k in seq:
+                reps = 100 if 4 * n * x < 32 * 2**20 else 20
+                times[k].append(graph_ms(torch, calls[k], reps=reps))
+        row = {"n": n, "x": x, "layout": layout,
+               "bound_ms": 4 * (n * n + 2 * n * x) / 3.35e12 * 1e3}
+        row.update({k + "_ms": v for k, v in times.items()})
+        print(json.dumps(row), flush=True)
+        del w, c, act, want, shipped, calls
+        torch.cuda.empty_cache()
+
+
+def main() -> None:
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("mix_variants: needs a CUDA device")
+    which = sys.argv[1:] or ["wide", "narrow", "crossover"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    lib = ctypes.CDLL(str(build()))
+    P = ctypes.c_void_p
+    lib.gossip_mix_flat.argtypes = [P, P, P, ctypes.c_int, ctypes.c_longlong, P]
+    lib.gossip_mix_sparse.argtypes = [P, P, P, P, ctypes.c_int, ctypes.c_longlong, P]
+    lib.gossip_mix_stack.argtypes = [P, P, P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, P]
+    dev = torch.device("cuda")
+    bad: list = []
+    if "wide" in which:
+        wide(torch, lib, dev, bad)
+    if "narrow" in which:
+        narrow(torch, lib, dev, bad, NARROW)
+    if "crossover" in which:
+        narrow(torch, lib, dev, bad, CROSSOVER)
+    if bad:
+        sys.exit("not the shipped kernel's bits: " + ", ".join(bad))
 
 
 if __name__ == "__main__":
