@@ -76,6 +76,11 @@ Phases, in order; any failure exits non-zero before the result line:
    (checked for every head dim right after the build), and ``ssd_scan``
    (kernel 9) at mamba2-370m's prefill layer (B = 4, L = 512, H = 32, P =
    64, N = 128, chunk 128, bf16; also fp32 and with an initial state),
+   each row with its three stages' device ms from a torch.profiler pass
+   (which must see the tensor-core kernels ``ssd_chunk_state_mma`` and
+   ``ssd_chunk_out_mma`` in bf16, the CUDA-core ones in fp32) and, in
+   bf16, their tensor-core instruction counts (checked non-zero right
+   after the build),
    each against its plain version (attention 2e-5 fp32 / 2e-2 bf16, SSD
    2e-3 and one bf16 step, 2^-7 of the value, on a bf16 y) and timed by
    CUDA-graph replay beside its bound (bytes over 3.35 TB/s or FLOPs over
@@ -159,6 +164,7 @@ FLASH_SHAPES = [(4, 512, 16, 16, 128, None, "bfloat16"), (4, 512, 16, 16, 128, N
 SSD_SHAPES = [(4, 512, 32, 1, 64, 128, 128, "bfloat16", False),
               (4, 512, 32, 1, 64, 128, 128, "float32", False),
               (4, 512, 32, 1, 64, 128, 128, "float32", True)]
+SSD_MMA_KERNELS = ("ssd_chunk_state_mma", "ssd_chunk_out_mma")   # kernel 9's bf16 kernels
 LM_ARCHS = {"olmo-1b": 1_280_311_296, "mamba2-370m": 420_136_448}   # X of each plane
 LM_B, LM_PROMPT, LM_GEN = 4, 512, 16
 LM_MIXTURE = [[0.7, 0.3], [0.5, 0.5], [0.1, 0.9], [1.0, 0.0]]
@@ -925,30 +931,52 @@ def _ssd_bound(b, l, h, g, p, n, q, dtype, state) -> tuple[float, str]:
 
 
 def tensor_core_counts(build, lib_path) -> dict:
-    """{hd: count of HMMA/HGMMA instructions} in each instantiation of
-    the bf16 flash kernel (``flash_mma_kernel<hd>``) of the built
-    library, from ``cuobjdump -sass`` (beside ``nvcc``)."""
+    """Counts of HMMA/HGMMA instructions in the built library, from
+    ``cuobjdump -sass`` (beside ``nvcc``): ``{hd: count}`` for each
+    instantiation of the bf16 flash kernel (``flash_mma_kernel<hd>``) and
+    ``{name: count}`` for kernel 9's tensor-core kernels
+    (``SSD_MMA_KERNELS``)."""
     cuobjdump = pathlib.Path(build.find_nvcc()).parent / "cuobjdump"
     r = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
                        text=True, timeout=300)
     check(r.returncode == 0, f"cuobjdump -sass failed: {r.stderr.strip()[-500:]}")
-    counts, hd = {}, None
+    counts, key = {}, None
     for line in r.stdout.splitlines():
         if "Function :" in line:
             m = re.search(r"flash_mma_kernelILi(\d+)E", line)
-            hd = int(m.group(1)) if m else None
-            if hd is not None:
-                counts[hd] = 0
-        elif hd is not None and re.search(r"\bHG?MMA\b", line):
-            counts[hd] += 1
+            key = int(m.group(1)) if m else next((k for k in SSD_MMA_KERNELS if k in line),
+                                                 None)
+            if key is not None:
+                counts[key] = 0
+        elif key is not None and re.search(r"\bHG?MMA\b", line):
+            counts[key] += 1
     return counts
+
+
+def _stage_ms(torch, fn, calls: int = 20) -> dict:
+    """Device ms per call of each kernel 9 kernel that ``fn`` launches
+    (``{name: ms}``), from one torch.profiler pass over ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        m = re.search(r"\b(ssd_\w+)", e.key)
+        if e.device_type.name == "CUDA" and m:
+            out[m.group(1)] = out.get(m.group(1), 0.0) + e.self_device_time_total / 1e3 / calls
+    return out
 
 
 def phase_lm_kernels(torch, mma_counts: dict) -> dict:
     """Kernels 8 and 9 against their plain versions at the LM path's
     shapes, timed by CUDA-graph replay beside bound, plain and library;
-    each bf16 flash row carries its kernel's tensor-core instruction
-    count."""
+    each bf16 row carries its kernels' tensor-core instruction counts, and
+    each kernel 9 row its three stages' device ms (torch.profiler)."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
     from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
 
@@ -1017,9 +1045,17 @@ def phase_lm_kernels(torch, mma_counts: dict) -> dict:
         check(y_ok and s_ok, f"ssd_scan {dt} B={b} L={l} H={h} P={p} N={n} state={state}: "
                              f"max abs err {err} outside 2e-3 (+ rtol {rtol})")
         b_ms, b_by = _ssd_bound(b, l, h, gr, p, n, chunk, dt, state)
+        stages = _stage_ms(torch, lambda: ssd_scan(x, dts, a, bm, cm, chunk=chunk,
+                                                   initial_state=s0))
+        want = (SSD_MMA_KERNELS if dt == "bfloat16" else ("ssd_chunk_state", "ssd_chunk_out")) \
+            + ("ssd_state_pass",)
+        check(sorted(stages) == sorted(want),
+              f"ssd_scan {dt}: the profiler saw {sorted(stages)}, expected {sorted(want)}")
         rows["ssd_scan"].append(dict(
             b=b, l=l, h=h, g=gr, p=p, n=n, chunk=chunk, dtype=dt, initial_state=state,
-            max_abs_err=err, launches_per_call=3,
+            max_abs_err=err, launches_per_call=3, stage_ms=stages,
+            tensor_core_instructions=({k: mma_counts[k] for k in SSD_MMA_KERNELS}
+                                      if dt == "bfloat16" else 0),
             ms=graph_ms(lambda: ssd_scan(x, dts, a, bm, cm, chunk=chunk, initial_state=s0),
                         20, 10),
             plain_ms=graph_ms(lambda: ssd_chunked(x, dts, a, bm, cm, chunk, s0), 5, 5),
@@ -1282,6 +1318,10 @@ def main() -> None:
     for hd in HEAD_DIMS:
         check(mma_counts.get(hd, 0) > 0,
               f"the bf16 flash kernel for hd {hd} holds no tensor-core instruction")
+    print("sass ssd_scan (bf16) HMMA/HGMMA per kernel: "
+          + json.dumps({k: mma_counts.get(k, 0) for k in SSD_MMA_KERNELS}), flush=True)
+    for k in SSD_MMA_KERNELS:
+        check(mma_counts.get(k, 0) > 0, f"kernel 9's {k} holds no tensor-core instruction")
 
     rows = phase_kernels(torch, gm)
     stack_rows = phase_stack_kernel(torch, gm)

@@ -3,7 +3,8 @@
 ``load_library()`` compiles every ``csrc/*.cu`` with ``nvcc`` for
 ``sm_90a`` at first use — one ``nvcc -c`` per source, all started together,
 then one link — into ``build/repro_torch_kernels/`` at the root of the
-checkout, named by a hash of the sources and flags, and loads the shared
+checkout, named by a hash of the sources, the headers they include
+(``csrc/*.cuh``) and the flags, and loads the shared
 library with ``ctypes``. A library already built from the same sources is
 loaded as it is. Nothing is downloaded: the build uses the sources in the
 repository and the CUDA toolkit on the machine (``$CUDA_HOME`` or
@@ -98,7 +99,10 @@ def build() -> pathlib.Path:
     the library's path. The build log (with ptxas register and spill
     counts) lands beside it as ``<name>.log``."""
     sources = sorted(CSRC.glob("*.cu"))
-    lib = BUILD_DIR / f"librepro_torch_kernels_{_digest(sources)}.so"
+    # the headers the sources include are hashed too, so an edit to one
+    # builds anew
+    digest = _digest(sources + sorted(CSRC.glob("*.cuh")))
+    lib = BUILD_DIR / f"librepro_torch_kernels_{digest}.so"
     if lib.is_file():
         return lib
     nvcc = find_nvcc()

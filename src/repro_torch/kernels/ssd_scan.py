@@ -10,7 +10,13 @@ H, P, N)``; returns y ``(B, L, H, P)`` in x's dtype and the final state
 (``models/ssm.apply_mamba_layer``, the scan at the JAX package's
 ``ssm.py:203``), the B requests of a batch in one call. On the card it is
 three launches (chunk states, the inter-chunk state pass, outputs; see
-``csrc/ssd_scan.cu``), each counted in ``ssd_scan.launches``.
+``csrc/ssd_scan.cu``), each counted in ``ssd_scan.launches``. Which
+kernels run the chunk-state and output stages follows from dtype and
+shape: bf16 with P and N multiples of 16 (every mamba2-family config) on
+the tensor cores (``ssd_chunk_state_mma``, ``ssd_chunk_out_mma``: bf16
+``mma.sync`` with each fp32 operand split into a hi/lo bf16 pair), at any
+chunk; fp32, and bf16 at other P or N, on the CUDA cores
+(``ssd_chunk_state``, ``ssd_chunk_out``).
 
 Beside it: its plain version ``ssd_chunked`` (the JAX package's
 ``models/ssm.ssd_chunked`` in PyTorch, fp32 math: the intra-chunk dual
@@ -28,7 +34,8 @@ from repro_torch.kernels.common import on_cpu, raise_on
 
 NEG_INF = -1e30
 MAX_SMEM = 232448   # the most shared memory one block can opt in to (H100)
-SCORE_ROWS = 32     # query rows per score tile in the output stage
+SCORE_ROWS = 32     # query rows per score tile in the CUDA-core output stage
+MMA_ROWS = 64       # query rows per block, keys per tile (tensor-core output stage)
 
 
 def _segsum(x: torch.Tensor) -> torch.Tensor:
@@ -93,10 +100,23 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y.to(x.dtype), s
 
 
-def smem_bytes(chunk: int, p: int, n: int) -> int:
-    """Shared memory of the kernel's larger stage (the output stage) at a
-    chunk, head dim P and state dim N; the wrapper refuses shapes past
-    ``MAX_SMEM``."""
+def takes_mma(dtype: torch.dtype, p: int, n: int) -> bool:
+    """True when the chunk-state and output stages run on the tensor
+    cores: bf16 with P and N multiples of 16."""
+    return dtype == torch.bfloat16 and p % 16 == 0 and n % 16 == 0
+
+
+def smem_bytes(chunk: int, p: int, n: int, dtype: torch.dtype = torch.float32) -> int:
+    """Shared memory of the larger stage of the kernels that take
+    ``(dtype, P, N)`` at a chunk, head dim P and state dim N; the wrapper
+    refuses shapes past ``MAX_SMEM``."""
+    if takes_mma(dtype, p, n):
+        q16 = -(-chunk // 16) * 16
+        q64 = -(-chunk // MMA_ROWS) * MMA_ROWS
+        state = 2 * q16 * (p + 8 + n + 8) + 8 * q16
+        tile = 2 * MMA_ROWS * (n + 8 + 72)           # B and x of one key tile
+        out = 2 * MMA_ROWS * (n + 8) + tile + max(tile, 4 * MMA_ROWS * 68) + 8 * q64
+        return max(out, state)
     out = chunk * (n + 1) + chunk * p + p * (n + 1) + SCORE_ROWS * n \
         + SCORE_ROWS * chunk + chunk
     state = chunk * p + chunk * n + chunk
@@ -133,15 +153,19 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             or Cm.dtype != x.dtype:
         raise TypeError(f"x/B/C dtypes {x.dtype}/{Bm.dtype}/{Cm.dtype}: the kernel "
                         "takes one of float32, bfloat16")
-    if smem_bytes(chunk, p, n) > MAX_SMEM:
+    need = smem_bytes(chunk, p, n, x.dtype)
+    if need > MAX_SMEM:
         raise ValueError(
-            f"chunk {chunk}, P {p}, N {n} need {smem_bytes(chunk, p, n)} bytes of "
-            f"shared memory per block; the kernel has {MAX_SMEM}")
+            f"chunk {chunk}, P {p}, N {n} need {need} bytes of shared memory per "
+            f"block; the kernel has {MAX_SMEM}")
     if b > 65535 or h > 65535:
         raise ValueError(f"batch {b} or heads {h} over the grid's 65535")
     for name, t in (("x", x), ("B", Bm), ("C", Cm)):
         if not t.is_contiguous():
             raise ValueError(f"{name}: the kernel takes a contiguous tensor")
+        if takes_mma(x.dtype, p, n) and t.data_ptr() % 16:
+            raise ValueError(f"{name}: the tensor-core kernels' 16-byte copies need a "
+                             "16-byte aligned start")
     dt32 = dt.float().contiguous()
     a32 = A.float().expand(b, h).contiguous()
     s0 = None if initial_state is None else initial_state.float().contiguous()

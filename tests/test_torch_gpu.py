@@ -535,12 +535,19 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 
 # kernel 9: the CPU sweep's shapes, then mamba2-370m's prefill layer (H =
 # 32, P = 64, N = 128, L = 512, chunk 128) at B = 1 and 4, a prompt shorter
-# than one chunk, and groups < heads
+# than one chunk, and groups < heads; then the tensor-core kernels' edges
+# (bf16): Q = 5 (under one 16-token step), Q = 16, Q = 80 alone and over
+# two chunks (a ragged query tile), Q = 192 (three query and key tiles), P
+# = 128 (two passes of 64 columns) and N = 16, 64, 128 at G = 1, 2, 4; and
+# P = 24, N = 40, which bf16 runs on the CUDA-core kernels
 SSD_SHAPES = [
     (1, 128, 8, 2, 32, 16, 64), (2, 256, 4, 1, 64, 64, 128),
     (2, 256, 4, 4, 64, 128, 128), (1, 512, 2, 1, 64, 64, 128),
     (4, 512, 32, 1, 64, 128, 128), (1, 512, 32, 1, 64, 128, 128),
     (2, 16, 8, 1, 32, 16, 128), (2, 384, 16, 4, 64, 128, 128),
+    (2, 10, 4, 2, 32, 16, 5), (2, 64, 8, 4, 32, 64, 16), (1, 80, 4, 1, 64, 128, 128),
+    (2, 160, 4, 2, 64, 64, 80), (1, 192, 4, 2, 64, 128, 192), (1, 128, 2, 1, 128, 64, 128),
+    (1, 64, 4, 2, 24, 40, 32),
 ]
 
 
@@ -578,12 +585,23 @@ def test_ssd_kernel_matches_plain(cuda, b, l, h, g, p, n, chunk, dtype):
     _assert_ssd_close((y, s), ssd_chunked(x, dt, a, bm, cm, min(chunk, l)), dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("per_request", [False, True])
-def test_ssd_kernel_with_an_initial_state(cuda, per_request):
-    x, dt, a, bm, cm, s0 = _ssd_inputs(cuda, 4, 512, 32, 1, 64, 128, torch.float32, seed=3,
+def test_ssd_kernel_with_an_initial_state(cuda, per_request, dtype):
+    x, dt, a, bm, cm, s0 = _ssd_inputs(cuda, 4, 512, 32, 1, 64, 128, dtype, seed=3,
                                        state=True, per_request=per_request)
     got = ssd_scan(x, dt, a, bm, cm, chunk=128, initial_state=s0)
-    _assert_ssd_close(got, ssd_chunked(x, dt, a, bm, cm, 128, s0), torch.float32)
+    _assert_ssd_close(got, ssd_chunked(x, dt, a, bm, cm, 128, s0), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_gives_the_same_bits_twice(cuda, dtype):
+    """No atomics: two identical calls agree bit for bit."""
+    x, dt, a, bm, cm, s0 = _ssd_inputs(cuda, 2, 384, 16, 4, 64, 128, dtype, seed=4,
+                                       state=True)
+    (y1, s1), (y2, s2) = (ssd_scan(x, dt, a, bm, cm, chunk=128, initial_state=s0)
+                          for _ in range(2))
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
 
 
 def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
@@ -596,6 +614,9 @@ def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         ssd_scan(torch.zeros((1, 512, 4, 128), device=cuda)[..., :64], dt, a, bm, cm)
     with pytest.raises(TypeError, match="dtypes"):
         ssd_scan(x, dt, a, bm.bfloat16(), cm)
+    flat = torch.zeros(x.numel() + 8, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):   # 2 bytes past a 16-byte line
+        ssd_scan(flat[1:1 + x.numel()].view(x.shape), dt, a, bm.bfloat16(), cm.bfloat16())
 
 
 @pytest.mark.parametrize("arch,launches", [("olmo-1b", 1), ("gemma3-1b", 1),
