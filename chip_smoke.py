@@ -22,8 +22,13 @@ Phases, in order; any failure exits non-zero before the result line:
    the mlp's plane (qblock 64), with the fp32 serving path's own
    ``torch.matmul(u, plane)`` and a store of the output alone
    (``fill_``) timed beside them; ``gossip_mix_dequant``
-   also at the int8 exchange's shape (M = N = 20, qblock 256), and at
-   widths whose rows rule out 16- and 8-byte stores for correctness only;
+   also at the int8 exchange's shape (M = N = 20, qblock 256, with the
+   launch floor beside it), and for correctness only at widths whose rows
+   rule out 16- and 8-byte stores and on the square W at both sides of its
+   route (N = 1 to 32 below Xp = 65,536: the narrow kernel; Xp = 65,538
+   and N = 33: the serving template), each square W's first N − 1 rows
+   checked bit for bit against the same call on those rows alone (the
+   serving template);
    ``gossip_mix_stack`` (the FedEM exchange) the same way at (S, N, X) =
    (2, 20, 17,226), (2, 20, 4,194,304), (3, 37, 100,003) and (3, 64,
    100,003), with one ``torch.matmul`` broadcast over S as its yardstick;
@@ -56,8 +61,12 @@ Phases, in order; any failure exits non-zero before the result line:
    with density-0.2 masks and int8 at block 256: X = 17,226 (the mlp),
    random masks and every client's support in one shared 20 % band (80 %
    of the slabs dead), and X = 4,194,304 (past L2) both ways, beside
-   their bounds, plain versions and, for the sparse mix, one
-   ``torch.matmul(w, c)``; one full-width sparse + int8 + error-feedback
+   their bounds, plain versions and one ``torch.matmul``, of W by C for
+   the sparse mix and by the decoded masked plane for the masked dequant
+   mix (the launch floor beside both at X = 17,226); the masked dequant
+   mix also for correctness only at the edges of its three kernels (N = 1
+   to 33, odd widths and qblocks, both sides of Xp = 65,536) with random,
+   all-dead and band masks; one full-width sparse + int8 + error-feedback
    round on the card against the CPU with the same injected draws; then
    ``run_method("fedspd", ...)`` for 5 rounds with dense int8 + error
    feedback, dense topk + error feedback, sparse d0.2 (DisPFL, RigL at
@@ -92,7 +101,8 @@ Phases, in order; any failure exits non-zero before the result line:
    512, 16 greedy tokens, every launch counter set to 0 just before each
    ``generate`` and read just after (one ``flash_attention`` launch per
    olmo layer, three ``ssd_scan`` launches per mamba2 layer, one dequant
-   launch per int8/int4 call); the tokens against the same card's tokens
+   launch per int8/int4 call), the int8/int4 mix kernel's device time at
+   that shape beside its bound; the tokens against the same card's tokens
    through the plain versions of kernels 8 and 9 (where a bf16 near-tie
    flips one, the logit gap at that step must be under 5e-2 or two bf16
    steps at the logits' magnitude); prefill and decode times, plane bytes
@@ -132,9 +142,13 @@ SERVE_SHAPES = [(20, 2, 17226, 64), (256, 2, 17226, 64), (1024, 2, 17226, 64)]
 SERVE_B = 256
 # gossip_mix_dequant also at the int8 exchange's shape (M = N = 20, timed),
 # and for correctness only at widths padded to Xp = 1,010 (no 16-byte
-# rows) and 999 (odd: no 8-byte rows)
+# rows) and 999 (odd: no 8-byte rows); then on the square W at both sides
+# of its route: N = 1, 7, 20, 32 below Xp = 65,536 (the narrow kernel), N =
+# 20 at 65,538 and N = 33 (the serving template), odd qblocks
 GOSSIP_DEQUANT = (20, 20, 17226, 256)
-DEQUANT_CHECKS = [GOSSIP_DEQUANT, (37, 5, 1001, 10), (7, 3, 999, 3)]
+DEQUANT_CHECKS = [GOSSIP_DEQUANT, (37, 5, 1001, 10), (7, 3, 999, 3),
+                  (1, 1, 1010, 10), (7, 7, 999, 3), (20, 20, 65535, 3), (20, 20, 65538, 3),
+                  (32, 32, 1001, 7), (32, 32, 17408, 256), (33, 33, 1010, 10)]
 SERVE_TOL = 1e-4
 # gossip_mix_stack, (S, N, X): the FedEM exchange at the main path's
 # width, past L2, N above 32 (one 40-row chunk) with an odd X, and N = 64
@@ -151,6 +165,15 @@ QBLOCK = 256   # CommConfig's default block
 # band (80 % of the slabs dead), and the same past the 50 MB L2
 SPARSE_SHAPES = [(20, 17226, "random"), (20, 17226, "band"),
                  (20, 4194304, "random"), (20, 4194304, "band")]
+# kernel 6 for correctness only, (N, X, qblock) with random, all-dead and
+# band masks: the narrow kernel (N = 1, 7, 20, 32 below Xp = 65,536; X
+# that rules out 16- and 8-byte rows, odd qblocks), past it the one-column
+# kernel (X % 4 = 2; N = 33) and the 4-column kernel (N = 20 and 32)
+MASKED_CHECKS = [(n, x, qb, layout)
+                 for n, x, qb in ((1, 1010, 10), (7, 999, 3), (20, 65535, 3), (32, 1001, 7),
+                                  (20, 65538, 3), (33, 1010, 10), (20, 100000, 64),
+                                  (32, 65536, 256))
+                 for layout in ("random", "dead", "band")]
 # wire bytes per message of the mlp (X = 17,226, 68,904 model bytes) on
 # the four sparse/comm runs: dense int8, dense topk, sparse fp32, sparse int8
 WIRE_PER_MSG = {"int8": 17498, "topk": 8608, "sparse": 15934, "sparse_int8": 5655}
@@ -380,6 +403,7 @@ def phase_dequant_kernels(torch, gm) -> dict:
     """The serving kernels against their plain versions, timed at the
     serving shapes; gossip_mix_dequant also checked at DEQUANT_CHECKS."""
     rows = {"gossip_mix_dequant": [], "mixture_mix_dequant4": []}
+    floor = launch_floor(torch)
     for name, codec in (("gossip_mix_dequant", "int8"), ("mixture_mix_dequant4", "int4")):
         kernel, plain = getattr(gm, name), getattr(gm, name + "_ref")
         shapes = SERVE_SHAPES + (DEQUANT_CHECKS if codec == "int8" else [])
@@ -394,6 +418,13 @@ def phase_dequant_kernels(torch, gm) -> dict:
             check(err <= TOL, f"{name} B={b} S={s} X={x} qblock={qblock}: "
                               f"max abs err {err} > {TOL}")
             row = dict(m=b, n=s, x=x, xp=xp, qblock=qblock, max_abs_err=err)
+            if codec == "int8" and b == s > 1:
+                # the square W against its first N - 1 rows, which take the
+                # serving template: the same bits whichever kernel runs
+                part = kernel(u[:-1].contiguous(), q, sc, qblock=qblock)
+                row["bits_as_serving_template"] = bool(torch.equal(out[:-1], part))
+                check(row["bits_as_serving_template"],
+                      f"{name} M=N={b} Xp={xp}: rows differ from the serving template's")
             if (b, s, x, qblock) in SERVE_SHAPES + [GOSSIP_DEQUANT]:
                 small = 4 * b * xp < 32 * 2**20   # graph replay; else events
                 iters = 200 if small else 20
@@ -414,7 +445,8 @@ def phase_dequant_kernels(torch, gm) -> dict:
                     library_ms=None, bound_ms=b_ms, bound_by=b_by,
                     fp32_path_matmul_ms=timed(lambda: torch.matmul(u, plane)),
                     store_only_ms=timed(lambda: sink.fill_(0.0)),
-                    call_ms=time_ms(lambda: kernel(u, q, sc, qblock=qblock), iters))
+                    call_ms=time_ms(lambda: kernel(u, q, sc, qblock=qblock), iters),
+                    **({"floor_ms": timed(floor)} if b == s else {}))
                 del plane, sink
             rows[name].append(row)
             del u, q, sc, out
@@ -425,12 +457,12 @@ def phase_dequant_kernels(torch, gm) -> dict:
     return rows
 
 
-def _sparse_operands(torch, n: int, x: int, layout: str, seed: int):
+def _sparse_operands(torch, n: int, x: int, layout: str, seed: int, qblock: int = QBLOCK):
     """(w, mask, c, col_active, enc): a row-stochastic W, density-0.2 masks
     (``random``: every client its own k_active columns; ``band``: every
-    client the same k_active-wide band in the middle of X), C zero off the
-    mask, and C encoded as the int8 exchange encodes it (block 256,
-    stochastic rounding)."""
+    client the same k_active-wide band in the middle of X; ``dead``: no
+    column kept), C zero off the mask, and C encoded as the int8 exchange
+    encodes it (block ``qblock``, stochastic rounding)."""
     from repro_torch.comm.codecs import Channel, CommConfig
     from repro_torch.core.sparse import SparseConfig, column_activity, init_masks
 
@@ -442,12 +474,12 @@ def _sparse_operands(torch, n: int, x: int, layout: str, seed: int):
     if layout == "random":
         mask = init_masks(g, n, x, sp)
     else:
-        k = sp.k_active(x)
+        k = sp.k_active(x) if layout == "band" else 0
         lo = (x - k) // 2
         mask = torch.zeros((n, x), device=dev)
         mask[:, lo:lo + k] = 1.0
     c = torch.randn((n, x), generator=g, device=dev) * mask
-    enc = Channel(CommConfig(codec="int8", block=QBLOCK), x).encode(c, g)
+    enc = Channel(CommConfig(codec="int8", block=qblock), x).encode(c, g)
     return w, mask, c, column_activity(mask), enc
 
 
@@ -496,6 +528,8 @@ def phase_sparse_kernels(torch, gm) -> dict:
               "exact zeros")
         b_ms, b_by = bound(n, xp, "gossip_mix_dequant_masked", m=n, qblock=QBLOCK, live=live,
                            width=x)
+        # a yardstick, not the function: W times the decoded masked plane
+        decoded = (q.float() * sc.repeat_interleave(QBLOCK, dim=1))[:, :x] * mask
         rows["gossip_mix_dequant_masked"].append(dict(
             m=n, n=n, x=x, xp=xp, qblock=QBLOCK, layout=layout, x_live=live,
             dead_slab_share=dead_share, max_abs_err=err,
@@ -504,10 +538,27 @@ def phase_sparse_kernels(torch, gm) -> dict:
             plain_ms=timed(lambda: gm.gossip_mix_dequant_masked_ref(w, q, sc, mask, act,
                                                                     qblock=QBLOCK)),
             library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            decoded_matmul_ms=timed(lambda: torch.matmul(w, decoded)),
             call_ms=time_ms(lambda: gm.gossip_mix_dequant_masked(w, q, sc, mask, act,
-                                                                 qblock=QBLOCK), iters)))
-        del w, mask, c, act, enc, q, sc, out, want
+                                                                 qblock=QBLOCK), iters),
+            **({"floor_ms": timed(floor)} if x == SPARSE_SHAPES[0][1] else {})))
+        del w, mask, c, act, enc, q, sc, out, want, decoded
         torch.cuda.empty_cache()
+    for n, x, qb, layout in MASKED_CHECKS:
+        w, mask, c, act, enc = _sparse_operands(torch, n, x, layout, seed=n + x, qblock=qb)
+        q, sc = enc["q"], enc["scale"]
+        out = gm.gossip_mix_dequant_masked(w, q, sc, mask, act, qblock=qb)
+        torch.cuda.synchronize()
+        want = gm.gossip_mix_dequant_masked_ref(w, q, sc, mask, act, qblock=qb)
+        err = float((out - want).abs().max())
+        tag = f"gossip_mix_dequant_masked N={n} X={x} qblock={qb} {layout}"
+        check(err <= TOL, f"{tag}: max abs err {err} > {TOL}")
+        check(bool((out[:, :x][:, act == 0] == 0).all()) and bool((out[:, x:] == 0).all()),
+              f"{tag}: inactive columns not exact zeros")
+        rows["gossip_mix_dequant_masked"].append(dict(
+            m=n, n=n, x=x, xp=q.shape[1], qblock=qb, layout=layout, x_live=int(act.sum()),
+            max_abs_err=err))
+        del w, mask, c, act, enc, q, sc, out, want
     for name, rs in rows.items():
         for r in rs:
             print(f"kernel {name} " + json.dumps(r), flush=True)
@@ -1169,6 +1220,23 @@ def phase_lm_serve(torch, gm) -> dict:
             one_ms = _timed_generate(server, u, prompts, 1)
             decode_ms = (gen_ms - one_ms) / (LM_GEN - 1)
             mix_ms = _timed_call(torch, lambda: server.personalized(u))
+            mix_dev = ""
+            if codec != "fp32":
+                # kernel 4 / 7 alone at the LM mix shape (device ms by CUDA
+                # events, after the launches above were read), beside its bound
+                ut = torch.as_tensor(np.asarray(u, np.float32), device=dev)
+                sc = server.plane_scale
+                xp = sc.shape[1] * server.qblock
+                if codec == "int8":
+                    mix_name, mix = "gossip_mix_dequant", lambda: gm.gossip_mix_dequant(
+                        ut, server.plane_q, sc, qblock=server.qblock)
+                else:
+                    mix_name, mix = "mixture_mix_dequant4", lambda: gm.mixture_mix_dequant4(
+                        ut, server.plane_packed, sc, qblock=server.qblock)
+                b_ms, b_by = bound(sc.shape[0], xp, mix_name, m=LM_B, qblock=server.qblock)
+                mix_dev = (f"mix_device_ms {time_ms(mix, 3):.3f} mix_bound_ms {b_ms:.3f} "
+                           f"({b_by}, {mix_name}, B={LM_B} S={sc.shape[0]} Xp={xp}) ")
+                del ut
             with _PlainLMKernels():
                 plain = server.generate(u, prompts, gen=LM_GEN)
             verdict, gap_ratio = _first_flip(torch, server, bundle, u, prompts, toks, plain)
@@ -1181,7 +1249,7 @@ def phase_lm_serve(torch, gm) -> dict:
             print(f"lm serve {arch} {codec}: prefill_ms {one_ms - decode_ms:.3f} "
                   f"decode_ms_per_token {decode_ms:.4f} tok_s {LM_B * LM_GEN / gen_ms * 1e3:.1f} "
                   f"generate_ms {gen_ms:.3f} (B={LM_B}, prompt {LM_PROMPT}, gen {LM_GEN}) "
-                  f"mix_ms {mix_ms:.3f} plane_bytes {server.plane_bytes} "
+                  f"mix_ms {mix_ms:.3f} {mix_dev}plane_bytes {server.plane_bytes} "
                   f"max_memory_allocated {peak} build_s {build_s:.2f} tokens vs plain: "
                   f"{verdict} launches {json.dumps(counts)} tokens[0] "
                   f"{json.dumps(toks[0].tolist())}", flush=True)

@@ -56,21 +56,41 @@
 // X = 17,226, 1.4 MB, resident in L2) a call takes a few µs and is bound
 // by latency, not bytes: mix_kernel runs 135 blocks of 4 warps on 132 SMs,
 // and each thread waits on 6 dependent round trips (W staged, then five
-// groups of 4 rows), 7 in the sparse mix (the activity first). The flat
-// and sparse mixes of N <= 32 rows below kNarrowMaxX columns take a kernel
-// of their own. Every load a thread needs (its share of W, its rows of its
-// column and, sparse, the column's activity) is issued before the block's
-// one barrier. Past 8 rows four threads share a column (a block: 32
-// columns, one warp per row group; 539 blocks at X = 17,226), meet in a
-// shared tile and each mix NB/4 output rows from all N rows; up to 8 rows
-// one thread mixes its column from registers. NB is N rounded up to 4, not
-// 8: at N = 20 mix_kernel's 24-row chunk issues 20 % more FMAs. Each
-// output sums j ascending from 0.f, as in mix_kernel: the same bits.
+// groups of 4 rows), 7 in the sparse mix (the activity first). A square
+// W (M = N) of at most 32 rows over a plane narrower than kNarrowMaxX
+// columns takes a kernel of its own, whatever the prologue: the flat and
+// sparse mixes (kernels 1, 5), the masked dequant mix (kernel 6) and, from
+// gossip_mix_dequant.cu through gossip_mix.cuh, the dequant mix on the
+// square W (kernel 4, the dense exchange with an int8/int4 codec). Every
+// load a thread needs (its share of W, its rows of its column and, sparse,
+// the column's activity) is issued before the block's one barrier. Past 8
+// rows four threads share a column (a block: 32 columns, one warp per row
+// group; 539 blocks at X = 17,226), meet in a shared tile and each mix
+// NB/4 output rows from all N rows; up to 8 rows one thread mixes its
+// column from registers. NB is N rounded up to 4, not 8: at N = 20
+// mix_kernel's 24-row chunk issues 20 % more FMAs. A prologue's at(col)
+// does its per-column work once a thread (the dequant mixes' scale column,
+// col / qblock), not once a row. Each output sums j ascending from 0.f, as
+// in mix_kernel and the serving template: the same bits.
 // tools/mix_variants.py at (20, 17,226), ms: mix_kernel 0.00436; one round
 // trip, a thread a column 0.00369, NB 20 0.00330; 4 threads a column
 // 0.00268; torch.matmul 0.00360; float2 loads of the tile gained little.
-// Kernels 2, 3 and 6, and every plane past the narrow one, keep the
-// kernels above.
+// Kernels 2 and 3, a W that is not square, and every plane past the
+// narrow one keep the kernels above, but kernel 6 (below).
+//
+// Kernel 6 past the narrow plane: mix_kernel_masked_vec. In mix_kernel's
+// per-element prologue each row of a column costs three scalar loads (a
+// 1-byte quantum: one 32-byte sector a warp, a scale and an fp32 mask
+// entry) and a division for the scale column; past L2 it reached 34 % of
+// its byte bound where kernel 1 reached 67 %. Where the rows allow it (X,
+// Xp and qblock multiples of 4, the operands 16-byte aligned) a thread
+// owns 4 adjacent columns: a char4 of quanta, a float4 of mask and one
+// scale a row, and float4 stores, so each warp request moves 4× the bytes
+// and each W entry read from shared memory feeds 4 FMAs. The dead-column
+// test goes by warp (128 columns), after the one barrier that stages W.
+// Up to 32 rows; other shapes keep mix_kernel. It is a kernel of its own,
+// as mix_kernel_wide is, for the same reason: mix_kernel stays as it is.
+// The designs timed: tools/mix_variants.py (masked mode), PERF.md.
 //
 // The stack mix is the same kernel over a 2-D grid: blockIdx.y selects
 // the slab s, whose offset s·N·X is taken in int64_t (at S = 4, N = 32,
@@ -103,11 +123,17 @@
 // dequantized once per row block, activity found by scanning the mask)
 // re-read the payload and mask once per row block and measured 2.35 ms
 // past L2 against a 0.229 ms bound, slower than its plain version.
+// mix_kernel_masked_vec tests activity by warp (128 columns) instead: a
+// warp none of whose columns is live writes zeros and reads nothing.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gossip_mix.cuh"
+
 namespace {
+
+using gossip_mix::aligned;
 
 constexpr int kThreads = 128;  // columns per block
 constexpr int kGroup = 4;      // input rows whose loads are in flight together
@@ -115,12 +141,16 @@ constexpr int kGroup = 4;      // input rows whose loads are in flight together
 // A prologue reads input row j at element offset k of the plane (or
 // stack) and returns the value the mix consumes. A prologue with kSkip
 // also says whether column col is live (any client keeps it).
+// mix_kernel_narrow, whose threads keep one column, first takes the
+// column's prologue, at(col), and reads its rows through that: the
+// dequant prologues find their scale column there once, not once a row.
 struct Identity {
   static constexpr bool kSkip = false;
   const float* c;
   __device__ __forceinline__ float operator()(int j, int64_t k) const {
     return __ldg(c + k);
   }
+  __device__ __forceinline__ Identity at(int64_t) const { return *this; }
 };
 
 // The sparse exchange's plane: zero on the columns active[col] == 0.
@@ -133,6 +163,28 @@ struct SparseIdentity {
   }
   __device__ __forceinline__ bool live(int64_t col) const {
     return __ldg(active + col) != 0.f;
+  }
+  __device__ __forceinline__ SparseIdentity at(int64_t) const { return *this; }
+};
+
+// q ⊙ repeat(scale, qblock) on the int8 payload (N, Xp): kernel 4 on the
+// square W of the narrow plane (Xp < kNarrowMaxX, so a column fits 32
+// bits). Only mix_kernel_narrow takes it, through at(col).
+struct Dequant {
+  static constexpr bool kSkip = false;
+  const int8_t* q;     // (N, Xp)
+  const float* scale;  // (N, Xp / qblock)
+  uint32_t nq, qblock;
+  struct Column {
+    const int8_t* q;
+    const float* scale;  // row 0's scale of the column's block
+    uint32_t nq;
+    __device__ __forceinline__ float operator()(int j, int64_t k) const {
+      return __fmul_rn(static_cast<float>(__ldg(q + k)), __ldg(scale + j * nq));
+    }
+  };
+  __device__ __forceinline__ Column at(int64_t col) const {
+    return {q, scale + static_cast<uint32_t>(col) / qblock, nq};
   }
 };
 
@@ -157,6 +209,21 @@ struct MaskedDequant {
   }
   __device__ __forceinline__ bool live(int64_t col) const {
     return col < x && __ldg(active + col) != 0.f;
+  }
+  struct Column {
+    const int8_t* q;
+    const float* scale;  // row 0's scale of the column's block
+    const float* mask;   // row 0's mask entry of the column
+    int64_t x;
+    uint32_t nq;
+    bool in_mask;        // col < x; else the mask reads as 0
+    __device__ __forceinline__ float operator()(int j, int64_t k) const {
+      const float v = __fmul_rn(static_cast<float>(__ldg(q + k)), __ldg(scale + j * nq));
+      return __fmul_rn(v, in_mask ? __ldg(mask + j * x) : 0.f);
+    }
+  };
+  __device__ __forceinline__ Column at(int64_t col) const {
+    return {q, scale + static_cast<uint32_t>(col) / qblock, mask + col, x, nq, col < x};
   }
 };
 
@@ -344,15 +411,15 @@ mix_kernel_wide(const float* __restrict__ w, Prologue in, float* __restrict__ ou
   }
 }
 
-// The narrow plane (see the header): the flat and sparse mixes of N <= 32
-// rows below kNarrowMaxX columns, NB = N rounded up to 4.
+// The narrow plane (see the header): a square W of N <= 32 rows over a
+// plane narrower than kNarrowMaxX columns, NB = N rounded up to 4.
 constexpr int kNarrowThreads = 128;
 // Threads a column: past 8 rows 4 (32 columns a block, one warp a row
 // group); up to 8 one, which keeps its column's rows in registers.
 template <int NB>
 constexpr int kNarrowSplit = NB <= 8 ? 1 : 4;
-// The width below which the flat and sparse mixes take mix_kernel_narrow:
-// the first width at which it lost to mix_kernel at some N. Measured by
+// The width below which a square W takes mix_kernel_narrow: the first
+// width at which the flat mix lost to mix_kernel at some N. Measured by
 // tools/mix_variants.py crossover (H100 80GB HBM3, 700 W; mix_kernel_narrow
 // ÷ mix_kernel at N = 1, 4, 8, …, 32, X = 17,226 to 4,194,304): 0.60–0.76
 // at X = 17,226 and 0.71–0.85 at 32,768, every N; at 65,536 1.04 and 1.05
@@ -381,6 +448,7 @@ mix_kernel_narrow(const float* __restrict__ w, Prologue in, float* __restrict__ 
   const int tc = threadIdx.x % BC, tr = threadIdx.x / BC;
   const int64_t col = static_cast<int64_t>(blockIdx.x) * BC + tc;
   const bool live = col < x;
+  const auto cin = in.at(col);  // the column's prologue
   float wv[WPT], cv[RB];
 #pragma unroll
   for (int k = 0; k < WPT; ++k) {
@@ -390,7 +458,7 @@ mix_kernel_narrow(const float* __restrict__ w, Prologue in, float* __restrict__ 
 #pragma unroll
   for (int k = 0; k < RB; ++k) {
     const int j = tr + k * S;
-    cv[k] = (live && j < n) ? in(j, j * x + col) : 0.f;
+    cv[k] = (live && j < n) ? cin(j, j * x + col) : 0.f;
   }
   bool any = false;
   if constexpr (Prologue::kSkip) any = live && in.live(col);
@@ -468,6 +536,130 @@ void launch_narrow(const float* w, Prologue in, float* out, int n, int64_t x,
   }
 }
 
+// A square W of at most 32 rows over a plane narrower than kNarrowMaxX:
+// the shapes mix_kernel_narrow takes.
+constexpr bool narrow_plane(int m, int n, int64_t x) {
+  return m == n && n <= 32 && x < kNarrowMaxX;
+}
+
+// Kernel 6 past the narrow plane (see the header): a thread owns kVec
+// adjacent columns, a block 512, a warp 128.
+constexpr int kVec = 4;
+constexpr int kVecThreads = 128;
+
+// out[i, col + t] = sum_j w[i, j] * (q ⊙ repeat(scale) ⊙ mask)[j, col + t],
+// t < kVec, for m, n <= NB rows; x, xp and qblock are multiples of kVec,
+// so a thread's columns lie all in the mask or all past it and share one
+// scale block. W is staged before the block's one barrier; then a warp
+// none of whose columns is live writes zeros and reads nothing. Each
+// output sums j ascending from 0.f, as mix_kernel does: the same bits.
+template <int NB>
+__global__ void __launch_bounds__(kVecThreads)
+mix_kernel_masked_vec(const float* __restrict__ w, MaskedDequant in, float* __restrict__ out,
+                      int m, int n) {
+  static_assert(NB % kGroup == 0 && NB <= 32, "up to 32 rows");
+  constexpr int WPT = (NB * NB + kVecThreads - 1) / kVecThreads;  // W entries a thread
+  __shared__ float sw[NB][NB];
+  const int64_t col = (static_cast<int64_t>(blockIdx.x) * kVecThreads + threadIdx.x) * kVec;
+  const bool in_plane = col < in.xp;
+  const bool in_mask = col < in.x;
+  float wv[WPT];
+#pragma unroll
+  for (int k = 0; k < WPT; ++k) {
+    const int t = threadIdx.x + k * kVecThreads, i = t / NB, j = t % NB;
+    wv[k] = (i < m && j < n) ? __ldg(w + i * n + j) : 0.f;
+  }
+  bool live = false;
+  if (in_mask) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(in.active + col));
+    live = a.x != 0.f || a.y != 0.f || a.z != 0.f || a.w != 0.f;
+  }
+#pragma unroll
+  for (int k = 0; k < WPT; ++k) {
+    const int t = threadIdx.x + k * kVecThreads;
+    if (t < NB * NB) sw[t / NB][t % NB] = wv[k];
+  }
+  __syncthreads();
+  float4* o = reinterpret_cast<float4*>(out + col);  // output row i at o + i * orow
+  const int64_t orow = in.xp / kVec;
+  if (!__any_sync(0xffffffffu, live)) {
+    if (in_plane) {
+      for (int i = 0; i < m; ++i) o[i * orow] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    return;
+  }
+  const int8_t* qc = in.q + col;
+  const float* sc = in.scale + static_cast<uint32_t>(col) / in.qblock;  // found once
+  const float* mc = in.mask + col;
+  float acc[NB][kVec];
+#pragma unroll
+  for (int ii = 0; ii < NB; ++ii) {
+#pragma unroll
+    for (int t = 0; t < kVec; ++t) acc[ii][t] = 0.f;
+  }
+#pragma unroll
+  for (int jg = 0; jg < NB; jg += kGroup) {
+    if (jg < n) {  // rows past n are 0 in sw and in v
+      // a row: a char4 of quanta, its block's scale and a float4 of mask
+      float v[kGroup][kVec];
+#pragma unroll
+      for (int jj = 0; jj < kGroup; ++jj) {
+        const int j = jg + jj;
+        char4 c4 = make_char4(0, 0, 0, 0);
+        float s = 0.f;
+        float4 mk = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (in_plane && j < n) {
+          c4 = __ldg(reinterpret_cast<const char4*>(qc + j * in.xp));
+          s = __ldg(sc + static_cast<int64_t>(j) * in.nq);
+          if (in_mask) mk = __ldg(reinterpret_cast<const float4*>(mc + j * in.x));
+        }
+        v[jj][0] = __fmul_rn(__fmul_rn(static_cast<float>(c4.x), s), mk.x);
+        v[jj][1] = __fmul_rn(__fmul_rn(static_cast<float>(c4.y), s), mk.y);
+        v[jj][2] = __fmul_rn(__fmul_rn(static_cast<float>(c4.z), s), mk.z);
+        v[jj][3] = __fmul_rn(__fmul_rn(static_cast<float>(c4.w), s), mk.w);
+      }
+#pragma unroll
+      for (int jj = 0; jj < kGroup; ++jj) {
+#pragma unroll
+        for (int ii = 0; ii < NB; ++ii) {
+          const float wij = sw[ii][jg + jj];
+#pragma unroll
+          for (int t = 0; t < kVec; ++t) acc[ii][t] = fmaf(wij, v[jj][t], acc[ii][t]);
+        }
+      }
+    }
+  }
+  if (in_plane) {
+#pragma unroll
+    for (int ii = 0; ii < NB; ++ii) {
+      if (ii < m) o[ii * orow] = make_float4(acc[ii][0], acc[ii][1], acc[ii][2], acc[ii][3]);
+    }
+  }
+}
+
+template <int NB>
+void launch_masked_vec_nb(const float* w, const MaskedDequant& in, float* out, int m, int n,
+                          cudaStream_t stream) {
+  constexpr int64_t cols = kVecThreads * kVec;  // per block
+  const unsigned grid = static_cast<unsigned>((in.xp + cols - 1) / cols);
+  mix_kernel_masked_vec<NB><<<grid, kVecThreads, 0, stream>>>(w, in, out, m, n);
+}
+
+// mix_kernel_masked_vec with NB = max(m, n) rounded up to 4 (<= 32)
+void launch_masked_vec(const float* w, const MaskedDequant& in, float* out, int m, int n,
+                       cudaStream_t stream) {
+  switch ((max(m, n) + kGroup - 1) / kGroup) {
+    case 1: launch_masked_vec_nb<4>(w, in, out, m, n, stream); break;
+    case 2: launch_masked_vec_nb<8>(w, in, out, m, n, stream); break;
+    case 3: launch_masked_vec_nb<12>(w, in, out, m, n, stream); break;
+    case 4: launch_masked_vec_nb<16>(w, in, out, m, n, stream); break;
+    case 5: launch_masked_vec_nb<20>(w, in, out, m, n, stream); break;
+    case 6: launch_masked_vec_nb<24>(w, in, out, m, n, stream); break;
+    case 7: launch_masked_vec_nb<28>(w, in, out, m, n, stream); break;
+    default: launch_masked_vec_nb<32>(w, in, out, m, n, stream); break;
+  }
+}
+
 template <int NB, class Prologue>
 void launch_nb(const float* w, Prologue in, float* out, int slabs, int m, int n, int64_t x,
                cudaStream_t stream) {
@@ -483,15 +675,15 @@ void launch_nb(const float* w, Prologue in, float* out, int slabs, int m, int n,
 }
 
 // Mixes `slabs` consecutive (n, x) planes into (m, x) outputs with the
-// same (m, n) W. With kNarrow (the flat and sparse mixes), a plane of at
-// most 32 rows narrower than kNarrowMaxX takes mix_kernel_narrow.
+// same (m, n) W. With kNarrow (the flat, sparse and masked dequant mixes),
+// one plane of the narrow_plane shape takes mix_kernel_narrow.
 template <bool kNarrow = false, class Prologue>
 int launch(const float* w, Prologue in, float* out, int slabs, int m, int n, int64_t x,
            void* stream) {
   if (slabs > 0 && m > 0 && n > 0 && x > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int rows = max(m, n);
-    if (kNarrow && slabs == 1 && m == n && n <= 32 && x < kNarrowMaxX) {
+    if (kNarrow && slabs == 1 && narrow_plane(m, n, x)) {
       if constexpr (kNarrow) launch_narrow(w, in, out, n, x, s);
     } else if (rows <= 8) {
       launch_nb<8>(w, in, out, slabs, m, n, x, s);
@@ -513,6 +705,18 @@ int launch(const float* w, Prologue in, float* out, int slabs, int m, int n, int
 }
 
 }  // namespace
+
+namespace gossip_mix {
+
+bool launch_dequant_narrow(const float* w, const int8_t* q, const float* scales, float* out,
+                           int m, int n, int64_t xp, int64_t qblock, cudaStream_t stream) {
+  if (!narrow_plane(m, n, xp)) return false;
+  const Dequant in{q, scales, static_cast<uint32_t>(xp / qblock), static_cast<uint32_t>(qblock)};
+  launch_narrow(w, in, out, n, xp, stream);
+  return true;
+}
+
+}  // namespace gossip_mix
 
 extern "C" {
 
@@ -538,17 +742,27 @@ int gossip_mix_sparse(const float* w, const float* c, const float* col_active, f
 }
 
 // out (m, xp) = w (m, n) · (q (n, xp) int8 ⊙ repeat(scales (n, xp/qblock), qblock)
-// ⊙ mask (n, x)), the mask read as 0 on columns >= x; a block of 128
-// columns none of which col_active (x,) marks live writes zeros without
-// reading q, the scales or the mask. All contiguous on the device;
-// x <= xp < 2^31, xp % qblock == 0.
+// ⊙ mask (n, x)), the mask read as 0 on columns >= x; columns none of
+// which col_active (x,) marks live are written as zeros, a block of 128
+// (a warp of 128 in mix_kernel_masked_vec) without reading q, the scales
+// or the mask (the narrow plane: a block of 32 or 128, after reading
+// them). All contiguous on the device; x <= xp < 2^31, xp % qblock == 0.
+// The narrow plane takes mix_kernel_narrow; else up to 32 rows with x,
+// xp and qblock multiples of 4 and 16-byte aligned operands (q 4-byte)
+// mix_kernel_masked_vec; else mix_kernel.
 int gossip_mix_dequant_masked(const float* w, const int8_t* q, const float* scales,
                               const float* mask, const float* col_active, float* out, int m,
                               int n, long long x, long long xp, long long qblock,
                               void* stream) {
   const MaskedDequant in{q, scales, mask, col_active, x, xp,
                          static_cast<uint32_t>(xp / qblock), static_cast<uint32_t>(qblock)};
-  return launch(w, in, out, 1, m, n, xp, stream);
+  if (m > 0 && n > 0 && xp > 0 && !narrow_plane(m, n, xp) && max(m, n) <= 32 &&
+      x % kVec == 0 && xp % kVec == 0 && qblock % kVec == 0 && aligned(q, kVec) &&
+      aligned(mask, 16) && aligned(col_active, 16) && aligned(out, 16)) {
+    launch_masked_vec(w, in, out, m, n, static_cast<cudaStream_t>(stream));
+    return static_cast<int>(cudaGetLastError());
+  }
+  return launch<true>(w, in, out, 1, m, n, xp, stream);
 }
 
 // C' = W · (c_old + scale ⊙ (c_new − c_old) [+ sigma · noise]); noise is

@@ -11,47 +11,70 @@
 //       of byte i and 2i+1 in the high one, both two's-complement 4-bit;
 //       qblock is even, so a nibble pair never straddles a scale block.
 //
-// What bounds it: the output. At the serving shapes (B = 256, S = 2,
-// Xp = 17,280) the kernel reads ~37 KB of plane and writes 17.7 MB of
-// fp32, 2·M·N FLOPs per output column: bytes, not operations, and almost
-// all of them the (M, Xp) stores.
+// Which shapes take which kernel. gossip_mix_dequant on a square W (M =
+// N <= 32) over a plane narrower than 65,536 columns (kNarrowMaxX) is the
+// dense exchange with an int8/int4 codec (N = 20 clients, Xp = 17,408 on
+// the main path): a few µs, bound by latency, not bytes. It takes
+// gossip_mix.cu's mix_kernel_narrow (through gossip_mix.cuh), whose
+// threads issue every load before one barrier, where the template below
+// makes two passes over N > 16 rows, each a chain of dependent steps
+// (plane loads, W staged, 8 rows of stores). Every other shape takes the
+// template below: serving (M = B requests over S clusters, the output
+// 100× the plane), the LM mix (S = 2, Xp past 10^9) and wide planes, at
+// 67–81 % of their byte bound on the H100 (chip_smoke.py). mixture_mix_dequant4 is only ever served.
+// Both sum each output j ascending from 0.f over the same rounded dequant
+// products, so a square W gets the same bits from either kernel.
+//
+// What bounds the template: the output. At the serving shapes (B = 256,
+// S = 2, Xp = 17,280) the kernel reads ~37 KB of plane and writes 17.7 MB
+// of fp32, 2·M·N FLOPs per output column: bytes, not operations, and
+// almost all of them the (M, Xp) stores.
 //
 // Design: one thread owns VEC adjacent columns (4 when the rows allow
-// 16-byte stores, else 2 or 1). It dequantizes its columns of NB plane
-// rows into registers once (int8: one char4 load per row; int4: one
-// 2-byte load per row, i.e. four nibbles), then walks kRows output rows,
-// each a chain of fp32 FMAs over j = 0..N-1 in order and one vector
-// store: neighbouring threads write neighbouring 16-byte pieces, so each
-// warp store is one coalesced 512-byte run. The stores stream
-// (st.global.cs, evict-first): the output is written once and read once,
-// by the forward that follows. The block's kRows × NB slice of W sits in
-// shared memory (every thread reads the same entry: a broadcast). grid.y
-// splits the M rows into blocks of kRows = 8, so a batch of 256 requests
-// is 32 × 34 blocks, about eight resident per SM, and each block re-reads
-// only its columns' few plane bytes (L2-resident). On the H100, 32 rows
-// per block with plain stores (2 blocks per SM at B = 256) measured
-// slower at B = 256 and 1,024, and 4 rows no better than 8. N is taken
-// in chunks of NB ≤ 16 rows; past the first chunk a thread adds into the
-// outputs it wrote itself (a read-modify-write of its own columns), so
-// any N ≥ 1 is correct and N ≤ 16 writes each output once. The dequant
-// product is rounded on its own (__fmul_rn) as the plain PyTorch
-// version's is; accumulation is fp32 FMA on the CUDA cores, never TF32,
-// so the two differ only in the order of the sum over j.
+// 16-byte stores, else 2 or 1), and finds their scale columns, (col + t) /
+// qblock, once. It dequantizes its columns of NB plane rows into
+// registers once (int8: one char4 load per row; int4: one 2-byte load per
+// row, i.e. four nibbles), then walks kRows output rows, each a chain of
+// fp32 FMAs over j = 0..N-1 in order and one vector store: neighbouring
+// threads write neighbouring 16-byte pieces, so each warp store is one
+// coalesced 512-byte run. The stores stream (st.global.cs, evict-first):
+// the output is written once and read once, by the forward that follows.
+// The block's kRows × NB slice of W sits in shared memory (every thread
+// reads the same entry: a broadcast). grid.y splits the M rows into
+// blocks of kRows = 8, so a batch of 256 requests is 32 × 34 blocks, about
+// eight resident per SM, and each block re-reads only its columns' few
+// plane bytes (L2-resident). On the H100, 32 rows per block with plain
+// stores (2 blocks per SM at B = 256) measured slower at B = 256 and
+// 1,024, and 4 rows no better than 8. N is taken in chunks of NB ≤ 16
+// rows; past the first chunk a thread adds into the outputs it wrote
+// itself (a read-modify-write of its own columns), so any N ≥ 1 is
+// correct and N ≤ 16 writes each output once. The dequant product is
+// rounded on its own (__fmul_rn) as the plain PyTorch version's is;
+// accumulation is fp32 FMA on the CUDA cores, never TF32, so the two
+// differ only in the order of the sum over j.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gossip_mix.cuh"
+
 namespace {
+
+using gossip_mix::aligned;
 
 constexpr int kThreads = 128;  // column groups per block
 constexpr int kRows = 8;       // output rows per block (grid.y)
 
+// A plane dequantizes row j of the thread's VEC columns from col; sb[t]
+// is column col + t's scale column, (col + t) / qblock, found once a
+// thread.
 template <int VEC>
 struct Int8Plane {
   const int8_t* q;     // (N, Xp)
   const float* scale;  // (N, nq)
   int64_t xp, nq, qblock;
-  __device__ __forceinline__ void operator()(int j, int64_t col, float (&v)[VEC]) const {
+  __device__ __forceinline__ void operator()(int j, int64_t col, const int64_t (&sb)[VEC],
+                                             float (&v)[VEC]) const {
     const int8_t* p = q + j * xp + col;
     int8_t raw[VEC];
     if constexpr (VEC == 4) {
@@ -65,7 +88,7 @@ struct Int8Plane {
     }
 #pragma unroll
     for (int t = 0; t < VEC; ++t) {
-      v[t] = __fmul_rn(static_cast<float>(raw[t]), __ldg(scale + j * nq + (col + t) / qblock));
+      v[t] = __fmul_rn(static_cast<float>(raw[t]), __ldg(scale + j * nq + sb[t]));
     }
   }
 };
@@ -79,7 +102,8 @@ struct Int4Plane {
   static __device__ __forceinline__ float nibble(unsigned v) {
     return static_cast<float>(static_cast<int>(v) - 16 * static_cast<int>(v > 7u));
   }
-  __device__ __forceinline__ void operator()(int j, int64_t col, float (&v)[VEC]) const {
+  __device__ __forceinline__ void operator()(int j, int64_t col, const int64_t (&sb)[VEC],
+                                             float (&v)[VEC]) const {
     const uint8_t* p = packed + j * (xp / 2) + col / 2;
     unsigned bytes[VEC / 2];
     if constexpr (VEC == 4) {
@@ -91,7 +115,7 @@ struct Int4Plane {
 #pragma unroll
     for (int t = 0; t < VEC; t += 2) {
       // a nibble pair shares one scale block: qblock is even
-      const float s = __ldg(scale + j * nq + (col + t) / qblock);
+      const float s = __ldg(scale + j * nq + sb[t]);
       v[t] = __fmul_rn(nibble(bytes[t / 2] & 0xFu), s);
       v[t + 1] = __fmul_rn(nibble(bytes[t / 2] >> 4), s);
     }
@@ -134,13 +158,16 @@ mix_dequant_kernel(const float* __restrict__ w, Plane plane, float* __restrict__
   const bool live = col < xp;
   const int r0 = blockIdx.y * kRows;
   const int rn = min(kRows, m - r0);
+  int64_t sb[VEC];  // the scale column of each of the thread's columns
+#pragma unroll
+  for (int t = 0; t < VEC; ++t) sb[t] = live ? (col + t) / plane.qblock : 0;
   for (int j0 = 0; j0 < n; j0 += NB) {
     const int jn = min(NB, n - j0);
     float c[NB][VEC];
 #pragma unroll
     for (int jj = 0; jj < NB; ++jj) {
       if (live && jj < jn) {
-        plane(j0 + jj, col, c[jj]);
+        plane(j0 + jj, col, sb, c[jj]);
       } else {
 #pragma unroll
         for (int t = 0; t < VEC; ++t) c[jj][t] = 0.f;
@@ -200,21 +227,22 @@ void launch_vec(const float* w, Plane plane, float* out, int m, int n, int64_t x
   }
 }
 
-bool aligned(const void* p, uintptr_t bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
-}
-
 }  // namespace
 
 extern "C" {
 
 // out (m, xp) = w (m, n) · (q (n, xp) int8 ⊙ repeat(scales (n, xp/qblock), qblock)).
-// All contiguous on the device; xp % qblock == 0.
+// All contiguous on the device; xp % qblock == 0. A square W of the
+// narrow plane takes gossip_mix.cu's mix_kernel_narrow, every other shape
+// mix_dequant_kernel (see the header).
 int gossip_mix_dequant(const float* w, const int8_t* q, const float* scales, float* out,
                        int m, int n, long long xp, long long qblock, void* stream) {
   if (m > 0 && n > 0 && xp > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int64_t nq = xp / qblock;
+    if (gossip_mix::launch_dequant_narrow(w, q, scales, out, m, n, xp, qblock, s)) {
+      return static_cast<int>(cudaGetLastError());
+    }
     if (xp % 4 == 0 && aligned(q, 4) && aligned(out, 16)) {
       launch_vec<4>(w, Int8Plane<4>{q, scales, xp, nq, qblock}, out, m, n, xp, s);
     } else if (xp % 2 == 0 && aligned(q, 2) && aligned(out, 8)) {

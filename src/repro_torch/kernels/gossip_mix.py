@@ -37,13 +37,21 @@ All five are memory-bound on an H100 for N below ≈ 80: they move
 column, with W staged in shared memory and fp32 FMA accumulation (no
 TF32); see the source for the design.
 
-The narrow plane: ``gossip_mix_flat`` and ``gossip_mix_sparse`` on N ≤ 32
-rows narrower than 65,536 columns (``kNarrowMaxX`` in the source; the
-main path's N = 20, X = 17,226 plane is one) take a kernel of their own,
-chosen in the C ``launch()`` from the shape. A call there takes a few µs
-and is bound by latency: every load of a block is issued before its one
-barrier, and past 8 rows four threads share a column. Its results are
-the same bits as the wide kernel's.
+The narrow plane: a square W (M = N ≤ 32) over a plane narrower than
+65,536 columns (``kNarrowMaxX`` in the source; the main path's N = 20,
+X = 17,226 plane is one) takes a kernel of its own, chosen in C from the
+shape alone: ``gossip_mix_flat``, ``gossip_mix_sparse``,
+``gossip_mix_dequant_masked`` and, on the square W,
+``gossip_mix_dequant``. A call there takes a few µs and is bound by
+latency: every load of a block is issued before its one barrier, and
+past 8 rows four threads share a column. Its results are the same bits
+as the other kernels' on the same shape.
+
+Past the narrow plane, ``gossip_mix_dequant_masked`` of up to 32 rows,
+with X, Xp and qblock multiples of 4 and 16-byte aligned operands, runs
+a kernel whose threads own 4 adjacent columns (a char4 of quanta, a
+float4 of mask and one scale a row); other shapes (an unaligned view,
+an odd width or block) take the one-column kernel, with the same bits.
 
 In ``csrc/gossip_mix_dequant.cu``:
 
@@ -57,7 +65,9 @@ In ``csrc/gossip_mix_dequant.cu``:
   U·(unpack4(p) ⊙ repeat(scale, qblock)) over the bit-packed int4
   ``(S, Xp/2)`` plane; the int4 serving plane.
 ``gossip_mix_dequant`` also runs the dense exchange with an int8/int4
-codec, on the square W (M = N), once per round.
+codec, on the square W (M = N), once per round: on the narrow plane
+through ``csrc/gossip_mix.cu``'s narrow kernel, else through the serving
+kernel.
 
 At serving shapes both are bound by their ``(M, Xp)`` fp32 output
 writes: they move 4·M·N + N·Xp·(1 or ½) + 4·N·Xp/qblock + 4·M·Xp bytes
@@ -323,7 +333,8 @@ def gossip_mix_dequant_masked(w: torch.Tensor, q: torch.Tensor,
                               qblock: int) -> torch.Tensor:
     """W·(q ⊙ repeat(scale, qblock) ⊙ M) for a mask zero on the columns
     where ``col_active`` ``(X,)`` is 0: all-inactive blocks of columns are
-    written as zeros without reading the payload. w ``(M, N)`` fp32, q
+    written as zeros without reading the payload (on the narrow plane,
+    after reading it, as ``gossip_mix_sparse`` does). w ``(M, N)`` fp32, q
     ``(N, Xp)`` int8, scales ``(N, Xp/qblock)`` fp32, mask ``(N, X)`` fp32
     {0, 1} with X ≤ Xp (columns past X count as 0); returns a new ``(M,
     Xp)`` fp32. Raises on the shape errors the JAX kernel refuses."""

@@ -227,10 +227,16 @@ def test_baselines_launch_their_exchange_kernel_once_per_round(cuda, method, ker
 # (M, N, Xp, qblock) for the dequant kernels: serving (B=20 and 256 over
 # S=2, the mlp's Xp), gossip (N=20, qblock 256), M above one 32-row block
 # and N above one 16-row chunk, N = 1, one scale block (Xp/qblock = 1),
-# and widths that rule out 16-byte (Xp % 4 = 2) and 8-byte (odd Xp) rows
+# and widths that rule out 16-byte (Xp % 4 = 2) and 8-byte (odd Xp) rows;
+# then the square W at both sides of its route (the narrow kernel up to
+# N = 32 below kNarrowMaxX, the serving template at N = 33 and from
+# kNarrowMaxX) with Xp % 4 = 0, Xp % 4 = 2 and odd Xp
 DEQUANT_SHAPES = [(20, 2, 17280, 64), (256, 2, 17280, 64), (20, 20, 17408, 256),
                   (37, 33, 4096, 64), (70, 1, 640, 16), (5, 3, 16, 16),
-                  (9, 4, 1030, 10), (6, 5, 333, 3)]
+                  (9, 4, 1030, 10), (6, 5, 333, 3)] + [
+    (n, n, xp, qb) for n in (1, 4, 7, 20, 32, 33)
+    for xp, qb in ((1024, 64), (1010, 10), (999, 3))] + [
+    (20, 20, NARROW_MAX_X - 1, 3), (20, 20, NARROW_MAX_X + 2, 3), (32, 32, NARROW_MAX_X, 64)]
 
 
 def _dequant_operands(dev, m, n, xp, qblock, seed=0):
@@ -252,6 +258,11 @@ def test_dequant_kernel_matches_plain(cuda, m, n, xp, qblock):
     assert gossip_mix_dequant.launches == before + 1
     assert out.shape == (m, xp) and out.dtype == torch.float32
     assert _max_err(out, gossip_mix_dequant_ref(w, q, scales, qblock=qblock)) <= TOL
+    if m == n > 1:
+        # M = N - 1 takes the serving template: whichever kernel a square W
+        # takes, each output sums the same products in the same order
+        assert torch.equal(out[:-1], gossip_mix_dequant(w[:-1].contiguous(), q, scales,
+                                                        qblock=qblock))
 
 
 @pytest.mark.parametrize("m,n,xp,qblock",
@@ -329,8 +340,10 @@ def _sparse_operands(dev, n, x, layout, m=None, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     w = torch.rand((m or n, n), generator=g, device=dev)
     w = w / w.sum(dim=1, keepdim=True)
-    if layout == "random":
+    if layout in ("random", "unaligned"):
         mask = init_masks(g, n, x, SparseConfig(density=0.2))
+        if layout == "unaligned":   # the same masks in a view 4 bytes off 16-byte alignment
+            mask = torch.empty(n * x + 1, device=dev)[1:].view(n, x).copy_(mask)
     else:
         mask = torch.full((n, x), 1.0 if layout == "live" else 0.0, device=dev)
         if layout == "band":
@@ -376,7 +389,11 @@ def test_sparse_kernel_past_2_to_the_31_elements(cuda):
 # (M, N, X, qblock, mask): the main path's shape (Xp = 17,408), M != N
 # with X < Xp, M and N past one 32-row chunk, odd widths, all-dead,
 # all-live and band masks; then M, N at the edges of the 40- and 64-row
-# chunks and past them (65, 100: two chunks of 64 rows)
+# chunks and past them (65, 100: two chunks of 64 rows); then the narrow
+# kernel (M = N <= 32, Xp < kNarrowMaxX) with every layout, Xp just below
+# and just above kNarrowMaxX at qblock 3; then past it the 4-column kernel
+# (X, Xp and qblock multiples of 4, M != N too) and its fallbacks to the
+# one-column kernel: X % 4 != 0, qblock 3, a mask view off 16-byte alignment
 DEQUANT_MASKED_SHAPES = [(20, 20, 17226, 256, "random"), (7, 20, 1001, 16, "random"),
                          (40, 17, 4099, 64, "random"), (9, 33, 4099, 64, "random"),
                          (9, 4, 999, 3, "random"),
@@ -384,7 +401,13 @@ DEQUANT_MASKED_SHAPES = [(20, 20, 17226, 256, "random"), (7, 20, 1001, 16, "rand
                          (5, 8, 10692, 256, "band"),
                          (33, 33, 1001, 16, "random"), (40, 40, 4099, 64, "random"),
                          (64, 64, 4099, 64, "random"), (65, 65, 999, 3, "random"),
-                         (100, 100, 4099, 64, "random"), (20, 100, 1001, 16, "random")]
+                         (100, 100, 4099, 64, "random"), (20, 100, 1001, 16, "random")] + [
+    (n, n, x, qb, layout) for n in (1, 7, 20, 32) for x, qb in ((1001, 7), (17226, 256))
+    for layout in ("random", "dead", "live", "band")] + [
+    (20, 20, NARROW_MAX_X - 1, 3, "random"), (20, 20, NARROW_MAX_X + 2, 3, "random"),
+    (20, 20, 100000, 64, "random"), (20, 20, 100000, 64, "band"), (32, 32, 65536, 256, "dead"),
+    (4, 20, 100000, 64, "random"), (20, 20, 100002, 64, "random"),
+    (20, 20, 100008, 3, "random"), (20, 20, 100000, 64, "unaligned")]
 
 
 @pytest.mark.parametrize("m,n,x,qblock,layout", DEQUANT_MASKED_SHAPES)

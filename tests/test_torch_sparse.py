@@ -205,8 +205,11 @@ def test_sparse_ref_matches_pallas(n, x):
     assert (got[:, 128:256] == 0.0).all() and (want[:, 128:256] == 0.0).all()
 
 
+# the square W at the edges of the card's routes: the narrow kernel from
+# N = 1 to 32 (the main path's exchange at N = 20), one-column past it (N = 33)
 @pytest.mark.parametrize("m,n,x,qblock", [(5, 5, 203, 32), (20, 20, 17226, 256),
-                                          (3, 6, 640, 64)])
+                                          (3, 6, 640, 64), (1, 1, 64, 64), (32, 32, 999, 3),
+                                          (33, 33, 1010, 10)])
 def test_dequant_masked_ref_matches_pallas(m, n, x, qblock):
     """The mask is (N, X), narrower than the payload's Xp."""
     w, mask, c = _sparse_operands(n, x, 0.25, seed=m + x)

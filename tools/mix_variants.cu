@@ -23,6 +23,20 @@
 // activity loaded beside the plane and the dead-block test on the one
 // barrier (a dead block drops what it loaded), 2 sparse with the activity
 // and W in the first round trip and the plane in a second.
+//
+// mixdq<NB, VEC, G, P, CS> (kernel 6, the masked dequant mix, past the
+// narrow plane: mix_kernel_masked_vec's candidates): a thread owns VEC
+// adjacent columns (a char4 or char2 of quanta, one scale and a float4 or
+// float2 of mask a row); NB rows (a multiple of 4 and of G, >= m and n);
+// G rows whose loads are issued together; P: the next group's raw loads
+// are issued before the current group is dequantized and mixed; CS:
+// streaming stores (st.global.cs). W is staged before one barrier and the
+// dead-column test goes by warp, as in the shipped kernel.
+//
+// mixnp<NB, T, S, Prologue> (the narrow plane with a dequant prologue:
+// kernel 4 on the square W, kernel 6): mix_kernel_narrow with T threads a
+// block and S threads a column (T / S columns a block), the prologue read
+// through at(col) as in the shipped kernel.
 
 #include "../src/repro_torch/kernels/csrc/gossip_mix.cu"
 
@@ -242,6 +256,249 @@ int run_narrow(const float* w, const float* c, const float* act, float* o, int n
 
 __global__ void empty_kernel() {}
 
+// one row of a thread's VEC columns as loaded: quanta, scale, mask
+template <int VEC>
+struct RawRow {
+  int8_t q[VEC];
+  float s;
+  float mk[VEC];
+};
+
+template <int VEC>
+__device__ __forceinline__ void load_row(const MaskedDequant& in, const int8_t* qc,
+                                         const float* sc, const float* mc, int j, bool ok,
+                                         bool in_mask, RawRow<VEC>& r) {
+#pragma unroll
+  for (int t = 0; t < VEC; ++t) {
+    r.q[t] = 0;
+    r.mk[t] = 0.f;
+  }
+  r.s = 0.f;
+  if (!ok) return;
+  if constexpr (VEC == 4) {
+    const char4 c = __ldg(reinterpret_cast<const char4*>(qc + j * in.xp));
+    r.q[0] = c.x; r.q[1] = c.y; r.q[2] = c.z; r.q[3] = c.w;
+  } else {
+    const char2 c = __ldg(reinterpret_cast<const char2*>(qc + j * in.xp));
+    r.q[0] = c.x; r.q[1] = c.y;
+  }
+  r.s = __ldg(sc + static_cast<int64_t>(j) * in.nq);
+  if (in_mask) {
+    if constexpr (VEC == 4) {
+      const float4 f = __ldg(reinterpret_cast<const float4*>(mc + j * in.x));
+      r.mk[0] = f.x; r.mk[1] = f.y; r.mk[2] = f.z; r.mk[3] = f.w;
+    } else {
+      const float2 f = __ldg(reinterpret_cast<const float2*>(mc + j * in.x));
+      r.mk[0] = f.x; r.mk[1] = f.y;
+    }
+  }
+}
+
+template <int NB, int VEC, int G, bool P, bool CS>
+__global__ void __launch_bounds__(kThreads)
+mixdq(const float* __restrict__ w, MaskedDequant in, float* __restrict__ out, int m, int n) {
+  static_assert(NB % G == 0 && NB <= 32 && (VEC == 2 || VEC == 4), "the candidates");
+  constexpr int WPT = (NB * NB + kThreads - 1) / kThreads;
+  __shared__ float sw[NB][NB];
+  const int64_t col = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * VEC;
+  const bool in_plane = col < in.xp, in_mask = col < in.x;
+  float wv[WPT];
+#pragma unroll
+  for (int k = 0; k < WPT; ++k) {
+    const int t = threadIdx.x + k * kThreads, i = t / NB, j = t % NB;
+    wv[k] = (i < m && j < n) ? __ldg(w + i * n + j) : 0.f;
+  }
+  bool live = false;
+  if (in_mask) {
+    if constexpr (VEC == 4) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(in.active + col));
+      live = a.x != 0.f || a.y != 0.f || a.z != 0.f || a.w != 0.f;
+    } else {
+      const float2 a = __ldg(reinterpret_cast<const float2*>(in.active + col));
+      live = a.x != 0.f || a.y != 0.f;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < WPT; ++k) {
+    const int t = threadIdx.x + k * kThreads;
+    if (t < NB * NB) sw[t / NB][t % NB] = wv[k];
+  }
+  __syncthreads();
+  const int64_t orow = in.xp;
+  if (!__any_sync(0xffffffffu, live)) {
+    if (in_plane) {
+      for (int i = 0; i < m; ++i) {
+#pragma unroll
+        for (int t = 0; t < VEC; ++t) out[i * orow + col + t] = 0.f;
+      }
+    }
+    return;
+  }
+  const int8_t* qc = in.q + col;
+  const float* sc = in.scale + static_cast<uint32_t>(col) / in.qblock;
+  const float* mc = in.mask + col;
+  float acc[NB][VEC];
+#pragma unroll
+  for (int ii = 0; ii < NB; ++ii)
+#pragma unroll
+    for (int t = 0; t < VEC; ++t) acc[ii][t] = 0.f;
+  RawRow<VEC> cur[G], ahead[G];
+  if (P) {
+#pragma unroll
+    for (int jj = 0; jj < G; ++jj) load_row<VEC>(in, qc, sc, mc, jj, in_plane && jj < n, in_mask,
+                                                ahead[jj]);
+  }
+#pragma unroll
+  for (int jg = 0; jg < NB; jg += G) {
+    if (jg < n) {
+      if (P) {
+#pragma unroll
+        for (int jj = 0; jj < G; ++jj) cur[jj] = ahead[jj];
+        if (jg + G < n) {
+#pragma unroll
+          for (int jj = 0; jj < G; ++jj) {
+            const int j = jg + G + jj;
+            load_row<VEC>(in, qc, sc, mc, j, in_plane && j < n, in_mask, ahead[jj]);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int jj = 0; jj < G; ++jj) {
+          const int j = jg + jj;
+          load_row<VEC>(in, qc, sc, mc, j, in_plane && j < n, in_mask, cur[jj]);
+        }
+      }
+      float v[G][VEC];
+#pragma unroll
+      for (int jj = 0; jj < G; ++jj)
+#pragma unroll
+        for (int t = 0; t < VEC; ++t)
+          v[jj][t] = __fmul_rn(__fmul_rn(static_cast<float>(cur[jj].q[t]), cur[jj].s),
+                               cur[jj].mk[t]);
+#pragma unroll
+      for (int jj = 0; jj < G; ++jj)
+#pragma unroll
+        for (int ii = 0; ii < NB; ++ii) {
+          const float wij = sw[ii][jg + jj];
+#pragma unroll
+          for (int t = 0; t < VEC; ++t) acc[ii][t] = fmaf(wij, v[jj][t], acc[ii][t]);
+        }
+    }
+  }
+  if (in_plane) {
+#pragma unroll
+    for (int ii = 0; ii < NB; ++ii) {
+      if (ii < m) {
+        float* o = out + ii * orow + col;
+        if constexpr (VEC == 4) {
+          const float4 f = make_float4(acc[ii][0], acc[ii][1], acc[ii][2], acc[ii][3]);
+          if (CS) __stcs(reinterpret_cast<float4*>(o), f);
+          else *reinterpret_cast<float4*>(o) = f;
+        } else {
+          const float2 f = make_float2(acc[ii][0], acc[ii][1]);
+          if (CS) __stcs(reinterpret_cast<float2*>(o), f);
+          else *reinterpret_cast<float2*>(o) = f;
+        }
+      }
+    }
+  }
+}
+
+template <int NB, int VEC, int G, bool P, bool CS>
+int run_masked(const float* w, const int8_t* q, const float* sc, const float* mask,
+               const float* act, float* o, int m, int n, long long x, long long xp,
+               long long qblock, void* st) {
+  const MaskedDequant in{q, sc, mask, act, x, xp, static_cast<uint32_t>(xp / qblock),
+                         static_cast<uint32_t>(qblock)};
+  constexpr int64_t cols = kThreads * VEC;
+  const unsigned grid = static_cast<unsigned>((xp + cols - 1) / cols);
+  mixdq<NB, VEC, G, P, CS><<<grid, kThreads, 0, static_cast<cudaStream_t>(st)>>>(w, in, o, m,
+                                                                                  n);
+  return cudaGetLastError();
+}
+
+template <int NB, int T, int S, class Prologue>
+__global__ void __launch_bounds__(T)
+mixnp(const float* __restrict__ w, Prologue in, float* __restrict__ out, int n, int64_t x) {
+  constexpr int BC = T / S, RB = NB / S, WPT = (NB * NB + T - 1) / T;
+  static_assert(NB % kG == 0 && NB % S == 0 && T % S == 0 && (S == 1 || BC % 32 == 0),
+                "a warp shares one row group");
+  __shared__ float sw[NB][NB];
+  __shared__ float sc[S == 1 ? 1 : NB][S == 1 ? 1 : BC];
+  const int tc = threadIdx.x % BC, tr = threadIdx.x / BC;
+  const int64_t col = static_cast<int64_t>(blockIdx.x) * BC + tc;
+  const bool live = col < x;
+  const auto cin = in.at(col);
+  float wv[WPT], cv[RB];
+#pragma unroll
+  for (int k = 0; k < WPT; ++k) {
+    const int t = threadIdx.x + k * T, i = t / NB, j = t % NB;
+    wv[k] = (i < n && j < n) ? __ldg(w + i * n + j) : 0.f;
+  }
+#pragma unroll
+  for (int k = 0; k < RB; ++k) {
+    const int j = tr + k * S;
+    cv[k] = (live && j < n) ? cin(j, j * x + col) : 0.f;
+  }
+  bool any = false;
+  if constexpr (Prologue::kSkip) any = live && in.live(col);
+#pragma unroll
+  for (int k = 0; k < WPT; ++k) {
+    const int t = threadIdx.x + k * T;
+    if (t < NB * NB) sw[t / NB][t % NB] = wv[k];
+  }
+  if constexpr (S > 1) {
+#pragma unroll
+    for (int k = 0; k < RB; ++k) sc[tr + k * S][tc] = cv[k];
+  }
+  const int r0 = tr * RB;
+  if constexpr (Prologue::kSkip) {
+    if (!__syncthreads_or(any)) {
+      if (live) {
+        for (int i = r0; i < min(n, r0 + RB); ++i) out[static_cast<int64_t>(i) * x + col] = 0.f;
+      }
+      return;
+    }
+  } else {
+    __syncthreads();
+  }
+  float acc[RB];
+#pragma unroll
+  for (int ii = 0; ii < RB; ++ii) acc[ii] = 0.f;
+#pragma unroll
+  for (int jg = 0; jg < NB; jg += kG) {
+    if (jg < n) {
+      float v[kG];
+#pragma unroll
+      for (int jj = 0; jj < kG; ++jj) {
+        if constexpr (S == 1) {
+          v[jj] = cv[jg + jj];
+        } else {
+          v[jj] = sc[jg + jj][tc];
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < kG; ++jj) {
+#pragma unroll
+        for (int ii = 0; ii < RB; ++ii) acc[ii] = fmaf(sw[r0 + ii][jg + jj], v[jj], acc[ii]);
+      }
+    }
+  }
+  if (live) {
+#pragma unroll
+    for (int ii = 0; ii < RB; ++ii) {
+      if (r0 + ii < n) out[static_cast<int64_t>(r0 + ii) * x + col] = acc[ii];
+    }
+  }
+}
+
+template <int NB, int T, int S, class Prologue>
+void run_np(const float* w, Prologue in, float* o, int n, int64_t x, void* st) {
+  constexpr int cols = T / S;
+  const unsigned grid = static_cast<unsigned>((x + cols - 1) / cols);
+  mixnp<NB, T, S, Prologue><<<grid, T, 0, static_cast<cudaStream_t>(st)>>>(w, in, o, n, x);
+}
+
 }  // namespace mixvar
 
 // name: NB, G, prefetch, columns a thread, threads a column, blocks-per-SM
@@ -353,5 +610,98 @@ extern "C" int narrow_sparse(const float* w, const float* c, const float* act, f
 
 extern "C" int empty(void* st) {
   mixvar::empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(st)>>>();
+  return cudaGetLastError();
+}
+
+// kernel 6's candidates past the narrow plane, named dq_v<VEC>_nb<NB>_g<G>
+// [_pf][_cs], with gossip_mix_dequant_masked's signature; and the shipped
+// kernels launched whatever the shape: mix_kernel (as before
+// mix_kernel_masked_vec and mix_kernel_narrow took kernel 6),
+// mix_kernel_masked_vec and mix_kernel_narrow
+#define MASKED(name, NB, VEC, G, P, CS)                                                      \
+  extern "C" int name(const float* w, const int8_t* q, const float* sc, const float* mask,   \
+                      const float* act, float* o, int m, int n, long long x, long long xp,    \
+                      long long qblock, void* st) {                                         \
+    return mixvar::run_masked<NB, VEC, G, P, CS>(w, q, sc, mask, act, o, m, n, x, xp, qblock, \
+                                                 st);                                       \
+  }
+
+MASKED(dq_v4_nb20_g4, 20, 4, 4, false, false)
+MASKED(dq_v4_nb20_g2, 20, 4, 2, false, false)
+MASKED(dq_v4_nb20_g4_pf, 20, 4, 4, true, false)
+MASKED(dq_v4_nb20_g4_cs, 20, 4, 4, false, true)
+MASKED(dq_v4_nb24_g4, 24, 4, 4, false, false)
+MASKED(dq_v4_nb24_g8, 24, 4, 8, false, false)
+MASKED(dq_v2_nb20_g4, 20, 2, 4, false, false)
+MASKED(dq_v2_nb20_g4_pf, 20, 2, 4, true, false)
+
+namespace {
+MaskedDequant masked_in(const int8_t* q, const float* sc, const float* mask, const float* act,
+                        long long x, long long xp, long long qblock) {
+  return {q, sc, mask, act, x, xp, static_cast<uint32_t>(xp / qblock),
+          static_cast<uint32_t>(qblock)};
+}
+}  // namespace
+
+extern "C" int first_masked(const float* w, const int8_t* q, const float* sc, const float* mask,
+                            const float* act, float* o, int m, int n, long long x, long long xp,
+                            long long qblock, void* st) {
+  return launch(w, masked_in(q, sc, mask, act, x, xp, qblock), o, 1, m, n, xp, st);
+}
+
+extern "C" int vec_masked(const float* w, const int8_t* q, const float* sc, const float* mask,
+                          const float* act, float* o, int m, int n, long long x, long long xp,
+                          long long qblock, void* st) {
+  launch_masked_vec(w, masked_in(q, sc, mask, act, x, xp, qblock), o, m, n,
+                    static_cast<cudaStream_t>(st));
+  return cudaGetLastError();
+}
+
+extern "C" int narrow_masked(const float* w, const int8_t* q, const float* sc,
+                             const float* mask, const float* act, float* o, int m, int n,
+                             long long x, long long xp, long long qblock, void* st) {
+  (void)m;
+  launch_narrow(w, masked_in(q, sc, mask, act, x, xp, qblock), o, n, xp,
+                static_cast<cudaStream_t>(st));
+  return cudaGetLastError();
+}
+
+// the narrow plane's prologue candidates, named nq_<NB>_t<T>_s<S> (kernel
+// 6, gossip_mix_dequant_masked's signature) and nd_<NB>_t<T>_s<S> (kernel
+// 4 on the square W: w, q, scales, out, n, xp, qblock, stream); and the
+// shipped route of kernel 4 on the square W (mix_kernel_narrow, Dequant)
+#define NARROW_MASKED(name, NB, T, S)                                                       \
+  extern "C" int name(const float* w, const int8_t* q, const float* sc, const float* mask,   \
+                      const float* act, float* o, int m, int n, long long x, long long xp,    \
+                      long long qblock, void* st) {                                         \
+    (void)m;                                                                                \
+    mixvar::run_np<NB, T, S>(w, masked_in(q, sc, mask, act, x, xp, qblock), o, n, xp, st);   \
+    return cudaGetLastError();                                                              \
+  }
+#define NARROW_DEQUANT(name, NB, T, S)                                                      \
+  extern "C" int name(const float* w, const int8_t* q, const float* sc, float* o, int n,     \
+                      long long xp, long long qblock, void* st) {                           \
+    const Dequant in{q, sc, static_cast<uint32_t>(xp / qblock),                             \
+                     static_cast<uint32_t>(qblock)};                                        \
+    mixvar::run_np<NB, T, S>(w, in, o, n, xp, st);                                          \
+    return cudaGetLastError();                                                              \
+  }
+
+NARROW_MASKED(nq_20_t128_s4, 20, 128, 4)
+NARROW_MASKED(nq_20_t256_s4, 20, 256, 4)
+NARROW_MASKED(nq_20_t128_s2, 20, 128, 2)
+NARROW_MASKED(nq_20_t160_s5, 20, 160, 5)
+NARROW_MASKED(nq_20_t320_s5, 20, 320, 5)
+NARROW_MASKED(nq_24_t256_s8, 24, 256, 8)
+NARROW_MASKED(nq_20_t128_s1, 20, 128, 1)
+NARROW_DEQUANT(nd_20_t128_s4, 20, 128, 4)
+NARROW_DEQUANT(nd_20_t256_s4, 20, 256, 4)
+NARROW_DEQUANT(nd_20_t128_s2, 20, 128, 2)
+NARROW_DEQUANT(nd_20_t160_s5, 20, 160, 5)
+NARROW_DEQUANT(nd_24_t256_s8, 24, 256, 8)
+
+extern "C" int narrow_dequant(const float* w, const int8_t* q, const float* sc, float* o, int n,
+                              long long xp, long long qblock, void* st) {
+  gossip_mix::launch_dequant_narrow(w, q, sc, o, n, n, xp, qblock, static_cast<cudaStream_t>(st));
   return cudaGetLastError();
 }

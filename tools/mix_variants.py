@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time variants of the gossip mix side by side on one GPU.
 
-    python3 tools/mix_variants.py [wide] [narrow] [crossover]
+    python3 tools/mix_variants.py [wide] [narrow] [crossover] [masked] [square]
 
 Builds ``tools/mix_variants.cu`` (which includes the shipped
 ``src/repro_torch/kernels/csrc/gossip_mix.cu``) with ``nvcc``
@@ -30,6 +30,21 @@ graph replayed 20 times), twice, in turns (forward, then reversed), and
 each entry holds both times. The sparse entries run on density-0.2 masks
 drawn as the sparse exchange draws them (``random``) and on one shared
 20 % band (``band``); ``bound_ms`` is the flat mix's byte bound.
+
+``masked`` (``MASKED``): the masked dequant mix (kernel 6) on those masks,
+the plane encoded as the int8 exchange encodes it (block 256): at the
+main path's width the shipped entry (``gossip_mix_dequant_masked``)
+beside ``mix_kernel`` as it took kernel 6 before (``first_masked``) and
+``mix_kernel_narrow`` (``narrow_masked``); past it the shipped entry
+beside ``first_masked``, ``mix_kernel_masked_vec`` (``vec_masked``) and
+its candidates (``dq_*``, see ``tools/mix_variants.cu``), with one
+``torch.matmul`` of W by the decoded masked plane (``decoded_matmul``);
+``bound_ms`` is the masked dequant mix's byte bound on these masks. At
+the main path's width the narrow plane's other splits (``nq_*``: threads
+a block and a column) are timed too; ``square`` times them the same way
+for the dequant mix on the square W (kernel 4; ``nd_*``) beside its
+shipped route (``narrow_dequant``) and ``torch.matmul`` of W by the
+decoded plane.
 
 Every variant is held against ``torch.matmul`` within 1e-5 (TF32 off)
 and, bit for bit (``torch.equal``), against the shipped kernel's
@@ -86,6 +101,24 @@ CROSSOVER = {(n, x, None): ["first_flat", "narrow_flat"]
              for n in (1, 4, 8, 12, 16, 20, 24, 28, 32)
              for x in (17226, 32768, 65536, 65537, 100003, 131072, 163840, 196608, 262144,
                        524288, 1048576, 2097152, 4194304)}
+# kernel 6, (N, X, mask layout): the main path's width, then past the
+# narrow plane (X % 4 == 0: mix_kernel_masked_vec's shapes)
+_DQ = ["dq_v4_nb20_g4", "dq_v4_nb20_g2", "dq_v4_nb20_g4_pf", "dq_v4_nb20_g4_cs",
+       "dq_v4_nb24_g4", "dq_v4_nb24_g8", "dq_v2_nb20_g4", "dq_v2_nb20_g4_pf"]
+_NQ = ["nq_20_t128_s4", "nq_20_t256_s4", "nq_20_t128_s2", "nq_20_t160_s5", "nq_20_t320_s5",
+       "nq_24_t256_s8", "nq_20_t128_s1"]
+MASKED = {
+    (20, 17226, "random"): ["first_masked", "narrow_masked"] + _NQ,
+    (20, 17226, "band"): ["first_masked", "narrow_masked"] + _NQ,
+    (20, 1000000, "random"): ["first_masked", "vec_masked"] + _DQ,
+    (20, 4194304, "random"): ["first_masked", "vec_masked"] + _DQ,
+    (20, 4194304, "band"): ["first_masked", "vec_masked"] + _DQ,
+}
+# kernel 4 on the square W, (N, X): the main path's exchange (int8, block
+# 256), the shipped route beside the narrow plane's other splits
+SQUARE = {(20, 17226): ["nd_20_t128_s4", "nd_20_t256_s4", "nd_20_t128_s2", "nd_20_t160_s5",
+                        "nd_24_t256_s8"]}
+QBLOCK = 256   # the exchange's int8 block
 TOL = 1e-5
 
 
@@ -106,7 +139,7 @@ def build() -> pathlib.Path:
     for line in r.stderr.splitlines():
         if "Compiling entry function" in line:
             fn = line.split("'")[1] if "'" in line else line
-        elif "registers" in line and ("mixn" in fn or "mix_kernel" in fn):
+        elif "registers" in line and ("mixn" in fn or "mix_kernel" in fn or "mixdq" in fn):
             print(f"ptxas {fn}: {line.split(':', 1)[-1].strip()}", flush=True)
     return lib
 
@@ -191,7 +224,7 @@ def narrow_operands(torch, dev, n: int, x: int, layout):
     w = w / w.sum(dim=1, keepdim=True)
     c = torch.randn((n, x), generator=g, device=dev)
     if layout is None:
-        return w, c, torch.ones(x, device=dev)
+        return w, c, torch.ones(x, device=dev), None, g
     sp = SparseConfig(density=0.2)
     if layout == "random":
         mask = init_masks(g, n, x, sp)
@@ -199,16 +232,15 @@ def narrow_operands(torch, dev, n: int, x: int, layout):
         k = sp.k_active(x)
         mask = torch.zeros((n, x), device=dev)
         mask[:, (x - k) // 2:(x - k) // 2 + k] = 1.0
-    return w, c * mask, column_activity(mask)
+    return w, c * mask, column_activity(mask), mask, g
 
 
 def narrow(torch, lib, dev, bad: list, shapes: dict) -> None:
-    lib.empty.argtypes = [ctypes.c_void_p]
     floor = [graph_ms(torch, lambda: lib.empty(stream(torch))) for _ in range(2)]
     print(json.dumps({"launch_floor_ms": floor}), flush=True)
     sig = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
     for (n, x, layout), names in shapes.items():
-        w, c, act = narrow_operands(torch, dev, n, x, layout)
+        w, c, act, _, _ = narrow_operands(torch, dev, n, x, layout)
         want = torch.matmul(w, c)
         calls = {"matmul": lambda: torch.matmul(w, c),
                  "empty": lambda: lib.empty(stream(torch))}
@@ -252,12 +284,115 @@ def narrow(torch, lib, dev, bad: list, shapes: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def masked(torch, lib, dev, bad: list) -> None:
+    from repro_torch.comm.codecs import Channel, CommConfig
+    from repro_torch.kernels.gossip_mix import gossip_mix_dequant_masked_ref
+
+    P = ctypes.c_void_p
+    sig = [P] * 6 + [ctypes.c_int, ctypes.c_int] + [ctypes.c_longlong] * 3 + [P]
+    for (n, x, layout), names in MASKED.items():
+        w, c, act, mask, g = narrow_operands(torch, dev, n, x, layout)
+        enc = Channel(CommConfig(codec="int8", block=QBLOCK), x).encode(c, g)
+        q, sc = enc["q"], enc["scale"]
+        xp = q.shape[1]
+        want = gossip_mix_dequant_masked_ref(w, q, sc, mask, act, qblock=QBLOCK)
+        decoded = (q.float() * sc.repeat_interleave(QBLOCK, dim=1))[:, :x] * mask
+        calls = {"decoded_matmul": lambda: torch.matmul(w, decoded),
+                 "empty": lambda: lib.empty(stream(torch))}
+        shipped = None
+        for name in ["gossip_mix_dequant_masked"] + names:
+            out = torch.empty((n, xp), device=dev)
+            fn = getattr(lib, name)
+            fn.argtypes = sig
+            args = (w.data_ptr(), q.data_ptr(), sc.data_ptr(), mask.data_ptr(), act.data_ptr(),
+                    out.data_ptr(), n, n, x, xp, QBLOCK)
+
+            def call(fn=fn, args=args, out=out):   # out: kept alive with its pointer
+                return fn(*args, stream(torch))
+
+            if call() != 0:
+                sys.exit(f"{name}: launch failed")
+            torch.cuda.synchronize()
+            err = float((out - want).abs().max())
+            if err > TOL:
+                sys.exit(f"{name} at {(n, x, layout)}: max abs err {err} > {TOL}")
+            if not bool((out[:, :x][:, act == 0] == 0).all()) or not bool((out[:, x:] == 0).all()):
+                sys.exit(f"{name} at {(n, x, layout)}: dead columns not exact zeros")
+            if shipped is None:
+                shipped = out
+            elif not torch.equal(out, shipped):
+                bad.append(f"{name} at {(n, x, layout)}")
+            calls[name] = call
+        order = list(calls)
+        times = {k: [] for k in order}
+        for seq in (order, order[::-1]):
+            for k in seq:
+                reps = 100 if 4 * n * x < 32 * 2**20 else 20
+                times[k].append(graph_ms(torch, calls[k], reps=reps))
+        live = int(act.sum())
+        nbytes = (4 * n * n + n * live + 4 * n * live // QBLOCK + 4 * n * live + 4 * x
+                  + 4 * n * xp)
+        row = {"n": n, "x": x, "xp": xp, "layout": layout, "x_live": live,
+               "bound_ms": nbytes / 3.35e12 * 1e3}
+        row.update({k + "_ms": v for k, v in times.items()})
+        print(json.dumps(row), flush=True)
+        del w, c, act, mask, q, sc, enc, want, decoded, shipped, calls
+        torch.cuda.empty_cache()
+
+
+def square(torch, lib, dev, bad: list) -> None:
+    from repro_torch.comm.codecs import Channel, CommConfig
+    from repro_torch.kernels.gossip_mix import gossip_mix_dequant_ref
+
+    P = ctypes.c_void_p
+    sig = [P] * 4 + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, P]
+    for (n, x), names in SQUARE.items():
+        w, c, _, _, g = narrow_operands(torch, dev, n, x, None)
+        enc = Channel(CommConfig(codec="int8", block=QBLOCK), x).encode(c, g)
+        q, sc = enc["q"], enc["scale"]
+        xp = q.shape[1]
+        want = gossip_mix_dequant_ref(w, q, sc, qblock=QBLOCK)
+        decoded = (q.float() * sc.repeat_interleave(QBLOCK, dim=1))[:, :x].contiguous()
+        calls = {"decoded_matmul": lambda: torch.matmul(w, decoded),
+                 "empty": lambda: lib.empty(stream(torch))}
+        shipped = None
+        for name in ["narrow_dequant"] + names:
+            out = torch.empty((n, xp), device=dev)
+            fn = getattr(lib, name)
+            fn.argtypes = sig
+            args = (w.data_ptr(), q.data_ptr(), sc.data_ptr(), out.data_ptr(), n, xp, QBLOCK)
+
+            def call(fn=fn, args=args, out=out):   # out: kept alive with its pointer
+                return fn(*args, stream(torch))
+
+            if call() != 0:
+                sys.exit(f"{name}: launch failed")
+            torch.cuda.synchronize()
+            err = float((out - want).abs().max())
+            if err > TOL:
+                sys.exit(f"{name} at {(n, x)}: max abs err {err} > {TOL}")
+            if shipped is None:
+                shipped = out
+            elif not torch.equal(out, shipped):
+                bad.append(f"{name} at {(n, x)}")
+            calls[name] = call
+        order = list(calls)
+        times = {k: [] for k in order}
+        for seq in (order, order[::-1]):
+            for k in seq:
+                times[k].append(graph_ms(torch, calls[k]))
+        nbytes = 4 * n * n + n * xp + 4 * n * xp // QBLOCK + 4 * n * xp
+        row = {"n": n, "x": x, "xp": xp, "bound_ms": nbytes / 3.35e12 * 1e3}
+        row.update({k + "_ms": v for k, v in times.items()})
+        print(json.dumps(row), flush=True)
+
+
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         sys.exit("mix_variants: needs a CUDA device")
-    which = sys.argv[1:] or ["wide", "narrow", "crossover"]
+    which = sys.argv[1:] or ["wide", "narrow", "crossover", "masked", "square"]
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True)
@@ -267,6 +402,7 @@ def main() -> None:
     lib.gossip_mix_flat.argtypes = [P, P, P, ctypes.c_int, ctypes.c_longlong, P]
     lib.gossip_mix_sparse.argtypes = [P, P, P, P, ctypes.c_int, ctypes.c_longlong, P]
     lib.gossip_mix_stack.argtypes = [P, P, P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, P]
+    lib.empty.argtypes = [P]
     dev = torch.device("cuda")
     bad: list = []
     if "wide" in which:
@@ -275,6 +411,10 @@ def main() -> None:
         narrow(torch, lib, dev, bad, NARROW)
     if "crossover" in which:
         narrow(torch, lib, dev, bad, CROSSOVER)
+    if "masked" in which:
+        masked(torch, lib, dev, bad)
+    if "square" in which:
+        square(torch, lib, dev, bad)
     if bad:
         sys.exit("not the shipped kernel's bits: " + ", ".join(bad))
 
