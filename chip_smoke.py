@@ -15,8 +15,15 @@ Phases, in order; any failure exits non-zero before the result line:
    67 TFLOP/s fp32, whichever is larger), the plain version's time, and
    for the flat mix one ``torch.matmul`` as a yardstick; first the launch
    floor (``launch_floor_ms``: a one-element ``zero_()`` replayed in a
-   CUDA graph), timed again beside the flat and sparse mixes at X = 17,226
-   (``floor_ms``). The serving
+   CUDA graph), timed again beside the flat, fused DP and sparse mixes at
+   X = 17,226 (``floor_ms``). The fused DP mix (``gossip_mix_fused_dp``,
+   sigma 0 and 0.5) also at N = 20 on both sides of its routes' widths
+   (``kDpVecMinX`` − 2 and kDpVecMinX: the narrow and vector kernels;
+   ``kNarrowMaxX`` − 1, + 1 and + 2: the narrow, one-column and vector
+   kernels), every row equal bit for bit to the one-slab
+   stack mix (``mix_kernel``) of the plane that torch sanitized, one op a
+   step, and timed beside one ``torch.matmul`` of W by that plane
+   (``sanitized_matmul_ms``, a yardstick) and its bound's share. The serving
    kernels (``gossip_mix_dequant``, int8; ``mixture_mix_dequant4``, int4)
    the same way at B = 20, 256 and 1,024 requests over S = 2 clusters of
    the mlp's plane (qblock 64), with the fp32 serving path's own
@@ -73,9 +80,10 @@ Phases, in order; any failure exits non-zero before the result line:
    round 4) and sparse d0.2 + int8 + error feedback, every launch
    counter set to 0 just before each run and read just after, launches
    and ``wire_bytes`` checked exactly;
-8. a torch.profiler window over 3 rounds of the main path, and one of the
-   sparse + int8 path: device time per round, the kernels that take it,
-   and the device's busy share;
+8. a torch.profiler window over 3 rounds of the main path, one over 3
+   DP rounds (``dp``: the clip, the noise draw and kernel 2, which it must
+   see) and one of the sparse + int8 path: device time per round, the
+   kernels that take it, and the device's busy share;
 9. the LM kernels: ``flash_attention`` (kernel 8) at olmo-1b's prefill
    (B = 4 requests, L = 512, 16 heads, hd 128, bf16; also fp32), a
    danube-like GQA 32/8 hd-80 layer with a 256 window and a gemma3-like
@@ -135,6 +143,8 @@ BF16_FLOPS = 989e12         # H100 SXM, bf16 dense tensor cores
 TOL = 1e-5
 SHAPES = [(20, 17226), (20, 4194304)]  # (N, X): the main path's, past L2
 ROUNDS = 5
+DP_OPTIONS = {"dp_clip": 1.0, "dp_noise_multiplier": 0.5}   # the DP main path: sigma 0.5
+DP_OPS = ("aten::square", "aten::sqrt", "aten::clamp", "aten::randn", "aten::normal_")
 # serving kernels, (B requests, S clusters, X, qblock): a batch of the 20
 # trained clients, the serving batch of benchmarks/perf_roundstep.py
 # bench_mixture_qps, and a batch whose 70.8 MB output is past the L2
@@ -287,12 +297,29 @@ def launch_floor(torch):
     return lambda: z.zero_()
 
 
+def mix_constant(name: str) -> int:
+    """A width constant of the gossip mix, read from the kernel's source:
+    kNarrowMaxX (below it a square W of N <= 32 rows takes the narrow
+    kernel) or kDpVecMinX (from it the fused DP mix at an even X takes its
+    vector kernel)."""
+    src = pathlib.Path(ROOT, "src", "repro_torch", "kernels", "csrc", "gossip_mix.cu")
+    return int(re.search(rf"constexpr int64_t {name} = (\d+);", src.read_text()).group(1))
+
+
 def phase_kernels(torch, gm) -> dict:
+    """Kernels 1 and 2 at SHAPES, kernel 2 also at both sides of its
+    routes' widths (the narrow kernel below kDpVecMinX, its vector kernel
+    from it at an even X; past kNarrowMaxX mix_kernel at an odd X and the
+    vector kernel at an even one), each kernel-2 row bit for
+    bit against mix_kernel (the one-slab stack mix) of the plane that torch
+    sanitized, one op a step."""
     dev = torch.device("cuda")
     rows = {"gossip_mix_flat": [], "gossip_mix_fused_dp": []}
     floor = launch_floor(torch)
     print("launch_floor_ms " + json.dumps({"ms": graph_ms(floor)}), flush=True)
-    for n, x in SHAPES:
+    cap, vec = mix_constant("kNarrowMaxX"), mix_constant("kDpVecMinX")
+    edges = [(20, vec - 2), (20, vec), (20, cap - 1), (20, cap + 1), (20, cap + 2)]
+    for n, x in SHAPES + edges:
         g = torch.Generator(device=dev).manual_seed(n * 7 + x)
         w = torch.rand((n, n), generator=g, device=dev)
         w = w / w.sum(dim=1, keepdim=True)
@@ -306,37 +333,50 @@ def phase_kernels(torch, gm) -> dict:
         def timed(fn):
             return graph_ms(fn) if small else time_ms(fn, iters)
 
-        out = gm.gossip_mix_flat(w, c_old)
-        torch.cuda.synchronize()
-        err = float((out - gm.gossip_mix_flat_ref(w, c_old)).abs().max())
-        check(err <= TOL, f"gossip_mix_flat N={n} X={x}: max abs err {err} > {TOL}")
-        b_ms, b_by = bound(n, x, "gossip_mix_flat", False)
-        rows["gossip_mix_flat"].append(dict(
-            n=n, x=x, max_abs_err=err,
-            ms=timed(lambda: gm.gossip_mix_flat(w, c_old)),
-            plain_ms=timed(lambda: gm.gossip_mix_flat_ref(w, c_old)),
-            library_ms=timed(lambda: torch.matmul(w, c_old)),
-            bound_ms=b_ms, bound_by=b_by,
-            call_ms=time_ms(lambda: gm.gossip_mix_flat(w, c_old), iters),
-            **({"floor_ms": timed(floor)} if x == SHAPES[0][1] else {})))
+        if (n, x) in SHAPES:
+            out = gm.gossip_mix_flat(w, c_old)
+            torch.cuda.synchronize()
+            err = float((out - gm.gossip_mix_flat_ref(w, c_old)).abs().max())
+            check(err <= TOL, f"gossip_mix_flat N={n} X={x}: max abs err {err} > {TOL}")
+            b_ms, b_by = bound(n, x, "gossip_mix_flat", False)
+            rows["gossip_mix_flat"].append(dict(
+                n=n, x=x, max_abs_err=err,
+                ms=timed(lambda: gm.gossip_mix_flat(w, c_old)),
+                plain_ms=timed(lambda: gm.gossip_mix_flat_ref(w, c_old)),
+                library_ms=timed(lambda: torch.matmul(w, c_old)),
+                bound_ms=b_ms, bound_by=b_by,
+                call_ms=time_ms(lambda: gm.gossip_mix_flat(w, c_old), iters),
+                **({"floor_ms": timed(floor)} if x == SHAPES[0][1] else {})))
 
         for sigma in (0.0, 0.5):
             nz = noise if sigma > 0 else None
             out = gm.gossip_mix_fused_dp(w, c_old, c_new, scale, nz, sigma)
+            # mix_kernel's bits: the plane sanitized by torch, then the
+            # one-slab stack mix (which takes neither the narrow nor the
+            # vector kernel)
+            san = c_old + scale * (c_new - c_old)
+            if sigma > 0:
+                san = san + sigma * noise
+            witness = gm.gossip_mix_stack(w, san[None])[0]
             torch.cuda.synchronize()
             want = gm.gossip_mix_fused_dp_ref(w, c_old, c_new, scale, nz, sigma)
             err = float((out - want).abs().max())
-            check(err <= TOL,
-                  f"gossip_mix_fused_dp N={n} X={x} sigma={sigma}: max abs err {err} > {TOL}")
+            tag = f"gossip_mix_fused_dp N={n} X={x} sigma={sigma}"
+            check(err <= TOL, f"{tag}: max abs err {err} > {TOL}")
+            check(bool(torch.equal(out, witness)), f"{tag}: not mix_kernel's bits")
             b_ms, b_by = bound(n, x, "gossip_mix_fused_dp", sigma > 0)
+            ms = timed(lambda: gm.gossip_mix_fused_dp(w, c_old, c_new, scale, nz, sigma))
             rows["gossip_mix_fused_dp"].append(dict(
-                n=n, x=x, sigma=sigma, max_abs_err=err,
-                ms=timed(lambda: gm.gossip_mix_fused_dp(w, c_old, c_new, scale, nz, sigma)),
+                n=n, x=x, sigma=sigma, max_abs_err=err, bits_as_mix_kernel=True, ms=ms,
                 plain_ms=timed(lambda: gm.gossip_mix_fused_dp_ref(
                     w, c_old, c_new, scale, nz, sigma)),
-                library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
+                # a yardstick, not the function: W times the plane sanitized beforehand
+                sanitized_matmul_ms=timed(lambda: torch.matmul(w, san)),
                 call_ms=time_ms(lambda: gm.gossip_mix_fused_dp(
-                    w, c_old, c_new, scale, nz, sigma), iters)))
+                    w, c_old, c_new, scale, nz, sigma), iters),
+                **({"floor_ms": timed(floor)} if (n, x) == SHAPES[0] else {})))
+            del san, witness
         del w, c_old, c_new, scale, noise, out
         torch.cuda.empty_cache()
     for name, rs in rows.items():
@@ -750,9 +790,10 @@ def phase_agreement(torch) -> None:
 
 def phase_profile(torch, round_ms: float, label: str = "main", **run) -> None:
     """Where a round's device time goes: 3 rounds of the main path (DP off,
-    after 2 rounds of warm-up; ``run``: RunConfig fields of another path)
-    under torch.profiler. The busy share is the profiled device time per
-    round over the unprofiled round time."""
+    after 2 rounds of warm-up; ``run``: RunConfig fields of another path,
+    such as the DP options) under torch.profiler: the 10 kernels that take
+    the most device time and every gossip kernel. The busy share is the
+    profiled device time per round over the unprofiled round time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.paper_cnn import PaperExpConfig
@@ -788,9 +829,18 @@ def phase_profile(torch, round_ms: float, label: str = "main", **run) -> None:
     print(f"{prefix}: device_ms_per_round {dev_ms:.4f} kernels_per_round {launches:.0f} "
           f"gossip_ms_per_round {gossip_ms:.4f} unprofiled round_ms {round_ms:.3f} "
           f"device_busy_share {dev_ms / round_ms:.4f}", flush=True)
-    for e in kern[:10]:
+    gossip = [e for e in kern[10:] if "mix_kernel" in e.key or "mix_dequant_kernel" in e.key]
+    for e in kern[:10] + gossip:
         print(f"{prefix} kernel {e.self_device_time_total / 1e3 / rounds:.4f} ms/round "
               f"x{e.count // rounds}/round {e.key[:90]}", flush=True)
+    if label == "dp":
+        check(any("FusedDP" in e.key for e in kern),
+              "profile dp: the profiler saw no gossip_mix_fused_dp kernel")
+        # the DP sanitization's own ops: the clip norm and the noise draw
+        for e in ka:
+            if e.device_type.name == "CPU" and e.key in DP_OPS:
+                print(f"{prefix} sanitize op {e.device_time_total / 1e3 / rounds:.4f} device "
+                      f"ms/round x{e.count // rounds}/round {e.key}", flush=True)
     ops = sorted((e for e in ka if e.device_type.name == "CPU" and e.key.startswith("aten::")),
                  key=lambda e: -e.device_time_total)
     for e in ops[:8]:
@@ -807,7 +857,7 @@ def phase_main_path(torch, gm):
     launches, medians, kept = {}, [], None
     for label, opts, kernel in (
             ("plain", {"keep_state": True}, gm.gossip_mix_flat),
-            ("dp", {"dp_clip": 1.0, "dp_noise_multiplier": 0.5}, gm.gossip_mix_fused_dp)):
+            ("dp", DP_OPTIONS, gm.gossip_mix_fused_dp)):
         gm.reset_launch_counts()
         r = run_method("fedspd", data, exp, cfg=RunConfig(gossip_backend="cuda",
                                                           options=opts))
@@ -832,7 +882,7 @@ def phase_main_path(torch, gm):
               f"main path ({label}): u rows do not sum to 1")
         if kept is None:
             kept = r   # the DP-off run, with its final state
-    return launches, medians[0], kept
+    return launches, medians, kept
 
 
 def phase_serve(torch, gm, result) -> dict:
@@ -1397,11 +1447,12 @@ def main() -> None:
     sparse_rows = phase_sparse_kernels(torch, gm)
     phase_agreement(torch)
     phase_sparse_agreement(torch)
-    launches, round_ms, kept = phase_main_path(torch, gm)
+    launches, (round_ms, dp_round_ms), kept = phase_main_path(torch, gm)
     serve_launches = phase_serve(torch, gm, kept)
     baseline_launches = phase_baselines(torch, gm)
     sparse_launches, sparse_round_ms = phase_sparse_comm_path(torch, gm)
     phase_profile(torch, round_ms)
+    phase_profile(torch, dp_round_ms, label="dp", options=DP_OPTIONS)
     phase_profile(torch, sparse_round_ms, label="sparse+int8", sparse=SparseConfig(**SPARSE),
                   comm=CommConfig(codec="int8", error_feedback=True))
     lm_rows = phase_lm_kernels(torch, mma_counts)

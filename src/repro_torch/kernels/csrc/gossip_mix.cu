@@ -59,26 +59,31 @@
 // groups of 4 rows), 7 in the sparse mix (the activity first). A square
 // W (M = N) of at most 32 rows over a plane narrower than kNarrowMaxX
 // columns takes a kernel of its own, whatever the prologue: the flat and
-// sparse mixes (kernels 1, 5), the masked dequant mix (kernel 6) and, from
-// gossip_mix_dequant.cu through gossip_mix.cuh, the dequant mix on the
-// square W (kernel 4, the dense exchange with an int8/int4 codec). Every
-// load a thread needs (its share of W, its rows of its column and, sparse,
-// the column's activity) is issued before the block's one barrier. Past 8
+// sparse mixes (kernels 1, 5), the fused DP mix (kernel 2, the DP rounds'
+// exchange: three fp32 loads and a scale a row; at an even X only below
+// kDpVecMinX), the masked dequant mix
+// (kernel 6) and, from gossip_mix_dequant.cu through gossip_mix.cuh, the
+// dequant mix on the square W (kernel 4, the dense exchange with an
+// int8/int4 codec). Every load a thread needs (its share of W, its rows of
+// its column and, sparse, the column's activity) is issued before the
+// block's one barrier. Past 8
 // rows four threads share a column (a block: 32 columns, one warp per row
 // group; 539 blocks at X = 17,226), meet in a shared tile and each mix
 // NB/4 output rows from all N rows; up to 8 rows one thread mixes its
 // column from registers. NB is N rounded up to 4, not 8: at N = 20
 // mix_kernel's 24-row chunk issues 20 % more FMAs. A prologue's at(col)
 // does its per-column work once a thread (the dequant mixes' scale column,
-// col / qblock), not once a row. Each output sums j ascending from 0.f, as
-// in mix_kernel and the serving template: the same bits.
+// col / qblock; the fused DP mix's column pointers), not once a row. Each
+// output sums j ascending from 0.f, as in mix_kernel and the serving
+// template: the same bits.
 // tools/mix_variants.py at (20, 17,226), ms: mix_kernel 0.00436; one round
 // trip, a thread a column 0.00369, NB 20 0.00330; 4 threads a column
 // 0.00268; torch.matmul 0.00360; float2 loads of the tile gained little.
-// Kernels 2 and 3, a W that is not square, and every plane past the
-// narrow one keep the kernels above, but kernel 6 (below).
+// Kernel 3, a W that is not square, and every plane past the narrow one
+// keep the kernels above, but kernels 6 and 2 (below).
 //
-// Kernel 6 past the narrow plane: mix_kernel_masked_vec. In mix_kernel's
+// Kernels 6 and 2 past the narrow plane: mix_kernel_masked_vec and
+// mix_kernel_dp_vec. In mix_kernel's
 // per-element prologue each row of a column costs three scalar loads (a
 // 1-byte quantum: one 32-byte sector a warp, a scale and an fp32 mask
 // entry) and a division for the scale column; past L2 it reached 34 % of
@@ -90,7 +95,21 @@
 // test goes by warp (128 columns), after the one barrier that stages W.
 // Up to 32 rows; other shapes keep mix_kernel. It is a kernel of its own,
 // as mix_kernel_wide is, for the same reason: mix_kernel stays as it is.
-// The designs timed: tools/mix_variants.py (masked mode), PERF.md.
+// The fused DP mix reads three fp32 arrays a row (c_old, c_new, the noise)
+// and a scale, in scalar loads past L2 under mix_kernel (0.618 ms at (20,
+// 4,194,304), σ > 0: 65 % of its byte bound). Where X is even and the
+// planes 8-byte aligned, mix_kernel_dp_vec gives a thread 2 adjacent
+// columns: three float2 loads and one scale a row in groups of 4 rows,
+// float2 stores, each step of the prologue rounded alone as in FusedDP.
+// It takes over from the narrow kernel at kDpVecMinX = 49,152 columns,
+// below kNarrowMaxX: with three arrays a row the narrow plane's loads
+// outgrow one round trip sooner (the measured crossover is beside it).
+// tools/mix_variants.py dp at (20, 4,194,304), σ = 0.5, ms: mix_kernel
+// 0.618; 2 columns a thread, groups of 4, 0.4348 (92 % of the bound);
+// 4 columns 0.4362, 1 column 0.4387, groups of 2 0.4417–0.4451; at (20,
+// 1,000,000) 2 columns in groups of 4 led too (0.1073; at σ = 0 1 column,
+// 0.0832 against 0.0839). The designs timed: tools/mix_variants.py
+// (masked and dp modes), PERF.md.
 //
 // The stack mix is the same kernel over a 2-D grid: blockIdx.y selects
 // the slab s, whose offset s·N·X is taken in int64_t (at S = 4, N = 32,
@@ -128,6 +147,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "gossip_mix.cuh"
 
@@ -227,6 +248,7 @@ struct MaskedDequant {
   }
 };
 
+// c_old + scale ⊙ (c_new − c_old) [+ σ·noise] on the (N, X) planes.
 template <bool kNoise>
 struct FusedDP {
   static constexpr bool kSkip = false;
@@ -235,11 +257,33 @@ struct FusedDP {
   const float* scale;  // (N,) per-client clip scale
   const float* noise;  // (N, X); unused unless kNoise
   float sigma;
-  __device__ __forceinline__ float operator()(int j, int64_t k) const {
-    const float co = __ldg(c_old + k);
-    float v = __fadd_rn(co, __fmul_rn(__ldg(scale + j), __fsub_rn(__ldg(c_new + k), co)));
-    if (kNoise) v = __fadd_rn(v, __fmul_rn(sigma, __ldg(noise + k)));
+  int64_t x;           // the row stride
+  // one entry, each step rounded alone as the plain version rounds it
+  __device__ __forceinline__ static float sanitized(float co, float cn, float s, float sigma,
+                                                    float nz) {
+    float v = __fadd_rn(co, __fmul_rn(s, __fsub_rn(cn, co)));
+    if (kNoise) v = __fadd_rn(v, __fmul_rn(sigma, nz));
     return v;
+  }
+  __device__ __forceinline__ float operator()(int j, int64_t k) const {
+    return sanitized(__ldg(c_old + k), __ldg(c_new + k), __ldg(scale + j), sigma,
+                     kNoise ? __ldg(noise + k) : 0.f);
+  }
+  struct Column {
+    const float* c_old;  // row 0's entry of the column
+    const float* c_new;
+    const float* noise;  // null unless kNoise
+    const float* scale;
+    int64_t x;
+    float sigma;
+    __device__ __forceinline__ float operator()(int j, int64_t) const {
+      const int64_t k = j * x;
+      return sanitized(__ldg(c_old + k), __ldg(c_new + k), __ldg(scale + j), sigma,
+                       kNoise ? __ldg(noise + k) : 0.f);
+    }
+  };
+  __device__ __forceinline__ Column at(int64_t col) const {
+    return {c_old + col, c_new + col, kNoise ? noise + col : nullptr, scale, x, sigma};
   }
 };
 
@@ -425,6 +469,15 @@ constexpr int kNarrowSplit = NB <= 8 ? 1 : 4;
 // at X = 17,226 and 0.71–0.85 at 32,768, every N; at 65,536 1.04 and 1.05
 // at N = 24 and 32.
 constexpr int64_t kNarrowMaxX = 65536;
+// The width from which the fused DP mix (kernel 2) at an even X, with
+// planes 8-byte aligned, takes mix_kernel_dp_vec rather than
+// mix_kernel_narrow; an odd X or an unaligned plane keeps the narrow
+// kernel up to kNarrowMaxX, where it beat mix_kernel at every N (÷
+// mix_kernel 0.45–0.92). Measured by tools/mix_variants.py dp (H100 80GB
+// HBM3, 700 W; σ = 0.5, N = 1, 4, 8, …, 32): mix_kernel_narrow ÷
+// mix_kernel_dp_vec 1.02–1.31 at X = 49,152 and 1.02–1.43 at 65,536, every
+// N; at 32,768 0.89–0.94 at N = 12, 16, 24, 28, 32.
+constexpr int64_t kDpVecMinX = 49152;
 
 // out[i, col] = sum_j w[i, j] * prologue(row j, col) for the n rows of a
 // flat plane. Every load of the block is issued before its one barrier:
@@ -512,28 +565,32 @@ mix_kernel_narrow(const float* __restrict__ w, Prologue in, float* __restrict__ 
   }
 }
 
-template <int NB, class Prologue>
-void launch_narrow_nb(const float* w, Prologue in, float* out, int n, int64_t x,
-                      cudaStream_t stream) {
-  constexpr int64_t cols = kNarrowThreads / kNarrowSplit<NB>;  // per block
-  const unsigned grid = static_cast<unsigned>((x + cols - 1) / cols);
-  mix_kernel_narrow<NB, Prologue><<<grid, kNarrowThreads, 0, stream>>>(w, in, out, n, x);
+// f(std::integral_constant<int, NB>{}) with NB = rows rounded up to 4
+// (rows <= 32): the chunk of the kernels that take up to 32 rows in one.
+template <class F>
+void with_nb(int rows, F&& f) {
+  switch ((rows + kGroup - 1) / kGroup) {
+    case 1: f(std::integral_constant<int, 4>{}); break;
+    case 2: f(std::integral_constant<int, 8>{}); break;
+    case 3: f(std::integral_constant<int, 12>{}); break;
+    case 4: f(std::integral_constant<int, 16>{}); break;
+    case 5: f(std::integral_constant<int, 20>{}); break;
+    case 6: f(std::integral_constant<int, 24>{}); break;
+    case 7: f(std::integral_constant<int, 28>{}); break;
+    default: f(std::integral_constant<int, 32>{}); break;
+  }
 }
 
 // mix_kernel_narrow with NB = n rounded up to 4 (n <= 32)
 template <class Prologue>
 void launch_narrow(const float* w, Prologue in, float* out, int n, int64_t x,
                    cudaStream_t stream) {
-  switch ((n + kGroup - 1) / kGroup) {
-    case 1: launch_narrow_nb<4>(w, in, out, n, x, stream); break;
-    case 2: launch_narrow_nb<8>(w, in, out, n, x, stream); break;
-    case 3: launch_narrow_nb<12>(w, in, out, n, x, stream); break;
-    case 4: launch_narrow_nb<16>(w, in, out, n, x, stream); break;
-    case 5: launch_narrow_nb<20>(w, in, out, n, x, stream); break;
-    case 6: launch_narrow_nb<24>(w, in, out, n, x, stream); break;
-    case 7: launch_narrow_nb<28>(w, in, out, n, x, stream); break;
-    default: launch_narrow_nb<32>(w, in, out, n, x, stream); break;
-  }
+  with_nb(n, [&](auto nb) {
+    constexpr int NB = decltype(nb)::value;
+    constexpr int64_t cols = kNarrowThreads / kNarrowSplit<NB>;  // per block
+    const unsigned grid = static_cast<unsigned>((x + cols - 1) / cols);
+    mix_kernel_narrow<NB, Prologue><<<grid, kNarrowThreads, 0, stream>>>(w, in, out, n, x);
+  });
 }
 
 // A square W of at most 32 rows over a plane narrower than kNarrowMaxX:
@@ -637,27 +694,146 @@ mix_kernel_masked_vec(const float* __restrict__ w, MaskedDequant in, float* __re
   }
 }
 
-template <int NB>
-void launch_masked_vec_nb(const float* w, const MaskedDequant& in, float* out, int m, int n,
-                          cudaStream_t stream) {
-  constexpr int64_t cols = kVecThreads * kVec;  // per block
-  const unsigned grid = static_cast<unsigned>((in.xp + cols - 1) / cols);
-  mix_kernel_masked_vec<NB><<<grid, kVecThreads, 0, stream>>>(w, in, out, m, n);
-}
-
 // mix_kernel_masked_vec with NB = max(m, n) rounded up to 4 (<= 32)
 void launch_masked_vec(const float* w, const MaskedDequant& in, float* out, int m, int n,
                        cudaStream_t stream) {
-  switch ((max(m, n) + kGroup - 1) / kGroup) {
-    case 1: launch_masked_vec_nb<4>(w, in, out, m, n, stream); break;
-    case 2: launch_masked_vec_nb<8>(w, in, out, m, n, stream); break;
-    case 3: launch_masked_vec_nb<12>(w, in, out, m, n, stream); break;
-    case 4: launch_masked_vec_nb<16>(w, in, out, m, n, stream); break;
-    case 5: launch_masked_vec_nb<20>(w, in, out, m, n, stream); break;
-    case 6: launch_masked_vec_nb<24>(w, in, out, m, n, stream); break;
-    case 7: launch_masked_vec_nb<28>(w, in, out, m, n, stream); break;
-    default: launch_masked_vec_nb<32>(w, in, out, m, n, stream); break;
+  with_nb(max(m, n), [&](auto nb) {
+    constexpr int64_t cols = kVecThreads * kVec;  // per block
+    const unsigned grid = static_cast<unsigned>((in.xp + cols - 1) / cols);
+    mix_kernel_masked_vec<decltype(nb)::value><<<grid, kVecThreads, 0, stream>>>(w, in, out, m,
+                                                                                n);
+  });
+}
+
+// Kernel 2 past the narrow plane (see the header): a thread owns V
+// adjacent columns (V floats of c_old, c_new and, with noise, noise a row,
+// and one scale), a block kVecThreads·V; the shipped design is kDpVec
+// columns in row groups of kDpGroup (tools/mix_variants.py dp).
+constexpr int kDpVec = 2;
+constexpr int kDpGroup = 4;
+
+template <int V>
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 f = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+  } else if constexpr (V == 2) {
+    const float2 f = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = f.x; v[1] = f.y;
+  } else {
+    v[0] = __ldg(p);
   }
+}
+
+template <int V>
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+
+// out[i, col + t] = sum_j w[i, j] * sanitized(j, col + t), t < V, for a
+// square W of n <= NB rows; x is a multiple of V and the planes V·4-byte
+// aligned. W is staged before the block's one barrier; then each group of
+// G rows issues its 3·G (2·G without noise) vector loads and G scales
+// together. Each output sums j ascending from 0.f, as mix_kernel does: the
+// same bits.
+template <int NB, int V, int G, bool kNoise>
+__global__ void __launch_bounds__(kVecThreads)
+mix_kernel_dp_vec(const float* __restrict__ w, FusedDP<kNoise> in, float* __restrict__ out,
+                  int n) {
+  static_assert(NB % G == 0 && NB <= 32 && (V == 1 || V == 2 || V == 4), "up to 32 rows");
+  constexpr int WPT = (NB * NB + kVecThreads - 1) / kVecThreads;  // W entries a thread
+  __shared__ float sw[NB][NB];
+  const int64_t col = (static_cast<int64_t>(blockIdx.x) * kVecThreads + threadIdx.x) * V;
+  float wv[WPT];
+#pragma unroll
+  for (int k = 0; k < WPT; ++k) {
+    const int t = threadIdx.x + k * kVecThreads, i = t / NB, j = t % NB;
+    wv[k] = (i < n && j < n) ? __ldg(w + i * n + j) : 0.f;
+  }
+#pragma unroll
+  for (int k = 0; k < WPT; ++k) {
+    const int t = threadIdx.x + k * kVecThreads;
+    if (t < NB * NB) sw[t / NB][t % NB] = wv[k];
+  }
+  __syncthreads();
+  if (col >= in.x) return;
+  const float* co = in.c_old + col;
+  const float* cn = in.c_new + col;
+  const float* nz = kNoise ? in.noise + col : nullptr;
+  float acc[NB][V];
+#pragma unroll
+  for (int ii = 0; ii < NB; ++ii) {
+#pragma unroll
+    for (int t = 0; t < V; ++t) acc[ii][t] = 0.f;
+  }
+#pragma unroll
+  for (int jg = 0; jg < NB; jg += G) {
+    if (jg < n) {  // rows past n are 0 in sw and in v
+      float a[G][V], b[G][V], z[G][V], s[G], v[G][V];
+#pragma unroll
+      for (int jj = 0; jj < G; ++jj) {
+        const int j = jg + jj;
+#pragma unroll
+        for (int t = 0; t < V; ++t) a[jj][t] = b[jj][t] = z[jj][t] = 0.f;
+        s[jj] = 0.f;
+        if (j < n) {
+          const int64_t k = j * in.x;
+          load_vec<V>(co + k, a[jj]);
+          load_vec<V>(cn + k, b[jj]);
+          if (kNoise) load_vec<V>(nz + k, z[jj]);
+          s[jj] = __ldg(in.scale + j);
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < G; ++jj) {
+#pragma unroll
+        for (int t = 0; t < V; ++t) {
+          v[jj][t] = FusedDP<kNoise>::sanitized(a[jj][t], b[jj][t], s[jj], in.sigma, z[jj][t]);
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < G; ++jj) {
+#pragma unroll
+        for (int ii = 0; ii < NB; ++ii) {
+          const float wij = sw[ii][jg + jj];
+#pragma unroll
+          for (int t = 0; t < V; ++t) acc[ii][t] = fmaf(wij, v[jj][t], acc[ii][t]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int ii = 0; ii < NB; ++ii) {
+    if (ii < n) store_vec<V>(out + ii * in.x + col, acc[ii]);
+  }
+}
+
+// mix_kernel_dp_vec with NB = n rounded up to 4 (n <= 32)
+template <int V, int G, bool kNoise>
+void launch_dp_vec(const float* w, const FusedDP<kNoise>& in, float* out, int n,
+                   cudaStream_t stream) {
+  with_nb(n, [&](auto nb) {
+    constexpr int64_t cols = kVecThreads * V;  // per block
+    const unsigned grid = static_cast<unsigned>((in.x + cols - 1) / cols);
+    mix_kernel_dp_vec<decltype(nb)::value, V, G, kNoise><<<grid, kVecThreads, 0, stream>>>(
+        w, in, out, n);
+  });
+}
+
+// The shapes mix_kernel_dp_vec takes: from kDpVecMinX columns, up to 32
+// rows, x a multiple of kDpVec and the planes aligned to kDpVec floats.
+template <bool kNoise>
+bool dp_vec_shape(const FusedDP<kNoise>& in, const float* out, int n) {
+  constexpr uintptr_t bytes = sizeof(float) * kDpVec;
+  return in.x >= kDpVecMinX && n <= 32 && in.x % kDpVec == 0 &&
+         aligned(in.c_old, bytes) && aligned(in.c_new, bytes) && aligned(out, bytes) &&
+         (!kNoise || aligned(in.noise, bytes));
 }
 
 template <int NB, class Prologue>
@@ -766,16 +942,22 @@ int gossip_mix_dequant_masked(const float* w, const int8_t* q, const float* scal
 }
 
 // C' = W · (c_old + scale ⊙ (c_new − c_old) [+ sigma · noise]); noise is
-// read only when sigma > 0 (it may be null otherwise). scale is (n,).
+// read only when sigma > 0 (it may be null otherwise). scale is (n,). Up
+// to 32 rows from kDpVecMinX columns, x even and the planes 8-byte
+// aligned, mix_kernel_dp_vec; else the narrow plane mix_kernel_narrow;
+// else mix_kernel (or mix_kernel_wide past 32 rows).
 int gossip_mix_fused_dp(const float* w, const float* c_old, const float* c_new,
                         const float* scale, const float* noise, float sigma,
                         float* out, int n, long long x, void* stream) {
-  if (sigma > 0.f) {
-    return launch(w, FusedDP<true>{c_old, c_new, scale, noise, sigma}, out, 1, n, n, x,
-                  stream);
-  }
-  return launch(w, FusedDP<false>{c_old, c_new, scale, nullptr, 0.f}, out, 1, n, n, x,
-                stream);
+  auto run = [&](auto in) {
+    if (n > 0 && x > 0 && dp_vec_shape(in, out, n)) {
+      launch_dp_vec<kDpVec, kDpGroup>(w, in, out, n, static_cast<cudaStream_t>(stream));
+      return static_cast<int>(cudaGetLastError());
+    }
+    return launch<true>(w, in, out, 1, n, n, x, stream);
+  };
+  if (sigma > 0.f) return run(FusedDP<true>{c_old, c_new, scale, noise, sigma, x});
+  return run(FusedDP<false>{c_old, c_new, scale, nullptr, 0.f, x});
 }
 
 }  // extern "C"

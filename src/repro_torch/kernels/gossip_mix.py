@@ -41,17 +41,24 @@ The narrow plane: a square W (M = N ≤ 32) over a plane narrower than
 65,536 columns (``kNarrowMaxX`` in the source; the main path's N = 20,
 X = 17,226 plane is one) takes a kernel of its own, chosen in C from the
 shape alone: ``gossip_mix_flat``, ``gossip_mix_sparse``,
+``gossip_mix_fused_dp`` (the DP rounds' exchange),
 ``gossip_mix_dequant_masked`` and, on the square W,
 ``gossip_mix_dequant``. A call there takes a few µs and is bound by
 latency: every load of a block is issued before its one barrier, and
 past 8 rows four threads share a column. Its results are the same bits
 as the other kernels' on the same shape.
 
-Past the narrow plane, ``gossip_mix_dequant_masked`` of up to 32 rows,
-with X, Xp and qblock multiples of 4 and 16-byte aligned operands, runs
-a kernel whose threads own 4 adjacent columns (a char4 of quanta, a
-float4 of mask and one scale a row); other shapes (an unaligned view,
-an odd width or block) take the one-column kernel, with the same bits.
+Wider planes of up to 32 rows take, in two mixes, kernels whose threads
+own adjacent columns, so each warp request moves more bytes:
+``gossip_mix_dequant_masked`` past the narrow plane, with X, Xp and
+qblock multiples of 4 and 16-byte aligned operands (4 columns: a char4
+of quanta, a float4 of mask and one scale a row), and
+``gossip_mix_fused_dp`` from 49,152 columns (``kDpVecMinX`` in the
+source: with three loads a row the narrow kernel loses there already),
+with X even and 8-byte aligned planes (2 columns: a float2 each of
+c_old, c_new and the noise and one scale a row). Other shapes (an
+unaligned view, an odd width or block) take the narrow kernel below
+65,536 columns and the one-column kernel past it, with the same bits.
 
 In ``csrc/gossip_mix_dequant.cu``:
 

@@ -58,6 +58,12 @@ NARROW_MAX_X = int(re.search(
     r"constexpr int64_t kNarrowMaxX = (\d+);",
     (pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels" / "csrc"
      / "gossip_mix.cu").read_text()).group(1))
+# The width from which the fused DP mix at an even X takes its vector
+# kernel rather than the narrow one (kDpVecMinX in the kernel's source).
+DP_VEC_MIN_X = int(re.search(
+    r"constexpr int64_t kDpVecMinX = (\d+);",
+    (pathlib.Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels" / "csrc"
+     / "gossip_mix.cu").read_text()).group(1))
 # N and X on both sides of that width: N across the narrow chunks (NB = N
 # rounded up to 4: 4 and 8, a thread a column; 20, 24 and 32, four), X
 # from one column to past the width
@@ -119,19 +125,63 @@ def test_fused_dp_kernel_matches_plain(cuda, n, x, sigma):
     assert _max_err(out, want) <= TOL
 
 
+def _mix_kernel_witness(w, c):
+    """W·C by mix_kernel: the stack mix of one slab never takes the narrow
+    or vector kernels (mix_kernel_wide past 32 rows, the same bits)."""
+    return gossip_mix_stack(w, c[None])[0]
+
+
 @pytest.mark.parametrize("x", [7, 1001, 17226, NARROW_MAX_X - 1])
 @pytest.mark.parametrize("n", NARROW_N)
 def test_narrow_flat_kernel_is_mix_kernel_bit_for_bit(cuda, n, x):
-    """Below kNarrowMaxX the flat mix runs mix_kernel_narrow, the fused DP
-    mix mix_kernel, whose prologue gives c back exactly at c_old = 0,
-    scale = 1: both sum each output over j ascending from 0 in fp32 FMAs,
-    so the two agree bit for bit."""
+    """Below kNarrowMaxX the flat mix runs mix_kernel_narrow, the one-slab
+    stack mix mix_kernel: both sum each output over j ascending from 0 in
+    fp32 FMAs, so the two agree bit for bit."""
     w, c, *_ = _operands(cuda, n, x, seed=2)
     out = gossip_mix_flat(w, c)
-    old = gossip_mix_fused_dp(w, torch.zeros_like(c), c, torch.ones((n, 1), device=cuda),
-                              None, 0.0)
+    old = _mix_kernel_witness(w, c)
     torch.cuda.synchronize()
     assert torch.equal(out, old)
+
+
+# kernel 2 at each of its routes: N <= 32, the narrow kernel below
+# kDpVecMinX and, at an odd X, below kNarrowMaxX; from kDpVecMinX at an
+# even X (X % 4 = 0 and 2, 8-byte aligned) the vector kernel; mix_kernel
+# past kNarrowMaxX at an odd X or with planes one float off alignment; and
+# past 32 rows mix_kernel_wide; (N, X, offset of the planes in floats)
+DP_BITS = [(n, x, 0) for n in NARROW_N
+           for x in (7, 1001, 17226, DP_VEC_MIN_X - 2, DP_VEC_MIN_X, DP_VEC_MIN_X + 1,
+                     NARROW_MAX_X - 1, NARROW_MAX_X, NARROW_MAX_X + 1)] + [
+    (20, NARROW_MAX_X + 2, 0), (1, 100000, 0), (7, 100000, 0), (20, 100000, 0),
+    (32, 100000, 0), (20, 100002, 0), (20, 100000, 1), (20, 1001, 1), (33, 1001, 0),
+    (33, 100000, 0)]
+
+
+@pytest.mark.parametrize("sigma", [0.0, 0.5])
+@pytest.mark.parametrize("n,x,offset", DP_BITS)
+def test_fused_dp_kernel_is_mix_kernel_bit_for_bit(cuda, n, x, offset, sigma):
+    """Kernel 2 on every route equals mix_kernel fed the plane that torch
+    sanitized on the card, one op a step (each step rounded alone, as the
+    kernels' prologue rounds it), bit for bit, and its plain version
+    within 1e-5."""
+    w, co, cn, sc, nz = _operands(cuda, n, x, seed=3)
+
+    def shifted(t):   # contiguous, its data `offset` floats into a buffer
+        buf = torch.empty(t.numel() + offset, device=cuda)
+        view = buf[offset:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    co, cn, nz = shifted(co), shifted(cn), shifted(nz)
+    noise = nz if sigma > 0 else None
+    out = gossip_mix_fused_dp(w, co, cn, sc, noise, sigma)
+    sanitized = co + sc * (cn - co)
+    if sigma > 0:
+        sanitized = sanitized + sigma * nz
+    witness = _mix_kernel_witness(w, sanitized)
+    torch.cuda.synchronize()
+    assert torch.equal(out, witness)
+    assert _max_err(out, gossip_mix_fused_dp_ref(w, co, cn, sc, noise, sigma)) <= TOL
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):

@@ -33,10 +33,15 @@
 // streaming stores (st.global.cs). W is staged before one barrier and the
 // dead-column test goes by warp, as in the shipped kernel.
 //
-// mixnp<NB, T, S, Prologue> (the narrow plane with a dequant prologue:
-// kernel 4 on the square W, kernel 6): mix_kernel_narrow with T threads a
-// block and S threads a column (T / S columns a block), the prologue read
-// through at(col) as in the shipped kernel.
+// mixnp<NB, T, S, Prologue> (the narrow plane with a prologue read
+// through at(col): kernel 4 on the square W, kernels 6 and 2):
+// mix_kernel_narrow with T threads a block and S threads a column (T / S
+// columns a block), the prologue read through at(col) as in the shipped
+// kernel.
+//
+// Kernel 2 (the fused DP mix) past the narrow plane: the shipped
+// mix_kernel_dp_vec<NB, V, G, kNoise> at other V (columns a thread) and G
+// (rows whose loads are issued together), launched whatever the shape.
 
 #include "../src/repro_torch/kernels/csrc/gossip_mix.cu"
 
@@ -705,3 +710,43 @@ extern "C" int narrow_dequant(const float* w, const int8_t* q, const float* sc, 
   gossip_mix::launch_dequant_narrow(w, q, sc, o, n, n, xp, qblock, static_cast<cudaStream_t>(st));
   return cudaGetLastError();
 }
+
+// kernel 2's variants, with gossip_mix_fused_dp's signature: mix_kernel as
+// shipped before the narrow plane and mix_kernel_dp_vec took kernel 2
+// (first_dp), mix_kernel_narrow whatever the width (narrow_dp), the narrow
+// plane's other splits (ndp_<NB>_t<T>_s<S>), mix_kernel_dp_vec as shipped
+// (vec_dp) and at other V and G (dpv_v<V>_g<G>), whatever the shape (x a
+// multiple of V, the planes V·4-byte aligned)
+namespace {
+template <class F>
+int with_dp(const float* co, const float* cn, const float* sc, const float* nz, float sigma,
+            long long x, F&& f) {
+  if (sigma > 0.f) f(FusedDP<true>{co, cn, sc, nz, sigma, x});
+  else f(FusedDP<false>{co, cn, sc, nullptr, 0.f, x});
+  return cudaGetLastError();
+}
+}  // namespace
+
+#define DP_VARIANT(name, body)                                                                \
+  extern "C" int name(const float* w, const float* co, const float* cn, const float* sc,     \
+                      const float* nz, float sigma, float* o, int n, long long x, void* st) { \
+    const cudaStream_t s = static_cast<cudaStream_t>(st);                                    \
+    return with_dp(co, cn, sc, nz, sigma, x, [&](auto in) { body; });                        \
+  }
+
+DP_VARIANT(first_dp, launch(w, in, o, 1, n, n, x, st))
+DP_VARIANT(narrow_dp, launch_narrow(w, in, o, n, x, s))
+DP_VARIANT(vec_dp, (launch_dp_vec<kDpVec, kDpGroup>(w, in, o, n, s)))
+DP_VARIANT(ndp_20_t128_s4, (mixvar::run_np<20, 128, 4>(w, in, o, n, x, st)))
+DP_VARIANT(ndp_20_t256_s4, (mixvar::run_np<20, 256, 4>(w, in, o, n, x, st)))
+DP_VARIANT(ndp_20_t128_s2, (mixvar::run_np<20, 128, 2>(w, in, o, n, x, st)))
+DP_VARIANT(ndp_20_t160_s5, (mixvar::run_np<20, 160, 5>(w, in, o, n, x, st)))
+DP_VARIANT(ndp_20_t320_s5, (mixvar::run_np<20, 320, 5>(w, in, o, n, x, st)))
+DP_VARIANT(ndp_24_t256_s8, (mixvar::run_np<24, 256, 8>(w, in, o, n, x, st)))
+DP_VARIANT(ndp_20_t128_s1, (mixvar::run_np<20, 128, 1>(w, in, o, n, x, st)))
+DP_VARIANT(dpv_v1_g2, (launch_dp_vec<1, 2>(w, in, o, n, s)))
+DP_VARIANT(dpv_v1_g4, (launch_dp_vec<1, 4>(w, in, o, n, s)))
+DP_VARIANT(dpv_v2_g2, (launch_dp_vec<2, 2>(w, in, o, n, s)))
+DP_VARIANT(dpv_v2_g4, (launch_dp_vec<2, 4>(w, in, o, n, s)))
+DP_VARIANT(dpv_v4_g2, (launch_dp_vec<4, 2>(w, in, o, n, s)))
+DP_VARIANT(dpv_v4_g4, (launch_dp_vec<4, 4>(w, in, o, n, s)))

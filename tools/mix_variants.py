@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time variants of the gossip mix side by side on one GPU.
 
-    python3 tools/mix_variants.py [wide] [narrow] [crossover] [masked] [square]
+    python3 tools/mix_variants.py [wide] [narrow] [crossover] [masked] [square] [dp]
 
 Builds ``tools/mix_variants.cu`` (which includes the shipped
 ``src/repro_torch/kernels/csrc/gossip_mix.cu``) with ``nvcc``
@@ -45,6 +45,21 @@ a block and a column) are timed too; ``square`` times them the same way
 for the dequant mix on the square W (kernel 4; ``nd_*``) beside its
 shipped route (``narrow_dequant``) and ``torch.matmul`` of W by the
 decoded plane.
+
+``dp`` (``DP``, ``DP_CROSSOVER``): the fused DP mix (kernel 2),
+W·(c_old + scale ⊙ (c_new − c_old) [+ σ·noise]), at σ = 0 and 0.5: at
+the main path's (20, 17,226) the shipped entry (``gossip_mix_fused_dp``)
+beside ``mix_kernel`` as it took kernel 2 before (``first_dp``),
+``mix_kernel_narrow`` (``narrow_dp``) and the narrow plane's other
+splits (``ndp_*``); at (20, 1,000,000) and (20, 4,194,304) beside
+``first_dp``, ``mix_kernel_dp_vec`` as shipped (``vec_dp``) and at 1, 2
+and 4 columns a thread in row groups of 2 and 4 (``dpv_*``); then, at σ
+= 0.5, ``first_dp``, ``narrow_dp`` and (X even) ``vec_dp`` at N = 1 to
+32 and X from 17,226 to 1,048,576, which places ``kDpVecMinX``, the
+width from which kernel 2 at an even X takes the vector kernel. Each row has one ``torch.matmul`` of W by the plane sanitized
+beforehand (``sanitized_matmul``, a yardstick) and ``bound_ms``, kernel
+2's byte bound; the shipped entry is also held bit for bit against
+``gossip_mix_stack`` (``mix_kernel``) of that sanitized plane.
 
 Every variant is held against ``torch.matmul`` within 1e-5 (TF32 off)
 and, bit for bit (``torch.equal``), against the shipped kernel's
@@ -118,6 +133,18 @@ MASKED = {
 # 256), the shipped route beside the narrow plane's other splits
 SQUARE = {(20, 17226): ["nd_20_t128_s4", "nd_20_t256_s4", "nd_20_t128_s2", "nd_20_t160_s5",
                         "nd_24_t256_s8"]}
+# kernel 2, (N, X): the main path's width (narrow splits), then past the
+# narrow plane (X % 4 == 0: mix_kernel_dp_vec's candidates)
+_NDP = ["ndp_20_t128_s4", "ndp_20_t256_s4", "ndp_20_t128_s2", "ndp_20_t160_s5", "ndp_20_t320_s5",
+        "ndp_24_t256_s8", "ndp_20_t128_s1"]
+_DPV = ["dpv_v1_g2", "dpv_v1_g4", "dpv_v2_g2", "dpv_v2_g4", "dpv_v4_g2", "dpv_v4_g4"]
+DP = {(20, 17226): ["first_dp", "narrow_dp"] + _NDP,
+      (20, 1000000): ["first_dp", "vec_dp"] + _DPV,
+      (20, 4194304): ["first_dp", "vec_dp"] + _DPV}
+DP_CROSSOVER = {(n, x): ["first_dp", "narrow_dp"] + (["vec_dp"] if x % 2 == 0 else [])
+                for n in (1, 4, 8, 12, 16, 20, 24, 28, 32)
+                for x in (17226, 32768, 49152, 65535, 65536, 100000, 131072, 262144, 524288,
+                          1048576)}
 QBLOCK = 256   # the exchange's int8 block
 TOL = 1e-5
 
@@ -387,12 +414,74 @@ def square(torch, lib, dev, bad: list) -> None:
         print(json.dumps(row), flush=True)
 
 
+def dp(torch, lib, dev, bad: list, shapes: dict, sigmas) -> None:
+    P = ctypes.c_void_p
+    sig = [P] * 5 + [ctypes.c_float, P, ctypes.c_int, ctypes.c_longlong, P]
+    for (n, x), names in shapes.items():
+        g = torch.Generator(device=dev).manual_seed(n * 7 + x)
+        w = torch.rand((n, n), generator=g, device=dev)
+        w = w / w.sum(dim=1, keepdim=True)
+        c_old = torch.randn((n, x), generator=g, device=dev)
+        c_new = c_old + 0.1 * torch.randn((n, x), generator=g, device=dev)
+        scale = 0.2 + 0.8 * torch.rand((n, 1), generator=g, device=dev)
+        noise = torch.randn((n, x), generator=g, device=dev)
+        for sigma in sigmas:
+            # the plane sanitized by torch, a step an op as the kernel rounds it
+            san = c_old + scale * (c_new - c_old)
+            if sigma > 0:
+                san = san + sigma * noise
+            want = torch.matmul(w, san)
+            witness = torch.empty_like(san)
+            lib.gossip_mix_stack(w.data_ptr(), san.data_ptr(), witness.data_ptr(), 1, n, x,
+                                 stream(torch))
+            nz = noise.data_ptr() if sigma > 0 else None
+            calls = {"sanitized_matmul": lambda: torch.matmul(w, san),
+                     "empty": lambda: lib.empty(stream(torch))}
+            shipped = None
+            for name in ["gossip_mix_fused_dp"] + names:
+                out = torch.empty_like(c_old)
+                fn = getattr(lib, name)
+                fn.argtypes = sig
+                args = (w.data_ptr(), c_old.data_ptr(), c_new.data_ptr(), scale.data_ptr(), nz,
+                        sigma, out.data_ptr(), n, x)
+
+                def call(fn=fn, args=args, out=out):   # out: kept alive with its pointer
+                    return fn(*args, stream(torch))
+
+                if call() != 0:
+                    sys.exit(f"{name}: launch failed")
+                torch.cuda.synchronize()
+                err = float((out - want).abs().max())
+                if err > TOL:
+                    sys.exit(f"{name} at {(n, x, sigma)}: max abs err {err} > {TOL}")
+                if shipped is None:
+                    shipped = out
+                    if not torch.equal(out, witness):
+                        bad.append(f"gossip_mix_fused_dp vs mix_kernel at {(n, x, sigma)}")
+                elif not torch.equal(out, shipped):
+                    bad.append(f"{name} at {(n, x, sigma)}")
+                calls[name] = call
+            order = list(calls)
+            times = {k: [] for k in order}
+            for seq in (order, order[::-1]):
+                for k in seq:
+                    reps = 100 if 4 * n * x < 32 * 2**20 else 20
+                    times[k].append(graph_ms(torch, calls[k], reps=reps))
+            nbytes = 4 * (n * n + n + 3 * n * x + (n * x if sigma > 0 else 0))
+            row = {"n": n, "x": x, "sigma": sigma, "bound_ms": nbytes / 3.35e12 * 1e3}
+            row.update({k + "_ms": v for k, v in times.items()})
+            print(json.dumps(row), flush=True)
+            del san, want, witness, shipped, calls
+        del w, c_old, c_new, scale, noise
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         sys.exit("mix_variants: needs a CUDA device")
-    which = sys.argv[1:] or ["wide", "narrow", "crossover", "masked", "square"]
+    which = sys.argv[1:] or ["wide", "narrow", "crossover", "masked", "square", "dp"]
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True)
@@ -415,6 +504,9 @@ def main() -> None:
         masked(torch, lib, dev, bad)
     if "square" in which:
         square(torch, lib, dev, bad)
+    if "dp" in which:
+        dp(torch, lib, dev, bad, DP, (0.0, 0.5))
+        dp(torch, lib, dev, bad, DP_CROSSOVER, (0.5,))
     if bad:
         sys.exit("not the shipped kernel's bits: " + ", ".join(bad))
 
