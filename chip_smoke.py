@@ -45,7 +45,10 @@ Phases, in order; any failure exits non-zero before the result line:
    the same way (kernel 3 on the card);
 4. the main path: ``run_method("fedspd", ...)`` for 5 rounds through the
    kernels, DP off (keeping its final state) and then on, with every
-   launch counter set to 0 just before each run and read just after;
+   launch counter set to 0 just before each run and read just after.
+   Phases 4, 6 and 7 run the loop engine (``scan_rounds=False``), where
+   a wrapper launches its kernel once a call; the card's default engine,
+   the replay, is phase 8's;
 5. serving, the second path: the DP-off run exported (``export_run``) as
    fp32, int8 and int4 artifacts, each loaded (``load_servable``) into a
    ``ClusterPlaneServer`` on the card that answers the 20 trained
@@ -80,11 +83,31 @@ Phases, in order; any failure exits non-zero before the result line:
    round 4) and sparse d0.2 + int8 + error feedback, every launch
    counter set to 0 just before each run and read just after, launches
    and ``wire_bytes`` checked exactly;
-8. a torch.profiler window over 3 rounds of the main path, one over 3
+8. the round engines, the sixth path: ``run_method("fedspd", ...)`` for
+   the paper's 60 rounds, DP off and on, on the loop engine
+   (``scan_rounds=False``) and on the card's default engine, the replay
+   (one round captured into a CUDA graph, replayed 60 times); then a
+   cohort of 10 of the 20 clients, ``run_method_batch`` over seeds 0, 1,
+   2 (one graph for all three), sparse d0.2 + int8 + error feedback (two
+   graphs) and the 11 baseline ids, 5 rounds each, both ways; every
+   launch counter set to 0 just before each run and read just after, the
+   replayed run under torch.profiler. Each replayed run equals its loop
+   run bit for bit (per-client accuracy, curve, u, bytes and every tensor
+   of the final state, the plane among them); its counters (the warm-up's
+   and the capture's launches) name the kernels the loop's name; its
+   trace, cut into the runner's round spans, shows device work in every
+   replayed round and as many exchange kernels as the loop's counters
+   (one a round at 60 rounds). At 60 rounds the loop run and a second
+   replayed run have rounds 31-33 profiled (``RunConfig.on_round``
+   starts and stops the profiler): each engine's busy share is their
+   device ms a round over the median ms of the same run's other rounds
+   (``profile replay``). Printed: round ms medians of both engines, the busy shares,
+   the capture's ms, ``n_captures`` and ``n_dispatches``;
+9. a torch.profiler window over 3 rounds of the main path, one over 3
    DP rounds (``dp``: the clip, the noise draw and kernel 2, which it must
    see) and one of the sparse + int8 path: device time per round, the
    kernels that take it, and the device's busy share;
-9. the LM kernels: ``flash_attention`` (kernel 8) at olmo-1b's prefill
+10. the LM kernels: ``flash_attention`` (kernel 8) at olmo-1b's prefill
    (B = 4 requests, L = 512, 16 heads, hd 128, bf16; also fp32), a
    danube-like GQA 32/8 hd-80 layer with a 256 window and a gemma3-like
    hd-256 layer over one kv head, each bf16 row beside the count of
@@ -103,7 +126,7 @@ Phases, in order; any failure exits non-zero before the result line:
    CUDA-graph replay beside its bound (bytes over 3.35 TB/s or FLOPs over
    989 TFLOP/s bf16 / 67 TFLOP/s fp32), its plain version and, for
    attention, ``scaled_dot_product_attention``;
-10. LM generation, the fifth path: ``olmo-1b`` and ``mamba2-370m`` at full
+11. LM generation, the fifth path: ``olmo-1b`` and ``mamba2-370m`` at full
    width, ``launch/serve``'s random S = 2 plane (``build_server``) in
    fp32, int8 and int4, B = 4 requests with their own mixtures, prompt
    512, 16 greedy tokens, every launch counter set to 0 just before each
@@ -143,6 +166,8 @@ BF16_FLOPS = 989e12         # H100 SXM, bf16 dense tensor cores
 TOL = 1e-5
 SHAPES = [(20, 17226), (20, 4194304)]  # (N, X): the main path's, past L2
 ROUNDS = 5
+ENGINE_ROUNDS = 60   # the paper's rounds (configs/paper_cnn.py), for the engines phase
+PROFILED_ROUNDS = (30, 33)   # the rounds [30, 33) of a 60-round run profiled for its busy share
 DP_OPTIONS = {"dp_clip": 1.0, "dp_noise_multiplier": 0.5}   # the DP main path: sigma 0.5
 DP_OPS = ("aten::square", "aten::sqrt", "aten::clamp", "aten::randn", "aten::normal_")
 # serving kernels, (B requests, S clusters, X, qblock): a batch of the 20
@@ -699,7 +724,8 @@ def phase_sparse_comm_path(torch, gm) -> tuple[dict, float]:
             ("sparse d0.2 int8+ef", dict(sparse=sp, comm=int8), "sparse_int8",
              {"gossip_mix_dequant_masked": ROUNDS, "gossip_mix_sparse": ROUNDS})):
         gm.reset_launch_counts()
-        r = run_method("fedspd", data, exp, cfg=RunConfig(gossip_backend="cuda", **kw))
+        r = run_method("fedspd", data, exp, cfg=RunConfig(gossip_backend="cuda",
+                                                          scan_rounds=False, **kw))
         counts = {k.__name__: k.launches for k in gm.KERNELS}
         for k, c in counts.items():
             total[k] += c
@@ -722,6 +748,242 @@ def phase_sparse_comm_path(torch, gm) -> tuple[dict, float]:
               f"sparse/comm {label}: mean_acc {r.mean_acc} not finite in [0, 1]")
         check(r.comm_bytes > 0, f"sparse/comm {label}: no bytes accounted")
     return total, sparse_ms
+
+
+def _state_tensors(torch, state) -> list:
+    fields = (state,) if isinstance(state, torch.Tensor) else tuple(state)
+    return [v for v in fields if isinstance(v, torch.Tensor)]
+
+
+def _same_run(torch, a, b) -> list:
+    """What differs between two runs that must be equal bit for bit: the
+    per-client accuracies, the curve, u, the bytes and, with keep_state,
+    every tensor of the final state (the plane among them)."""
+    import numpy as np
+
+    diff = []
+    if not np.array_equal(a.acc_per_client, b.acc_per_client):
+        diff.append("acc_per_client")
+    if a.curve != b.curve:
+        diff.append("curve")
+    if a.comm_bytes != b.comm_bytes or a.wire_bytes != b.wire_bytes:
+        diff.append("comm_bytes")
+    if "u" in a.extras and not np.array_equal(a.extras["u"], b.extras["u"]):
+        diff.append("u")
+    if "state" in a.extras:
+        for i, (x, y) in enumerate(zip(_state_tensors(torch, a.extras["state"]),
+                                       _state_tensors(torch, b.extras["state"]))):
+            if not torch.equal(x, y):
+                diff.append(f"state field {i}")
+    return diff
+
+
+def _round_kernels(prof) -> list:
+    """Each round's device work in a profiled run, in round order: the
+    device events whose launch (a CUDA runtime call on the host: a replay's
+    ``cudaGraphLaunch``, a step's kernel launches and copies) falls inside
+    one of the runner's ROUND_SPAN spans, matched by the runtime's
+    correlation id (both sides on their own clock)."""
+    import bisect
+
+    from repro_torch.experiments.runner import ROUND_SPAN
+
+    events = prof.events()
+    by_id: dict = {}
+    for e in events:
+        if e.device_type.name == "CUDA" and e.name != ROUND_SPAN:
+            by_id.setdefault(e.id, []).append(e)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.name == ROUND_SPAN and e.device_type.name == "CPU")
+    starts = [a for a, _ in spans]
+    windows = [[] for _ in spans]
+    for e in events:
+        if (e.device_type.name != "CPU" or not e.name.startswith("cu")
+                or e.id not in by_id):
+            continue
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i >= 0 and e.time_range.start <= spans[i][1]:
+            windows[i].extend(by_id[e.id])
+    return windows
+
+
+def _is_exchange(name: str) -> bool:
+    """An exchange kernel of the port (kernels 1-6): every one of their
+    symbols holds one of these names."""
+    return "mix_kernel" in name or "mix_dequant_kernel" in name
+
+
+def _profiler():
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
+def _windowed(run, cfg):
+    """``run`` with a profiler over rounds PROFILED_ROUNDS only, started
+    and stopped by the run's ``on_round`` hook. Returns the result, the
+    profiled rounds' kernels, and the device ms a round, the median round
+    ms of the rounds not profiled (round 1 aside: first-use costs) and
+    their ratio, the busy share, all of this one run."""
+    prof, (first, end) = _profiler(), PROFILED_ROUNDS
+
+    def on_round(r):
+        if r == first - 1:
+            prof.start()
+        elif r == end - 1:
+            prof.stop()
+
+    res = run(dataclasses.replace(cfg, on_round=on_round))
+    one = res[0] if isinstance(res, list) else res
+    windows = _round_kernels(prof)
+    check(len(windows) == end - first,
+          f"the profiled window holds {len(windows)} rounds, expected {end - first}")
+    dev = statistics.median(sum(k.time_range.elapsed_us() for k in w) / 1e3 for w in windows)
+    free = statistics.median(v for i, v in enumerate(one.extras["round_ms"])
+                             if i and not first <= i < end)
+    return res, windows, {"device_ms": dev, "round_ms": free, "busy": dev / free}
+
+
+def _engine_pair(torch, gm, label, method, data, exp, cfg, seeds=None, busy=False):
+    """The same run on the loop engine (``scan_rounds=False``) and on the
+    card's default engine, the replay, each with every launch counter set
+    to 0 just before it and read just after, the replayed run under
+    torch.profiler. Fails unless the two are equal bit for bit, the
+    replay's counters (its warm-up's and capture's launches) name the
+    kernels the loop's name, every replayed round ran kernels on the card,
+    and the replays launched as many exchange kernels as the loop's
+    counters. With ``busy``, the loop run and a second replayed run are
+    profiled over PROFILED_ROUNDS only (``_windowed``): each engine's
+    device ms a round and busy share from one run. Returns a dict."""
+    from repro_torch.experiments import run_method, run_method_batch
+
+    def run(c):
+        return (run_method(method, data, exp, cfg=c) if seeds is None
+                else run_method_batch(method, data, exp, seeds=seeds, cfg=c))
+
+    def same(a, b, what):
+        for i, (x, y) in enumerate(zip(a, b) if seeds is not None else [(a, b)]):
+            diff = _same_run(torch, x, y)
+            check(not diff, f"engines {label}: {what} differs from the loop (seed index {i}) "
+                            f"in {diff}")
+
+    out = {}
+    loop_cfg, scan_cfg = (dataclasses.replace(cfg, scan_rounds=v) for v in (False, None))
+    gm.reset_launch_counts()
+    if busy:
+        loop, _, out["loop_busy"] = _windowed(run, loop_cfg)
+    else:
+        loop = run(loop_cfg)
+    loop_counts = {k.__name__: k.launches for k in gm.KERNELS}
+    gm.reset_launch_counts()
+    with _profiler() as prof:
+        scan = run(scan_cfg)
+    counts = {k.__name__: k.launches for k in gm.KERNELS}
+    same(loop, scan, "the replay")
+    check({k for k, c in counts.items() if c} == {k for k, c in loop_counts.items() if c},
+          f"engines {label}: replay launches {counts}, loop launches {loop_counts}")
+    first = scan[0] if seeds is not None else scan
+    check(first.extras["n_dispatches"] == exp.rounds,
+          f"engines {label}: {first.extras['n_dispatches']} dispatches in {exp.rounds} rounds")
+    windows = _round_kernels(prof)
+    check(len(windows) == exp.rounds,
+          f"engines {label}: the trace holds {len(windows)} round spans, expected {exp.rounds}")
+    check(all(windows), f"engines {label}: a replayed round ran no kernel on the card")
+    replayed = sum(_is_exchange(k.name) for w in windows for k in w)
+    check(replayed == sum(loop_counts.values()),
+          f"engines {label}: the replays launched {replayed} exchange kernels, the loop "
+          f"{sum(loop_counts.values())}")
+    if busy:
+        scan_w, _, out["replay_busy"] = _windowed(run, scan_cfg)
+        same(loop, scan_w, "the replay profiled over rounds "
+                           f"{PROFILED_ROUNDS[0] + 1}-{PROFILED_ROUNDS[1]}")
+    out.update(loop=loop[0] if seeds is not None else loop, scan=first, counts=counts,
+               windows=windows)
+    return out
+
+
+def _engine_line(label, pair) -> None:
+    """One line per pair: both engines' round ms (rounds 2 on), the fully
+    profiled replayed run's kernels, and with ``busy`` each engine's
+    device ms a round and busy share from its windowed run."""
+    loop, scan, windows = pair["loop"], pair["scan"], pair["windows"]
+    lm, sm = loop.extras["round_ms"], scan.extras["round_ms"]
+    names: dict = {}
+    for k in windows[-1]:
+        if _is_exchange(k.name):
+            sym = re.search(r"\w*mix_\w*kernel\w*(<.*?>(?=\())?", k.name)
+            key = (sym.group(0) if sym else k.name[:80]).replace("(anonymous namespace)::", "")
+            names[key] = names.get(key, 0) + 1
+    busy = ""
+    for engine in ("loop", "replay"):
+        if f"{engine}_busy" in pair:
+            b = pair[f"{engine}_busy"]
+            busy += (f" {engine} (rounds {PROFILED_ROUNDS[0] + 1}-{PROFILED_ROUNDS[1]} profiled):"
+                     f" device_ms_per_round {b['device_ms']:.4f} round_ms median of the rest "
+                     f"{b['round_ms']:.4f} device_busy_share {b['busy']:.4f}")
+    print(f"engines {label}: loop round_ms median(rounds 2-{len(lm)}) "
+          f"{statistics.median(lm[1:]):.4f} replay round_ms median "
+          f"{statistics.median(sm[1:]):.4f} first {sm[0]:.4f} (whole run profiled) "
+          f"kernels_per_round {len(windows[-1])}{busy} capture_ms "
+          f"{json.dumps([round(v, 1) for v in scan.extras['capture_ms']])} n_captures "
+          f"{scan.extras['n_captures']} n_dispatches {scan.extras['n_dispatches']} "
+          f"(loop {loop.extras['n_dispatches']}) mean_acc {scan.mean_acc:.6f} comm_bytes "
+          f"{scan.comm_bytes:.0f} replay counters (warm-up + capture) "
+          f"{json.dumps(pair['counts'])} exchange kernels in the last replay "
+          f"{json.dumps(names)} loop wall_s {loop.wall_s:.2f} replay wall_s {scan.wall_s:.2f} "
+          "replay vs loop: equal", flush=True)
+
+
+def phase_engines(torch, gm) -> None:
+    """The sixth path, the round engines: FedSPD for ENGINE_ROUNDS (the
+    paper's 60) rounds, DP off and on, on the loop engine and on the
+    card's default engine, replayed from one captured round, each engine's
+    busy share from one run of it; then a cohort of 10 of the 20 clients,
+    ``run_method_batch`` over seeds 0, 1, 2 (one graph for the three),
+    sparse d0.2 + int8 + error feedback (two graphs: the mask update
+    rounds and the rest) and each of the 11 baseline ids for ROUNDS
+    rounds. Every replay equals its loop run bit for bit and its trace
+    shows the replays' kernels (``_engine_pair``)."""
+    from repro_torch.configs.paper_cnn import PaperExpConfig
+    from repro_torch.comm.codecs import CommConfig
+    from repro_torch.core.sparse import SparseConfig
+    from repro_torch.data.synthetic import make_mixture_classification
+    from repro_torch.experiments import RunConfig
+
+    data = make_mixture_classification()
+    long = PaperExpConfig(rounds=ENGINE_ROUNDS)
+    for label, opts, kernel in (("fedspd", {}, gm.gossip_mix_flat),
+                                ("fedspd dp", DP_OPTIONS, gm.gossip_mix_fused_dp)):
+        cfg = RunConfig(eval_every=10, options=dict(opts, keep_state=True))
+        pair = _engine_pair(torch, gm, label, "fedspd", data, long, cfg, busy=True)
+        _engine_line(label, pair)
+        scan = pair["scan"]
+        check(scan.extras["n_captures"] == 1,
+              f"engines {label}: {scan.extras['n_captures']} captures, expected 1")
+        check(pair["counts"][kernel.__name__] > 0,
+              f"engines {label}: {kernel.__name__} was not launched in the run")
+        check(all(sum(_is_exchange(k.name) for k in w) == 1 for w in pair["windows"]),
+              f"engines {label}: a replayed round did not launch one exchange kernel")
+        check(math.isfinite(scan.mean_acc) and scan.mean_acc > 0.1,
+              f"engines {label}: mean_acc {scan.mean_acc} not above chance 0.1")
+    short = PaperExpConfig(rounds=ROUNDS)
+    keep = {"keep_state": True}
+    int8 = CommConfig(codec="int8", error_feedback=True)
+    for label, method, cfg, seeds, captures in (
+            ("fedspd cohort 10/20", "fedspd", RunConfig(cohort_size=10, options=keep),
+             None, 1),
+            ("fedspd batch seeds 0-2", "fedspd", RunConfig(options=keep), (0, 1, 2), 1),
+            ("fedspd sparse d0.2 int8+ef", "fedspd",
+             RunConfig(sparse=SparseConfig(**SPARSE), comm=int8, options=keep), None, 2),
+            *((f"baseline {b}", b, RunConfig(eval_every=10**9, options=keep), None, 1)
+              for b in BASELINES)):
+        pair = _engine_pair(torch, gm, label, method, data, short, cfg, seeds)
+        _engine_line(label, pair)
+        scan = pair["scan"]
+        check(scan.extras["n_captures"] == captures,
+              f"engines {label}: {scan.extras['n_captures']} captures, expected {captures}")
+        check(math.isfinite(scan.mean_acc) and 0.0 <= scan.mean_acc <= 1.0,
+              f"engines {label}: mean_acc {scan.mean_acc} not finite in [0, 1]")
 
 
 def phase_agreement(torch) -> None:
@@ -860,7 +1122,7 @@ def phase_main_path(torch, gm):
             ("dp", DP_OPTIONS, gm.gossip_mix_fused_dp)):
         gm.reset_launch_counts()
         r = run_method("fedspd", data, exp, cfg=RunConfig(gossip_backend="cuda",
-                                                          options=opts))
+                                                          scan_rounds=False, options=opts))
         counts = {k.__name__: k.launches for k in gm.KERNELS}
         launches[kernel.__name__] = kernel.launches
         ms = r.extras["round_ms"]
@@ -985,7 +1247,7 @@ def phase_baselines(torch, gm) -> dict:
         stack = ROUNDS if method.endswith("fedem") else 0
         flat = ROUNDS if method.endswith(("fedavg", "pfedme", "ifca")) else 0
         gm.reset_launch_counts()
-        r = run_method(method, data, exp, cfg=RunConfig(eval_every=10**9))
+        r = run_method(method, data, exp, cfg=RunConfig(eval_every=10**9, scan_rounds=False))
         counts = {k.__name__: k.launches for k in gm.KERNELS}
         for k, c in counts.items():
             total[k] += c
@@ -1451,6 +1713,7 @@ def main() -> None:
     serve_launches = phase_serve(torch, gm, kept)
     baseline_launches = phase_baselines(torch, gm)
     sparse_launches, sparse_round_ms = phase_sparse_comm_path(torch, gm)
+    phase_engines(torch, gm)
     phase_profile(torch, round_ms)
     phase_profile(torch, dp_round_ms, label="dp", options=DP_OPTIONS)
     phase_profile(torch, sparse_round_ms, label="sparse+int8", sparse=SparseConfig(**SPARSE),
@@ -1460,8 +1723,10 @@ def main() -> None:
     phase_lm_profile(torch)
     phase_lm_cli()
 
-    # every launch on the driven paths: the FedSPD main path (DP off and
-    # on), serving, the baselines and the sparse/comm runs
+    # every launch on the paths driven on the loop engine: the FedSPD main
+    # path (DP off and on), serving, the baselines, the sparse/comm runs
+    # and LM generation (the replays launch through the graph, not the
+    # wrappers: the engines phase counts them in its trace)
     for path in (serve_launches, baseline_launches, sparse_launches, lm_launches):
         for name, c in path.items():
             launches[name] = launches.get(name, 0) + c

@@ -40,8 +40,13 @@ def make_step(loss_fn: Callable, per_example_loss: Callable,
     """``step(state, data, gen, lr, *, idx=None) -> (state, {"choice"})``;
     injectable ``idx`` ``(τ, N, batch)``."""
 
+    adj_dev: dict = {}  # the static adjacency, moved to the device once
+
     def step(state: IFCAState, data, gen, lr, *, idx=None):
         plane = state.centers
+        if plane.device not in adj_dev:
+            adj_dev[plane.device] = torch.as_tensor(gossip.adj, dtype=torch.float32,
+                                                    device=plane.device)
         with torch.no_grad():
             # hard cluster estimation on the full local dataset: (S, N)
             losses = per_example_loss(
@@ -52,7 +57,8 @@ def make_step(loss_fn: Callable, per_example_loss: Callable,
         c_sel = local_sgd(loss_fn, plane[choice, rows], data, gen, tau,
                           batch, lr, pack_spec=pack_spec, idx=idx)
         # same-choice neighborhood averaging (decentralized IFCA)
-        plane[choice, rows] = mix_dense(gossip, c_sel, choice)
+        plane[choice, rows] = mix_dense(gossip, c_sel, choice,
+                                        adj=adj_dev[plane.device])
         return IFCAState(centers=plane, choice=choice), {"choice": choice}
 
     return step

@@ -54,8 +54,10 @@ def make_step(loss_fn: Callable, w_mix: torch.Tensor, *, tau: int, batch: int,
     indices at each outer step."""
 
     def step(state: PFedMeState, data, gen, lr, *, idx=None):
-        # η·λ taken in fp32, as the JAX step multiplies its fp32 lr by λ
-        lr_lam = float(np.float32(lr) * np.float32(lam))
+        # η·λ taken in fp32 on the device, as the JAX step multiplies its
+        # fp32 lr by λ (lr may be a 0-d device tensor read from a tape)
+        lr_lam = torch.as_tensor(lr, dtype=torch.float32,
+                                 device=state.w.device) * np.float32(lam)
         w = state.w
         for t in range(tau):
             theta = _inner_solve(loss_fn, w, data, gen, k_inner, batch,

@@ -177,10 +177,16 @@ def make_round_step(loss_fn: Callable, per_example_loss: Callable,
                     pack_spec: PackSpec, mix_fn: Callable | None = None,
                     comm: CommConfig | None = None,
                     sparse: SparseConfig | None = None):
-    """Returns ``step(state, data, *, s=None, idx=None, noise=None,
-    comm_u=None, rigl_idx=None, regrow_scores=None) -> (state, metrics)``
-    for the "full" regime on the packed plane. ``data`` is ``{"inputs":
-    (N, M, d), "targets": (N, M)}`` on the plane's device.
+    """Returns ``step(state, data, adj=None, *, lr=None, s=None, idx=None,
+    noise=None, comm_u=None, rigl_idx=None, regrow_scores=None) -> (state,
+    metrics)`` for the "full" regime on the packed plane. ``data`` is
+    ``{"inputs": (N, M, d), "targets": (N, M)}`` on the plane's device.
+    ``adj`` ``(N, N)`` on the plane's device overrides the graph's
+    adjacency for this round (a per-seed graph, a cohort's minor); ``lr``
+    (a float or a 0-d fp32 tensor on the device, as a captured round
+    reads it from a tape) overrides ``round_lr(cfg, state.round)``. The
+    step reads ``state.round`` on the host only there and in the sparse
+    mask's ``update_due``.
 
     Injectable draws: ``s`` ``(N,)`` selections, ``idx`` ``(τ, N, B)``
     batch indices, ``noise`` ``(N, X)`` standard-normal DP noise (used
@@ -323,17 +329,19 @@ def make_round_step(loss_fn: Callable, per_example_loss: Callable,
         key = regrow_scores if regrow_scores is not None else state.gen
         return rigl_update(state.mask, c_new, grads, key, sparse)
 
-    def step_full_packed(state: FedSPDState, data: dict, *, s=None, idx=None,
-                         noise=None, comm_u=None, rigl_idx=None,
-                         regrow_scores=None):
+    def step_full_packed(state: FedSPDState, data: dict, adj=None, *, lr=None,
+                         s=None, idx=None, noise=None, comm_u=None,
+                         rigl_idx=None, regrow_scores=None):
         plane = state.centers
         dev = plane.device
-        if dev not in adj_dev:
-            adj_dev[dev] = torch.as_tensor(gossip.adj, dtype=torch.float32,
-                                           device=dev)
-        adj = adj_dev[dev]
+        if adj is None:
+            if dev not in adj_dev:
+                adj_dev[dev] = torch.as_tensor(gossip.adj, dtype=torch.float32,
+                                               device=dev)
+            adj = adj_dev[dev]
         gen = state.gen
-        lr = round_lr(cfg, state.round)
+        if lr is None:
+            lr = round_lr(cfg, state.round)
         if sparse_on and state.mask is None:
             raise ValueError(
                 "sparse training needs state.mask (core/sparse.init_masks)")

@@ -128,7 +128,7 @@ def rigl_update(mask: torch.Tensor, weights: torch.Tensor,
     if n_prune == 0:
         return mask
     n_keep = cfg.k_active(x) - n_prune
-    neg = torch.tensor(float("-inf"), device=mask.device)
+    neg = float("-inf")   # a scalar, not a tensor: nothing crosses from the host
     active = mask > 0
     kept = _one_hot_rows(top_k(torch.where(active, weights.float().abs(), neg),
                                n_keep), x)

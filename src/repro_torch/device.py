@@ -1,10 +1,20 @@
-"""Device resolution for the port's entry points.
+"""Device resolution, generators and CUDA-graph capture for the port.
 
 The port runs on the card unless the caller asks for the CPU: ``"cuda"`` is
 the default everywhere, and asking for it on a host without a card raises
 instead of quietly running on the CPU.
+
+Capture (``warm_up``, ``capture``): a closure over static buffers is run
+once on a side stream, then recorded into a ``torch.cuda.CUDAGraph`` and
+replayed. Every generator the closure draws from is registered with the
+graph, so each replay draws anew from where the generator stands, and
+advances it by what the closure draws: after a replay, ``get_state()``
+(and so ``copy_generator``) is where the same work run eagerly would have
+left it. A capture that fails raises.
 """
 from __future__ import annotations
+
+from typing import Callable, Iterable
 
 import torch
 
@@ -42,6 +52,35 @@ def copy_generator(gen: torch.Generator) -> torch.Generator:
     out = torch.Generator(device=gen.device)
     out.set_state(gen.get_state())
     return out
+
+
+def warm_up(fn: Callable[[], object], device: torch.device) -> None:
+    """Run ``fn`` once on a side stream and wait for it: what a capture
+    needs first (the lazy set-up of cuBLAS, autograd's device thread and
+    the allocator happens outside the graph)."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    torch.cuda.synchronize(device)
+
+
+def capture(fn: Callable[[], object],
+            gens: Iterable[torch.Generator]) -> torch.cuda.CUDAGraph:
+    """``fn`` recorded into a new CUDA graph, each of ``gens`` registered
+    with it (``gen`` may repeat). Nothing runs: ``graph.replay()`` does
+    the work. Raises what the capture raises (an op that syncs with the
+    host, a generator that is not registered)."""
+    graph = torch.cuda.CUDAGraph()
+    seen: set = set()
+    for gen in gens:
+        if id(gen) not in seen:
+            seen.add(id(gen))
+            graph.register_generator_state(gen)
+    with torch.cuda.graph(graph):
+        fn()
+    return graph
 
 
 def synchronize(device: torch.device) -> None:

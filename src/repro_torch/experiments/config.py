@@ -1,18 +1,19 @@
 """RunConfig: how a run of the port executes.
 
 The JAX package's ``RunConfig`` fields, less ``donate`` (the port always
-updates the plane in place), plus ``device``. The port honours
-``gossip_mode="dense"``, ``gossip_backend`` ("cuda", or "reference" as
-another name for it), ``comm`` and ``sparse`` (FedSPD only),
-``eval_every``, ``options`` (``dp_clip``, ``dp_noise_multiplier``,
-``tau_final``, ``keep_state``, ``comm``, ``sparse``) and ``device``.
+updates the plane in place), plus ``device`` and ``on_round``. The port
+honours ``gossip_mode="dense"``, ``gossip_backend`` ("cuda", or
+"reference" as another name for it), ``comm`` and ``sparse`` (FedSPD
+only), ``eval_every``, ``scan_rounds``, ``cohort_size`` (FedSPD only),
+``options`` (``dp_clip``, ``dp_noise_multiplier``, ``tau_final``,
+``keep_state``, ``comm``, ``sparse``), ``device`` and ``on_round``.
 Every field that selects a feature the port does not have yet is refused
 with a ``ValueError`` that names it; none falls back silently.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 from repro_torch.comm.codecs import CommConfig
 from repro_torch.core.gossip import MIX_BACKENDS
@@ -69,14 +70,26 @@ class RunConfig:
     comm            comm.codecs.CommConfig wire codec (FedSPD only)
     sparse          core.sparse.SparseConfig DisPFL masks (FedSPD only)
     eval_every      train-curve cadence (the final round always evaluates)
+    scan_rounds     the engine. True: one captured round replayed every
+                    round (a CUDA graph on the card, one per host-side
+                    branch; on the CPU the same round called directly),
+                    bit for bit the loop's run. False: the loop, one call
+                    of the step a round. None (the default): the replay
+                    on the card, the loop on the CPU
+    cohort_size     K: each round K of N clients, drawn on the device from
+                    a stream of their own, train and exchange (FedSPD only)
     options         per-method knobs: dp_clip, dp_noise_multiplier,
                     tau_final (explicit entries win over the fields);
                     keep_state=True leaves the final state and its
                     PackSpec in RunResult.extras (what export_run reads)
     device          "cuda" (the default: raises without a card) | "cpu"
+    on_round        called with each round's index after the round (outside
+                    its timed span, before that round's evaluation): a
+                    hook to watch a run from outside, such as a profiler
+                    started and stopped around chosen rounds
 
-    scenario, scan_rounds, cohort_size and telemetry are not ported yet;
-    setting any of them raises ``ValueError``."""
+    scenario and telemetry are not ported yet; setting either raises
+    ``ValueError``."""
 
     gossip_mode: Optional[str] = None
     gossip_backend: Optional[str] = None
@@ -84,12 +97,13 @@ class RunConfig:
     comm: Any = None
     scenario: Any = None
     eval_every: int = 10
-    scan_rounds: bool = False
+    scan_rounds: Optional[bool] = None
     cohort_size: Optional[int] = None
     sparse: Any = None
     telemetry: Any = None
     options: dict = dataclasses.field(default_factory=dict)
     device: str = "cuda"
+    on_round: Optional[Callable[[int], None]] = None
 
     def resolve_options(self) -> dict:
         """A fresh per-run options dict (explicit ``options`` entries win
@@ -98,8 +112,6 @@ class RunConfig:
         unported = {
             "scenario (dynamic graphs, dropout, heterogeneity)":
                 self.scenario is not None,
-            "scan_rounds (the whole-run engine)": self.scan_rounds,
-            "cohort_size (client subsampling)": self.cohort_size is not None,
             "telemetry": self.telemetry is not None,
         }
         for what, on in unported.items():

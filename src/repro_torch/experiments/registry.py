@@ -4,7 +4,8 @@ The driver (experiments/runner.py) knows nothing about individual
 algorithms; each registers a ``Method`` adapter here:
 
     init(ctx, gen)                 -> state
-    make_step(ctx)                 -> step(state, train, gen, lr) -> (state, aux)
+    make_step(ctx)                 -> step(state, train, gen, lr, *extras)
+                                      -> (state, aux)
     personalize(ctx, state, gen)   -> params, leaves (N, ...)
     comm_model(ctx)                -> CommModel: static per-round bytes, or
                                       "tracked" (read from state.comm_bytes)
@@ -12,8 +13,13 @@ algorithms; each registers a ``Method`` adapter here:
     extras(ctx, state, aux)        -> dict of host-side diagnostics
 
 ``gen`` is a ``torch.Generator`` on the run's device and ``lr`` the
-round's fp32 learning rate, both owned by the driver (FedSPD carries its
-own stream and schedule in its state and ignores them).
+round's fp32 learning rate (a 0-d tensor on the device, read from the
+tape ``lr_schedule`` gives), both owned by the driver (FedSPD draws from
+the stream in its state). A method with ``supports_dynamic_graph`` takes
+the round's ``(N, N)`` adjacency as the first extra (per-seed graphs, a
+cohort's minor); ``cohort_axes`` maps its state's fields to their client
+axis for cohort subsampling; ``round_branch(ctx, r)`` names the host-side
+branch round r takes (a captured round needs one graph per branch).
 
 The port has FedSPD (``"fedspd"``, paper Algorithm 1 on the packed plane,
 with a wire codec and DisPFL sparse masks as options) and the paper's six
@@ -25,8 +31,9 @@ baselines (``"local"``, and ``dfl_``/``cfl_`` × ``fedavg``, ``fedem``,
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Hashable
 
+import numpy as np
 import torch
 
 from repro_torch.baselines import fedavg, fedem, fedsoft, ifca, local, pfedme
@@ -35,8 +42,10 @@ from repro_torch.comm.codecs import Channel, make_channel
 from repro_torch.configs.paper_cnn import PaperExpConfig
 from repro_torch.core.fedspd import (
     FedSPDConfig,
+    FedSPDState,
     final_phase,
     make_round_step,
+    round_lr,
     seeded_init,
 )
 from repro_torch.core.gossip import GossipSpec, make_mix_fn
@@ -132,6 +141,7 @@ class Method:
     name: str = ""
     centralized: bool = False
     features: tuple = ()
+    supports_dynamic_graph: bool = False
 
     def init(self, ctx: ExperimentContext, gen: torch.Generator):
         raise NotImplementedError
@@ -155,6 +165,29 @@ class Method:
 
     def extras(self, ctx: ExperimentContext, state, aux: dict) -> dict:
         return {}
+
+    def lr_schedule(self, ctx: ExperimentContext) -> np.ndarray:
+        """The rounds' learning rates ``(rounds,)`` fp32: lr0 · decay^r,
+        taken in Python floats and stored in fp32 (the JAX driver's
+        tape)."""
+        exp = ctx.exp
+        return np.asarray([exp.lr0 * (exp.lr_decay ** r) for r in range(exp.rounds)],
+                          np.float32)
+
+    def round_branch(self, ctx: ExperimentContext, r: int) -> Hashable:
+        """The branch round ``r`` takes on the host: rounds of one branch
+        run the same ops (one captured graph each)."""
+        return None
+
+    def cohort_axes(self, ctx: ExperimentContext, state):
+        """Per-field client-axis map for cohort subsampling
+        (``RunConfig.cohort_size``): a state-shaped container giving, for
+        each field, the axis that indexes clients (None = a global field
+        threaded through whole). Methods opt in by overriding."""
+        raise ValueError(
+            f"method {self.name!r} does not support cohort subsampling "
+            "(RunConfig.cohort_size) — its adapter defines no per-field "
+            "client-axis map; override Method.cohort_axes")
 
     def mixing(self, ctx: ExperimentContext) -> torch.Tensor:
         """(N, N) averaging weights on the run's device: exact global mean
@@ -206,6 +239,7 @@ class FedSPDMethod(Method):
     ``sparse`` (DisPFL masks)."""
 
     features = ("comm", "sparse")
+    supports_dynamic_graph = True
 
     def __init__(self, name: str):
         self.name = name
@@ -249,14 +283,35 @@ class FedSPDMethod(Method):
                                pack_spec=ctx.pack_spec, mix_fn=mix_fn,
                                comm=comm, sparse=self._sparse(ctx))
 
-        def wrapped(state, train, gen, lr):
-            # the round step draws from state.gen and runs its own lr
-            # schedule; the driver's gen and lr are for the uniform
-            # signature
-            del gen, lr
-            return step(state, train)
+        def wrapped(state, train, gen, lr, adj=None):
+            # the round step draws from state.gen; the driver's gen is for
+            # the uniform signature. lr comes from the driver's tape of
+            # FedSPD's own schedule (lr_schedule); None runs that schedule
+            # from state.round
+            del gen
+            return step(state, train, adj, lr=lr)
 
         return wrapped
+
+    def lr_schedule(self, ctx):
+        """FedSPD's own schedule, ``round_lr`` of each round (fp32 ops)."""
+        cfg = self._fcfg(ctx)
+        return np.asarray([round_lr(cfg, r) for r in range(ctx.exp.rounds)],
+                          np.float32)
+
+    def round_branch(self, ctx, r):
+        """Whether round r updates the sparse masks (RigL), the one branch
+        FedSPD's step takes on the host."""
+        sp = self._sparse(ctx)
+        return sp is not None and sp.enabled and sp.update_due(r)
+
+    def cohort_axes(self, ctx, state):
+        """centers (S, N, X) on axis 1; u, z, ef and mask on axis 0; round,
+        gen and comm_bytes global."""
+        return FedSPDState(
+            centers=1, u=0, z=0, round=None, gen=None, comm_bytes=None,
+            ef=None if state.ef is None else 0,
+            mask=None if state.mask is None else 0)
 
     def personalize(self, ctx, state, gen=None):
         with torch.enable_grad():

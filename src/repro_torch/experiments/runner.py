@@ -1,17 +1,52 @@
-"""Experiment driver: the loop engine behind ``run_method``.
+"""Experiment driver: the round engines behind ``run_method`` and
+``run_method_batch``.
 
-``run_method`` resolves the method through the registry and owns the round
-loop, the learning-rate schedule, the eval cadence, curve collection and
-communication accounting. A round is one call of the method's step; every
-``eval_every`` rounds (and after the last) the driver evaluates the
-personalized models on the training data. The final result evaluates them
-on the test split.
+The driver resolves the method through the registry and owns the rounds,
+the learning-rate tape, the eval cadence, curve collection and
+communication accounting. Every ``eval_every`` rounds (and after the last)
+it evaluates the personalized models on the training data; the final
+result evaluates them on the test split. Two engines run the same round:
+
+- the loop (the default on the CPU, ``scan_rounds=False``): one call of
+  the method's step per seed and round;
+- the replay (the default on the card, ``scan_rounds=True``), the
+  counterpart of the JAX package's ``lax.scan`` engine: one *capturable
+  round*, a closure that reads every seed's state from static buffers,
+  runs the method's unchanged step and writes each state tensor back
+  into those buffers in place. Its learning
+  rate comes from a device tape indexed by a device round counter that the
+  round itself advances. On the card the round is captured once into a
+  CUDA graph (after a warm-up on a throwaway copy of the state and
+  generators) and replayed every round, with no host write between
+  replays; on the CPU the same closure is called directly. A round whose
+  method branches on the host (``Method.round_branch``: the sparse masks'
+  update rounds) gets one graph per branch, picked by the host's round
+  number. A failed capture raises, naming the method. The replayed run
+  equals the loop bit for bit; ``extras`` reports ``n_captures`` and
+  ``n_dispatches``.
+
+Each round of either engine (the step, or the replay, and the wait for
+the card) runs inside a ``torch.profiler.record_function`` span named
+``ROUND_SPAN``: a profiler around ``run_method`` reads from it what each
+round ran on the card. The kernels' launch counters tick in their
+wrappers only, so a replayed run's counters hold what its warm-up and
+capture launched, not its replays.
+
+``RunConfig(cohort_size=K)`` samples K of N clients per round (both
+engines): the step runs unchanged at size K on a compact gather of the
+state, the data and the ``(K, K)`` adjacency minor, and the result is
+scattered back in place, so inactive rows stay bit-untouched and dropped
+clients cost no bytes. Cohorts come from a generator of their own, seeded
+from the run's seed, drawn on the device.
 
 The run's generators: one seeded from ``seed`` initialises the state, and
 a stream forked from it after the init feeds the rounds (FedSPD forks its
 own into its state instead). Evaluation draws (pFedMe's personalization)
 come from a copy of the run's stream, so evaluating does not change the
-training trajectory.
+training trajectory. ``run_method_batch`` runs k seeds, each with its own
+state and generators, so seed i's result equals ``run_method`` of that
+seed (with the batch's graph and seed i's data); under ``scan_rounds`` one
+graph holds every seed's round.
 
 Communication: a method's ``comm_model`` is either "tracked" (FedSPD's
 data-dependent bytes, read from ``state.comm_bytes``) or "static"
@@ -24,18 +59,22 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from typing import Callable
 
 import numpy as np
+import torch
 
 from repro_torch.comm.codecs import make_channel, sparse_wire_model_bytes
 from repro_torch.configs.paper_cnn import PaperExpConfig
 from repro_torch.data.synthetic import ClientDataset
 from repro_torch.device import (
+    capture,
     copy_generator,
     fork_generator,
     make_generator,
     resolve_device,
     synchronize,
+    warm_up,
 )
 from repro_torch.experiments.config import RunConfig
 from repro_torch.experiments.registry import (
@@ -44,7 +83,10 @@ from repro_torch.experiments.registry import (
     build_context,
     get_method,
 )
-from repro_torch.graphs.topology import Graph
+from repro_torch.graphs.topology import Graph, union_graph
+
+# the profiler span around each round (see the module docstring)
+ROUND_SPAN = "repro_torch.round"
 
 
 @dataclasses.dataclass
@@ -58,14 +100,16 @@ class RunResult:
     curve: list         # [(round, mean train acc)]
     wall_s: float
     extras: dict        # method diagnostics; "round_ms": per-round times;
-                        # "state", "pack_spec" with options["keep_state"]
+                        # "n_captures", "n_dispatches"; "state",
+                        # "pack_spec" with options["keep_state"]
 
 
-def _lr_schedule(exp: PaperExpConfig) -> np.ndarray:
-    """The rounds' learning rates lr0 · decay^r, taken in Python floats and
-    stored in fp32 (the JAX driver's tape)."""
-    return np.asarray([exp.lr0 * (exp.lr_decay ** r) for r in range(exp.rounds)],
-                      np.float32)
+def _require_dynamic_graph(m: Method, what: str) -> None:
+    if not m.supports_dynamic_graph:
+        raise ValueError(
+            f"method {m.name!r} does not support {what} — its step does "
+            "not accept the per-round adjacency (set supports_dynamic_graph "
+            "after threading adj through the step)")
 
 
 def _wire_bytes(ctx: ExperimentContext, logical: float) -> float:
@@ -85,15 +129,252 @@ def _wire_bytes(ctx: ExperimentContext, logical: float) -> float:
     return logical * ch.wire_ratio(model_b)
 
 
-def _result(m: Method, ctx: ExperimentContext, state, aux, acc, curve,
-            t0: float, round_ms: list) -> RunResult:
+# --------------------------------------------------------------------------
+# Cohort subsampling (RunConfig.cohort_size)
+# --------------------------------------------------------------------------
+
+
+def _cohort_seed(seed: int) -> int:
+    """The cohort stream's seed, derived from the run's seed and apart
+    from it (the JAX driver folds 0x5EED into the run's key)."""
+    return int(np.random.SeedSequence((int(seed), 0x5EED)).generate_state(
+        1, np.uint64)[0])
+
+
+def _cohort_indices(gen: torch.Generator, n: int, k: int) -> torch.Tensor:
+    """This round's active cohort on ``gen``'s device: K of N clients
+    without replacement (the first K of a random permutation, by sorted
+    uniform keys), SORTED so that gather and scatter keep client order."""
+    keys = torch.rand(n, generator=gen, device=gen.device)
+    return torch.sort(torch.argsort(keys, stable=True)[:k]).values
+
+
+def _cohort_step(step: Callable, axes) -> Callable:
+    """Run a dynamic-graph step on a compact K-client cohort.
+
+    ``axes`` maps each state field to its client axis (None = a global
+    field threaded through whole). The wrapper gathers the active rows of
+    the state, the training data and the adjacency minor, runs the
+    UNCHANGED step at size K, and scatters the results back into the
+    state's tensors in place; the step's comm accounting sees the ``(K,
+    K)`` minor, so inactive clients cost zero bytes."""
+
+    def take(v, ax, idx):
+        return v if v is None or ax is None else v.index_select(ax, idx)
+
+    def put(full, sub, ax, idx):
+        if full is None or ax is None:
+            return sub
+        return full.index_copy_(ax, idx, sub)
+
+    def stepc(state, train, gen, lr, adj, active):
+        sub = type(state)(*(take(v, a, active) for v, a in zip(state, axes)))
+        sub_train = {k: v.index_select(0, active) for k, v in train.items()}
+        sub_adj = adj.index_select(0, active).index_select(1, active)
+        sub, aux = step(sub, sub_train, gen, lr, sub_adj)
+        new = type(state)(*(put(v, s, a, active)
+                            for v, s, a in zip(state, sub, axes)))
+        return new, aux
+
+    return stepc
+
+
+# --------------------------------------------------------------------------
+# One seed's run, and what the captured round needs of a state
+# --------------------------------------------------------------------------
+
+
+class _Seed:
+    """One seed's context, state, generators and round step. ``adj`` is
+    the round's adjacency extra (a per-seed graph, or the graph a cohort
+    takes its minor of), ``cohort`` K or None."""
+
+    def __init__(self, m: Method, ctx: ExperimentContext, seed: int,
+                 adj: torch.Tensor | None, cohort: int | None):
+        self.ctx, self.adj, self.cohort = ctx, adj, cohort
+        gen = make_generator(ctx.device, seed)
+        self.state = m.init(ctx, gen)
+        self.gen = fork_generator(gen)
+        self.step = m.make_step(ctx)
+        self.cgen = None
+        if cohort is not None:
+            self.step = _cohort_step(self.step, m.cohort_axes(ctx, self.state))
+            self.cgen = make_generator(ctx.device, _cohort_seed(seed))
+        self.aux, self.curve = None, []
+
+    def round(self, state, gen, cgen, lr):
+        """One round of this seed's step from ``state`` with the given
+        generators (the seed's own, or a warm-up's copies)."""
+        extras = () if self.adj is None else (self.adj,)
+        if self.cohort is not None:
+            extras += (_cohort_indices(cgen, self.ctx.n_clients, self.cohort),)
+        return self.step(state, self.ctx.train, gen, lr, *extras)
+
+
+def _fields(state) -> tuple:
+    return (state,) if isinstance(state, torch.Tensor) else tuple(state)
+
+
+def _at_round(state, r: int):
+    """``state`` with its host round counter at ``r`` (states without one
+    as they are)."""
+    if hasattr(state, "_fields") and "round" in state._fields:
+        return state._replace(round=r)
+    return state
+
+
+def _copy_state(state):
+    """A throwaway copy: tensors cloned, generators copied."""
+    def one(v):
+        if isinstance(v, torch.Tensor):
+            return v.clone()
+        return copy_generator(v) if isinstance(v, torch.Generator) else v
+    if isinstance(state, torch.Tensor):
+        return state.clone()
+    return type(state)(*map(one, state))
+
+
+def _write_back(buf, new) -> None:
+    """Copy every tensor of the step's new state into the static buffer
+    it replaces (a field the step updated in place is the buffer)."""
+    for b, v in zip(_fields(buf), _fields(new)):
+        if isinstance(b, torch.Tensor) and v is not b:
+            b.copy_(v)
+
+
+class _CapturedRound:
+    """One round of every seed over static buffers: the seeds' own states
+    and generators, the lr tape and the round counter. On the card it is
+    captured once into a CUDA graph and ``__call__`` replays it; on the
+    CPU ``__call__`` runs the closure."""
+
+    def __init__(self, method: str, seeds: list, tape: torch.Tensor,
+                 ctr: torch.Tensor, r: int, device: torch.device):
+        def body(bufs, ctr):
+            lr = tape.index_select(0, ctr).reshape(())
+            auxs = []
+            for sd, (state, gen, cgen) in zip(seeds, bufs):
+                new, aux = sd.round(_at_round(state, r), gen, cgen, lr)
+                _write_back(state, new)
+                auxs.append(aux)
+            ctr.add_(1)
+            return auxs
+
+        real = [(sd.state, sd.gen, sd.cgen) for sd in seeds]
+        self.graph, self.aux = None, None
+        if device.type != "cuda":
+            self._run = lambda: body(real, ctr)
+            return
+        copies = [(_copy_state(st), copy_generator(g),
+                   None if cg is None else copy_generator(cg)) for st, g, cg in real]
+        gens = [g for st, gen, cg in real
+                for g in (gen, cg, *_fields(st)) if isinstance(g, torch.Generator)]
+        out = []
+        try:
+            warm_up(lambda: body(copies, ctr.clone()), device)
+            del copies
+            self.graph = capture(lambda: out.append(body(real, ctr)), gens)
+        except Exception as e:
+            raise RuntimeError(
+                f"scan_rounds: {method!r}'s round (round {r}) could not be "
+                f"captured into a CUDA graph: {e} — RunConfig(scan_rounds="
+                "False) runs the loop engine") from e
+        self.aux = out[0]
+
+    def __call__(self) -> list:
+        """One round; returns each seed's aux (on the card the graph's
+        outputs, overwritten by its next replay)."""
+        if self.graph is None:
+            return self._run()
+        self.graph.replay()
+        return self.aux
+
+
+def _detached(aux):
+    """A graph output's copy that outlives the graph and its pool."""
+    if isinstance(aux, dict):
+        return {k: _detached(v) for k, v in aux.items()}
+    return aux.clone() if isinstance(aux, torch.Tensor) else aux
+
+
+# --------------------------------------------------------------------------
+# The engines
+# --------------------------------------------------------------------------
+
+
+def _after_round(m: Method, seeds: list, r: int, rounds: int, cfg: RunConfig) -> None:
+    """The caller's ``on_round`` hook, then the train-curve evaluation at
+    the ``eval_every`` cadence (and after the last round)."""
+    if cfg.on_round is not None:
+        cfg.on_round(r)
+    if r % cfg.eval_every == 0 or r == rounds - 1:
+        for sd in seeds:
+            acc = m.evaluate(sd.ctx, sd.state, sd.ctx.train, copy_generator(sd.gen))
+            sd.curve.append((r, float(acc.mean())))
+
+
+def _timed(device: torch.device, fn: Callable) -> float:
+    """``fn`` and the wait for the card, in ms, inside a ``ROUND_SPAN``."""
+    synchronize(device)
+    with torch.profiler.record_function(ROUND_SPAN):
+        t = time.perf_counter()
+        fn()
+        synchronize(device)
+        return (time.perf_counter() - t) * 1e3
+
+
+def _loop(m: Method, seeds: list, lrs: torch.Tensor, rounds: int,
+          cfg: RunConfig, device: torch.device) -> dict:
+    def one_round(r):
+        for sd in seeds:
+            sd.state, sd.aux = sd.round(sd.state, sd.gen, sd.cgen, lrs[r])
+
+    round_ms = []
+    for r in range(rounds):
+        round_ms.append(_timed(device, lambda: one_round(r)))
+        _after_round(m, seeds, r, rounds, cfg)
+    return {"round_ms": round_ms, "n_captures": 0,
+            "n_dispatches": rounds * len(seeds)}
+
+
+def _replay(m: Method, seeds: list, lrs: torch.Tensor, rounds: int,
+            cfg: RunConfig, device: torch.device) -> dict:
+    ctr = torch.zeros(1, dtype=torch.int64, device=device)
+    by_branch, round_ms, capture_ms, auxs = {}, [], [], None
+    for r in range(rounds):
+        branch = m.round_branch(seeds[0].ctx, r)
+        if branch not in by_branch:
+            t = time.perf_counter()
+            by_branch[branch] = _CapturedRound(m.name, seeds, lrs, ctr, r, device)
+            capture_ms.append((time.perf_counter() - t) * 1e3)
+        run = by_branch[branch]
+        out = []
+        round_ms.append(_timed(device, lambda: out.append(run())))
+        auxs = out[0]
+        for sd in seeds:
+            sd.state = _at_round(sd.state, r + 1)
+        _after_round(m, seeds, r, rounds, cfg)
+    for sd, aux in zip(seeds, auxs or [None] * len(seeds)):
+        sd.aux = _detached(aux)
+    return {"round_ms": round_ms, "capture_ms": capture_ms,
+            "n_captures": len(by_branch), "n_dispatches": rounds}
+
+
+# --------------------------------------------------------------------------
+# The shared driver
+# --------------------------------------------------------------------------
+
+
+def _result(m: Method, sd: _Seed, acc: torch.Tensor, t0: float,
+            engine: dict) -> RunResult:
+    ctx, state = sd.ctx, sd.state
     comm_model = m.comm_model(ctx)
     if comm_model.kind == "tracked":
         comm = float(state.comm_bytes)
     else:
         comm = comm_model.per_round_bytes * ctx.exp.rounds
-    extras = m.extras(ctx, state, aux)
-    extras["round_ms"] = round_ms
+    extras = m.extras(ctx, state, sd.aux)
+    extras.update(engine)
     if ctx.opt("keep_state"):
         # serve export (experiments/export.py) lifts the cluster plane
         # from the final state through the run's own packing
@@ -104,12 +385,49 @@ def _result(m: Method, ctx: ExperimentContext, state, aux, acc, curve,
         method=m.name, acc_per_client=acc, mean_acc=float(acc.mean()),
         std_acc=float(acc.std()), comm_bytes=comm,
         wire_bytes=_wire_bytes(ctx, comm),
-        curve=curve, wall_s=time.time() - t0, extras=extras,
+        curve=sd.curve, wall_s=time.time() - t0, extras=extras,
     )
 
 
-def _drive(method: str, data: ClientDataset, exp: PaperExpConfig,
-           graph: Graph | None, seed: int, cfg: RunConfig) -> RunResult:
+def _stack_data(data, seeds: tuple, entry: str) -> list:
+    """One dataset per seed: a single ClientDataset is shared; a sequence
+    gives seed i its own (the paper's per-seed-dataset protocol), all of
+    one shape."""
+    if isinstance(data, ClientDataset):
+        return [data] * len(seeds)
+    datasets = list(data)
+    if len(datasets) != len(seeds):
+        raise ValueError(
+            f"{entry}: stacked data: got {len(datasets)} datasets for "
+            f"{len(seeds)} seeds {tuple(seeds)}")
+    for i, d in enumerate(datasets[1:], start=1):
+        if (d.x.shape != datasets[0].x.shape
+                or d.n_classes != datasets[0].n_classes
+                or d.n_clusters != datasets[0].n_clusters):
+            raise ValueError(
+                f"{entry}: stacked datasets must share shapes/classes/"
+                f"clusters (one round runs every seed) — the dataset at "
+                f"seed index {i} (seed {seeds[i]}) differs from seed index 0")
+    return datasets
+
+
+def _stack_graphs(m: Method, graph, seeds: tuple, entry: str):
+    """Per-seed graphs (a sequence in ``graph``): ``(k, N, N)`` adjacencies
+    that ride the step's ``adj``, and the union graph for the context."""
+    if graph is None or isinstance(graph, Graph):
+        return None, graph
+    graphs = list(graph)
+    if len(graphs) != len(seeds):
+        raise ValueError(
+            f"{entry}: per-seed graphs: got {len(graphs)} graphs for "
+            f"{len(seeds)} seeds {tuple(seeds)}")
+    _require_dynamic_graph(m, "per-seed graphs")
+    adj = np.stack([g.adj for g in graphs]).astype(np.float32)
+    return adj, union_graph(adj)
+
+
+def _drive(entry: str, method: str, data, exp: PaperExpConfig, graph,
+           seeds: tuple, cfg: RunConfig) -> list:
     t0 = time.time()
     m = get_method(method)
     options = cfg.resolve_options()
@@ -120,25 +438,35 @@ def _drive(method: str, data: ClientDataset, exp: PaperExpConfig,
                 f"runs {feature} in FedSPD only (the baselines' compressed "
                 "exchange comes later)")
     device = resolve_device(cfg.device)
-    ctx = build_context(data, exp, device, graph=graph, seed=seed,
-                        options=options)
-    gen = make_generator(device, seed)
-    state = m.init(ctx, gen)
-    gen = fork_generator(gen)
-    step = m.make_step(ctx)
-    lrs = _lr_schedule(exp)
-    curve, round_ms, aux = [], [], None
-    for r in range(exp.rounds):
-        synchronize(device)
-        t = time.perf_counter()
-        state, aux = step(state, ctx.train, gen, float(lrs[r]))
-        synchronize(device)
-        round_ms.append((time.perf_counter() - t) * 1e3)
-        if r % cfg.eval_every == 0 or r == exp.rounds - 1:
-            acc = m.evaluate(ctx, state, ctx.train, copy_generator(gen))
-            curve.append((r, float(acc.mean())))
-    acc = m.evaluate(ctx, state, ctx.test, copy_generator(gen))
-    return _result(m, ctx, state, aux, acc, curve, t0, round_ms)
+    datasets = _stack_data(data, seeds, entry)
+    adjs, graph = _stack_graphs(m, graph, seeds, entry)
+    # one graph for every seed: the given one, else the first seed's
+    ctx0 = build_context(datasets[0], exp, device, graph=graph, seed=seeds[0],
+                         options=options)
+    ctxs = [ctx0] + [build_context(d, exp, device, graph=ctx0.graph, seed=s,
+                                   options=options)
+                     for d, s in zip(datasets[1:], seeds[1:])]
+    cohort = cfg.cohort_size
+    if cohort is not None:
+        cohort = int(cohort)
+        if not 0 < cohort <= ctx0.n_clients:
+            raise ValueError(
+                f"{entry}: cohort_size={cohort} must be in 1..N={ctx0.n_clients}")
+        if adjs is None:
+            adjs = np.stack([ctx0.graph.adj] * len(seeds)).astype(np.float32)
+    runs = [_Seed(m, ctx, s, None if adjs is None else
+                  torch.as_tensor(a, dtype=torch.float32, device=device), cohort)
+            for ctx, s, a in zip(ctxs, seeds, adjs if adjs is not None
+                                 else [None] * len(seeds))]
+    lrs = torch.as_tensor(m.lr_schedule(ctx0), device=device)
+    replay = cfg.scan_rounds if cfg.scan_rounds is not None else device.type == "cuda"
+    engine = _replay if replay else _loop
+    stats = engine(m, runs, lrs, exp.rounds, cfg, device)
+    results = []
+    for sd in runs:
+        acc = m.evaluate(sd.ctx, sd.state, sd.ctx.test, copy_generator(sd.gen))
+        results.append(_result(m, sd, acc, t0, dict(stats)))
+    return results
 
 
 def run_method(method: str, data: ClientDataset, exp: PaperExpConfig,
@@ -146,6 +474,28 @@ def run_method(method: str, data: ClientDataset, exp: PaperExpConfig,
                cfg: RunConfig | None = None) -> RunResult:
     """Run one method for ``exp.rounds`` rounds on ``cfg.device`` (the card
     by default; raises ``RuntimeError`` without one unless
-    ``cfg=RunConfig(device="cpu")``)."""
-    return _drive(method, data, exp, graph, seed,
+    ``cfg=RunConfig(device="cpu")``). On the card it replays one captured
+    round (``cfg.scan_rounds=False`` runs the loop); ``cfg.cohort_size``
+    samples K clients a round."""
+    return _drive("run_method", method, data, exp, graph, (int(seed),),
+                  cfg if cfg is not None else RunConfig())[0]
+
+
+def run_method_batch(method: str, data, exp: PaperExpConfig,
+                     seeds=(0, 1, 2), graph=None,
+                     cfg: RunConfig | None = None) -> list[RunResult]:
+    """Run k seeds, each with its own state and generators; returns one
+    RunResult per seed. Seed i's result equals ``run_method(seed=seeds[i])``
+    with the batch's graph and seed i's data, bit for bit, on either
+    engine; replayed, one graph holds every seed's round.
+
+    - shared data and graph (the default): one graph, the first seed's
+      (as the JAX driver builds it), unless ``graph`` is given;
+    - stacked data: ``data`` as a sequence of per-seed ClientDatasets of
+      one shape (the paper's Tables 2–3 protocol);
+    - per-seed graphs: ``graph`` as a sequence (methods with
+      ``supports_dynamic_graph``): seed i's adjacency rides its step's
+      ``adj``, and the context takes the union graph."""
+    return _drive("run_method_batch", method, data, exp, graph,
+                  tuple(int(s) for s in seeds),
                   cfg if cfg is not None else RunConfig())

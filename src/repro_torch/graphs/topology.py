@@ -1,8 +1,9 @@
 """Client communication topologies (numpy only).
 
 A copy of the JAX package's static generators: Erdős–Rényi, Barabási–Albert,
-random geometric, ring and complete graphs, each repaired to be connected.
-The same seed gives the same adjacency, bit for bit.
+random geometric, ring and complete graphs, each repaired to be connected,
+and ``union_graph`` over a stack of adjacencies. The same seed gives the
+same adjacency, bit for bit.
 """
 from __future__ import annotations
 
@@ -156,3 +157,10 @@ def make_graph(kind: str, n: int, avg_degree: float, seed: int = 0) -> Graph:
     if kind == "complete":
         return complete(n)
     raise ValueError(f"unknown graph kind: {kind}")
+
+
+def union_graph(adjs: np.ndarray) -> Graph:
+    """The union over a stack of adjacencies (leading axis: rounds or
+    seeds): what the static wiring of a run whose steps each take one of
+    the stacked adjacencies must cover."""
+    return Graph(_augment(np.asarray(adjs).max(axis=0)))

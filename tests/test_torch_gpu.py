@@ -5,12 +5,15 @@ SSD scan 2e-3 and, on a bf16 y, one bf16 step), the wrappers' checks and launch 
 of the main path through the kernels, a short run of each baseline family
 through its exchange kernel, a short train → export → serve run through
 the dequant kernels, a short run of each codec and sparse path
-through its kernels, and LM generation through kernels 8 and 9.
+through its kernels, LM generation through kernels 8 and 9, and the
+round engines: every path replayed from its captured round
+(``scan_rounds``) equal bit for bit to the eager loop.
 
 Marked ``gpu``: each test asks a fixture for the card and skips without
 one. Run on a machine with an H100: ``python -m pytest -q -m gpu
 tests/test_torch_gpu.py``. This file imports no JAX, so it runs where
 only PyTorch is installed."""
+import dataclasses
 import pathlib
 import re
 
@@ -204,8 +207,10 @@ def test_main_path_launches_one_kernel_per_round(cuda, dp):
                          rounds=3, avg_degree=3.0)
     opts = {"dp_clip": 1.0, "dp_noise_multiplier": 0.5} if dp else {}
     reset_launch_counts()
+    # the loop engine: one launch a call (the default, the replay, is
+    # test_scan_rounds_replay_equals_the_eager_loop's)
     r = run_method("fedspd", data, exp, cfg=RunConfig(gossip_backend="cuda",
-                                                      options=opts))
+                                                      scan_rounds=False, options=opts))
     launched = gossip_mix_fused_dp if dp else gossip_mix_flat
     idle = gossip_mix_flat if dp else gossip_mix_fused_dp
     assert launched.launches == exp.rounds and idle.launches == 0
@@ -267,7 +272,7 @@ def test_baselines_launch_their_exchange_kernel_once_per_round(cuda, method, ker
     exp = PaperExpConfig(n_clients=8, n_per_client=64, dim=16, n_classes=4,
                          rounds=3, avg_degree=3.0)
     reset_launch_counts()
-    r = run_method(method, data, exp)
+    r = run_method(method, data, exp, cfg=RunConfig(scan_rounds=False))
     assert kernel.launches == exp.rounds
     other = gossip_mix_flat if kernel is gossip_mix_stack else gossip_mix_stack
     assert other.launches == 0
@@ -530,7 +535,7 @@ def test_codec_and_sparse_paths_launch_their_kernels(cuda, label, kw, want):
     exp = PaperExpConfig(n_clients=8, n_per_client=64, dim=16, n_classes=4,
                          rounds=3, avg_degree=3.0)
     reset_launch_counts()
-    r = run_method("fedspd", data, exp, cfg=RunConfig(**kw))
+    r = run_method("fedspd", data, exp, cfg=RunConfig(scan_rounds=False, **kw))
     counts = {k.__name__: k.launches for k in KERNELS}
     expect = {k: exp.rounds * want.get(k, 0) for k in counts}
     assert counts == expect, label
@@ -715,3 +720,108 @@ def test_lm_generate_runs_the_kernels_and_matches_the_cpu(cuda, arch, launches, 
         kernel = ssd_scan if cfg.family == "ssm" else flash_attention
         assert kernel.launches == (cfg.n_layers * launches if dev == "cuda" else 0)
     assert torch.equal(toks["cpu"], toks["cuda"])
+
+
+# the round engines: the card's default engine replays one captured round
+# (a CUDA graph for each host-side branch); every path the loop runs must
+# capture and replay to the loop's bits, and its replays must launch as
+# many exchange kernels as the loop's counters (counted in the trace)
+ENGINE_DP = {"dp_clip": 1.0, "dp_noise_multiplier": 0.5}
+ENGINE_PATHS = {
+    "fedspd": ("fedspd", {}),
+    "fedspd-dp": ("fedspd", dict(options=ENGINE_DP)),
+    "fedspd-int8-ef": ("fedspd", dict(comm=INT8)),
+    "fedspd-int4-ef": ("fedspd", dict(comm=CommConfig(codec="int4", error_feedback=True))),
+    "fedspd-topk-ef": ("fedspd", dict(comm=CommConfig(codec="topk", error_feedback=True))),
+    "fedspd-int8-dp": ("fedspd", dict(comm=INT8, options=ENGINE_DP)),
+    "fedspd-sparse": ("fedspd", dict(sparse=SP)),
+    "fedspd-sparse-random": ("fedspd", dict(sparse=SparseConfig(
+        density=0.25, prune_rate=0.3, regrow="random", update_every=2))),
+    "fedspd-sparse-int8-ef": ("fedspd", dict(sparse=SP, comm=INT8)),
+    "fedspd-sparse-dp": ("fedspd", dict(sparse=SP, options=ENGINE_DP)),
+    "fedspd-cohort": ("fedspd", dict(cohort_size=5)),
+    "fedspd-cohort-sparse": ("fedspd", dict(cohort_size=5, sparse=SP)),
+    **{m: (m, {}) for m in ("local", "dfl_fedavg", "cfl_fedavg", "dfl_fedem", "cfl_fedem",
+                            "dfl_ifca", "cfl_ifca", "dfl_fedsoft", "cfl_fedsoft",
+                            "dfl_pfedme", "cfl_pfedme")},
+}
+
+
+def _engine_setup():
+    data = make_mixture_classification(n_clients=8, n_per_client=64, dim=16, n_classes=4)
+    exp = PaperExpConfig(n_clients=8, n_per_client=64, dim=16, n_classes=4, rounds=4,
+                         avg_degree=3.0)
+    return data, exp
+
+
+def _state_tensors(state):
+    fields = (state,) if isinstance(state, torch.Tensor) else tuple(state)
+    return [v for v in fields if isinstance(v, torch.Tensor)]
+
+
+def _assert_same_run(a, b):
+    assert (a.acc_per_client == b.acc_per_client).all()
+    assert a.curve == b.curve
+    assert a.comm_bytes == b.comm_bytes and a.wire_bytes == b.wire_bytes
+    if "u" in a.extras:
+        assert (a.extras["u"] == b.extras["u"]).all()
+    for x, y in zip(_state_tensors(a.extras["state"]), _state_tensors(b.extras["state"])):
+        assert torch.equal(x, y)
+
+
+def _replayed_exchange_kernels(prof) -> list:
+    """Each round's exchange kernels (kernels 1-6) in a profiled run: the
+    kernels of the graph launches inside one of the runner's ROUND_SPAN
+    spans, matched by the runtime's correlation id."""
+    from repro_torch.experiments.runner import ROUND_SPAN
+
+    events = prof.events()
+    spans = [e.time_range for e in events
+             if e.name == ROUND_SPAN and e.device_type.name == "CPU"]
+    launch = {e.id: i for e in events if e.name == "cudaGraphLaunch"
+              for i, t in enumerate(spans) if t.start <= e.time_range.start <= t.end}
+    per_round = [0] * len(spans)
+    for e in events:
+        if (e.device_type.name == "CUDA" and e.id in launch
+                and ("mix_kernel" in e.name or "mix_dequant_kernel" in e.name)):
+            per_round[launch[e.id]] += 1
+    return per_round
+
+
+@pytest.mark.parametrize("label", list(ENGINE_PATHS))
+def test_scan_rounds_replay_equals_the_eager_loop(cuda, label):
+    method, kw = ENGINE_PATHS[label]
+    kw = dict(kw, options=dict(kw.get("options", {}), keep_state=True))
+    data, exp = _engine_setup()
+    reset_launch_counts()
+    loop = run_method(method, data, exp, cfg=RunConfig(eval_every=1, scan_rounds=False, **kw))
+    counts = {k.__name__: k.launches for k in KERNELS}
+    # the default engine on the card: the replay
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        scan = run_method(method, data, exp, cfg=RunConfig(eval_every=1, **kw))
+    _assert_same_run(loop, scan)
+    per_round = _replayed_exchange_kernels(prof)
+    assert len(per_round) == exp.rounds and sum(per_round) == sum(counts.values())
+    # local and FedSoft (a torch.matmul aggregation) launch no kernel
+    assert (sum(counts.values()) > 0) == (method not in ("local", "dfl_fedsoft",
+                                                         "cfl_fedsoft"))
+    assert scan.extras["n_dispatches"] == exp.rounds
+    # the sparse paths' masks update at round 2: a second graph
+    assert scan.extras["n_captures"] == (2 if "sparse" in label else 1)
+
+
+def test_batch_replay_equals_each_seed_run(cuda):
+    """One graph holds every seed's round; each seed equals its own eager
+    run (per-seed graphs ride the step's adjacency)."""
+    from repro_torch.experiments import run_method_batch
+    from repro_torch.graphs.topology import make_graph
+
+    data, exp = _engine_setup()
+    graphs = [make_graph("er", 8, 3.0, seed=s) for s in (4, 5)]
+    cfg = RunConfig(eval_every=1, scan_rounds=False, options={"keep_state": True})
+    batch = run_method_batch("fedspd", data, exp, seeds=(0, 1), graph=graphs,
+                             cfg=dataclasses.replace(cfg, scan_rounds=True))
+    assert batch[0].extras["n_captures"] == 1
+    for s, g, r in zip((0, 1), graphs, batch):
+        _assert_same_run(run_method("fedspd", data, exp, graph=g, seed=s, cfg=cfg), r)

@@ -22,7 +22,7 @@ from repro_torch.core.packing import make_pack_spec, pack, unpack
 from repro_torch.core.sparse import SparseConfig
 from repro_torch.data.synthetic import make_mixture_classification
 from repro_torch.device import resolve_device
-from repro_torch.experiments import RunConfig, run_method
+from repro_torch.experiments import RunConfig, run_method, run_method_batch
 from repro_torch.graphs.topology import make_graph
 from repro_torch.interop import params_from_numpy
 
@@ -129,8 +129,9 @@ def test_run_method_without_device_raises_on_a_host_without_cuda():
     assert resolve_device("cpu").type == "cpu"
 
 
-# what = "comm" / "sparse": a feature refused until its slice, which now
-# runs; any other: the refusal's message names it
+# what = "comm" / "sparse" / "cohort_size" / "scan_rounds": a feature
+# refused until its slice, which now runs; any other: the refusal's
+# message names it
 @pytest.mark.parametrize("cfg,what", [
     (RunConfig(param_plane=False), "param_plane"),
     (RunConfig(gossip_mode="permute"), "permute"),
@@ -156,13 +157,13 @@ def test_unported_features_are_refused(cfg, what):
         r = run_method("fedspd", data, PaperExpConfig(rounds=2), cfg=cfg)
         assert np.isfinite(r.mean_acc) and 0 < r.wire_bytes < r.comm_bytes
         return
+    if what in ("cohort_size", "scan_rounds"):
+        r = run_method("fedspd", data, PaperExpConfig(rounds=2), cfg=cfg)
+        assert np.isfinite(r.mean_acc) and r.comm_bytes > 0
+        assert r.extras["n_captures"] == (what == "scan_rounds")
+        return
     with pytest.raises(ValueError, match=what):
         run_method("fedspd", data, PaperExpConfig(rounds=1), cfg=cfg)
-
-
-def _run_batch():
-    """The port has no multi-seed batch driver yet: the import fails."""
-    from repro_torch.experiments import run_method_batch  # noqa: F401
 
 
 @pytest.mark.parametrize("case", ["dfl_fedavg-comm", "fedspd_permute",
@@ -172,11 +173,14 @@ def test_unported_method_ids_are_refused(case):
     """What the slices so far leave out stays refused, naming itself: the
     permute wiring's id, a wire codec or sparse masks on a baseline (the
     JAX baselines would ignore ``sparse`` and still charge sparse wire
-    bytes), and the multi-seed batch driver."""
+    bytes), and per-seed graphs in the multi-seed batch driver on a
+    baseline (its step takes no per-round adjacency)."""
     data = make_mixture_classification(n_clients=4, n_per_client=16)
     if case == "run_method_batch":
-        with pytest.raises(ImportError, match="run_method_batch"):
-            _run_batch()
+        graphs = [make_graph("er", 4, 2.0, seed=s) for s in (0, 1)]
+        with pytest.raises(ValueError, match="dfl_fedavg.*per-seed graphs"):
+            run_method_batch("dfl_fedavg", data, PaperExpConfig(rounds=1), seeds=(0, 1),
+                             graph=graphs, cfg=RunConfig(device="cpu"))
         return
     method, cfg, what = {
         "dfl_fedavg-comm": ("dfl_fedavg", RunConfig(device="cpu",
