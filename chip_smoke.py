@@ -132,14 +132,24 @@ Phases, in order; any failure exits non-zero before the result line:
    512, 16 greedy tokens, every launch counter set to 0 just before each
    ``generate`` and read just after (one ``flash_attention`` launch per
    olmo layer, three ``ssd_scan`` launches per mamba2 layer, one dequant
-   launch per int8/int4 call), the int8/int4 mix kernel's device time at
-   that shape beside its bound; the tokens against the same card's tokens
-   through the plain versions of kernels 8 and 9 (where a bf16 near-tie
-   flips one, the logit gap at that step must be under 5e-2 or two bf16
-   steps at the logits' magnitude); prefill and decode times, plane bytes
-   and peak memory; a torch.profiler window over one 4-token generate per
-   model (int8): device time by kernel and the busy share; then ``python
-   -m repro_torch.launch.serve`` once.
+   launch per int8/int4 call: the mix and the prefill stay eager, the
+   decode tokens are replays of the server's captured CUDA graph);
+   the captured generate's tokens and last logits against the eager
+   decode's (``decode_eager``: the same steps launched one by one), bit
+   for bit; ``n_compiles`` 2 after calls of two shape keys (gen 1 and
+   16); decode ms a token of both engines (the card's clock between CUDA
+   events around the 16 tokens of a call, median of 3 calls), prefill ms
+   (a 1-token call less a token), tok/s, the capture's ms; the int8/int4 mix
+   kernel's device time at that shape beside its bound and ``torch.matmul``
+   of u by the fp32-decoded plane; the tokens against the same card's
+   tokens through the plain versions of kernels 8 and 9 (where a bf16
+   near-tie flips one, the logit gap at that step must be under 5e-2 or
+   two bf16 steps at the logits' magnitude); plane bytes and peak memory;
+   then per model (int8) one 16-token generate and one eager decode under
+   torch.profiler, cut into their decode tokens (the server's
+   ``DECODE_SPAN``): device ms and kernels a token, and each engine's busy
+   share (device ms a token over its unprofiled decode ms a token); then
+   ``python -m repro_torch.launch.serve`` once.
 
 It then prints one ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line. Needs one card and no network; it
@@ -778,23 +788,25 @@ def _same_run(torch, a, b) -> list:
     return diff
 
 
-def _round_kernels(prof) -> list:
+def _round_kernels(prof, span: str | None = None) -> list:
     """Each round's device work in a profiled run, in round order: the
     device events whose launch (a CUDA runtime call on the host: a replay's
     ``cudaGraphLaunch``, a step's kernel launches and copies) falls inside
-    one of the runner's ROUND_SPAN spans, matched by the runtime's
-    correlation id (both sides on their own clock)."""
+    one of the runner's ROUND_SPAN spans (or ``span``'s: the server's
+    decode tokens), matched by the runtime's correlation id (both sides on
+    their own clock)."""
     import bisect
 
     from repro_torch.experiments.runner import ROUND_SPAN
 
+    span = span or ROUND_SPAN
     events = prof.events()
     by_id: dict = {}
     for e in events:
-        if e.device_type.name == "CUDA" and e.name != ROUND_SPAN:
+        if e.device_type.name == "CUDA" and e.name != span:
             by_id.setdefault(e.id, []).append(e)
     spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.name == ROUND_SPAN and e.device_type.name == "CPU")
+                   if e.name == span and e.device_type.name == "CPU")
     starts = [a for a, _ in spans]
     windows = [[] for _ in spans]
     for e in events:
@@ -1470,7 +1482,7 @@ def _first_flip(torch, server, bundle, u, prompts, got, want) -> tuple[str, floa
                                          bundle.cfg.compute_dtype_torch())
         cache = bundle.init_cache(b, lp + LM_GEN + 1, device=prompts.device)
         cache = bundle.prefill(params, {"tokens": prompts}, cache)
-        cache["pos"] = lp - 1
+        cache["pos"].fill_(lp - 1)
         logits, cache = bundle.decode_step(params, cache, prompts[:, -1:])
         for i in range(step):
             logits, cache = bundle.decode_step(params, cache, got[:, i:i + 1].long())
@@ -1482,73 +1494,216 @@ def _first_flip(torch, server, bundle, u, prompts, got, want) -> tuple[str, floa
             f"{a:.4g}, {b_:.4g}; two bf16 steps {steps:.4g})", gap / max(BF16_GAP, steps))
 
 
-def phase_lm_serve(torch, gm) -> dict:
-    """The fifth path: LM generation at full width. Returns the launches
-    summed over its generate calls (every kernel, kernels 8 and 9
-    included)."""
+def _lm_server(torch, arch: str, codec: str, gen: int = LM_GEN):
+    """(arch config, bundle, server, u, prompts): ``launch/serve``'s random
+    S = 2 plane of ``arch`` at full width in ``codec``, B = LM_B requests
+    with their own mixtures, prompts of LM_PROMPT tokens from seed 0."""
     import numpy as np
 
     from repro_torch.core.packing import make_pack_spec
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.launch import serve as launch_serve
     from repro_torch.models.registry import build_model
     from repro_torch.serve import ServeConfig
 
+    cfg = ServeConfig(arch=arch, smoke=False, batch=LM_B, prompt_len=LM_PROMPT, gen=gen,
+                      codec=codec, mixture=np.array(LM_MIXTURE, np.float32)).resolve()
+    arch_cfg = cfg.arch_config()
+    bundle = build_model(arch_cfg, attn_mode="cuda")
+    spec = make_pack_spec(bundle.init(None))
+    check(spec.size == LM_ARCHS[arch], f"{arch}: X = {spec.size}, expected {LM_ARCHS[arch]}")
+    dev = torch.device("cuda")
+    server, u = launch_serve.build_server(cfg, bundle, spec, device=dev)
+    prompts = torch.randint(0, arch_cfg.vocab, (LM_B, LM_PROMPT),
+                            generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    return arch_cfg, bundle, server, torch.as_tensor(u, device=dev), prompts
+
+
+def _eager_params(torch, server, u):
+    """The compute-cast personalized leaves, as the server cast them per
+    call before its decode was captured (the eager decode's weights)."""
+    from repro_torch.models.layers import cast_params_for_compute
+
+    return cast_params_for_compute(server.personalized(u),
+                                   server.bundle.cfg.compute_dtype_torch())
+
+
+def _median_ms(torch, fn, reps: int = 3) -> float:
+    return statistics.median(_timed_call(torch, fn) for _ in range(reps))
+
+
+class _TokenClock:
+    """CUDA events on the card's timeline around the decode tokens of one
+    call: one recorded before the first token, one after each."""
+
+    def __init__(self, torch):
+        self.torch, self.events = torch, []
+
+    def mark(self) -> None:
+        ev = self.torch.cuda.Event(enable_timing=True)
+        ev.record()
+        self.events.append(ev)
+
+    def ms_per_token(self) -> float:
+        self.torch.cuda.synchronize()
+        return self.events[0].elapsed_time(self.events[-1]) / (len(self.events) - 1)
+
+
+def _captured_call(server, u, prompts):
+    """``run(gen, clock)`` for the server's captured generate: with a
+    clock, the replays of the LM_GEN-token key's graph are marked."""
+    def run(gen, clock=None):
+        if clock is None:
+            return server.generate(u, prompts, gen=gen)
+        engine = server.engines[(LM_B, LM_PROMPT, gen, 0.0)]
+        graph = engine.graph
+
+        class Marked:
+            def replay(self):
+                if not clock.events:
+                    clock.mark()
+                graph.replay()
+                clock.mark()
+
+        engine.graph = Marked()
+        try:
+            return server.generate(u, prompts, gen=gen)
+        finally:
+            engine.graph = graph
+
+    return run
+
+
+def _eager_call(bundle, params, prompts):
+    """``run(gen, clock)`` for ``decode_eager``: with a clock, its decode
+    steps are marked (the last token's argmax falls outside the marks)."""
+    from repro_torch.serve.server import decode_eager
+
+    def run(gen, clock=None):
+        if clock is None:
+            return decode_eager(bundle, params, prompts, gen=gen)
+
+        def step(p, c, t):
+            if not clock.events:
+                clock.mark()
+            out = bundle.decode_step(p, c, t)
+            clock.mark()
+            return out
+
+        return decode_eager(dataclasses.replace(bundle, decode_step=step), params, prompts,
+                            gen=gen)
+
+    return run
+
+
+def _decode_ms(torch, run) -> tuple[float, float, float]:
+    """(prefill ms, decode ms a token, ms of the LM_GEN-token call) of an
+    engine's ``run``, medians of 3: the decode ms a token by the card's
+    clock between the marks around the tokens of an LM_GEN-token call (a
+    host that falls behind shows as gaps), the call's ms by the host's to
+    device completion, and the prefill ms that of a 1-token call (the mix,
+    the prefill and the re-score of the last prompt token) less a token."""
+    one = _median_ms(torch, lambda: run(1))
+    fulls, tokens = [], []
+    for _ in range(3):
+        clock = _TokenClock(torch)
+        fulls.append(_timed_call(torch, lambda: run(LM_GEN, clock)))
+        tokens.append(clock.ms_per_token())
+    decode = statistics.median(tokens)
+    return one - decode, decode, statistics.median(fulls)
+
+
+def _free(torch) -> None:
+    """Return the freed servers' memory (their graphs' pools among it) to
+    the card, so that the next server starts from an empty cache."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def _decoded_plane(torch, server):
+    """The server's int8 / int4 plane decoded to fp32 ``(S, Xp)`` (the
+    library yardstick's operand)."""
+    from repro_torch.comm.codecs import int4_unpack
+
+    sc, qb = server.plane_scale, server.qblock
+    xp = sc.shape[1] * qb
+    plane = torch.empty((sc.shape[0], xp), dtype=torch.float32, device=sc.device)
+    for s in range(sc.shape[0]):     # a row at a time: the int4 unpack is int32-wide
+        q = server.plane_q[s] if server.codec == "int8" else int4_unpack(
+            server.plane_packed[s], xp)
+        plane[s].view(-1, qb).copy_(q.view(-1, qb)).mul_(sc[s, :, None])
+    return plane
+
+
+def phase_lm_serve(torch, gm) -> dict:
+    """The fifth path: LM generation at full width, the server's captured
+    decode beside the eager decode. Returns the launches summed over the
+    counted generate calls (every kernel, kernels 8 and 9 included)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.serve.server import decode_eager
+
     kernels = gm.KERNELS + (flash_attention, ssd_scan)
     total = {k.__name__: 0 for k in kernels}
-    dev = torch.device("cuda")
-    for arch, x_want in LM_ARCHS.items():
-        cfg0 = ServeConfig(arch=arch, smoke=False, batch=LM_B, prompt_len=LM_PROMPT,
-                           gen=LM_GEN, mixture=np.array(LM_MIXTURE, np.float32)).resolve()
-        arch_cfg = cfg0.arch_config()
-        bundle = build_model(arch_cfg, attn_mode="cuda")
-        spec = make_pack_spec(bundle.init(None))
-        check(spec.size == x_want, f"{arch}: X = {spec.size}, expected {x_want}")
-        prompts = torch.randint(0, arch_cfg.vocab, (LM_B, LM_PROMPT),
-                                generator=torch.Generator(device=dev).manual_seed(0),
-                                device=dev)
-        kernel, per_layer = ((ssd_scan, 3) if arch_cfg.family == "ssm"
-                             else (flash_attention, 1))
+    for arch in LM_ARCHS:
         for codec in ("fp32", "int8", "int4"):
-            cfg = dataclasses.replace(cfg0, codec=codec)
-            torch.cuda.empty_cache()
+            _free(torch)
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            server, u = launch_serve.build_server(cfg, bundle, spec, device=dev)
+            arch_cfg, bundle, server, u, prompts = _lm_server(torch, arch, codec)
             torch.cuda.synchronize()
             build_s = time.perf_counter() - t0
+            kernel, per_layer = ((ssd_scan, 3) if arch_cfg.family == "ssm"
+                                 else (flash_attention, 1))
             server.generate(u, prompts, gen=1)                       # first use
             for k in kernels:
                 k.launches = 0
-            toks = server.generate(u, prompts, gen=LM_GEN)
+            toks = server.generate(u, prompts, gen=LM_GEN)           # captures its key
             counts = {k.__name__: k.launches for k in kernels}
             for name, c in counts.items():
                 total[name] += c
-            gen_ms = server.latency.latencies_s[-1] * 1e3
             peak = torch.cuda.max_memory_allocated()
-            # a generate of one token is the mix, the prefill and the
-            # re-score of the last prompt token; the other 15 are decodes
-            one_ms = _timed_generate(server, u, prompts, 1)
-            decode_ms = (gen_ms - one_ms) / (LM_GEN - 1)
-            mix_ms = _timed_call(torch, lambda: server.personalized(u))
+            engine = server.engines[(LM_B, LM_PROMPT, LM_GEN, 0.0)]
+            prefill_ms, decode_ms, gen_ms = _decode_ms(torch, _captured_call(server, u, prompts))
+            check(server.n_compiles == 2,
+                  f"lm serve {arch} {codec}: n_compiles {server.n_compiles} after calls "
+                  "of two shape keys (gen 1 and 16), expected 2")
+            mix_ms = _median_ms(torch, lambda: server.personalized(u))
+            # the eager decode: the same steps launched one by one
+            params = _eager_params(torch, server, u)
+            eager, last = decode_eager(bundle, params, prompts, gen=LM_GEN)
+            check(torch.equal(toks, eager),
+                  f"lm serve {arch} {codec}: captured tokens {toks.tolist()} differ from the "
+                  f"eager decode's {eager.tolist()}")
+            check(torch.equal(engine.logits, last),
+                  f"lm serve {arch} {codec}: the captured decode's last logits differ from "
+                  "the eager decode's")
+            _, e_decode_ms, e_gen_ms = _decode_ms(torch, _eager_call(bundle, params, prompts))
+            del params, eager, last
             mix_dev = ""
             if codec != "fp32":
                 # kernel 4 / 7 alone at the LM mix shape (device ms by CUDA
-                # events, after the launches above were read), beside its bound
-                ut = torch.as_tensor(np.asarray(u, np.float32), device=dev)
+                # events, after the launches above were read), beside its
+                # bound and torch.matmul of u by the fp32-decoded plane
                 sc = server.plane_scale
                 xp = sc.shape[1] * server.qblock
                 if codec == "int8":
                     mix_name, mix = "gossip_mix_dequant", lambda: gm.gossip_mix_dequant(
-                        ut, server.plane_q, sc, qblock=server.qblock)
+                        u, server.plane_q, sc, qblock=server.qblock)
                 else:
                     mix_name, mix = "mixture_mix_dequant4", lambda: gm.mixture_mix_dequant4(
-                        ut, server.plane_packed, sc, qblock=server.qblock)
+                        u, server.plane_packed, sc, qblock=server.qblock)
                 b_ms, b_by = bound(sc.shape[0], xp, mix_name, m=LM_B, qblock=server.qblock)
-                mix_dev = (f"mix_device_ms {time_ms(mix, 3):.3f} mix_bound_ms {b_ms:.3f} "
-                           f"({b_by}, {mix_name}, B={LM_B} S={sc.shape[0]} Xp={xp}) ")
-                del ut
+                mix_ms_dev = time_ms(mix, 3)
+                decoded = _decoded_plane(torch, server)
+                lib_ms = time_ms(lambda: torch.matmul(u, decoded), 3)
+                mix_dev = (f"mix_device_ms {mix_ms_dev:.3f} mix_bound_ms {b_ms:.3f} "
+                           f"mix_library_ms {lib_ms:.3f} (torch.matmul of u by the "
+                           f"fp32-decoded plane; {b_by}, {mix_name}, B={LM_B} "
+                           f"S={sc.shape[0]} Xp={xp}) ")
+                del mix, decoded
             with _PlainLMKernels():
                 plain = server.generate(u, prompts, gen=LM_GEN)
             verdict, gap_ratio = _first_flip(torch, server, bundle, u, prompts, toks, plain)
@@ -1558,12 +1713,17 @@ def phase_lm_serve(torch, gm) -> dict:
                 want["gossip_mix_dequant"] = 1
             if codec == "int4":
                 want["mixture_mix_dequant4"] = 1
-            print(f"lm serve {arch} {codec}: prefill_ms {one_ms - decode_ms:.3f} "
-                  f"decode_ms_per_token {decode_ms:.4f} tok_s {LM_B * LM_GEN / gen_ms * 1e3:.1f} "
-                  f"generate_ms {gen_ms:.3f} (B={LM_B}, prompt {LM_PROMPT}, gen {LM_GEN}) "
-                  f"mix_ms {mix_ms:.3f} {mix_dev}plane_bytes {server.plane_bytes} "
-                  f"max_memory_allocated {peak} build_s {build_s:.2f} tokens vs plain: "
-                  f"{verdict} launches {json.dumps(counts)} tokens[0] "
+            print(f"lm serve {arch} {codec}: prefill_ms {prefill_ms:.3f} "
+                  f"decode_ms_per_token {decode_ms:.4f} eager_decode_ms_per_token "
+                  f"{e_decode_ms:.4f} decode_tok_s {LM_B / decode_ms * 1e3:.1f} eager_decode_tok_s "
+                  f"{LM_B / e_decode_ms * 1e3:.1f} tok_s {LM_B * LM_GEN / gen_ms * 1e3:.1f} "
+                  f"eager_tok_s {LM_B * LM_GEN / (mix_ms + e_gen_ms) * 1e3:.1f} "
+                  f"generate_ms {gen_ms:.3f} "
+                  f"(B={LM_B}, prompt {LM_PROMPT}, gen {LM_GEN}; medians of 3) capture_ms "
+                  f"{engine.capture_ms:.1f} n_compiles {server.n_compiles} mix_ms {mix_ms:.3f} "
+                  f"{mix_dev}plane_bytes {server.plane_bytes} max_memory_allocated {peak} "
+                  f"build_s {build_s:.2f} captured vs eager: equal tokens and last logits; "
+                  f"tokens vs plain: {verdict} launches {json.dumps(counts)} tokens[0] "
                   f"{json.dumps(toks[0].tolist())}", flush=True)
             check(tuple(toks.shape) == (LM_B, LM_GEN) and int(toks.min()) >= 0
                   and int(toks.max()) < arch_cfg.vocab,
@@ -1571,59 +1731,63 @@ def phase_lm_serve(torch, gm) -> dict:
             check(counts == want, f"lm serve {arch} {codec}: launches {counts}, expected {want}")
             check(gap_ratio <= 1.0, f"lm serve {arch} {codec}: kernel and plain tokens "
                                     f"differ, {verdict}: not a bf16 near-tie")
-            del server, toks, plain
-        del bundle
-        torch.cuda.empty_cache()
+            del server, engine, toks, plain, bundle
+    _free(torch)
     return total
 
 
+def _span_profile(torch, prof, wall_ms: float) -> dict:
+    """The decode tokens of a profiled run (``DECODE_SPAN``): device ms and
+    kernels a token (medians), the busy share against ``wall_ms``, the
+    unprofiled decode ms a token, and the kernels of all tokens by time."""
+    from repro_torch.serve.server import DECODE_SPAN
+
+    windows = _round_kernels(prof, DECODE_SPAN)
+    check(len(windows) == LM_GEN and all(windows),
+          f"lm profile: {len(windows)} decode spans with device work, expected {LM_GEN}")
+    dev = statistics.median(sum(k.time_range.elapsed_us() for k in w) / 1e3 for w in windows)
+    by_name: dict = {}
+    for w in windows:
+        for k in w:
+            by_name[k.name] = by_name.get(k.name, 0.0) + k.time_range.elapsed_us() / 1e3
+    return {"device_ms": dev, "kernels": statistics.median(len(w) for w in windows),
+            "busy": dev / wall_ms,
+            "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:8]}
+
+
 def phase_lm_profile(torch) -> None:
-    """Where a generate's time goes: one 4-token int8 generate per LM
-    model under torch.profiler, after one unprofiled."""
-    import numpy as np
-    from torch.profiler import ProfilerActivity, profile
+    """Where a decode token's time goes: one LM_GEN-token int8 generate of
+    each LM model under torch.profiler, captured (each token one replay)
+    and eager, its tokens cut out by their ``DECODE_SPAN``; each engine's
+    device ms a token over its unprofiled decode ms a token (medians of 3
+    in the same phase) is its busy share."""
+    from repro_torch.serve.server import decode_eager
 
-    from repro_torch.core.packing import make_pack_spec
-    from repro_torch.launch import serve as launch_serve
-    from repro_torch.models.registry import build_model
-    from repro_torch.serve import ServeConfig
-
-    dev = torch.device("cuda")
     for arch in LM_ARCHS:
-        cfg = ServeConfig(arch=arch, smoke=False, batch=LM_B, prompt_len=LM_PROMPT, gen=4,
-                          codec="int8", mixture=np.array(LM_MIXTURE, np.float32)).resolve()
-        bundle = build_model(cfg.arch_config(), attn_mode="cuda")
-        spec = make_pack_spec(bundle.init(None))
-        server, u = launch_serve.build_server(cfg, bundle, spec, device=dev)
-        prompts = torch.randint(0, cfg.arch_config().vocab, (LM_B, LM_PROMPT), device=dev,
-                                generator=torch.Generator(device=dev).manual_seed(0))
-        server.generate(u, prompts, gen=4)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            server.generate(u, prompts, gen=4)
-        wall_ms = server.latency.latencies_s[-1] * 1e3
-        kern = sorted((e for e in prof.key_averages() if e.device_type.name == "CUDA"),
-                      key=lambda e: -e.self_device_time_total)
-        check(bool(kern), "lm profile: the profiler recorded no device kernel")
-        dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
-        print(f"lm profile {arch} int8 gen 4: device_ms {dev_ms:.3f} kernels "
-              f"{sum(e.count for e in kern)} profiled generate_ms {wall_ms:.3f} "
-              f"device_busy_share {dev_ms / wall_ms:.4f}", flush=True)
-        for e in kern[:12]:
-            print(f"lm profile {arch} kernel {e.self_device_time_total / 1e3:.4f} ms "
-                  f"x{e.count} {e.key[:100]}", flush=True)
-        for e in kern:   # the port's own LM kernels, wherever they rank
-            if any(k in e.key for k in ("flash_mma_kernel", "flash_kernel", "ssd_")):
-                print(f"lm profile {arch} port kernel {e.self_device_time_total / 1e3:.4f} "
-                      f"ms x{e.count} {e.key[:100]}", flush=True)
-        ops = sorted((e for e in prof.key_averages()
-                      if e.device_type.name == "CPU" and e.key.startswith("aten::")),
-                     key=lambda e: -e.device_time_total)
-        for e in ops[:10]:
-            print(f"lm profile {arch} op {e.device_time_total / 1e3:.4f} device ms "
-                  f"{e.cpu_time_total / 1e3:.4f} cpu ms x{e.count} {e.key}", flush=True)
-        del server, bundle
-        torch.cuda.empty_cache()
+        _free(torch)
+        _, bundle, server, u, prompts = _lm_server(torch, arch, "int8")
+        for g in (1, LM_GEN):          # each key's first call captures its decode
+            server.generate(u, prompts, gen=g)
+        _, decode_ms, _ = _decode_ms(torch, _captured_call(server, u, prompts))
+        with _profiler() as prof:
+            server.generate(u, prompts, gen=LM_GEN)
+        cap = _span_profile(torch, prof, decode_ms)
+        params = _eager_params(torch, server, u)
+        _, e_decode_ms, _ = _decode_ms(torch, _eager_call(bundle, params, prompts))
+        with _profiler() as prof:
+            decode_eager(bundle, params, prompts, gen=LM_GEN)
+            torch.cuda.synchronize()
+        eager = _span_profile(torch, prof, e_decode_ms)
+        for label, p, ms in (("captured", cap, decode_ms), ("eager", eager, e_decode_ms)):
+            print(f"lm profile {arch} int8 {label} decode (gen {LM_GEN}, B={LM_B}): "
+                  f"device_ms_per_token {p['device_ms']:.4f} kernels_per_token "
+                  f"{p['kernels']} decode_ms_per_token {ms:.4f} (unprofiled, median of 3) "
+                  f"device_busy_share {p['busy']:.4f}", flush=True)
+        for name, ms in cap["top"]:
+            print(f"lm profile {arch} captured kernel {ms / LM_GEN:.4f} ms a token "
+                  f"{name[:100]}", flush=True)
+        del server, bundle, params
+    _free(torch)
 
 
 def _timed_call(torch, fn) -> float:
@@ -1633,11 +1797,6 @@ def _timed_call(torch, fn) -> float:
     fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3
-
-
-def _timed_generate(server, u, prompts, gen: int) -> float:
-    server.generate(u, prompts, gen=gen)
-    return server.latency.latencies_s[-1] * 1e3
 
 
 def phase_lm_cli() -> None:

@@ -8,7 +8,9 @@
   routes to the same flash function.
 - ``decode_attention``: one query token against a KV cache, plain PyTorch
   (the JAX package runs it outside Pallas too), through the stable
-  softmax partials (m, l, o).
+  softmax partials (m, l, o). The token's position is a 0-dim device
+  tensor (or a Python int) and is never read on the host, so the step can
+  be captured into a CUDA graph.
 
 All take GQA-layout tensors: q ``(B, Lq, Hq, hd)``, k/v ``(B, Lkv, Hkv,
 hd)`` with Hq = G·Hkv. Windows are static Python ints here: the port runs
@@ -79,7 +81,8 @@ def decode_attention_parts(q, k_cache, v_cache, positions, cur_pos,
                            window: int | None = None):
     """Stable-softmax partials (m, l, o) over this cache (shard): q ``(B, 1,
     Hq, hd)``, caches ``(B, Lc, Hkv, hd)``, positions ``(Lc,)`` the cache
-    rows' positions, cur_pos the new token's position.
+    rows' positions, cur_pos the new token's position (a 0-dim tensor on
+    the caches' device, or an int).
 
     Shards combine with: M = max m; l' = Σ l·e^{m−M}; o' = Σ o·e^{m−M}."""
     hd = q.shape[-1]

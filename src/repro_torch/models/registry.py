@@ -9,8 +9,12 @@ The JAX package's ``models/registry.py`` for the families the port has:
     per_example_loss(params, batch) -> (B,)      (FedSPD clustering step)
     forward(params, batch) -> (logits, aux)      (prefill/eval)
     init_cache(batch, max_len, *, device) -> cache
-    prefill(params, batch, cache) -> cache       (fills KV / SSM state)
-    decode_step(params, cache, tokens) -> (logits, cache)
+    prefill(params, batch, cache) -> cache       (fills KV / SSM state in place)
+    decode_step(params, cache, tokens) -> (logits, cache)   (in place, pos + 1)
+
+The cache's ``pos`` is a 0-dim int64 tensor on its device, and prefill and
+decode write into the tensors of the cache they are given, so a captured
+decode step (``serve/server.py``) reads what the last call wrote.
 
 batch: ``{"tokens": (B, L)}``. ``moe``, ``hybrid`` and ``audio`` wait for
 later slices and raise ``ValueError``.
@@ -93,8 +97,7 @@ def build_model(cfg: ArchConfig, *, attn_mode: str = "cuda") -> ModelBundle:
             return ssm.ssm_init_cache(cfg, batch, max_len, device=device)
 
         def prefill(params, batch, cache):
-            del cache  # SSM cache is constant-size; prefill rebuilds it
-            return ssm.ssm_prefill(params, batch["tokens"], cfg)
+            return ssm.ssm_prefill(params, batch["tokens"], cfg, cache)
 
         def decode_step(params, cache, tokens):
             return ssm.ssm_decode_step(params, cache, tokens, cfg)

@@ -14,8 +14,12 @@ per layer.
 Layer layout follows the Mamba2 reference: in_proj -> (z, x, B, C, dt);
 short causal depthwise conv over (x, B, C); SSD; gated RMSNorm; out_proj.
 Every function also takes request-batched params (each leaf with a
-leading ``(B,)`` axis, ``models/layers.py``). The decode path writes the
-new states into the cache in place and returns it with ``pos`` + 1.
+leading ``(B,)`` axis, ``models/layers.py``). The cache is written in
+place: the prefill copies each layer's SSD state and conv tail into the
+cache it is given and sets its ``pos`` (a 0-dim int64 tensor on the
+device), and each decode step writes the new states over the old and
+advances ``pos`` by one, so a CUDA graph captured over the cache's
+tensors reads the current state (``serve/server.py``).
 """
 from __future__ import annotations
 
@@ -209,36 +213,36 @@ def ssm_init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None, *,
                    device: str | torch.device = "cuda") -> dict:
     del max_len  # constant-size state: the whole point
     cache = init_mamba_cache(cfg, cfg.n_layers, batch, dtype, device=device)
-    cache["pos"] = 0
+    cache["pos"] = torch.zeros((), dtype=torch.int64, device=cache["ssm"].device)
     return cache
 
 
-def ssm_prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig) -> dict:
-    """Run the chunked scan over the prompt, capturing each layer's decode
-    state (SSD state + conv tail). Returns a filled cache."""
+def ssm_prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig, cache: dict) -> dict:
+    """Run the chunked scan over the prompt and copy each layer's decode
+    state (SSD state + conv tail) into ``cache``, and the prompt's length
+    into its ``pos``, all in place; returns ``cache``."""
     h, params, batched = _embed(params, tokens, cfg)
-    states = []
     for i in range(cfg.n_layers):
         h, st = apply_mamba_layer(layer_slice(params["layers"], i, batched), h, cfg=cfg,
                                   return_state=True)
-        states.append(st)
-    return {
-        "ssm": torch.stack([s["ssm"] for s in states]).float(),
-        "conv": torch.stack([s["conv"] for s in states]).to(cfg.compute_dtype_torch()),
-        "pos": tokens.shape[1],
-    }
+        cache["ssm"][i].copy_(st["ssm"])
+        cache["conv"][i].copy_(st["conv"])
+    cache["pos"].fill_(tokens.shape[1])
+    return cache
 
 
 def ssm_decode_step(params: dict, cache: dict, tokens: torch.Tensor, cfg: ArchConfig):
-    """tokens ``(B, 1)``. Returns (logits (B, 1, V), the cache with each
-    layer's state written in place and pos + 1)."""
+    """tokens ``(B, 1)``. Returns (logits (B, 1, V), cache): the same cache
+    and tensors, each layer's state written and ``pos`` advanced by one in
+    place."""
     h, params, batched = _embed(params, tokens, cfg)
     for i in range(cfg.n_layers):
         h, new_c = decode_mamba_layer(layer_slice(params["layers"], i, batched), h,
                                       {"ssm": cache["ssm"][i], "conv": cache["conv"][i]},
                                       cfg=cfg)
-        cache["ssm"][i] = new_c["ssm"]
-        cache["conv"][i] = new_c["conv"]
+        cache["ssm"][i].copy_(new_c["ssm"])
+        cache["conv"][i].copy_(new_c["conv"])
     h = apply_norm("rmsnorm", params["ln_f"], h)
     logits = linear(h, params["head"])
-    return logits, {"ssm": cache["ssm"], "conv": cache["conv"], "pos": int(cache["pos"]) + 1}
+    cache["pos"].add_(1)
+    return logits, cache

@@ -14,9 +14,13 @@ package's traced ``dyn_window`` (which its ``"pallas"`` mode refuses).
 
 Every function also takes request-batched params (each leaf with a
 leading ``(B,)`` axis, ``models/layers.py``): B requests, each through its
-own weights, in one batched forward. The decode path updates the cache's
-k/v tensors in place (one row per step) and returns a cache dict whose
-``pos`` (a Python int) has moved on by one.
+own weights, in one batched forward. The decode path keeps its position
+on the device, as the JAX package's int32 scalar: ``pos`` is a 0-dim int64
+tensor (what ``index_copy_`` takes) that the prefill sets and each decode
+step advances in place, and the k/v rows are written into the cache in
+place. Nothing in a decode step reads a device value on the host, so the
+step can be captured into a CUDA graph over the cache's tensors
+(``serve/server.py``).
 """
 from __future__ import annotations
 
@@ -184,7 +188,7 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
     if return_cache:
         cache = {"k": torch.stack([k for k, _ in kvs]),
                  "v": torch.stack([v for _, v in kvs]),
-                 "pos": tokens.shape[1]}
+                 "pos": _position(tokens.shape[1], h.device)}
         return logits, aux, cache
     return logits, aux, None
 
@@ -192,19 +196,26 @@ def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
 def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig, cache: dict, *,
             attn_mode: str = "cuda") -> dict:
     """Run the prompt ``(B, L)`` and write its k/v into rows ``[0, L)`` of
-    ``cache`` (in place); returns the cache at ``pos = L``. The logits are
-    not computed (the JAX package's prefill computes and drops them)."""
+    ``cache`` and L into its ``pos``, all in place; returns ``cache``. The
+    logits are not computed (the JAX package's prefill computes and drops
+    them)."""
     _, _, kvs = _run_layers(params, tokens, cfg, attn_mode=attn_mode, keep_kv=True)
     l = tokens.shape[1]
     for i, (k, v) in enumerate(kvs):
         cache["k"][i, :, :l] = k
         cache["v"][i, :, :l] = v
-    return {"k": cache["k"], "v": cache["v"], "pos": l}
+    cache["pos"].fill_(l)
+    return cache
 
 
 # --------------------------------------------------------------------------
 # Decode path
 # --------------------------------------------------------------------------
+
+
+def _position(value: int, device: torch.device) -> torch.Tensor:
+    """A cache position: a 0-dim int64 tensor on the cache's device."""
+    return torch.full((), value, dtype=torch.int64, device=device)
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None, *,
@@ -215,22 +226,23 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None, *,
     dev = resolve_device(device)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev),
-            "pos": 0}
+            "pos": _position(0, dev)}
 
 
 def decode_layer(p: dict, h: torch.Tensor, layer_cache: dict, *, cfg: ArchConfig,
-                 cur_pos: int, window: Optional[int]):
+                 pos: torch.Tensor, window: Optional[int]):
     """One-token layer step. layer_cache: dict(k=(B, Lc, Hkv, hd), v=...),
-    row ``cur_pos`` written in place."""
+    row ``pos`` (a 0-dim int64 tensor) written in place: an index tensor,
+    never a Python int, so nothing is read on the host."""
     x = apply_norm(cfg.norm, p.get("ln1"), h)
     q, k, v = _project_qkv(p["attn"], x, cfg)     # (B, 1, H, hd)
-    pos = torch.full((1,), cur_pos, device=h.device)
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k = apply_rope(k, pos, cfg.rope_theta)
+    row = pos.view(1)
+    q = apply_rope(q, row, cfg.rope_theta)
+    k = apply_rope(k, row, cfg.rope_theta)
     kc, vc = layer_cache["k"], layer_cache["v"]
-    kc[:, cur_pos] = k[:, 0].to(kc.dtype)
-    vc[:, cur_pos] = v[:, 0].to(vc.dtype)
-    attn_out = decode_attention(q, kc, vc, cur_pos, window=window)
+    kc.index_copy_(1, row, k.to(kc.dtype))
+    vc.index_copy_(1, row, v.to(vc.dtype))
+    attn_out = decode_attention(q, kc, vc, pos, window=window)
     b = attn_out.shape[0]
     h = h + linear(attn_out.reshape(b, 1, -1), p["attn"]["wo"])
     x2 = apply_norm(cfg.norm, p.get("ln2"), h)
@@ -238,20 +250,22 @@ def decode_layer(p: dict, h: torch.Tensor, layer_cache: dict, *, cfg: ArchConfig
 
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor, cfg: ArchConfig):
-    """tokens: (B, 1). Returns (logits (B, 1, V), cache at pos + 1)."""
+    """tokens: (B, 1). Returns (logits (B, 1, V), cache): the same cache
+    and tensors, its k/v row written and ``pos`` advanced by one in place."""
     _refuse_moe(cfg)
     compute = cfg.compute_dtype_torch()
     batched = params["embed"].dim() == 3
     h = embed_lookup(params["embed"], tokens).to(compute)
     params = cast_params_for_compute(params, compute)
-    cur_pos = int(cache["pos"])
+    pos = cache["pos"]
     for i in range(cfg.n_layers):
         h, _ = decode_layer(layer_slice(params["layers"], i, batched), h,
                             {"k": cache["k"][i], "v": cache["v"][i]}, cfg=cfg,
-                            cur_pos=cur_pos, window=_window(cfg, i))
+                            pos=pos, window=_window(cfg, i))
     h = apply_norm(cfg.norm, params.get("ln_f"), h)
     logits = linear(h, _head(params, cfg, compute))
-    return logits, {"k": cache["k"], "v": cache["v"], "pos": cur_pos + 1}
+    pos.add_(1)
+    return logits, cache
 
 
 # --------------------------------------------------------------------------

@@ -15,9 +15,20 @@ into ``(B, ...)`` leaves and go straight into one batched forward (the
 counterpart of the JAX package's ``jax.vmap``): ``predict`` runs a
 classifier (``apply_fn``), ``generate`` and ``serve_client`` decode with a
 language model (``bundle``, a ``models/registry`` ModelBundle of the
-dense, vlm or ssm family). Each call is one mix launch and eager work
-after it; ``n_dispatches`` counts calls and ``dequant_calls`` the calls
-that ran a dequant kernel.
+dense, vlm or ssm family). ``n_dispatches`` counts calls and
+``dequant_calls`` the calls that ran a dequant kernel.
+
+``generate`` is the counterpart of the JAX server's one jitted program. Per
+call it runs eagerly: the mix (one kernel 4 / 7 launch, or the fp32
+``torch.matmul``), the copy of the personalized leaves into static
+compute-dtype buffers (one set per B), and one prefill of the B prompts
+into a static cache (kernels 8 / 9). The per-token work, decode step and
+sample, runs as replays of one CUDA graph captured over static buffers
+(the cache with its device position, the token, the logits, a step
+counter, the noise tape and the output), one graph per shape key ``(B,
+Lp, gen, temperature)``, the jit's static arguments; the host only
+launches the replays. On the CPU the same closure over the same buffers
+is called directly. ``n_compiles`` counts the decode programs built.
 """
 from __future__ import annotations
 
@@ -28,11 +39,14 @@ import numpy as np
 import torch
 
 from repro_torch.core.packing import PackSpec, unpack
-from repro_torch.device import resolve_device, synchronize
+from repro_torch.device import capture, resolve_device, synchronize, warm_up
 from repro_torch.kernels.gossip_mix import gossip_mix_dequant, mixture_mix_dequant4
-from repro_torch.models.layers import cast_params_for_compute
 from repro_torch.serve.artifact import ServableArtifact
 from repro_torch.telemetry.counters import LatencyStats
+
+# the profiler span around each decode token of ``generate`` (one replay
+# on the card), by which a trace's kernels are counted per token
+DECODE_SPAN = "repro_torch.decode_token"
 
 
 class ClusterPlaneServer:
@@ -83,6 +97,11 @@ class ClusterPlaneServer:
         self.n_dispatches = 0
         self.dequant_calls = 0
         self.latency = LatencyStats()
+        # generate's static state: the compute-dtype leaves for each batch
+        # size B, and the decode engine for each shape key (B, Lp, gen,
+        # temperature), kept for the server's life as the JAX jit cache is
+        self.leaves: dict = {}
+        self.engines: dict = {}
 
     def _tensor(self, a, dtype: torch.dtype) -> torch.Tensor:
         """``a`` (tensor on any device, or numpy) as a contiguous tensor of
@@ -178,14 +197,21 @@ class ClusterPlaneServer:
         ``jax.random.categorical``). ``noise`` ``(gen, B, vocab)`` gives
         the draws (a test injects the JAX ones); otherwise they come from
         ``key``, a ``torch.Generator`` on the server's device or an int
-        seed (default 0). The caches hold ``Lp + gen + 1`` positions. The
-        step that would follow the last token is not run (its logits
-        would be dropped)."""
+        seed (default 0), drawn before the decode and outside its graph.
+        The caches hold ``Lp + gen + 1`` positions. The step that would
+        follow the last token is not run (its logits would be dropped).
+
+        The first call of a shape key ``(B, Lp, gen, temperature)`` builds
+        its decode engine: on the card it warms the per-token step up and
+        captures it into a CUDA graph, and raises ``RuntimeError`` if the
+        capture fails (there is no eager fallback)."""
         if self.bundle is None:
             raise ValueError("generate needs bundle= at construction")
         u = self._tensor(u, torch.float32)
         prompts = self._tensor(prompts, torch.int64)
         gen, temperature = int(gen), float(temperature)
+        if gen < 1:
+            raise ValueError(f"gen={gen}: generate makes at least one token")
         b, lp = prompts.shape
         vocab = self.bundle.cfg.vocab
         if temperature > 0:
@@ -193,7 +219,11 @@ class ClusterPlaneServer:
 
         def run():
             with torch.no_grad():
-                return self._generate(u, prompts, gen, temperature, noise, lp + gen + 1)
+                engine = self._engine((b, lp, gen, temperature))
+                # the mix, cast into the static leaves as it is copied (the
+                # (B, X) mix output is freed after)
+                _copy_tree(engine.params, unpack(self._mix(u), self.spec))
+                return engine(prompts, noise)
 
         return self._timed(run, b)
 
@@ -208,28 +238,17 @@ class ClusterPlaneServer:
         uni = torch.rand(shape, generator=key, device=self.device).clamp_min(1e-20)
         return -torch.log(-torch.log(uni))
 
-    def _generate(self, u, prompts, gen, temperature, noise, max_len):
-        bundle, vocab = self.bundle, self.bundle.cfg.vocab
-        params = unpack(self._mix(u), self.spec)
-        # cast once for the prefill and every decode step (the model's own
-        # cast of an already cast leaf is then no copy)
-        compute = bundle.cfg.compute_dtype_torch()
-        params = cast_params_for_compute(params, compute)
-        b, lp = prompts.shape
-        cache = bundle.init_cache(b, max_len, device=self.device)
-        cache = bundle.prefill(params, {"tokens": prompts}, cache)
-        cache["pos"] = lp - 1
-        logits, cache = bundle.decode_step(params, cache, prompts[:, -1:])
-        toks = []
-        for i in range(gen):
-            lg = logits[:, -1, :vocab]
-            if temperature > 0:
-                lg = lg / temperature + noise[i].to(lg.dtype)
-            tok = lg.argmax(dim=-1)
-            toks.append(tok)
-            if i + 1 < gen:
-                logits, cache = bundle.decode_step(params, cache, tok[:, None])
-        return torch.stack(toks, dim=1).to(torch.int32)
+    def _engine(self, key: tuple) -> "_DecodeEngine":
+        """The decode engine of ``key``, built (and on the card captured)
+        at its first call, before the call fills its buffers."""
+        if key not in self.engines:
+            b = key[0]
+            if b not in self.leaves:
+                self.leaves[b] = _static_leaves(self.spec, b, self.bundle.cfg,
+                                                self.device)
+            self.engines[key] = _DecodeEngine(self.bundle, self.leaves[b], key,
+                                              self.device)
+        return self.engines[key]
 
     def serve_client(self, client: int, prompts, *, gen: int, temperature: float = 0.0,
                      key=None, noise=None) -> torch.Tensor:
@@ -246,9 +265,11 @@ class ClusterPlaneServer:
 
     @property
     def n_compiles(self) -> int:
-        """0: the port runs eagerly and captures no program yet (the JAX
-        server counts its jit cache here)."""
-        return 0
+        """The decode programs ``generate`` has built, one per shape key
+        ``(B, Lp, gen, temperature)``: a CUDA graph of the per-token step
+        on the card, its closure on the CPU (the JAX server counts its jit
+        cache here). The mix and the prefill run eagerly and build none."""
+        return len(self.engines)
 
     @property
     def plane_bytes(self) -> int:
@@ -272,3 +293,137 @@ class ClusterPlaneServer:
             "dequant_calls": self.dequant_calls,
             **self.latency.snapshot(),
         }
+
+
+# --------------------------------------------------------------------------
+# The decode engine
+# --------------------------------------------------------------------------
+
+
+def _static_leaves(spec: PackSpec, b: int, cfg, device: torch.device) -> dict:
+    """Empty ``(b, ...)`` buffers for the personalized leaves in the dtypes
+    ``cast_params_for_compute`` gives them: every float leaf in the compute
+    dtype, the embed table in its own (fp32) dtype, as the model casts its
+    rows after the lookup."""
+    compute = cfg.compute_dtype_torch()
+    tree: dict = {}
+    for path, shape, dt in zip(spec.paths, spec.shapes, spec.dtypes):
+        if path[0] != "embed" and dt.is_floating_point:
+            dt = compute
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = torch.empty((b, *shape), dtype=dt, device=device)
+    return tree
+
+
+def _copy_tree(dst: dict, src: dict) -> None:
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _copy_tree(dst[k], v)
+        else:
+            dst[k].copy_(v)
+
+
+class _DecodeEngine:
+    """``generate``'s per-token work for one shape key ``(B, Lp, gen,
+    temperature)`` over static buffers: the shared per-B leaves
+    (``params``), the cache of ``bundle.init_cache`` (``Lp + gen + 1``
+    positions, its ``pos`` a device tensor), the ``(B, 1)`` token, the
+    ``(B, vocab)`` logits, the device step counter, the ``(gen, B, vocab)``
+    noise tape (temperature > 0) and the ``(B, gen)`` int32 output.
+
+    One token (``_token``): decode ``tokens`` at ``pos``, keep the logits
+    cut to the vocab, sample from them (with ``noise[step]`` at
+    temperature > 0), write the sample into ``out[:, step]`` and
+    ``tokens``, and advance ``step``. A call runs it ``gen`` times after the
+    prefill, the first on the last prompt token (the re-score), so the step
+    after the last sample is never run. On the card the token is captured
+    once into a CUDA graph, after a warm-up, and each token is a replay;
+    on the CPU the closure runs."""
+
+    def __init__(self, bundle, params: dict, key: tuple, device: torch.device):
+        b, lp, gen, temperature = key
+        cfg = bundle.cfg
+        self.bundle, self.params, self.key = bundle, params, key
+        self.cache = bundle.init_cache(b, lp + gen + 1, device=device)
+        self.tokens = torch.zeros((b, 1), dtype=torch.int64, device=device)
+        self.logits = torch.zeros((b, cfg.vocab), dtype=cfg.compute_dtype_torch(),
+                                  device=device)
+        self.step = torch.zeros((), dtype=torch.int64, device=device)
+        self.noise = (torch.zeros((gen, b, cfg.vocab), dtype=torch.float32, device=device)
+                      if temperature > 0 else None)
+        self.out = torch.zeros((b, gen), dtype=torch.int32, device=device)
+        self.graph, self.capture_ms = None, 0.0
+        if device.type != "cuda":
+            return
+        t0 = time.perf_counter()
+        try:
+            # the warm-up writes only buffers that every call resets first
+            warm_up(self._token, device)
+            self.graph = capture(self._token, ())
+        except Exception as e:
+            cc = "sm_%d%d" % torch.cuda.get_device_capability(device)
+            raise RuntimeError(
+                f"generate: {cfg.name}'s decode step for (B, Lp, gen, temperature) = "
+                f"{key} could not be captured into a CUDA graph on "
+                f"{torch.cuda.get_device_name(device)} ({cc}): {e}") from e
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+
+    def _token(self) -> None:
+        vocab, temperature = self.bundle.cfg.vocab, self.key[3]
+        logits, _ = self.bundle.decode_step(self.params, self.cache, self.tokens)
+        self.logits.copy_(logits[:, -1, :vocab])
+        lg = self.logits
+        at = self.step.view(1)
+        if temperature > 0:
+            lg = lg / temperature + self.noise.index_select(0, at)[0].to(lg.dtype)
+        tok = lg.argmax(dim=-1)
+        self.out.index_copy_(1, at, tok.to(torch.int32)[:, None])
+        self.tokens.copy_(tok[:, None])
+        self.step.add_(1)
+
+    def __call__(self, prompts: torch.Tensor, noise) -> torch.Tensor:
+        """Prefill ``prompts`` (eager), then ``gen`` tokens; returns a copy
+        of the output (the next call overwrites the buffer)."""
+        lp = self.key[1]
+        for t in self.cache.values():
+            t.zero_()          # JAX's fresh init_cache
+        self.bundle.prefill(self.params, {"tokens": prompts}, self.cache)
+        self.cache["pos"].fill_(lp - 1)
+        self.step.zero_()
+        self.tokens.copy_(prompts[:, -1:])
+        if self.noise is not None:
+            self.noise.copy_(noise)
+        for _ in range(self.key[2]):
+            with torch.profiler.record_function(DECODE_SPAN):
+                if self.graph is None:
+                    self._token()
+                else:
+                    self.graph.replay()
+        return self.out.clone()
+
+
+def decode_eager(bundle, params: dict, prompts: torch.Tensor, *, gen: int,
+                 temperature: float = 0.0, noise=None):
+    """The plain version of ``generate``'s decode, the reference its engine
+    is held to: the prefill, then ``gen`` tokens stepped from Python, each
+    step's ops launched one by one (as the server ran them before its
+    decode was captured), each token inside a ``DECODE_SPAN`` as the
+    engine's. ``params`` are compute-cast ``(B, ...)`` leaves; ``noise``
+    ``(gen, B, vocab)`` at temperature > 0. Returns the ``(B, gen)`` int32
+    tokens and the ``(B, vocab)`` logits the last token was drawn from."""
+    vocab = bundle.cfg.vocab
+    b, lp = prompts.shape
+    cache = bundle.init_cache(b, lp + gen + 1, device=prompts.device)
+    cache = bundle.prefill(params, {"tokens": prompts}, cache)
+    cache["pos"].fill_(lp - 1)
+    tok, toks = prompts[:, -1:], []
+    for i in range(gen):
+        with torch.profiler.record_function(DECODE_SPAN):
+            logits, cache = bundle.decode_step(params, cache, tok)
+            last = logits[:, -1, :vocab]
+            lg = last / temperature + noise[i].to(last.dtype) if temperature > 0 else last
+            toks.append(lg.argmax(dim=-1))
+            tok = toks[-1][:, None]
+    return torch.stack(toks, dim=1).to(torch.int32), last

@@ -50,7 +50,9 @@ from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
 from repro_torch.launch.serve import encode_plane, random_plane
 from repro_torch.models.registry import build_model
 from repro_torch.models.smallnets import make_classifier
+from repro_torch.models.layers import cast_params_for_compute
 from repro_torch.serve import ClusterPlaneServer, load_servable
+from repro_torch.serve.server import decode_eager
 
 pytestmark = pytest.mark.gpu
 
@@ -722,6 +724,57 @@ def test_lm_generate_runs_the_kernels_and_matches_the_cpu(cuda, arch, launches, 
     assert torch.equal(toks["cpu"], toks["cuda"])
 
 
+def _lm_server(dev, arch, codec, compute="float32"):
+    cfg = get_smoke_config(arch).with_overrides(compute_dtype=compute)
+    bundle = build_model(cfg, attn_mode="cuda")
+    spec = make_pack_spec(bundle.init(None))
+    plane = random_plane(bundle, spec, seed=0, device=dev)
+    server = ClusterPlaneServer(spec, codec=codec, bundle=bundle, device=dev,
+                                **encode_plane(plane, codec))
+    prompts = torch.randint(0, cfg.vocab, (4, 64),
+                            generator=torch.Generator().manual_seed(1)).to(dev)
+    u = torch.tensor([[0.7, 0.3], [0.5, 0.5], [0.0, 1.0], [0.2, 0.8]], device=dev)
+    return cfg, server, prompts, u
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.7])
+@pytest.mark.parametrize("codec", ["fp32", "int8", "int4"])
+@pytest.mark.parametrize("arch,compute,launches", [
+    ("olmo-1b", "float32", 1), ("olmo-1b", "bfloat16", 1), ("gemma3-1b", "float32", 1),
+    ("mamba2-370m", "float32", 3), ("mamba2-370m", "bfloat16", 3)])
+def test_captured_generate_equals_the_eager_decode_bit_for_bit(
+        cuda, arch, compute, launches, codec, temperature):
+    """generate replays its captured decode step; the tokens and the last
+    logits equal ``decode_eager``'s (the same steps launched one by one)
+    bit for bit. The mix and the prefill stay eager: kernels 8 / 9 launch
+    once (three times) a layer and 4 / 7 once per generate."""
+    cfg, server, prompts, u = _lm_server(cuda, arch, codec, compute)
+    gen = 8
+    noise = None
+    if temperature > 0:
+        uni = torch.rand((gen, 4, cfg.vocab), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(2))
+        noise = -torch.log(-torch.log(uni.clamp_min(1e-20)))
+    kernel = ssd_scan if cfg.family == "ssm" else flash_attention
+    outs = []
+    for _ in range(2):
+        reset_launch_counts()
+        flash_attention.launches = ssd_scan.launches = 0
+        outs.append(server.generate(u, prompts, gen=gen, temperature=temperature,
+                                    noise=noise))
+        assert kernel.launches == cfg.n_layers * launches
+        assert gossip_mix_dequant.launches == (codec == "int8")
+        assert mixture_mix_dequant4.launches == (codec == "int4")
+    assert server.n_compiles == 1 and torch.equal(outs[0], outs[1])
+    engine = server.engines[(4, 64, gen, temperature)]
+    assert engine.graph is not None
+    params = cast_params_for_compute(server.personalized(u), cfg.compute_dtype_torch())
+    want, last = decode_eager(server.bundle, params, prompts, gen=gen,
+                              temperature=temperature, noise=noise)
+    assert torch.equal(outs[1], want)
+    assert torch.equal(engine.logits, last)
+
+
 # the round engines: the card's default engine replays one captured round
 # (a CUDA graph for each host-side branch); every path the loop runs must
 # capture and replay to the loop's bits, and its replays must launch as
@@ -825,3 +878,28 @@ def test_batch_replay_equals_each_seed_run(cuda):
     assert batch[0].extras["n_captures"] == 1
     for s, g, r in zip((0, 1), graphs, batch):
         _assert_same_run(run_method("fedspd", data, exp, graph=g, seed=s, cfg=cfg), r)
+
+
+def test_a_failed_decode_capture_raises_and_never_falls_back(cuda, monkeypatch):
+    """A host read inside the decode step (here a forced one, only while
+    the stream captures) fails the capture: generate raises naming the
+    arch and the shape key and builds no engine; with the step repaired
+    the same server captures and generates."""
+    from repro_torch.models import transformer
+
+    real = transformer.decode_attention
+
+    def reads_the_host(q, *args, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            float(q.sum())
+        return real(q, *args, **kw)
+
+    _, server, prompts, u = _lm_server(cuda, "olmo-1b", "fp32")
+    monkeypatch.setattr(transformer, "decode_attention", reads_the_host)
+    with pytest.raises(RuntimeError, match=r"olmo-1b's decode step .* = \(4, 64, 4, 0\.0\) "
+                                           r"could not be captured"):
+        server.generate(u, prompts, gen=4)
+    assert server.n_compiles == 0
+    monkeypatch.undo()
+    toks = server.generate(u, prompts, gen=4)
+    assert server.n_compiles == 1 and tuple(toks.shape) == (4, 4)
