@@ -103,11 +103,23 @@ Phases, in order; any failure exits non-zero before the result line:
    device ms a round over the median ms of the same run's other rounds
    (``profile replay``). Printed: round ms medians of both engines, the busy shares,
    the capture's ms, ``n_captures`` and ``n_dispatches``;
-9. a torch.profiler window over 3 rounds of the main path, one over 3
+9. the scenario engine, the slice's path: one full-width round of
+   scenario B (link dropout 0.2 and a Markov client-system model with
+   stragglers and stale-gossip decay) on the card against the CPU, DP off
+   and on, with the same injected draws (plane within 1e-5, bytes equal),
+   and kernels 1, 2, 4, 5 and 6 on that round's weighted W against their
+   plain versions; then ``run_method("fedspd", ...)`` for 60 rounds under
+   scenario A (a rewired ER schedule with dropout 0.2) and B, DP off and
+   on, and B with a cohort of 10, with dense int8 + error feedback and
+   with sparse d0.2 + int8 + error feedback, each on the loop and on the
+   replay as in phase 8 (bit for bit, staleness included; one exchange
+   kernel in every replayed round, two with sparse; busy shares from
+   rounds 31-33), beside the same run's replay without the scenario;
+10. a torch.profiler window over 3 rounds of the main path, one over 3
    DP rounds (``dp``: the clip, the noise draw and kernel 2, which it must
    see) and one of the sparse + int8 path: device time per round, the
    kernels that take it, and the device's busy share;
-10. the LM kernels: ``flash_attention`` (kernel 8) at olmo-1b's prefill
+11. the LM kernels: ``flash_attention`` (kernel 8) at olmo-1b's prefill
    (B = 4 requests, L = 512, 16 heads, hd 128, bf16; also fp32), a
    danube-like GQA 32/8 hd-80 layer with a 256 window and a gemma3-like
    hd-256 layer over one kv head, each bf16 row beside the count of
@@ -126,7 +138,7 @@ Phases, in order; any failure exits non-zero before the result line:
    CUDA-graph replay beside its bound (bytes over 3.35 TB/s or FLOPs over
    989 TFLOP/s bf16 / 67 TFLOP/s fp32), its plain version and, for
    attention, ``scaled_dot_product_attention``;
-11. LM generation, the fifth path: ``olmo-1b`` and ``mamba2-370m`` at full
+12. LM generation, the fifth path: ``olmo-1b`` and ``mamba2-370m`` at full
    width, ``launch/serve``'s random S = 2 plane (``build_server``) in
    fp32, int8 and int4, B = 4 requests with their own mixtures, prompt
    512, 16 greedy tokens, every launch counter set to 0 just before each
@@ -233,6 +245,14 @@ SSD_SHAPES = [(4, 512, 32, 1, 64, 128, 128, "bfloat16", False),
               (4, 512, 32, 1, 64, 128, 128, "float32", False),
               (4, 512, 32, 1, 64, 128, 128, "float32", True)]
 SSD_MMA_KERNELS = ("ssd_chunk_state_mma", "ssd_chunk_out_mma")   # kernel 9's bf16 kernels
+# the scenarios phase (the slice's path on the main path's population):
+# scenario A, examples/connectivity_sweep.py's rewired ER schedule with
+# link dropout, and scenario B, a Markov client-system model with
+# stragglers and stale-gossip decay, with the same dropout
+SCENARIO_DROPOUT = 0.2
+SCENARIO_REWIRE = dict(kind="er", n=20, avg_degree=5.0, p_rewire=0.3, seed=2)
+SCENARIO_SYSTEM = dict(slow_fraction=0.34, slow_factor=4.0, time_budget=2.0, jitter=0.3,
+                       markov=(0.3, 0.7), staleness_gamma=0.9, seed=5)
 LM_ARCHS = {"olmo-1b": 1_280_311_296, "mamba2-370m": 420_136_448}   # X of each plane
 LM_B, LM_PROMPT, LM_GEN = 4, 512, 16
 LM_MIXTURE = [[0.7, 0.3], [0.5, 0.5], [0.1, 0.9], [1.0, 0.0]]
@@ -767,8 +787,9 @@ def _state_tensors(torch, state) -> list:
 
 def _same_run(torch, a, b) -> list:
     """What differs between two runs that must be equal bit for bit: the
-    per-client accuracies, the curve, u, the bytes and, with keep_state,
-    every tensor of the final state (the plane among them)."""
+    per-client accuracies, the curve, u, the bytes, a heterogeneity
+    scenario's staleness counters and, with keep_state, every tensor of
+    the final state (the plane among them)."""
     import numpy as np
 
     diff = []
@@ -778,6 +799,10 @@ def _same_run(torch, a, b) -> list:
         diff.append("curve")
     if a.comm_bytes != b.comm_bytes or a.wire_bytes != b.wire_bytes:
         diff.append("comm_bytes")
+    if ("staleness" in a.extras) != ("staleness" in b.extras) or (
+            "staleness" in a.extras
+            and not np.array_equal(a.extras["staleness"], b.extras["staleness"])):
+        diff.append("staleness")
     if "u" in a.extras and not np.array_equal(a.extras["u"], b.extras["u"]):
         diff.append("u")
     if "state" in a.extras:
@@ -910,7 +935,7 @@ def _engine_pair(torch, gm, label, method, data, exp, cfg, seeds=None, busy=Fals
         same(loop, scan_w, "the replay profiled over rounds "
                            f"{PROFILED_ROUNDS[0] + 1}-{PROFILED_ROUNDS[1]}")
     out.update(loop=loop[0] if seeds is not None else loop, scan=first, counts=counts,
-               windows=windows)
+               loop_counts=loop_counts, windows=windows)
     return out
 
 
@@ -996,6 +1021,197 @@ def phase_engines(torch, gm) -> None:
               f"engines {label}: {scan.extras['n_captures']} captures, expected {captures}")
         check(math.isfinite(scan.mean_acc) and 0.0 <= scan.mean_acc <= 1.0,
               f"engines {label}: mean_acc {scan.mean_acc} not finite in [0, 1]")
+
+
+def _scenario(rounds: int, kind: str):
+    """Scenario A (a rewired ER schedule) or B (a ClientSystemModel), each
+    with link dropout, over ``rounds`` rounds of the main path's
+    population."""
+    from repro_torch.experiments.heterogeneity import ClientSystemModel
+    from repro_torch.experiments.scenarios import Scenario
+    from repro_torch.graphs.topology import rewire_schedule
+
+    if kind == "A":
+        kw = dict(SCENARIO_REWIRE)
+        return Scenario(graph_schedule=rewire_schedule(
+            kw.pop("kind"), kw.pop("n"), kw.pop("avg_degree"), rounds, **kw),
+            dropout=SCENARIO_DROPOUT)
+    return Scenario(dropout=SCENARIO_DROPOUT, system=ClientSystemModel(**SCENARIO_SYSTEM))
+
+
+def phase_scenario_agreement(torch, gm) -> dict:
+    """One full-width round of scenario B on the card (kernels) against the
+    CPU (plain versions), DP off and on, from one state with the same
+    injected draws: the selections, batches and DP noise, the dropout
+    uniforms and the heterogeneity normals and uniforms, over a carry with
+    stale and unavailable clients. The round's W (stale columns scaled,
+    inactive rows e_i) then feeds kernels 1, 2, 4, 5 and 6 on the card,
+    each against its plain version on the same tensors (these launches
+    count nowhere). Returns each kernel's max abs error on that W."""
+    from repro_torch.comm.codecs import Channel, CommConfig
+    from repro_torch.configs.paper_cnn import PaperExpConfig
+    from repro_torch.core.fedspd import FedSPDConfig, make_round_step, seeded_init
+    from repro_torch.core.gossip import GossipSpec, fedspd_weight_matrix, make_mix_fn
+    from repro_torch.core.sparse import SparseConfig, column_activity, init_masks
+    from repro_torch.data.synthetic import make_mixture_classification
+    from repro_torch.experiments.heterogeneity import (
+        ClientSystemModel, HetCarry, apply_client_weights, draw_het, het_round,
+        masked_client_step)
+    from repro_torch.experiments.registry import build_context, get_method
+    from repro_torch.experiments.scenarios import bernoulli_drop, draw_drop
+
+    data, exp = make_mixture_classification(), PaperExpConfig()
+    cpu, gpu = torch.device("cpu"), torch.device("cuda")
+    ctxs = {d: build_context(data, exp, d) for d in (cpu, gpu)}
+    n, m, ps = ctxs[cpu].n_clients, data.x.shape[1], ctxs[cpu].pack_spec
+    model = ClientSystemModel(**SCENARIO_SYSTEM)
+    g = torch.Generator().manual_seed(6)
+    adj_u, (z, u) = draw_drop(g, n), draw_het(g, n)
+    carry = HetCarry(stale=torch.randint(0, 4, (n,), generator=g, dtype=torch.int32),
+                     avail=(torch.rand(n, generator=g) > 0.3).float())
+    w_card = None
+    for clip, mult in ((0.0, 0.0), (1.0, 0.5)):
+        cfg = FedSPDConfig(n_clients=n, n_clusters=data.n_clusters, tau=exp.tau,
+                           batch=exp.batch, dp_clip=clip, dp_noise_multiplier=mult)
+        st = seeded_init(torch.Generator().manual_seed(0), ctxs[cpu].model_init, cfg,
+                         ctxs[cpu].loss_fn, ctxs[cpu].train, ps, epochs=2)
+        s = torch.randint(0, data.n_clusters, (n,), generator=g)
+        draws = dict(s=s, idx=torch.randint(0, m, (cfg.tau, n, cfg.batch), generator=g),
+                     noise=torch.randn((n, ps.size), generator=g))
+        out = {}
+        for d in (cpu, gpu):
+            ctx = ctxs[d]
+            spec = GossipSpec.from_graph(ctx.graph)
+            core = make_round_step(ctx.loss_fn, ctx.pel_fn, spec, cfg, pack_spec=ps,
+                                   mix_fn=make_mix_fn(spec, "cuda"))
+            dd = {k: v.to(d) for k, v in draws.items()}
+            step = masked_client_step(lambda st_, tr, gen, lr, a: core(st_, tr, a, **dd),
+                                      get_method("fedspd").cohort_axes(ctx, st))
+            st_d = st._replace(centers=st.centers.to(d, copy=True), u=st.u.to(d), z=st.z.to(d),
+                               comm_bytes=st.comm_bytes.to(d), gen=torch.Generator(device=d))
+            adj = bernoulli_drop(torch.as_tensor(ctx.graph.adj, device=d), adj_u.to(d),
+                                 SCENARIO_DROPOUT)
+            speeds = torch.as_tensor(model.resolve_speeds(n), device=d)
+            new_carry, aw = het_round(model, speeds, HetCarry(*(t.to(d) for t in carry)),
+                                      z.to(d), u.to(d))
+            new, _ = step(st_d, ctx.train, None, None, adj, aw)
+            w = fedspd_weight_matrix(spec, dd["s"], adj=apply_client_weights(adj, aw))
+            out[d.type] = [t.cpu() for t in (new.centers, new.u, new.comm_bytes, aw,
+                                             *new_carry)] + [w]
+        (pc, uc, bc, wc, sc, ac, _), (pg, ug, bg, wg, sg, ag, w_card) = out["cpu"], out["cuda"]
+        err, w_err = float((pc - pg).abs().max()), float((wc - wg).abs().max())
+        active = int((wg > 0).sum())
+        print(f"scenario agreement B dp_clip={clip}: plane max abs err {err:.3g}, u max abs "
+              f"err {float((uc - ug).abs().max()):.3g}, activity weights max abs err "
+              f"{w_err:.3g} ({active} of {n} active, {int(((wg > 0) & (wg < 1)).sum())} "
+              f"decayed), stale and avail equal {bool(torch.equal(sc, sg) and torch.equal(ac, ag))}, "
+              f"comm_bytes {float(bc)} vs {float(bg)}", flush=True)
+        check(bool(torch.isfinite(pg).all()), "scenario agreement: non-finite plane on the card")
+        check(err <= TOL, f"scenario agreement: plane max abs err {err} > {TOL}")
+        check(torch.equal(sc, sg) and torch.equal(ac, ag) and torch.equal(wc > 0, wg > 0),
+              "scenario agreement: the heterogeneity carry or activity differs")
+        check(w_err <= TOL, f"scenario agreement: activity weights differ by {w_err}")
+        check(float(bc) == float(bg), "scenario agreement: comm_bytes differ")
+        check(0 < active < n, f"scenario agreement: {active} of {n} clients active")
+
+    # the exchange kernels on the round's W, each against its plain version
+    x, xg = ps.size, torch.Generator(device=gpu).manual_seed(7)
+    c_old = torch.randn((n, x), generator=xg, device=gpu)
+    c_new = c_old + 0.3 * torch.randn((n, x), generator=xg, device=gpu)
+    scale = 0.2 + 0.8 * torch.rand((n, 1), generator=xg, device=gpu)
+    noise = torch.randn((n, x), generator=xg, device=gpu)
+    mask = init_masks(xg, n, x, SparseConfig(density=SPARSE["density"]))
+    act, cm = column_activity(mask), c_new * mask
+    dense = Channel(CommConfig(codec="int8", block=QBLOCK), x).encode(c_new, xg)
+    masked = Channel(CommConfig(codec="int8", block=QBLOCK), x).encode(cm, xg)
+    w = w_card.to(gpu)
+    calls = {
+        "gossip_mix_flat": ((w, c_new), {}),
+        "gossip_mix_fused_dp": ((w, c_old, c_new, scale, noise, 0.5), {}),
+        "gossip_mix_dequant": ((w, dense["q"], dense["scale"]), {"qblock": QBLOCK}),
+        "gossip_mix_sparse": ((w, cm, act), {}),
+        "gossip_mix_dequant_masked": ((w, masked["q"], masked["scale"], mask, act),
+                                      {"qblock": QBLOCK}),
+    }
+    errs = {}
+    for name, (args, kw) in calls.items():
+        got = getattr(gm, name)(*args, **kw)
+        want = getattr(gm, name + "_ref")(*args, **kw)
+        torch.cuda.synchronize()
+        errs[name] = float((got - want).abs().max())
+        print(f"scenario kernel {name} on scenario B's W (DP round): max abs err "
+              f"{errs[name]:.3g}", flush=True)
+        check(bool(torch.isfinite(got).all()), f"scenario kernel {name}: non-finite output")
+        check(errs[name] <= TOL, f"scenario kernel {name}: max abs err {errs[name]} > {TOL}")
+    return errs
+
+
+def phase_scenarios(torch, gm, card: str) -> dict:
+    """The slice's path: FedSPD for ENGINE_ROUNDS rounds under scenario A
+    (rewired ER schedule + dropout) and B (Markov heterogeneity + dropout),
+    DP off and on, and B also with a cohort of 10, with dense int8 + error
+    feedback and with sparse d0.2 + int8 + error feedback, each on the loop
+    engine and on the replay (``_engine_pair``, busy shares from
+    ``_windowed``): bit for bit equal (accuracies, bytes, staleness, the
+    final plane), one exchange kernel in every replayed round (two with
+    sparse), and beside each the same run's replay without the scenario.
+    The runs evaluate once, after the last round. Returns the loop runs'
+    launches."""
+    from repro_torch.comm.codecs import CommConfig
+    from repro_torch.configs.paper_cnn import PaperExpConfig
+    from repro_torch.core.sparse import SparseConfig
+    from repro_torch.data.synthetic import make_mixture_classification
+    from repro_torch.experiments import RunConfig, run_method
+
+    data, exp = make_mixture_classification(), PaperExpConfig(rounds=ENGINE_ROUNDS)
+    int8 = CommConfig(codec="int8", error_feedback=True)
+    launches: dict = {}
+    for label, kind, kw, kernel, per_round in (
+            ("A", "A", {}, gm.gossip_mix_flat, 1),
+            ("A dp", "A", {"options": DP_OPTIONS}, gm.gossip_mix_fused_dp, 1),
+            ("B", "B", {}, gm.gossip_mix_flat, 1),
+            ("B dp", "B", {"options": DP_OPTIONS}, gm.gossip_mix_fused_dp, 1),
+            ("B cohort 10/20", "B", {"cohort_size": 10}, gm.gossip_mix_flat, 1),
+            ("B int8+ef", "B", {"comm": int8}, gm.gossip_mix_dequant, 1),
+            ("B sparse d0.2 int8+ef", "B", {"sparse": SparseConfig(**SPARSE), "comm": int8},
+             gm.gossip_mix_dequant_masked, 2)):
+        kw = dict(kw, options=dict(kw.get("options", {}), keep_state=True))
+        # one evaluation, after the last round: the traced runs stay short
+        plain_cfg = RunConfig(eval_every=10**9, **kw)
+        cfg = dataclasses.replace(plain_cfg, scenario=_scenario(ENGINE_ROUNDS, kind))
+        pair = _engine_pair(torch, gm, f"scenario {label}", "fedspd", data, exp, cfg, busy=True)
+        _engine_line(f"scenario {label}", pair)
+        for name, c in pair["loop_counts"].items():
+            launches[name] = launches.get(name, 0) + c
+        scan = pair["scan"]
+        per = [sum(_is_exchange(k.name) for k in w) for w in pair["windows"]]
+        plain = run_method("fedspd", data, exp, cfg=plain_cfg)
+        stale = scan.extras.get("staleness")
+        lb, rb = pair["loop_busy"], pair["replay_busy"]
+        print(f"scenario {label} ({card}): round_ms median(rounds 2-{ENGINE_ROUNDS} less the "
+              f"profiled {PROFILED_ROUNDS[0] + 1}-{PROFILED_ROUNDS[1]}) loop {lb['round_ms']:.4f} "
+              f"replay {rb['round_ms']:.4f} device_ms_per_round replay {rb['device_ms']:.4f} "
+              f"busy share replay {rb['busy']:.4f} loop {lb['busy']:.4f} "
+              f"capture_ms {json.dumps([round(v, 1) for v in scan.extras['capture_ms']])} "
+              f"n_captures {scan.extras['n_captures']} n_dispatches "
+              f"{scan.extras['n_dispatches']} exchange kernels per replay "
+              f"{json.dumps(sorted(set(per)))} mean_acc {scan.mean_acc:.6f} without the "
+              f"scenario {plain.mean_acc:.6f} comm_bytes {scan.comm_bytes:.0f} without "
+              f"{plain.comm_bytes:.0f} staleness "
+              f"{json.dumps(None if stale is None else stale.tolist())} "
+              f"loop launches {json.dumps({k: c for k, c in pair['loop_counts'].items() if c})}",
+              flush=True)
+        check(per == [per_round] * ENGINE_ROUNDS,
+              f"scenario {label}: exchange kernels per replay {sorted(set(per))}, "
+              f"expected {per_round}")
+        check(pair["loop_counts"][kernel.__name__] > 0,
+              f"scenario {label}: {kernel.__name__} was not launched by the loop")
+        check(math.isfinite(scan.mean_acc) and 0.0 <= scan.mean_acc <= 1.0,
+              f"scenario {label}: mean_acc {scan.mean_acc} not finite in [0, 1]")
+        check(scan.comm_bytes > 0.0, f"scenario {label}: no bytes accounted")
+        check((stale is not None) == (kind == "B"),
+              f"scenario {label}: staleness {stale} for scenario {kind}")
+    return launches
 
 
 def phase_agreement(torch) -> None:
@@ -1873,6 +2089,10 @@ def main() -> None:
     baseline_launches = phase_baselines(torch, gm)
     sparse_launches, sparse_round_ms = phase_sparse_comm_path(torch, gm)
     phase_engines(torch, gm)
+    t = time.perf_counter()
+    scenario_errs = phase_scenario_agreement(torch, gm)
+    scenario_launches = phase_scenarios(torch, gm, card)
+    print(f"scenarios phase: {time.perf_counter() - t:.1f} s", flush=True)
     phase_profile(torch, round_ms)
     phase_profile(torch, dp_round_ms, label="dp", options=DP_OPTIONS)
     phase_profile(torch, sparse_round_ms, label="sparse+int8", sparse=SparseConfig(**SPARSE),
@@ -1883,10 +2103,12 @@ def main() -> None:
     phase_lm_cli()
 
     # every launch on the paths driven on the loop engine: the FedSPD main
-    # path (DP off and on), serving, the baselines, the sparse/comm runs
-    # and LM generation (the replays launch through the graph, not the
-    # wrappers: the engines phase counts them in its trace)
-    for path in (serve_launches, baseline_launches, sparse_launches, lm_launches):
+    # path (DP off and on), serving, the baselines, the sparse/comm runs,
+    # the scenario runs and LM generation (the replays launch through the
+    # graph, not the wrappers: the engines and scenarios phases count them
+    # in their traces)
+    for path in (serve_launches, baseline_launches, sparse_launches, scenario_launches,
+                 lm_launches):
         for name, c in path.items():
             launches[name] = launches.get(name, 0) + c
     replaces = {"gossip_mix_flat": "src/repro/kernels/gossip_mix.py:63",
@@ -1955,6 +2177,11 @@ def main() -> None:
             shape={k: main[k] for k in main if k in ("b", "l", "hq", "hkv", "h", "p", "n",
                                                      "hd", "chunk", "dtype")},
             card=card, shapes=rs))
+    for k in kernels:
+        if k["name"] in scenario_errs:
+            # the same kernel on scenario B's weighted W
+            k["scenario_w_max_abs_err"] = scenario_errs[k["name"]]
+            k["max_abs_err"] = max(k["max_abs_err"], scenario_errs[k["name"]])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

@@ -5,6 +5,8 @@ bit for bit, so both packages train on identical data. Each client's points
 are a U[0.1, 0.9] mixture of S clusters built from Gaussian class
 prototypes; cluster 2 rotates the inputs (``rotate``), permutes the labels
 (``label_split``), or both (S=4, ``both``) — paper Appendix B.1.
+``make_unbalanced_quantity`` skews how much data each client holds
+(Appendix B.2.5).
 """
 from __future__ import annotations
 
@@ -144,3 +146,25 @@ def make_mixture_classification(
         n_classes=n_classes,
         n_clusters=n_clusters,
     )
+
+
+def make_unbalanced_quantity(
+    base: ClientDataset, ratio: float, seed: int = 0
+) -> ClientDataset:
+    """Appendix B.2.5: low/average/high data holders with max/min ratio r.
+
+    A third of the clients (chosen from ``seed``) keep m/r of their points
+    (at least 8), the rest keep all m; a low holder's slots are refilled
+    from its kept points, so every shape stays (N, M, ...).
+    """
+    rng = np.random.default_rng(seed)
+    n, m = base.x.shape[0], base.x.shape[1]
+    x, y, z = base.x.copy(), base.y.copy(), base.z_true.copy()
+    groups = np.array_split(rng.permutation(n), 3)
+    low = groups[0]
+    keep_low = max(8, int(round(m / max(ratio, 1.0))))
+    for i in low:
+        idx = rng.choice(m, size=keep_low, replace=False)
+        rep = idx[rng.integers(keep_low, size=m)]
+        x[i], y[i], z[i] = x[i][rep], y[i][rep], z[i][rep]
+    return dataclasses.replace(base, x=x, y=y, z_true=z)

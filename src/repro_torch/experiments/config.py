@@ -5,8 +5,9 @@ updates the plane in place), plus ``device`` and ``on_round``. The port
 honours ``gossip_mode="dense"``, ``gossip_backend`` ("cuda", or
 "reference" as another name for it), ``comm`` and ``sparse`` (FedSPD
 only), ``eval_every``, ``scan_rounds``, ``cohort_size`` (FedSPD only),
-``options`` (``dp_clip``, ``dp_noise_multiplier``, ``tau_final``,
-``keep_state``, ``comm``, ``sparse``), ``device`` and ``on_round``.
+``scenario`` (FedSPD only), ``options`` (``dp_clip``,
+``dp_noise_multiplier``, ``tau_final``, ``keep_state``, ``comm``,
+``sparse``), ``device`` and ``on_round``.
 Every field that selects a feature the port does not have yet is refused
 with a ``ValueError`` that names it; none falls back silently.
 """
@@ -18,6 +19,8 @@ from typing import Any, Callable, Optional
 from repro_torch.comm.codecs import CommConfig
 from repro_torch.core.gossip import MIX_BACKENDS
 from repro_torch.core.sparse import SparseConfig
+from repro_torch.experiments.heterogeneity import ClientSystemModel
+from repro_torch.experiments.scenarios import Scenario
 
 # the options keys the port honours; any other key is refused
 _OPTIONS = ("mode", "gossip_backend", "param_plane", "dp_clip",
@@ -78,6 +81,8 @@ class RunConfig:
                     on the card, the loop on the CPU
     cohort_size     K: each round K of N clients, drawn on the device from
                     a stream of their own, train and exchange (FedSPD only)
+    scenario        experiments/scenarios.Scenario: a graph schedule, link
+                    dropout and a ClientSystemModel (FedSPD only)
     options         per-method knobs: dp_clip, dp_noise_multiplier,
                     tau_final (explicit entries win over the fields);
                     keep_state=True leaves the final state and its
@@ -88,8 +93,7 @@ class RunConfig:
                     hook to watch a run from outside, such as a profiler
                     started and stopped around chosen rounds
 
-    scenario and telemetry are not ported yet; setting either raises
-    ``ValueError``."""
+    telemetry is not ported yet; setting it raises ``ValueError``."""
 
     gossip_mode: Optional[str] = None
     gossip_backend: Optional[str] = None
@@ -109,14 +113,18 @@ class RunConfig:
         """A fresh per-run options dict (explicit ``options`` entries win
         over the typed fields); raises ``ValueError`` for what the port
         does not run yet."""
-        unported = {
-            "scenario (dynamic graphs, dropout, heterogeneity)":
-                self.scenario is not None,
-            "telemetry": self.telemetry is not None,
-        }
-        for what, on in unported.items():
-            if on:
-                raise ValueError(f"RunConfig.{what} is not ported yet")
+        if self.telemetry is not None:
+            raise ValueError("RunConfig.telemetry is not ported yet")
+        if self.scenario is not None:
+            if not isinstance(self.scenario, Scenario):
+                raise ValueError(
+                    "scenario must be an experiments.scenarios.Scenario, got "
+                    f"{type(self.scenario).__name__}")
+            system = self.scenario.system
+            if system is not None and not isinstance(system, ClientSystemModel):
+                raise ValueError(
+                    "Scenario.system must be an experiments.heterogeneity."
+                    f"ClientSystemModel, got {type(system).__name__}")
         options = dict(self.options or {})
         unknown = sorted(k for k in options if k not in _OPTIONS)
         if unknown:

@@ -17,7 +17,7 @@ round's fp32 learning rate (a 0-d tensor on the device, read from the
 tape ``lr_schedule`` gives), both owned by the driver (FedSPD draws from
 the stream in its state). A method with ``supports_dynamic_graph`` takes
 the round's ``(N, N)`` adjacency as the first extra (per-seed graphs, a
-cohort's minor); ``cohort_axes`` maps its state's fields to their client
+cohort's minor, a scenario's round); ``cohort_axes`` maps its state's fields to their client
 axis for cohort subsampling; ``round_branch(ctx, r)`` names the host-side
 branch round r takes (a captured round needs one graph per branch).
 

@@ -39,6 +39,22 @@ scattered back in place, so inactive rows stay bit-untouched and dropped
 clients cost no bytes. Cohorts come from a generator of their own, seeded
 from the run's seed, drawn on the device.
 
+``RunConfig(scenario=Scenario(...))`` (experiments/scenarios.py) runs
+FedSPD on a topology that changes every round, on both engines. The
+PRE-dropout adjacencies become a device tape ``(rounds, N, N)`` read at
+the round (the replay reads it at its device round counter, as it reads
+the lr tape): a graph schedule's, or the base graph's in every round for a
+dropout- or heterogeneity-only scenario.
+Link dropout draws ``(N, N)`` uniforms a round from a device generator of
+its own (``bernoulli_drop``), and a ``ClientSystemModel`` draws its
+timeouts and availability from another (``het_round``), whose staleness
+carry the replay updates in place; ``masked_client_step`` keeps an
+inactive client's rows bit-untouched and folds the activity weights into
+the adjacency. The step's extras come in the JAX driver's order:
+adjacency, cohort indices, activity weights. The streams are shared by
+every seed of a batch, as in the JAX driver, and ``extras["staleness"]``
+holds the final per-client staleness counters.
+
 The run's generators: one seeded from ``seed`` initialises the state, and
 a stream forked from it after the init feeds the rounds (FedSPD forks its
 own into its state instead). Evaluation draws (pFedMe's personalization)
@@ -77,13 +93,19 @@ from repro_torch.device import (
     warm_up,
 )
 from repro_torch.experiments.config import RunConfig
+from repro_torch.experiments.heterogeneity import (
+    draw_het,
+    het_round,
+    masked_client_step,
+)
 from repro_torch.experiments.registry import (
     ExperimentContext,
     Method,
     build_context,
     get_method,
 )
-from repro_torch.graphs.topology import Graph, union_graph
+from repro_torch.experiments.scenarios import Scenario, bernoulli_drop, draw_drop
+from repro_torch.graphs.topology import Graph, make_graph, union_graph
 
 # the profiler span around each round (see the module docstring)
 ROUND_SPAN = "repro_torch.round"
@@ -101,7 +123,8 @@ class RunResult:
     wall_s: float
     extras: dict        # method diagnostics; "round_ms": per-round times;
                         # "n_captures", "n_dispatches"; "state",
-                        # "pack_spec" with options["keep_state"]
+                        # "pack_spec" with options["keep_state"];
+                        # "staleness" under a ClientSystemModel
 
 
 def _require_dynamic_graph(m: Method, what: str) -> None:
@@ -134,10 +157,11 @@ def _wire_bytes(ctx: ExperimentContext, logical: float) -> float:
 # --------------------------------------------------------------------------
 
 
-def _cohort_seed(seed: int) -> int:
-    """The cohort stream's seed, derived from the run's seed and apart
-    from it (the JAX driver folds 0x5EED into the run's key)."""
-    return int(np.random.SeedSequence((int(seed), 0x5EED)).generate_state(
+def _stream_seed(seed: int, tag: int) -> int:
+    """A stream's seed, derived from ``seed`` and apart from it and from
+    the other streams' (the JAX driver folds a tag into a key: 0x5EED for
+    the cohorts, 0x51AC for heterogeneity)."""
+    return int(np.random.SeedSequence((int(seed), tag)).generate_state(
         1, np.uint64)[0])
 
 
@@ -187,10 +211,11 @@ def _cohort_step(step: Callable, axes) -> Callable:
 class _Seed:
     """One seed's context, state, generators and round step. ``adj`` is
     the round's adjacency extra (a per-seed graph, or the graph a cohort
-    takes its minor of), ``cohort`` K or None."""
+    takes its minor of) unless a scenario gives it, ``cohort`` K or None;
+    with ``het`` the step runs under ``masked_client_step``."""
 
     def __init__(self, m: Method, ctx: ExperimentContext, seed: int,
-                 adj: torch.Tensor | None, cohort: int | None):
+                 adj: torch.Tensor | None, cohort: int | None, het: bool = False):
         self.ctx, self.adj, self.cohort = ctx, adj, cohort
         gen = make_generator(ctx.device, seed)
         self.state = m.init(ctx, gen)
@@ -199,16 +224,73 @@ class _Seed:
         self.cgen = None
         if cohort is not None:
             self.step = _cohort_step(self.step, m.cohort_axes(ctx, self.state))
-            self.cgen = make_generator(ctx.device, _cohort_seed(seed))
+            self.cgen = make_generator(ctx.device, _stream_seed(seed, 0x5EED))
+        if het:
+            # outside the cohort gather: the weights cover every client
+            self.step = masked_client_step(self.step, m.cohort_axes(ctx, self.state))
         self.aux, self.curve = None, []
 
-    def round(self, state, gen, cgen, lr):
+    def round(self, state, gen, cgen, lr, scen=None):
         """One round of this seed's step from ``state`` with the given
-        generators (the seed's own, or a warm-up's copies)."""
-        extras = () if self.adj is None else (self.adj,)
+        generators (the seed's own, or a warm-up's copies); ``scen`` is the
+        scenario's (adjacency, activity weights or None) for the round."""
+        adj = self.adj if scen is None else scen[0]
+        extras = () if adj is None else (adj,)
         if self.cohort is not None:
             extras += (_cohort_indices(cgen, self.ctx.n_clients, self.cohort),)
+        if scen is not None and scen[1] is not None:
+            extras += (scen[1],)
         return self.step(state, self.ctx.train, gen, lr, *extras)
+
+
+class _ScenarioRun:
+    """A run's scenario on its device, shared by every seed: the round's
+    adjacency (read from the tape at the round), the dropout stream, the
+    heterogeneity stream and its carry. The
+    generators and the carry are the mutable part (``bufs``): a warm-up
+    runs on copies of them, the replay on the buffers it was captured
+    over."""
+
+    def __init__(self, scenario: Scenario, tape: np.ndarray, device: torch.device):
+        self.n, self.p = tape.shape[1], float(scenario.dropout)
+        self.tape = torch.as_tensor(tape, device=device)
+        self.het = scenario.system
+        dgen = hgen = carry = None
+        if self.p > 0.0:
+            dgen = make_generator(device, _stream_seed(scenario.seed, 0xD809))
+        if self.het is not None:
+            self.speeds = torch.as_tensor(self.het.resolve_speeds(self.n), device=device)
+            hgen = make_generator(device, _stream_seed(self.het.seed, 0x51AC))
+            carry = self.het.init_carry(self.n, device)
+        self.bufs = (dgen, hgen, carry)
+
+    def gens(self) -> list:
+        return [g for g in self.bufs[:2] if g is not None]
+
+    def copies(self) -> tuple:
+        """Throwaway copies of the generators and the carry."""
+        dgen, hgen, carry = self.bufs
+        return (None if dgen is None else copy_generator(dgen),
+                None if hgen is None else copy_generator(hgen),
+                None if carry is None else type(carry)(*(t.clone() for t in carry)))
+
+    def round(self, r, bufs) -> tuple:
+        """Round ``r``'s (adjacency, activity weights or None), drawn from
+        ``bufs``; the carry is updated in place. ``r`` is the host's round
+        (the loop) or the device round counter (the replay)."""
+        dgen, hgen, carry = bufs
+        if isinstance(r, torch.Tensor):
+            adj = self.tape.index_select(0, r).reshape(self.n, self.n)
+        else:
+            adj = self.tape[r]
+        if self.p > 0.0:
+            adj = bernoulli_drop(adj, draw_drop(dgen, self.n), self.p)
+        aw = None
+        if self.het is not None:
+            new, aw = het_round(self.het, self.speeds, carry, *draw_het(hgen, self.n))
+            carry.stale.copy_(new.stale)
+            carry.avail.copy_(new.avail)
+        return adj, aw
 
 
 def _fields(state) -> tuple:
@@ -249,31 +331,36 @@ class _CapturedRound:
     CPU ``__call__`` runs the closure."""
 
     def __init__(self, method: str, seeds: list, tape: torch.Tensor,
-                 ctr: torch.Tensor, r: int, device: torch.device):
-        def body(bufs, ctr):
+                 ctr: torch.Tensor, r: int, device: torch.device,
+                 scenario: _ScenarioRun | None = None):
+        def body(bufs, sbufs, ctr):
             lr = tape.index_select(0, ctr).reshape(())
+            scen = None if scenario is None else scenario.round(ctr, sbufs)
             auxs = []
             for sd, (state, gen, cgen) in zip(seeds, bufs):
-                new, aux = sd.round(_at_round(state, r), gen, cgen, lr)
+                new, aux = sd.round(_at_round(state, r), gen, cgen, lr, scen)
                 _write_back(state, new)
                 auxs.append(aux)
             ctr.add_(1)
             return auxs
 
         real = [(sd.state, sd.gen, sd.cgen) for sd in seeds]
+        sreal = None if scenario is None else scenario.bufs
         self.graph, self.aux = None, None
         if device.type != "cuda":
-            self._run = lambda: body(real, ctr)
+            self._run = lambda: body(real, sreal, ctr)
             return
         copies = [(_copy_state(st), copy_generator(g),
                    None if cg is None else copy_generator(cg)) for st, g, cg in real]
+        scopies = None if scenario is None else scenario.copies()
         gens = [g for st, gen, cg in real
                 for g in (gen, cg, *_fields(st)) if isinstance(g, torch.Generator)]
+        gens += [] if scenario is None else scenario.gens()
         out = []
         try:
-            warm_up(lambda: body(copies, ctr.clone()), device)
-            del copies
-            self.graph = capture(lambda: out.append(body(real, ctr)), gens)
+            warm_up(lambda: body(copies, scopies, ctr.clone()), device)
+            del copies, scopies
+            self.graph = capture(lambda: out.append(body(real, sreal, ctr)), gens)
         except Exception as e:
             raise RuntimeError(
                 f"scan_rounds: {method!r}'s round (round {r}) could not be "
@@ -324,10 +411,12 @@ def _timed(device: torch.device, fn: Callable) -> float:
 
 
 def _loop(m: Method, seeds: list, lrs: torch.Tensor, rounds: int,
-          cfg: RunConfig, device: torch.device) -> dict:
+          cfg: RunConfig, device: torch.device,
+          scenario: _ScenarioRun | None = None) -> dict:
     def one_round(r):
+        scen = None if scenario is None else scenario.round(r, scenario.bufs)
         for sd in seeds:
-            sd.state, sd.aux = sd.round(sd.state, sd.gen, sd.cgen, lrs[r])
+            sd.state, sd.aux = sd.round(sd.state, sd.gen, sd.cgen, lrs[r], scen)
 
     round_ms = []
     for r in range(rounds):
@@ -338,14 +427,16 @@ def _loop(m: Method, seeds: list, lrs: torch.Tensor, rounds: int,
 
 
 def _replay(m: Method, seeds: list, lrs: torch.Tensor, rounds: int,
-            cfg: RunConfig, device: torch.device) -> dict:
+            cfg: RunConfig, device: torch.device,
+            scenario: _ScenarioRun | None = None) -> dict:
     ctr = torch.zeros(1, dtype=torch.int64, device=device)
     by_branch, round_ms, capture_ms, auxs = {}, [], [], None
     for r in range(rounds):
         branch = m.round_branch(seeds[0].ctx, r)
         if branch not in by_branch:
             t = time.perf_counter()
-            by_branch[branch] = _CapturedRound(m.name, seeds, lrs, ctr, r, device)
+            by_branch[branch] = _CapturedRound(m.name, seeds, lrs, ctr, r, device,
+                                               scenario)
             capture_ms.append((time.perf_counter() - t) * 1e3)
         run = by_branch[branch]
         out = []
@@ -426,6 +517,30 @@ def _stack_graphs(m: Method, graph, seeds: tuple, entry: str):
     return adj, union_graph(adj)
 
 
+def _resolve_scenario(m: Method, scenario: Scenario | None, graph, exp: PaperExpConfig,
+                      data: ClientDataset, seed: int, adj_seeds):
+    """(the PRE-dropout ``(rounds, N, N)`` tape or None, the context's graph).
+
+    A schedule resolves to its stack; a dropout- or heterogeneity-only
+    scenario to the base graph (the given one, else the one the context
+    would build) in every round. The context takes the union graph. A
+    static scenario is none."""
+    if scenario is None or not scenario.dynamic:
+        return None, graph
+    if adj_seeds is not None:
+        raise ValueError(
+            "per-seed graphs and a dynamic scenario schedule are mutually "
+            "exclusive (one adjacency per step)")
+    _require_dynamic_graph(m, "dynamic-topology scenarios")
+    if graph is None and scenario.graph_schedule is None:
+        graph = make_graph(exp.graph_kind, data.n_clients, exp.avg_degree, seed=seed)
+    stack, union = scenario.resolve(graph, exp.rounds)
+    if stack.shape[1] != data.n_clients:
+        raise ValueError(
+            f"graph_schedule has {stack.shape[1]} clients, the data {data.n_clients}")
+    return stack, union
+
+
 def _drive(entry: str, method: str, data, exp: PaperExpConfig, graph,
            seeds: tuple, cfg: RunConfig) -> list:
     t0 = time.time()
@@ -438,8 +553,15 @@ def _drive(entry: str, method: str, data, exp: PaperExpConfig, graph,
                 f"runs {feature} in FedSPD only (the baselines' compressed "
                 "exchange comes later)")
     device = resolve_device(cfg.device)
+    scenario = cfg.scenario
+    if (entry == "run_method_batch" and scenario is not None and scenario.data_stack
+            and isinstance(data, ClientDataset)):
+        raise ValueError(
+            f"{entry}: scenario.data_stack=True needs a per-seed sequence of "
+            "datasets in `data`")
     datasets = _stack_data(data, seeds, entry)
     adjs, graph = _stack_graphs(m, graph, seeds, entry)
+    tape, graph = _resolve_scenario(m, scenario, graph, exp, datasets[0], seeds[0], adjs)
     # one graph for every seed: the given one, else the first seed's
     ctx0 = build_context(datasets[0], exp, device, graph=graph, seed=seeds[0],
                          options=options)
@@ -452,16 +574,21 @@ def _drive(entry: str, method: str, data, exp: PaperExpConfig, graph,
         if not 0 < cohort <= ctx0.n_clients:
             raise ValueError(
                 f"{entry}: cohort_size={cohort} must be in 1..N={ctx0.n_clients}")
-        if adjs is None:
+        if adjs is None and tape is None:
             adjs = np.stack([ctx0.graph.adj] * len(seeds)).astype(np.float32)
+    scen = None if tape is None else _ScenarioRun(scenario, tape, device)
+    het = scen is not None and scen.het is not None
     runs = [_Seed(m, ctx, s, None if adjs is None else
-                  torch.as_tensor(a, dtype=torch.float32, device=device), cohort)
+                  torch.as_tensor(a, dtype=torch.float32, device=device), cohort, het)
             for ctx, s, a in zip(ctxs, seeds, adjs if adjs is not None
                                  else [None] * len(seeds))]
     lrs = torch.as_tensor(m.lr_schedule(ctx0), device=device)
     replay = cfg.scan_rounds if cfg.scan_rounds is not None else device.type == "cuda"
     engine = _replay if replay else _loop
-    stats = engine(m, runs, lrs, exp.rounds, cfg, device)
+    stats = engine(m, runs, lrs, exp.rounds, cfg, device, scen)
+    if het:
+        # shared by every seed, as the streams are
+        stats["staleness"] = scen.bufs[2].stale.cpu().numpy()
     results = []
     for sd in runs:
         acc = m.evaluate(sd.ctx, sd.state, sd.ctx.test, copy_generator(sd.gen))
@@ -476,7 +603,7 @@ def run_method(method: str, data: ClientDataset, exp: PaperExpConfig,
     by default; raises ``RuntimeError`` without one unless
     ``cfg=RunConfig(device="cpu")``). On the card it replays one captured
     round (``cfg.scan_rounds=False`` runs the loop); ``cfg.cohort_size``
-    samples K clients a round."""
+    samples K clients a round; ``cfg.scenario`` varies the topology."""
     return _drive("run_method", method, data, exp, graph, (int(seed),),
                   cfg if cfg is not None else RunConfig())[0]
 
@@ -495,7 +622,11 @@ def run_method_batch(method: str, data, exp: PaperExpConfig,
       one shape (the paper's Tables 2–3 protocol);
     - per-seed graphs: ``graph`` as a sequence (methods with
       ``supports_dynamic_graph``): seed i's adjacency rides its step's
-      ``adj``, and the context takes the union graph."""
+      ``adj``, and the context takes the union graph;
+    - a dynamic ``cfg.scenario``: its dropout and heterogeneity streams
+      are shared by every seed (one draw a round, as in the JAX driver),
+      so each seed still equals its single run; it excludes per-seed
+      graphs, and ``scenario.data_stack`` requires stacked data."""
     return _drive("run_method_batch", method, data, exp, graph,
                   tuple(int(s) for s in seeds),
                   cfg if cfg is not None else RunConfig())

@@ -903,3 +903,97 @@ def test_a_failed_decode_capture_raises_and_never_falls_back(cuda, monkeypatch):
     monkeypatch.undo()
     toks = server.generate(u, prompts, gen=4)
     assert server.n_compiles == 1 and tuple(toks.shape) == (4, 4)
+
+
+# the scenario engine on the card: a round of scenario B (dropout and a
+# Markov heterogeneity model with stragglers and stale-gossip decay) on
+# the card against the same round on the CPU with the same injected draws,
+# and the replay of a scenario run (a schedule tape, the dropout stream,
+# the heterogeneity carry) against its loop
+SCEN_SYSTEM = dict(slow_fraction=0.34, slow_factor=4.0, time_budget=2.0, jitter=0.3,
+                   markov=(0.3, 0.7), staleness_gamma=0.9, seed=5)
+
+
+def _fedspd_state_to(st, dev):
+    return st._replace(**{f: getattr(st, f).to(dev, copy=True)
+                          for f in ("centers", "u", "z", "comm_bytes", "ef", "mask")
+                          if getattr(st, f) is not None},
+                       gen=torch.Generator(device=dev))
+
+
+@pytest.mark.parametrize("dp", [False, True])
+def test_scenario_round_on_the_card_equals_the_cpu(cuda, dp):
+    from repro_torch.core.fedspd import make_round_step
+    from repro_torch.core.gossip import GossipSpec, make_mix_fn
+    from repro_torch.experiments.heterogeneity import (
+        ClientSystemModel, HetCarry, draw_het, het_round, masked_client_step)
+    from repro_torch.experiments.registry import build_context, get_method
+    from repro_torch.experiments.scenarios import bernoulli_drop, draw_drop
+
+    data, exp = _engine_setup()
+    n, m_pts, cpu = data.n_clients, data.x.shape[1], torch.device("cpu")
+    opts = RunConfig(options=ENGINE_DP if dp else {}).resolve_options()
+    m, model = get_method("fedspd"), ClientSystemModel(**SCEN_SYSTEM)
+    st0 = m.init(build_context(data, exp, cpu, options=opts), torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    adj_u, (z, u) = draw_drop(g, n), draw_het(g, n)
+    carry = HetCarry(stale=torch.tensor([0, 1, 2, 0, 3, 0, 1, 0], dtype=torch.int32),
+                     avail=torch.tensor([1.0, 1.0, 0.0, 1.0, 0.0, 1.0, 1.0, 1.0]))
+    x = st0.centers.shape[-1]
+    draws = dict(s=torch.randint(0, 2, (n,), generator=g),
+                 idx=torch.randint(0, m_pts, (exp.tau, n, exp.batch), generator=g),
+                 noise=torch.randn((n, x), generator=g))
+    out = {}
+    for dev in (cpu, cuda):
+        ctx = build_context(data, exp, dev, options=opts)
+        spec = GossipSpec.from_graph(ctx.graph)
+        core = make_round_step(ctx.loss_fn, ctx.pel_fn, spec, m._fcfg(ctx),
+                               pack_spec=ctx.pack_spec, mix_fn=make_mix_fn(spec))
+        d = {k: v.to(dev) for k, v in draws.items()}
+        st = _fedspd_state_to(st0, dev)
+        step = masked_client_step(lambda s_, tr, gen, lr, a: core(s_, tr, a, **d),
+                                  m.cohort_axes(ctx, st))
+        adj = bernoulli_drop(torch.as_tensor(ctx.graph.adj, device=dev), adj_u.to(dev), 0.2)
+        speeds = torch.as_tensor(model.resolve_speeds(n), device=dev)
+        new_carry, aw = het_round(model, speeds, HetCarry(*(t.to(dev) for t in carry)),
+                                  z.to(dev), u.to(dev))
+        reset_launch_counts()
+        new, _ = step(st, ctx.train, None, None, adj, aw)
+        kernel = gossip_mix_fused_dp if dp else gossip_mix_flat
+        assert kernel.launches == (1 if dev.type == "cuda" else 0)
+        out[dev.type] = [t.cpu() for t in (new.centers, new.u, new.comm_bytes, aw,
+                                           *new_carry)]
+    (pc, uc, bc, wc, sc, ac), (pg, ug, bg, wg, sg, ag) = out["cpu"], out["cuda"]
+    assert torch.equal(sc, sg) and torch.equal(ac, ag) and torch.equal(wc > 0, wg > 0)
+    torch.testing.assert_close(wg, wc, rtol=2.4e-7, atol=0)
+    assert bool((wc > 0).any()) and bool((wc == 0).any()) and bool(((wc > 0) & (wc < 1)).any())
+    assert _max_err(pg, pc) <= TOL and _max_err(ug, uc) <= TOL
+    assert float(bg) == float(bc)
+
+
+@pytest.mark.parametrize("dp", [False, True])
+def test_scenario_replay_equals_the_eager_loop(cuda, dp):
+    """A schedule tape, the dropout stream and a heterogeneity carry: the
+    replay equals the loop bit for bit (staleness too), one exchange
+    kernel in every replayed round."""
+    from repro_torch.experiments.heterogeneity import ClientSystemModel
+    from repro_torch.experiments.scenarios import Scenario
+    from repro_torch.graphs.topology import rewire_schedule
+
+    data, exp = _engine_setup()
+    scenario = Scenario(graph_schedule=rewire_schedule("er", 8, 3.0, exp.rounds, seed=2),
+                        dropout=0.2, seed=1, system=ClientSystemModel(**SCEN_SYSTEM))
+    opts = dict(ENGINE_DP if dp else {}, keep_state=True)
+    reset_launch_counts()
+    loop = run_method("fedspd", data, exp, cfg=RunConfig(eval_every=1, scan_rounds=False,
+                                                         scenario=scenario, options=opts))
+    counts = {k.__name__: k.launches for k in KERNELS}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        scan = run_method("fedspd", data, exp, cfg=RunConfig(eval_every=1, scenario=scenario,
+                                                             options=opts))
+    _assert_same_run(loop, scan)
+    assert (loop.extras["staleness"] == scan.extras["staleness"]).all()
+    assert counts["gossip_mix_fused_dp" if dp else "gossip_mix_flat"] == exp.rounds
+    assert _replayed_exchange_kernels(prof) == [1] * exp.rounds
+    assert (scan.extras["n_captures"], scan.extras["n_dispatches"]) == (1, exp.rounds)
