@@ -103,23 +103,41 @@ Phases, in order; any failure exits non-zero before the result line:
    device ms a round over the median ms of the same run's other rounds
    (``profile replay``). Printed: round ms medians of both engines, the busy shares,
    the capture's ms, ``n_captures`` and ``n_dispatches``;
-9. the scenario engine, the slice's path: one full-width round of
+9. the scenario engine, the seventh path: one full-width round of
    scenario B (link dropout 0.2 and a Markov client-system model with
    stragglers and stale-gossip decay) on the card against the CPU, DP off
    and on, with the same injected draws (plane within 1e-5, bytes equal),
    and kernels 1, 2, 4, 5 and 6 on that round's weighted W against their
-   plain versions; then ``run_method("fedspd", ...)`` for 60 rounds under
+   plain versions; then ``run_method("fedspd", ...)`` for 30 rounds
+   (``SCENARIO_ROUNDS``: half the paper's 60, to pay for phase 10) under
    scenario A (a rewired ER schedule with dropout 0.2) and B, DP off and
    on, and B with a cohort of 10, with dense int8 + error feedback and
    with sparse d0.2 + int8 + error feedback, each on the loop and on the
    replay as in phase 8 (bit for bit, staleness included; one exchange
    kernel in every replayed round, two with sparse; busy shares from
-   rounds 31-33), beside the same run's replay without the scenario;
-10. a torch.profiler window over 3 rounds of the main path, one over 3
+   rounds 16-18), beside the same run's replay without the scenario;
+10. the main-path variants, the slice's path, on the main path's
+   population for 12 rounds a run (``VARIANT_ROUNDS``), each loop against
+   replay, bit for bit: the conv1d classifier
+   (``PaperExpConfig(model="conv")``, X = 14,720), DP off (traced as in
+   phase 8: one exchange kernel a replayed round, busy shares from rounds
+   7-9) and on; ``fedspd_permute`` on "cuda", equal bit for bit to
+   ``fedspd``; the permute wiring on "reference", one full-width round
+   against the dense wiring with the same injected draws (1e-5);
+   cosine alignment DP off and on at a threshold between two of round
+   1's same-cluster neighbour cosines that drops a quarter of those
+   links (printed), where kernel 2 must never launch; 20 rounds of the
+   stream regime (``FedSPDConfig(regime="stream")``, mlp and conv, a
+   fresh batch of 32 points a client a round) and one stream DP round on
+   the card against the CPU with injected draws (1e-5); then kernels 1, 2
+   and 4 at the conv plane's shape (20, 14,720) against their plain
+   versions, timed beside their bounds and ``torch.matmul``;
+11. a torch.profiler window over 3 rounds of the main path, one over 3
    DP rounds (``dp``: the clip, the noise draw and kernel 2, which it must
-   see) and one of the sparse + int8 path: device time per round, the
+   see), one over 3 rounds of the conv classifier (``conv``) and one of
+   the sparse + int8 path: device time per round, the
    kernels that take it, and the device's busy share;
-11. the LM kernels: ``flash_attention`` (kernel 8) at olmo-1b's prefill
+12. the LM kernels: ``flash_attention`` (kernel 8) at olmo-1b's prefill
    (B = 4 requests, L = 512, 16 heads, hd 128, bf16; also fp32), a
    danube-like GQA 32/8 hd-80 layer with a 256 window and a gemma3-like
    hd-256 layer over one kv head, each bf16 row beside the count of
@@ -138,7 +156,7 @@ Phases, in order; any failure exits non-zero before the result line:
    CUDA-graph replay beside its bound (bytes over 3.35 TB/s or FLOPs over
    989 TFLOP/s bf16 / 67 TFLOP/s fp32), its plain version and, for
    attention, ``scaled_dot_product_attention``;
-12. LM generation, the fifth path: ``olmo-1b`` and ``mamba2-370m`` at full
+13. LM generation, the fifth path: ``olmo-1b`` and ``mamba2-370m`` at full
    width, ``launch/serve``'s random S = 2 plane (``build_server``) in
    fp32, int8 and int4, B = 4 requests with their own mixtures, prompt
    512, 16 greedy tokens, every launch counter set to 0 just before each
@@ -189,7 +207,10 @@ TOL = 1e-5
 SHAPES = [(20, 17226), (20, 4194304)]  # (N, X): the main path's, past L2
 ROUNDS = 5
 ENGINE_ROUNDS = 60   # the paper's rounds (configs/paper_cnn.py), for the engines phase
-PROFILED_ROUNDS = (30, 33)   # the rounds [30, 33) of a 60-round run profiled for its busy share
+SCENARIO_ROUNDS = 30   # the scenarios phase's depth (half the paper's rounds)
+VARIANT_ROUNDS = 12    # the variants phase's runs
+STREAM_ROUNDS, STREAM_B = 20, 32   # the stream regime's rounds and fresh batch a client
+CONV_X = 14720   # the conv1d classifier's plane at the main path's dim 64 and 10 classes
 DP_OPTIONS = {"dp_clip": 1.0, "dp_noise_multiplier": 0.5}   # the DP main path: sigma 0.5
 DP_OPS = ("aten::square", "aten::sqrt", "aten::clamp", "aten::randn", "aten::normal_")
 # serving kernels, (B requests, S clusters, X, qblock): a batch of the 20
@@ -361,20 +382,25 @@ def mix_constant(name: str) -> int:
     return int(re.search(rf"constexpr int64_t {name} = (\d+);", src.read_text()).group(1))
 
 
-def phase_kernels(torch, gm) -> dict:
+def phase_kernels(torch, gm, timed_shapes=None) -> dict:
     """Kernels 1 and 2 at SHAPES, kernel 2 also at both sides of its
     routes' widths (the narrow kernel below kDpVecMinX, its vector kernel
     from it at an even X; past kNarrowMaxX mix_kernel at an odd X and the
     vector kernel at an even one), each kernel-2 row bit for
     bit against mix_kernel (the one-slab stack mix) of the plane that torch
-    sanitized, one op a step."""
+    sanitized, one op a step. With ``timed_shapes``, both kernels at those
+    shapes only (the launch floor beside the first)."""
     dev = torch.device("cuda")
     rows = {"gossip_mix_flat": [], "gossip_mix_fused_dp": []}
     floor = launch_floor(torch)
-    print("launch_floor_ms " + json.dumps({"ms": graph_ms(floor)}), flush=True)
-    cap, vec = mix_constant("kNarrowMaxX"), mix_constant("kDpVecMinX")
-    edges = [(20, vec - 2), (20, vec), (20, cap - 1), (20, cap + 1), (20, cap + 2)]
-    for n, x in SHAPES + edges:
+    if timed_shapes is None:
+        print("launch_floor_ms " + json.dumps({"ms": graph_ms(floor)}), flush=True)
+        cap, vec = mix_constant("kNarrowMaxX"), mix_constant("kDpVecMinX")
+        edges = [(20, vec - 2), (20, vec), (20, cap - 1), (20, cap + 1), (20, cap + 2)]
+        timed_shapes, shapes = SHAPES, SHAPES + edges
+    else:
+        shapes = timed_shapes
+    for n, x in shapes:
         g = torch.Generator(device=dev).manual_seed(n * 7 + x)
         w = torch.rand((n, n), generator=g, device=dev)
         w = w / w.sum(dim=1, keepdim=True)
@@ -388,7 +414,7 @@ def phase_kernels(torch, gm) -> dict:
         def timed(fn):
             return graph_ms(fn) if small else time_ms(fn, iters)
 
-        if (n, x) in SHAPES:
+        if (n, x) in timed_shapes:
             out = gm.gossip_mix_flat(w, c_old)
             torch.cuda.synchronize()
             err = float((out - gm.gossip_mix_flat_ref(w, c_old)).abs().max())
@@ -401,7 +427,7 @@ def phase_kernels(torch, gm) -> dict:
                 library_ms=timed(lambda: torch.matmul(w, c_old)),
                 bound_ms=b_ms, bound_by=b_by,
                 call_ms=time_ms(lambda: gm.gossip_mix_flat(w, c_old), iters),
-                **({"floor_ms": timed(floor)} if x == SHAPES[0][1] else {})))
+                **({"floor_ms": timed(floor)} if (n, x) == timed_shapes[0] else {})))
 
         for sigma in (0.0, 0.5):
             nz = noise if sigma > 0 else None
@@ -430,7 +456,7 @@ def phase_kernels(torch, gm) -> dict:
                 sanitized_matmul_ms=timed(lambda: torch.matmul(w, san)),
                 call_ms=time_ms(lambda: gm.gossip_mix_fused_dp(
                     w, c_old, c_new, scale, nz, sigma), iters),
-                **({"floor_ms": timed(floor)} if (n, x) == SHAPES[0] else {})))
+                **({"floor_ms": timed(floor)} if (n, x) == timed_shapes[0] else {})))
             del san, witness
         del w, c_old, c_new, scale, noise, out
         torch.cuda.empty_cache()
@@ -494,14 +520,22 @@ def _serve_operands(torch, b: int, s: int, x: int, qblock: int, codec: str, seed
     return u, q.contiguous(), enc["scale"].contiguous()
 
 
-def phase_dequant_kernels(torch, gm) -> dict:
+def phase_dequant_kernels(torch, gm, timed_shapes=None) -> dict:
     """The serving kernels against their plain versions, timed at the
-    serving shapes; gossip_mix_dequant also checked at DEQUANT_CHECKS."""
-    rows = {"gossip_mix_dequant": [], "mixture_mix_dequant4": []}
+    serving shapes; gossip_mix_dequant also checked at DEQUANT_CHECKS.
+    With ``timed_shapes``, gossip_mix_dequant at those shapes only."""
+    kinds = (("gossip_mix_dequant", "int8"), ("mixture_mix_dequant4", "int4"))
+    if timed_shapes is not None:
+        kinds = kinds[:1]
+    rows = {name: [] for name, _ in kinds}
     floor = launch_floor(torch)
-    for name, codec in (("gossip_mix_dequant", "int8"), ("mixture_mix_dequant4", "int4")):
+    for name, codec in kinds:
         kernel, plain = getattr(gm, name), getattr(gm, name + "_ref")
-        shapes = SERVE_SHAPES + (DEQUANT_CHECKS if codec == "int8" else [])
+        if timed_shapes is not None:
+            shapes = timed_set = timed_shapes
+        else:
+            shapes = SERVE_SHAPES + (DEQUANT_CHECKS if codec == "int8" else [])
+            timed_set = SERVE_SHAPES + [GOSSIP_DEQUANT]
         for b, s, x, qblock in shapes:
             u, q, sc = _serve_operands(torch, b, s, x, qblock, codec, seed=b + x)
             xp = sc.shape[1] * qblock
@@ -520,7 +554,7 @@ def phase_dequant_kernels(torch, gm) -> dict:
                 row["bits_as_serving_template"] = bool(torch.equal(out[:-1], part))
                 check(row["bits_as_serving_template"],
                       f"{name} M=N={b} Xp={xp}: rows differ from the serving template's")
-            if (b, s, x, qblock) in SERVE_SHAPES + [GOSSIP_DEQUANT]:
+            if (b, s, x, qblock) in timed_set:
                 small = 4 * b * xp < 32 * 2**20   # graph replay; else events
                 iters = 200 if small else 20
 
@@ -856,13 +890,19 @@ def _profiler():
     return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
 
-def _windowed(run, cfg):
-    """``run`` with a profiler over rounds PROFILED_ROUNDS only, started
-    and stopped by the run's ``on_round`` hook. Returns the result, the
+def profiled(rounds: int) -> tuple[int, int]:
+    """The rounds [first, end) of a run profiled for its busy share: three
+    from its middle ([30, 33) of the engines phase's 60)."""
+    return rounds // 2, rounds // 2 + 3
+
+
+def _windowed(run, cfg, rounds: int):
+    """``run`` with a profiler over the rounds ``profiled(rounds)`` only,
+    started and stopped by the run's ``on_round`` hook. Returns the result, the
     profiled rounds' kernels, and the device ms a round, the median round
     ms of the rounds not profiled (round 1 aside: first-use costs) and
     their ratio, the busy share, all of this one run."""
-    prof, (first, end) = _profiler(), PROFILED_ROUNDS
+    prof, (first, end) = _profiler(), profiled(rounds)
 
     def on_round(r):
         if r == first - 1:
@@ -890,7 +930,7 @@ def _engine_pair(torch, gm, label, method, data, exp, cfg, seeds=None, busy=Fals
     kernels the loop's name, every replayed round ran kernels on the card,
     and the replays launched as many exchange kernels as the loop's
     counters. With ``busy``, the loop run and a second replayed run are
-    profiled over PROFILED_ROUNDS only (``_windowed``): each engine's
+    profiled over ``profiled(rounds)`` only (``_windowed``): each engine's
     device ms a round and busy share from one run. Returns a dict."""
     from repro_torch.experiments import run_method, run_method_batch
 
@@ -908,7 +948,7 @@ def _engine_pair(torch, gm, label, method, data, exp, cfg, seeds=None, busy=Fals
     loop_cfg, scan_cfg = (dataclasses.replace(cfg, scan_rounds=v) for v in (False, None))
     gm.reset_launch_counts()
     if busy:
-        loop, _, out["loop_busy"] = _windowed(run, loop_cfg)
+        loop, _, out["loop_busy"] = _windowed(run, loop_cfg, exp.rounds)
     else:
         loop = run(loop_cfg)
     loop_counts = {k.__name__: k.launches for k in gm.KERNELS}
@@ -931,9 +971,9 @@ def _engine_pair(torch, gm, label, method, data, exp, cfg, seeds=None, busy=Fals
           f"engines {label}: the replays launched {replayed} exchange kernels, the loop "
           f"{sum(loop_counts.values())}")
     if busy:
-        scan_w, _, out["replay_busy"] = _windowed(run, scan_cfg)
-        same(loop, scan_w, "the replay profiled over rounds "
-                           f"{PROFILED_ROUNDS[0] + 1}-{PROFILED_ROUNDS[1]}")
+        scan_w, _, out["replay_busy"] = _windowed(run, scan_cfg, exp.rounds)
+        first_r, end_r = profiled(exp.rounds)
+        same(loop, scan_w, f"the replay profiled over rounds {first_r + 1}-{end_r}")
     out.update(loop=loop[0] if seeds is not None else loop, scan=first, counts=counts,
                loop_counts=loop_counts, windows=windows)
     return out
@@ -952,10 +992,11 @@ def _engine_line(label, pair) -> None:
             key = (sym.group(0) if sym else k.name[:80]).replace("(anonymous namespace)::", "")
             names[key] = names.get(key, 0) + 1
     busy = ""
+    first, end = profiled(len(lm))
     for engine in ("loop", "replay"):
         if f"{engine}_busy" in pair:
             b = pair[f"{engine}_busy"]
-            busy += (f" {engine} (rounds {PROFILED_ROUNDS[0] + 1}-{PROFILED_ROUNDS[1]} profiled):"
+            busy += (f" {engine} (rounds {first + 1}-{end} profiled):"
                      f" device_ms_per_round {b['device_ms']:.4f} round_ms median of the rest "
                      f"{b['round_ms']:.4f} device_busy_share {b['busy']:.4f}")
     print(f"engines {label}: loop round_ms median(rounds 2-{len(lm)}) "
@@ -1147,7 +1188,7 @@ def phase_scenario_agreement(torch, gm) -> dict:
 
 
 def phase_scenarios(torch, gm, card: str) -> dict:
-    """The slice's path: FedSPD for ENGINE_ROUNDS rounds under scenario A
+    """The scenario path: FedSPD for SCENARIO_ROUNDS rounds under scenario A
     (rewired ER schedule + dropout) and B (Markov heterogeneity + dropout),
     DP off and on, and B also with a cohort of 10, with dense int8 + error
     feedback and with sparse d0.2 + int8 + error feedback, each on the loop
@@ -1163,8 +1204,9 @@ def phase_scenarios(torch, gm, card: str) -> dict:
     from repro_torch.data.synthetic import make_mixture_classification
     from repro_torch.experiments import RunConfig, run_method
 
-    data, exp = make_mixture_classification(), PaperExpConfig(rounds=ENGINE_ROUNDS)
+    data, exp = make_mixture_classification(), PaperExpConfig(rounds=SCENARIO_ROUNDS)
     int8 = CommConfig(codec="int8", error_feedback=True)
+    first, end = profiled(SCENARIO_ROUNDS)
     launches: dict = {}
     for label, kind, kw, kernel, per_round in (
             ("A", "A", {}, gm.gossip_mix_flat, 1),
@@ -1178,7 +1220,7 @@ def phase_scenarios(torch, gm, card: str) -> dict:
         kw = dict(kw, options=dict(kw.get("options", {}), keep_state=True))
         # one evaluation, after the last round: the traced runs stay short
         plain_cfg = RunConfig(eval_every=10**9, **kw)
-        cfg = dataclasses.replace(plain_cfg, scenario=_scenario(ENGINE_ROUNDS, kind))
+        cfg = dataclasses.replace(plain_cfg, scenario=_scenario(SCENARIO_ROUNDS, kind))
         pair = _engine_pair(torch, gm, f"scenario {label}", "fedspd", data, exp, cfg, busy=True)
         _engine_line(f"scenario {label}", pair)
         for name, c in pair["loop_counts"].items():
@@ -1188,8 +1230,8 @@ def phase_scenarios(torch, gm, card: str) -> dict:
         plain = run_method("fedspd", data, exp, cfg=plain_cfg)
         stale = scan.extras.get("staleness")
         lb, rb = pair["loop_busy"], pair["replay_busy"]
-        print(f"scenario {label} ({card}): round_ms median(rounds 2-{ENGINE_ROUNDS} less the "
-              f"profiled {PROFILED_ROUNDS[0] + 1}-{PROFILED_ROUNDS[1]}) loop {lb['round_ms']:.4f} "
+        print(f"scenario {label} ({card}): round_ms median(rounds 2-{SCENARIO_ROUNDS} less the "
+              f"profiled {first + 1}-{end}) loop {lb['round_ms']:.4f} "
               f"replay {rb['round_ms']:.4f} device_ms_per_round replay {rb['device_ms']:.4f} "
               f"busy share replay {rb['busy']:.4f} loop {lb['busy']:.4f} "
               f"capture_ms {json.dumps([round(v, 1) for v in scan.extras['capture_ms']])} "
@@ -1201,7 +1243,7 @@ def phase_scenarios(torch, gm, card: str) -> dict:
               f"{json.dumps(None if stale is None else stale.tolist())} "
               f"loop launches {json.dumps({k: c for k, c in pair['loop_counts'].items() if c})}",
               flush=True)
-        check(per == [per_round] * ENGINE_ROUNDS,
+        check(per == [per_round] * SCENARIO_ROUNDS,
               f"scenario {label}: exchange kernels per replay {sorted(set(per))}, "
               f"expected {per_round}")
         check(pair["loop_counts"][kernel.__name__] > 0,
@@ -1212,6 +1254,313 @@ def phase_scenarios(torch, gm, card: str) -> dict:
         check((stale is not None) == (kind == "B"),
               f"scenario {label}: staleness {stale} for scenario {kind}")
     return launches
+
+
+def _recorded_round(torch, ctx, m, gen_seed: int = 0):
+    """Round 1 of ``run_method``'s run on ``ctx`` (the same init and
+    draws) with a mix that records what it is given: the rows the
+    exchange mixes (sanitized with DP) and the selections."""
+    from repro_torch.core.fedspd import make_round_step
+    from repro_torch.device import make_generator
+
+    seen = []
+
+    def record(c_sel, s, adj=None):
+        seen.append((c_sel.clone(), s.clone()))
+        return c_sel
+
+    state = m.init(ctx, make_generator(ctx.device, gen_seed))
+    step = make_round_step(ctx.loss_fn, ctx.pel_fn, m._spec(ctx), m._fcfg(ctx),
+                           pack_spec=ctx.pack_spec, mix_fn=record)
+    step(state, ctx.train)
+    return seen[0]
+
+
+def _align_threshold(torch, data, exp, opts) -> tuple[float, int, int]:
+    """(threshold, links its mask drops in round 1, same-cluster links in
+    round 1): a cosine threshold between two of round 1's same-cluster
+    neighbour cosines, a quarter of the way up, so the mask drops links in
+    the early rounds (read off round 1 of the same run without alignment:
+    the local steps do not depend on the threshold)."""
+    from repro_torch.core.gossip import _pairwise_cos
+    from repro_torch.experiments.registry import build_context, get_method
+
+    ctx = build_context(data, exp, torch.device("cuda"), options=opts)
+    c, s = _recorded_round(torch, ctx, get_method("fedspd"))
+    cos = _pairwise_cos(c).cpu()
+    adj = torch.as_tensor(ctx.graph.adj) > 0
+    same = torch.triu(adj & (s.cpu()[:, None] == s.cpu()[None, :]), 1)
+    vals = torch.sort(cos[same]).values
+    i = len(vals) // 4
+    thr = float((vals[i - 1] + vals[i]) / 2)
+    return thr, int((vals < thr).sum()), len(vals)
+
+
+def _stream_run(torch, gm, model: str, dev, rounds: int):
+    """``rounds`` rounds of the stream regime's step on the main path's
+    population (``make_round_step(FedSPDConfig(regime="stream"))``: there
+    is no run_method for it), each on a fresh uniform batch of STREAM_B
+    points a client drawn on the device. Returns (round ms, the final
+    state, the context, the launches)."""
+    from repro_torch.configs.paper_cnn import PaperExpConfig
+    from repro_torch.core.fedspd import make_round_step
+    from repro_torch.data.pipeline import gather_batches, uniform_batch_indices
+    from repro_torch.data.synthetic import make_mixture_classification
+    from repro_torch.device import make_generator
+    from repro_torch.experiments.registry import build_context, get_method
+
+    data = make_mixture_classification()
+    ctx = build_context(data, PaperExpConfig(model=model), dev)
+    m = get_method("fedspd")
+    state = m.init(ctx, make_generator(dev, 0))
+    cfg = dataclasses.replace(m._fcfg(ctx), regime="stream")
+    step = make_round_step(ctx.loss_fn, ctx.pel_fn, m._spec(ctx), cfg, pack_spec=ctx.pack_spec)
+    g = make_generator(dev, 1)
+    n, pts = data.x.shape[0], data.x.shape[1]
+    ms = []
+    gm.reset_launch_counts()
+    for _ in range(rounds):
+        b = gather_batches(ctx.train["inputs"], ctx.train["targets"],
+                           uniform_batch_indices(g, n, pts, STREAM_B))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, _ = step(state, b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return ms, state, ctx, {k.__name__: k.launches for k in gm.KERNELS}
+
+
+def phase_stream_agreement(torch) -> float:
+    """One stream round, DP on (kernel 2 on the card), on the card against
+    the CPU from one state with the same injected draws (selections, the
+    batch, the DP noise). Returns the plane's max abs error."""
+    from repro_torch.configs.paper_cnn import PaperExpConfig
+    from repro_torch.core.fedspd import make_round_step, seeded_init
+    from repro_torch.data.synthetic import make_mixture_classification
+    from repro_torch.experiments.registry import build_context, get_method
+
+    data, exp = make_mixture_classification(), PaperExpConfig()
+    cpu, gpu = torch.device("cpu"), torch.device("cuda")
+    opts = dict(DP_OPTIONS)
+    ctxs = {d: build_context(data, exp, d, options=opts) for d in (cpu, gpu)}
+    m, ps = get_method("fedspd"), ctxs[cpu].pack_spec
+    cfg = dataclasses.replace(m._fcfg(ctxs[cpu]), regime="stream")
+    st = seeded_init(torch.Generator().manual_seed(0), ctxs[cpu].model_init, cfg,
+                     ctxs[cpu].loss_fn, ctxs[cpu].train, ps, epochs=2)
+    g = torch.Generator().manual_seed(3)
+    n, pts = data.x.shape[0], data.x.shape[1]
+    idx = torch.randint(0, pts, (n, STREAM_B), generator=g)
+    rows = torch.arange(n)[:, None]
+    batch = {"x": ctxs[cpu].train["inputs"][rows, idx], "y": ctxs[cpu].train["targets"][rows, idx]}
+    draws = dict(s=torch.randint(0, data.n_clusters, (n,), generator=g),
+                 noise=torch.randn((n, ps.size), generator=g))
+    out = {}
+    for d in (cpu, gpu):
+        ctx = ctxs[d]
+        step = make_round_step(ctx.loss_fn, ctx.pel_fn, m._spec(ctx), cfg, pack_spec=ps)
+        st_d = st._replace(centers=st.centers.to(d, copy=True), u=st.u.to(d), z=st.z.to(d),
+                           comm_bytes=st.comm_bytes.to(d), gen=torch.Generator(device=d))
+        new, _ = step(st_d, {k: v.to(d) for k, v in batch.items()},
+                      **{k: v.to(d) for k, v in draws.items()})
+        out[d.type] = [t.cpu() for t in (new.centers, new.u, new.comm_bytes)]
+    (pc, uc, bc), (pg, ug, bg) = out["cpu"], out["cuda"]
+    err, u_err = float((pc - pg).abs().max()), float((uc - ug).abs().max())
+    print(f"variant agreement stream dp: plane max abs err {err:.3g}, u max abs err "
+          f"{u_err:.3g}, comm_bytes {float(bc)} vs {float(bg)}", flush=True)
+    check(bool(torch.isfinite(pg).all()), "stream agreement: non-finite plane on the card")
+    check(err <= TOL and u_err <= TOL, f"stream agreement: plane err {err}, u err {u_err} > {TOL}")
+    check(float(bc) == float(bg), "stream agreement: comm_bytes differ")
+    return err
+
+
+def phase_permute_agreement(torch) -> float:
+    """One full-width round of the permute wiring on "reference" (the
+    colour classes' gathers) against the dense wiring on "cuda" (kernel 1),
+    on the card from one state with the same injected draws. Returns the
+    plane's max abs error."""
+    from repro_torch.configs.paper_cnn import PaperExpConfig
+    from repro_torch.core.fedspd import make_round_step
+    from repro_torch.core.gossip import GossipSpec, make_mix_fn
+    from repro_torch.data.synthetic import make_mixture_classification
+    from repro_torch.device import make_generator
+    from repro_torch.experiments.registry import build_context, get_method
+
+    data, exp = make_mixture_classification(), PaperExpConfig()
+    gpu = torch.device("cuda")
+    ctx = build_context(data, exp, gpu)
+    m = get_method("fedspd")
+    st = m.init(ctx, make_generator(gpu, 0))
+    g = make_generator(gpu, 4)
+    n, pts = data.x.shape[0], data.x.shape[1]
+    draws = dict(s=torch.randint(0, data.n_clusters, (n,), generator=g, device=gpu),
+                 idx=torch.randint(0, pts, (exp.tau, n, exp.batch), generator=g, device=gpu))
+    planes = []
+    for mode, backend in (("permute", "reference"), ("dense", "cuda")):
+        spec = GossipSpec.from_graph(ctx.graph, mode=mode)
+        step = make_round_step(ctx.loss_fn, ctx.pel_fn, spec, m._fcfg(ctx),
+                               pack_spec=ctx.pack_spec, mix_fn=make_mix_fn(spec, backend))
+        new, _ = step(st._replace(centers=st.centers.clone()), ctx.train, **draws)
+        planes.append(new.centers)
+    err = float((planes[0] - planes[1]).abs().max())
+    print(f"variant agreement permute on reference vs dense on cuda: plane max abs err "
+          f"{err:.3g} ({len(GossipSpec.from_graph(ctx.graph).perms)} colour classes)",
+          flush=True)
+    check(bool(torch.isfinite(planes[0]).all()), "permute agreement: non-finite plane")
+    check(err <= TOL, f"permute agreement: plane max abs err {err} > {TOL}")
+    return err
+
+
+def _plain_pair(torch, gm, label, method, data, exp, cfg) -> dict:
+    """The same run on the loop engine and on the replay, neither under
+    the profiler (``_engine_pair`` less the traces: their processing costs
+    more than the runs), each with every launch counter set to 0 just
+    before it and read just after. Fails unless the two are equal bit for
+    bit and the replay's counters (its warm-up's and capture's launches)
+    name the kernels the loop's name."""
+    from repro_torch.experiments import run_method
+
+    out = {}
+    for engine, flag in (("loop", False), ("scan", None)):
+        gm.reset_launch_counts()
+        out[engine] = run_method(method, data, exp, cfg=dataclasses.replace(cfg, scan_rounds=flag))
+        out["loop_counts" if engine == "loop" else "counts"] = {
+            k.__name__: k.launches for k in gm.KERNELS}
+    diff = _same_run(torch, out["loop"], out["scan"])
+    check(not diff, f"{label}: the replay differs from the loop in {diff}")
+    check({k for k, c in out["counts"].items() if c}
+          == {k for k, c in out["loop_counts"].items() if c},
+          f"{label}: replay launches {out['counts']}, loop launches {out['loop_counts']}")
+    check(out["scan"].extras["n_dispatches"] == exp.rounds,
+          f"{label}: {out['scan'].extras['n_dispatches']} dispatches in {exp.rounds} rounds")
+    return out
+
+
+def phase_variants(torch, gm, card: str) -> tuple[dict, dict, float]:
+    """The slice's path, the main-path variants on the main path's
+    population, VARIANT_ROUNDS rounds a run: the conv classifier (X =
+    14,720) DP off (``_engine_pair``: one exchange kernel in every
+    replayed round of its trace, busy shares from ``_windowed``) and on
+    (``_plain_pair``), loop against replay;
+    ``fedspd_permute`` on "cuda" equal bit for bit to ``fedspd`` (the
+    kernels' backend builds the dense W whatever the wiring); the permute
+    wiring on "reference", one round against the dense wiring; cosine
+    alignment DP off and on at a threshold that drops a quarter of round
+    1's same-cluster links, loop against replay (``_plain_pair``), kernel
+    2 never launched; STREAM_ROUNDS rounds of the stream
+    regime (mlp and conv, B = STREAM_B) and one stream round card against
+    CPU; then kernels 1, 2 and 4 at the conv plane's shape. Returns (the
+    loop and stream runs' launches, the kernel rows, the conv loop's round
+    ms)."""
+    from repro_torch.configs.paper_cnn import PaperExpConfig
+    from repro_torch.data.synthetic import make_mixture_classification
+    from repro_torch.experiments import RunConfig, run_method
+    from repro_torch.experiments.registry import get_method
+
+    data = make_mixture_classification()
+    mlp, conv = (PaperExpConfig(rounds=VARIANT_ROUNDS, model=k) for k in ("mlp", "conv"))
+    keep = {"keep_state": True}
+    launches: dict = {}
+
+    def add(counts):
+        for name, c in counts.items():
+            launches[name] = launches.get(name, 0) + c
+
+    first, end = profiled(VARIANT_ROUNDS)
+
+    def line(label, pair, extra=""):
+        scan = pair["scan"]
+        if "replay_busy" in pair:
+            lb, rb = pair["loop_busy"], pair["replay_busy"]
+            ms = (f"round_ms median(rounds 2-{VARIANT_ROUNDS} less the profiled {first + 1}-"
+                  f"{end}) loop {lb['round_ms']:.4f} replay {rb['round_ms']:.4f} "
+                  f"device_ms_per_round replay {rb['device_ms']:.4f} busy share replay "
+                  f"{rb['busy']:.4f} loop {lb['busy']:.4f}")
+        else:
+            ms = (f"round_ms median(rounds 2-{VARIANT_ROUNDS}) loop "
+                  f"{statistics.median(pair['loop'].extras['round_ms'][1:]):.4f} replay "
+                  f"{statistics.median(scan.extras['round_ms'][1:]):.4f}")
+        print(f"variant {label} ({card}): {ms} capture_ms "
+              f"{json.dumps([round(v, 1) for v in scan.extras['capture_ms']])} mean_acc "
+              f"{scan.mean_acc:.6f} comm_bytes {scan.comm_bytes:.0f} loop launches "
+              f"{json.dumps({k: c for k, c in pair['loop_counts'].items() if c})}{extra}",
+              flush=True)
+        check(math.isfinite(scan.mean_acc) and 0.0 <= scan.mean_acc <= 1.0,
+              f"variant {label}: mean_acc {scan.mean_acc} not finite in [0, 1]")
+        check(scan.comm_bytes > 0.0, f"variant {label}: no bytes accounted")
+
+    # the conv classifier on both engines, DP off (traced) and on
+    cfg = RunConfig(eval_every=10**9, options=keep)
+    pair = _engine_pair(torch, gm, "variant conv", "fedspd", data, conv, cfg, busy=True)
+    _engine_line("variant conv", pair)
+    per = [sum(_is_exchange(k.name) for k in w) for w in pair["windows"]]
+    check(per == [1] * VARIANT_ROUNDS, f"variant conv: exchange kernels per replay {per}")
+    conv_loop_ms = pair["loop_busy"]["round_ms"]
+    dp_pair = _plain_pair(torch, gm, "variant conv dp", "fedspd", data, conv,
+                          RunConfig(eval_every=10**9, options=dict(DP_OPTIONS, **keep)))
+    for label, pair, kernel in (("conv", pair, gm.gossip_mix_flat),
+                                ("conv dp", dp_pair, gm.gossip_mix_fused_dp)):
+        line(label, pair)
+        add(pair["loop_counts"])
+        check(pair["loop_counts"][kernel.__name__] == VARIANT_ROUNDS,
+              f"variant {label}: {kernel.__name__} launched "
+              f"{pair['loop_counts'][kernel.__name__]} times in {VARIANT_ROUNDS} loop rounds")
+
+    # fedspd_permute on "cuda": the pallas semantics ignore the mode
+    cfg = RunConfig(eval_every=10, options=keep)
+    perm, dense = (run_method(m_, data, mlp, cfg=cfg) for m_ in ("fedspd_permute", "fedspd"))
+    diff = _same_run(torch, perm, dense)
+    print(f"variant fedspd_permute on cuda ({card}): replay round_ms median "
+          f"{statistics.median(perm.extras['round_ms'][1:]):.4f} mean_acc {perm.mean_acc:.6f} "
+          f"comm_bytes {perm.comm_bytes:.0f} vs fedspd: "
+          f"{'equal' if not diff else 'differs in ' + str(diff)}", flush=True)
+    check(not diff, f"variant fedspd_permute on cuda differs from fedspd in {diff}")
+
+    # the permute wiring on "reference": one round against the dense wiring
+    phase_permute_agreement(torch)
+
+    # cosine alignment, DP off and on: kernel 1 every round, never kernel 2
+    for label, opts in (("aligned", {}), ("aligned dp", DP_OPTIONS)):
+        thr, dropped, links = _align_threshold(torch, data, mlp, opts)
+        cfg = RunConfig(eval_every=10**9, options=dict(opts, cos_align_threshold=thr, **keep))
+        pair = _plain_pair(torch, gm, f"variant {label}", "fedspd", data, mlp, cfg)
+        line(label, pair, f" threshold {thr:.6f} drops {dropped} of {links} same-cluster "
+                          "links in round 1")
+        add(pair["loop_counts"])
+        check(dropped > 0, f"variant {label}: the threshold drops no link in round 1")
+        check(pair["loop_counts"]["gossip_mix_fused_dp"] == 0
+              and pair["counts"]["gossip_mix_fused_dp"] == 0,
+              f"variant {label}: kernel 2 launched (loop {pair['loop_counts']}, replay "
+              f"{pair['counts']})")
+        check(pair["loop_counts"]["gossip_mix_flat"] == VARIANT_ROUNDS,
+              f"variant {label}: kernel 1 launched {pair['loop_counts']['gossip_mix_flat']} "
+              f"times in {VARIANT_ROUNDS} rounds")
+
+    # the stream regime, mlp and conv, and one round card against CPU
+    for model in ("mlp", "conv"):
+        ms, state, ctx, counts = _stream_run(torch, gm, model, torch.device("cuda"),
+                                             STREAM_ROUNDS)
+        add(counts)
+        acc = float(get_method("fedspd").evaluate(ctx, state, ctx.test).mean())
+        print(f"variant stream {model} ({card}): {STREAM_ROUNDS} rounds, B={STREAM_B}, loop "
+              f"round_ms median(rounds 2-{STREAM_ROUNDS}) {statistics.median(ms[1:]):.4f} "
+              f"first {ms[0]:.4f} mean_acc {acc:.6f} comm_bytes {float(state.comm_bytes):.0f} "
+              f"launches {json.dumps({k: c for k, c in counts.items() if c})}", flush=True)
+        check(math.isfinite(acc) and 0.0 <= acc <= 1.0, f"stream {model}: mean_acc {acc}")
+        check(counts["gossip_mix_flat"] == STREAM_ROUNDS,
+              f"stream {model}: kernel 1 launched {counts['gossip_mix_flat']} times")
+        u = state.u
+        check(bool(torch.isfinite(state.centers).all())
+              and bool(torch.allclose(u.sum(dim=1), torch.ones_like(u[:, 0]), atol=1e-5)),
+              f"stream {model}: non-finite plane or u rows not summing to 1")
+    phase_stream_agreement(torch)
+
+    # kernels 1, 2 and 4 at the conv plane's shape
+    rows = phase_kernels(torch, gm, [(20, CONV_X)])
+    rows.update(phase_dequant_kernels(torch, gm, [(20, 20, CONV_X, QBLOCK)]))
+    for rs in rows.values():
+        for r in rs:
+            r["variant"] = "conv plane"
+    return launches, rows, conv_loop_ms
 
 
 def phase_agreement(torch) -> None:
@@ -1278,10 +1627,12 @@ def phase_agreement(torch) -> None:
           f"card vs CPU dfl_fedem round: plane err {err}, u err {u_err} > 1e-4")
 
 
-def phase_profile(torch, round_ms: float, label: str = "main", **run) -> None:
+def phase_profile(torch, round_ms: float, label: str = "main", model: str = "mlp",
+                  **run) -> None:
     """Where a round's device time goes: 3 rounds of the main path (DP off,
     after 2 rounds of warm-up; ``run``: RunConfig fields of another path,
-    such as the DP options) under torch.profiler: the 10 kernels that take
+    such as the DP options; ``model``: the classifier) under
+    torch.profiler: the 10 kernels that take
     the most device time and every gossip kernel. The busy share is the
     profiled device time per round over the unprofiled round time."""
     from torch.profiler import ProfilerActivity, profile
@@ -1293,7 +1644,7 @@ def phase_profile(torch, round_ms: float, label: str = "main", **run) -> None:
     from repro_torch.experiments.registry import build_context, get_method
 
     dev, rounds = torch.device("cuda"), 3
-    ctx = build_context(make_mixture_classification(), PaperExpConfig(), dev,
+    ctx = build_context(make_mixture_classification(), PaperExpConfig(model=model), dev,
                         options=RunConfig(gossip_backend="cuda", **run).resolve_options())
     m = get_method("fedspd")
     state = m.init(ctx, make_generator(dev, 0))
@@ -2093,8 +2444,14 @@ def main() -> None:
     scenario_errs = phase_scenario_agreement(torch, gm)
     scenario_launches = phase_scenarios(torch, gm, card)
     print(f"scenarios phase: {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    variant_launches, variant_rows, conv_round_ms = phase_variants(torch, gm, card)
+    print(f"variants phase: {time.perf_counter() - t:.1f} s", flush=True)
+    for name, rs in variant_rows.items():
+        (serve_rows if name == "gossip_mix_dequant" else rows)[name].extend(rs)
     phase_profile(torch, round_ms)
     phase_profile(torch, dp_round_ms, label="dp", options=DP_OPTIONS)
+    phase_profile(torch, conv_round_ms, label="conv", model="conv")
     phase_profile(torch, sparse_round_ms, label="sparse+int8", sparse=SparseConfig(**SPARSE),
                   comm=CommConfig(codec="int8", error_feedback=True))
     lm_rows = phase_lm_kernels(torch, mma_counts)
@@ -2104,11 +2461,11 @@ def main() -> None:
 
     # every launch on the paths driven on the loop engine: the FedSPD main
     # path (DP off and on), serving, the baselines, the sparse/comm runs,
-    # the scenario runs and LM generation (the replays launch through the
-    # graph, not the wrappers: the engines and scenarios phases count them
-    # in their traces)
+    # the scenario runs, the variants' loop and stream runs and LM
+    # generation (the replays launch through the graph, not the wrappers:
+    # the engines, scenarios and variants phases count them in their traces)
     for path in (serve_launches, baseline_launches, sparse_launches, scenario_launches,
-                 lm_launches):
+                 variant_launches, lm_launches):
         for name, c in path.items():
             launches[name] = launches.get(name, 0) + c
     replaces = {"gossip_mix_flat": "src/repro/kernels/gossip_mix.py:63",

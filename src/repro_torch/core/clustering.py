@@ -4,10 +4,12 @@ Every client labels each local point with the cluster whose current center
 gives it the lowest loss (Algorithm 1, DataClustering), then sets u_{i,s}
 to the fraction of its points labelled s. All S×N centers are evaluated on
 all N×M points in one batched forward: ``(S, N, ...)`` parameters against
-``(N, M, d)`` inputs broadcast over S.
+``(N, M, d)`` inputs broadcast over S. ``clustering_accuracy`` scores the
+labels against the true clusters.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Callable
 
 import torch
@@ -40,3 +42,18 @@ def cluster_all_clients(per_example_loss: Callable, centers: dict,
     Returns (z ``(N, M)``, u ``(N, S)``)."""
     z, _ = assign_clusters(per_example_loss, centers, data)
     return z, mixture_coefficients(z, s_clusters)
+
+
+def clustering_accuracy(z: torch.Tensor, z_true: torch.Tensor,
+                        s_clusters: int) -> torch.Tensor:
+    """The best agreement between inferred and true cluster labels over
+    all S! label maps (label switching makes the raw agreement
+    meaningless); an fp32 scalar. S is small here (2–4). Each agreement
+    is the count times the fp32 reciprocal of the number of points, as
+    the JAX package's compiled mean rounds it."""
+    z = torch.as_tensor(z)
+    z_true = torch.as_tensor(z_true, device=z.device)
+    inv = torch.tensor(1.0 / z.numel(), dtype=torch.float32, device=z.device)
+    accs = [(torch.as_tensor(perm, device=z.device)[z] == z_true).float().sum() * inv
+            for perm in itertools.permutations(range(s_clusters))]
+    return torch.stack(accs).max()

@@ -13,6 +13,13 @@ Round structure (Section 4):
 FinalPhase (Eq. (2)): x_i = Σ_s u_{i,s} c_{i,s}, then τ_final local epochs
 on all of D_i.
 
+Two data regimes (``FedSPDConfig.regime``): ``full`` (the paper's) keeps
+per-point assignments z over each client's whole local dataset and
+re-clusters all M points every round; ``stream`` consumes a fresh batch
+a round, assigns its points under the current centers, trains with the
+cluster-masked loss and updates u as an EMA of the batch's assignment
+fractions (z is not used).
+
 ``state.centers`` is ONE ``(S, N, X)`` fp32 tensor. The gather of the
 selected rows is one advanced-index copy, local SGD runs on that
 ``(N, X)`` slab with every client batched into each forward, the exchange
@@ -44,7 +51,11 @@ import numpy as np
 import torch
 
 from repro_torch.comm.codecs import CommConfig, make_channel
-from repro_torch.core.clustering import cluster_all_clients
+from repro_torch.core.clustering import (
+    assign_clusters,
+    cluster_all_clients,
+    mixture_coefficients,
+)
 from repro_torch.core.gossip import (
     GossipSpec,
     fedspd_weight_matrix,
@@ -83,7 +94,8 @@ class FedSPDConfig:
     lr_decay: float = 0.98        # per-round multiplicative decay
     tau_final: int = 10
     final_lr_scale: float = 0.5
-    regime: str = "full"          # only "full" is ported
+    u_ema: float = 0.3            # "stream" regime u update rate
+    regime: str = "full"          # full | stream
     point_to_point: bool = True   # comm accounting mode
     # differential privacy (paper B.2.6): each round's update is L2-clipped
     # to dp_clip and Gaussian noise of std dp_clip * dp_noise_multiplier is
@@ -181,6 +193,11 @@ def make_round_step(loss_fn: Callable, per_example_loss: Callable,
     noise=None, comm_u=None, rigl_idx=None, regrow_scores=None) -> (state,
     metrics)`` for the "full" regime on the packed plane. ``data`` is
     ``{"inputs": (N, M, d), "targets": (N, M)}`` on the plane's device.
+    For the "stream" regime, ``step(state, batch, adj=None, *, lr=None,
+    s=None, noise=None, comm_u=None, regrow_scores=None)`` with ``batch``
+    the round's fresh ``{"x": (N, B, d), "y": (N, B)}``: no batch indices
+    are drawn, and RigL's dense gradient is the masked loss's on the
+    batch.
     ``adj`` ``(N, N)`` on the plane's device overrides the graph's
     adjacency for this round (a per-seed graph, a cohort's minor); ``lr``
     (a float or a 0-d fp32 tensor on the device, as a captured round
@@ -202,7 +219,9 @@ def make_round_step(loss_fn: Callable, per_example_loss: Callable,
     ``comm`` runs the exchange through a wire codec (``state.ef`` carries
     the residual with error feedback). A DP round with a codec sanitizes
     first, then encodes: the fused DP kernel is for the uncompressed
-    exchange only. ``state.comm_bytes`` keeps counting logical bytes.
+    exchange of a ``mix_fn`` that carries ``fused_dp`` (none does with
+    cosine alignment, whose W depends on the sanitized values).
+    ``state.comm_bytes`` keeps counting logical bytes.
 
     ``sparse`` (density < 1) runs DisPFL on ``state.mask``: the gathered
     rows are projected on the mask and gradients masked every step; the
@@ -212,12 +231,15 @@ def make_round_step(loss_fn: Callable, per_example_loss: Callable,
     Density 1.0 runs the dense paths bit for bit, the mask riding along.
 
     The mixed rows are scattered into ``state.centers`` in place."""
-    if cfg.regime != "full":
-        raise ValueError(
-            f"regime {cfg.regime!r} is not ported yet; the port runs the "
-            "'full' regime")
+    if cfg.regime not in ("full", "stream"):
+        raise ValueError(f"unknown regime {cfg.regime!r}; expected 'full' or 'stream'")
     channel = make_channel(comm, pack_spec.size)
     sparse_on = sparse is not None and sparse.enabled
+    if sparse_on and gossip.aligned:
+        raise ValueError(
+            "sparse training does not compose with cosine-alignment "
+            "filtering: the masked mixing weights are support-, not "
+            "value-, dependent")
     if mix_fn is None:
         mix_fn = make_mix_fn(gossip, comm=comm)
     if (channel is not None) != bool(getattr(mix_fn, "comm_aware", False)):
@@ -231,14 +253,18 @@ def make_round_step(loss_fn: Callable, per_example_loss: Callable,
     sigma = cfg.dp_clip * cfg.dp_noise_multiplier
     adj_dev: dict = {}  # the static adjacency, moved to the device once
 
-    def local_updates(c, data, z, s, gen, lr, idx, grad_mask):
-        """τ SGD steps on the ``(N, X)`` slab, cluster-conditional batches;
+    def masked_loss(p, batch):
+        """The stream regime's loss: each client's mean per-example loss
+        over the batch points assigned to its selected cluster."""
+        pel = per_example_loss(p, batch)
+        m = batch["mask"]
+        return (pel * m).sum(dim=-1) / m.sum(dim=-1).clamp_min(1.0)
+
+    def local_updates(c, batch_of, loss, lr, grad_mask):
+        """τ SGD steps on the ``(N, X)`` slab, step t on ``batch_of(t)``;
         with ``grad_mask`` every step's gradient is projected on it."""
         for t in range(cfg.tau):
-            it = (idx[t] if idx is not None else
-                  cluster_batch_indices(gen, z, s, cfg.batch))
-            batch = gather_batches(data["inputs"], data["targets"], it)
-            g = flat_grad(loss_fn, c, batch, pack_spec)
+            g = flat_grad(loss, c, batch_of(t), pack_spec)
             if grad_mask is not None:
                 g = g * grad_mask
             c = sgd_update(c, g, lr)
@@ -271,11 +297,12 @@ def make_round_step(loss_fn: Callable, per_example_loss: Callable,
     def exchange_packed(plane, c_old, c_new, s, gen, noise, key, ef, adj):
         """Steps (2)+(3): DP sanitize, the codec, the Eq. (1) mix, and the
         in-place scatter of the mixed rows back into ``(S, N, X)``. A DP
-        round without a codec is one fused kernel. Returns (plane, ef')."""
-        if cfg.dp_clip > 0 and channel is None:
+        round without a codec is one fused kernel when ``mix_fn`` has one
+        (``fused_dp``). Returns (plane, ef')."""
+        fused = getattr(mix_fn, "fused_dp", None)
+        if cfg.dp_clip > 0 and channel is None and fused is not None:
             scale, noise = dp_flat_parts(c_old, c_new, gen, noise)
-            c_mixed = mix_fn.fused_dp(c_old, c_new, scale, noise, sigma, s,
-                                      adj=adj)
+            c_mixed = fused(c_old, c_new, scale, noise, sigma, s, adj=adj)
         else:
             c_sel = (dp_sanitized(c_old, c_new, gen, noise) if cfg.dp_clip > 0
                      else c_new)
@@ -314,78 +341,123 @@ def make_round_step(loss_fn: Callable, per_example_loss: Callable,
         plane[s, torch.arange(s.shape[0], device=s.device)] = c_mixed.to(plane.dtype)
         return plane, ef
 
-    def sparse_mask_update(state, c_new, data, s, rigl_idx, regrow_scores):
+    def sparse_mask_update(state, c_new, dense_grad, regrow_scores):
         """RigL prune/regrow on the post-update rows, on the rounds
-        ``sparse.update_due`` names (the dense gradient is taken only
-        then)."""
+        ``sparse.update_due`` names (the dense gradient, ``dense_grad()``,
+        is taken only then)."""
         if not sparse.update_due(state.round):
             return state.mask
-        grads = None
-        if sparse.regrow == "rigl":
-            it = (rigl_idx if rigl_idx is not None else
-                  cluster_batch_indices(state.gen, state.z, s, cfg.batch))
-            batch = gather_batches(data["inputs"], data["targets"], it)
-            grads = flat_grad(loss_fn, c_new, batch, pack_spec)
+        grads = dense_grad() if sparse.regrow == "rigl" else None
         key = regrow_scores if regrow_scores is not None else state.gen
         return rigl_update(state.mask, c_new, grads, key, sparse)
 
-    def step_full_packed(state: FedSPDState, data: dict, adj=None, *, lr=None,
-                         s=None, idx=None, noise=None, comm_u=None,
-                         rigl_idx=None, regrow_scores=None):
-        plane = state.centers
-        dev = plane.device
+    def begin(state, adj, lr, s):
+        """The round's adjacency, lr and selections, and the gathered rows
+        (an advanced-index copy)."""
+        dev = state.centers.device
         if adj is None:
             if dev not in adj_dev:
                 adj_dev[dev] = torch.as_tensor(gossip.adj, dtype=torch.float32,
                                                device=dev)
             adj = adj_dev[dev]
-        gen = state.gen
         if lr is None:
             lr = round_lr(cfg, state.round)
         if sparse_on and state.mask is None:
             raise ValueError(
                 "sparse training needs state.mask (core/sparse.init_masks)")
-
-        # (1) selection, gather (an advanced-index copy), τ local steps,
-        # on the mask's support when sparse
         if s is None:
-            s = select_clusters(gen, state.u)
+            s = select_clusters(state.gen, state.u)
         s = torch.as_tensor(s, device=dev).long()
-        c_old = plane[s, torch.arange(s.shape[0], device=dev)]
-        grad_mask = None
-        if sparse_on:
-            c_old, grad_mask = state.mask * c_old, state.mask
-        c_new = local_updates(c_old, data, state.z, s, gen, lr, idx, grad_mask)
+        c_old = state.centers[s, torch.arange(s.shape[0], device=dev)]
+        return adj, lr, s, c_old
 
-        # (2)+(3) sanitize + codec + mix + scatter
+    def finish(state, c_old, c_new, s, adj, lr, noise, comm_u, dense_grad,
+               regrow_scores):
+        """Steps (2)+(3) (sanitize, codec, mix, scatter; RigL on its
+        rounds) and the byte count. Returns (plane, ef', mask', bytes)."""
+        plane, gen = state.centers, state.gen
         key = comm_u if comm_u is not None else gen
         if sparse_on:
-            mask = sparse_mask_update(state, c_new, data, s, rigl_idx,
-                                      regrow_scores)
+            mask = sparse_mask_update(state, c_new, dense_grad, regrow_scores)
             plane, ef = exchange_sparse(plane, c_old, c_new, s, state.mask,
                                         gen, noise, key, state.ef, adj)
         else:
             mask = state.mask
             plane, ef = exchange_packed(plane, c_old, c_new, s, gen, noise,
                                         key, state.ef, adj)
-
-        # (4) re-cluster every local point under the new centers
-        z, u = cluster_all_clients(
-            per_example_loss, unpack(plane, pack_spec),
-            {"x": data["inputs"], "y": data["targets"]}, cfg.n_clusters)
-
         comm = state.comm_bytes + round_comm_bytes(
             gossip, s, pack_spec.model_bytes, point_to_point=cfg.point_to_point,
             adj=adj)
-        new_state = FedSPDState(centers=plane, u=u, z=z,
-                                round=state.round + 1, gen=gen,
-                                comm_bytes=comm, ef=ef, mask=mask)
-        metrics = {"lr": lr, "selected": s,
-                   "consensus": _consensus_per_cluster_flat(plane),
-                   "comm_bytes": comm}
-        return new_state, metrics
+        return plane, ef, mask, comm
 
-    return step_full_packed
+    def step_full_packed(state: FedSPDState, data: dict, adj=None, *, lr=None,
+                         s=None, idx=None, noise=None, comm_u=None,
+                         rigl_idx=None, regrow_scores=None):
+        gen, x, y = state.gen, data["inputs"], data["targets"]
+        # (1) selection, gather, τ local steps on cluster-conditional
+        # batches, on the mask's support when sparse
+        adj, lr, s, c_old = begin(state, adj, lr, s)
+        grad_mask = None
+        if sparse_on:
+            c_old, grad_mask = state.mask * c_old, state.mask
+
+        def batch_of(t):
+            it = (idx[t] if idx is not None else
+                  cluster_batch_indices(gen, state.z, s, cfg.batch))
+            return gather_batches(x, y, it)
+
+        c_new = local_updates(c_old, batch_of, loss_fn, lr, grad_mask)
+
+        def dense_grad():
+            it = (rigl_idx if rigl_idx is not None else
+                  cluster_batch_indices(gen, state.z, s, cfg.batch))
+            return flat_grad(loss_fn, c_new, gather_batches(x, y, it), pack_spec)
+
+        # (2)+(3) sanitize + codec + mix + scatter
+        plane, ef, mask, comm = finish(state, c_old, c_new, s, adj, lr, noise,
+                                       comm_u, dense_grad, regrow_scores)
+
+        # (4) re-cluster every local point under the new centers
+        z, u = cluster_all_clients(per_example_loss, unpack(plane, pack_spec),
+                                   {"x": x, "y": y}, cfg.n_clusters)
+        return _result(state, plane, u, z, comm, ef, mask, lr, s)
+
+    def step_stream_packed(state: FedSPDState, batch: dict, adj=None, *,
+                           lr=None, s=None, noise=None, comm_u=None,
+                           regrow_scores=None):
+        # (1) selection and gather; the batch's points assigned under the
+        # current centers; τ steps of the cluster-masked loss on the batch
+        adj, lr, s, c_old = begin(state, adj, lr, s)
+        zb, _ = assign_clusters(per_example_loss, unpack(state.centers, pack_spec),
+                                batch)
+        sbatch = {"x": batch["x"], "y": batch["y"],
+                  "mask": (zb == s[:, None]).float()}
+        grad_mask = None
+        if sparse_on:
+            c_old, grad_mask = state.mask * c_old, state.mask
+        c_new = local_updates(c_old, lambda t: sbatch, masked_loss, lr, grad_mask)
+
+        def dense_grad():
+            return flat_grad(masked_loss, c_new, sbatch, pack_spec)
+
+        # (2)+(3), then u as the EMA of the batch's assignment fractions
+        plane, ef, mask, comm = finish(state, c_old, c_new, s, adj, lr, noise,
+                                       comm_u, dense_grad, regrow_scores)
+        u_batch = mixture_coefficients(zb, cfg.n_clusters)
+        u = (1 - cfg.u_ema) * state.u + cfg.u_ema * u_batch
+        return _result(state, plane, u, state.z, comm, ef, mask, lr, s)
+
+    return step_full_packed if cfg.regime == "full" else step_stream_packed
+
+
+def _result(state, plane, u, z, comm, ef, mask, lr, s):
+    """The round's new state and its metrics."""
+    new_state = FedSPDState(centers=plane, u=u, z=z, round=state.round + 1,
+                            gen=state.gen, comm_bytes=comm, ef=ef, mask=mask)
+    metrics = {"lr": lr, "selected": s,
+               "consensus": _consensus_per_cluster_flat(plane),
+               "comm_bytes": comm}
+    return new_state, metrics
 
 
 # --------------------------------------------------------------------------

@@ -2,12 +2,12 @@
 
 The JAX package's ``RunConfig`` fields, less ``donate`` (the port always
 updates the plane in place), plus ``device`` and ``on_round``. The port
-honours ``gossip_mode="dense"``, ``gossip_backend`` ("cuda", or
-"reference" as another name for it), ``comm`` and ``sparse`` (FedSPD
-only), ``eval_every``, ``scan_rounds``, ``cohort_size`` (FedSPD only),
-``scenario`` (FedSPD only), ``options`` (``dp_clip``,
-``dp_noise_multiplier``, ``tau_final``, ``keep_state``, ``comm``,
-``sparse``), ``device`` and ``on_round``.
+honours ``gossip_mode`` ("dense" or "permute"), ``gossip_backend``
+("cuda" or "reference"), ``comm`` and ``sparse`` (FedSPD only),
+``eval_every``, ``scan_rounds``, ``cohort_size`` (FedSPD only),
+``scenario`` (FedSPD only), ``options`` (``mode``, ``dp_clip``,
+``dp_noise_multiplier``, ``tau_final``, ``cos_align_threshold``,
+``keep_state``, ``comm``, ``sparse``), ``device`` and ``on_round``.
 Every field that selects a feature the port does not have yet is refused
 with a ``ValueError`` that names it; none falls back silently.
 """
@@ -17,7 +17,7 @@ import dataclasses
 from typing import Any, Callable, Optional
 
 from repro_torch.comm.codecs import CommConfig
-from repro_torch.core.gossip import MIX_BACKENDS
+from repro_torch.core.gossip import MIX_BACKENDS, MODES
 from repro_torch.core.sparse import SparseConfig
 from repro_torch.experiments.heterogeneity import ClientSystemModel
 from repro_torch.experiments.scenarios import Scenario
@@ -63,11 +63,14 @@ def _normalize_sparse(options: dict) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class RunConfig:
-    """gossip_mode     FedSPD wiring: "dense" (the only one ported)
-    gossip_backend  exchange execution: "cuda" (the hand-written Hopper
-                    kernels, the counterpart of the JAX package's
-                    "pallas"; their plain versions on CPU tensors).
-                    "reference" names the same path
+    """gossip_mode     FedSPD wiring: "dense" (Eq. (1) as W·C) or "permute"
+                    (the edge-coloured schedule, core/gossip.mix_permute)
+    gossip_backend  exchange execution: "cuda" (the default: the dense W
+                    through the hand-written Hopper kernels, the
+                    counterpart of the JAX package's "pallas", whatever
+                    the wiring; their plain versions on CPU tensors) or
+                    "reference" (the wiring itself: with "permute",
+                    mix_permute; with "dense", the "cuda" path)
     param_plane     the port always runs the packed (S, N, X) plane; False
                     is refused
     comm            comm.codecs.CommConfig wire codec (FedSPD only)
@@ -84,7 +87,9 @@ class RunConfig:
     scenario        experiments/scenarios.Scenario: a graph schedule, link
                     dropout and a ClientSystemModel (FedSPD only)
     options         per-method knobs: dp_clip, dp_noise_multiplier,
-                    tau_final (explicit entries win over the fields);
+                    tau_final, cos_align_threshold (cosine alignment;
+                    -1 disables it; not with sparse) (explicit entries
+                    win over the fields);
                     keep_state=True leaves the final state and its
                     PackSpec in RunResult.extras (what export_run reads)
     device          "cuda" (the default: raises without a card) | "cpu"
@@ -145,13 +150,8 @@ class RunConfig:
             raise ValueError(
                 "param_plane=False (the per-leaf pytree engine) is not "
                 "ported; the port runs the packed (S, N, X) plane")
-        if options.get("mode", "dense") != "dense":
-            raise ValueError(
-                f"gossip_mode {options['mode']!r} is not ported yet; the "
-                "port has the dense Eq. (1) wiring")
-        if options.get("cos_align_threshold", -1.0) > -1.0:
-            raise ValueError(
-                "cos_align_threshold > -1 (cosine alignment) is not ported yet")
+        if options.get("mode", "dense") not in MODES:
+            raise ValueError(f"unknown gossip mode {options['mode']!r}")
         backend = options.setdefault("gossip_backend", "cuda")
         if backend not in MIX_BACKENDS:
             raise ValueError(

@@ -21,13 +21,20 @@ from repro_torch.serve.artifact import save_servable
 def cluster_plane(state) -> torch.Tensor:
     """``(S, X)`` consensus cluster plane of a final FedSPD state: the mean
     over the client axis of each cluster's N center copies. The port's
-    state always holds the packed ``(S, N, X)`` plane."""
+    state always holds the packed ``(S, N, X)`` plane. The copies are
+    summed in client order and the sum multiplied by the fp32 reciprocal
+    of N, as the JAX package's compiled mean does, so both packages write
+    the same artifact bytes from the same state."""
     centers = state.centers
     if not (isinstance(centers, torch.Tensor) and centers.dim() == 3):
         raise ValueError(
             "cluster_plane takes the packed (S, N, X) centers plane; the "
             "pytree engine (param_plane=False) is not ported")
-    return centers.mean(dim=1)
+    total = centers[:, 0].float().clone()
+    for i in range(1, centers.shape[1]):
+        total += centers[:, i]
+    return total * torch.tensor(1.0 / centers.shape[1], dtype=torch.float32,
+                                device=centers.device)
 
 
 def export_servable(state, spec: PackSpec, path: str, *, arch: str,

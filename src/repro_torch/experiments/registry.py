@@ -21,12 +21,13 @@ cohort's minor, a scenario's round); ``cohort_axes`` maps its state's fields to 
 axis for cohort subsampling; ``round_branch(ctx, r)`` names the host-side
 branch round r takes (a captured round needs one graph per branch).
 
-The port has FedSPD (``"fedspd"``, paper Algorithm 1 on the packed plane,
-with a wire codec and DisPFL sparse masks as options) and the paper's six
-baselines (``"local"``, and ``dfl_``/``cfl_`` × ``fedavg``, ``fedem``,
-``ifca``, ``fedsoft``, ``pfedme``), all on the packed plane;
-``"fedspd_permute"`` raises ``ValueError``, and so does a baseline given
-``comm`` or ``sparse``.
+The port has every id of the JAX registry, all on the packed plane:
+FedSPD (``"fedspd"``, paper Algorithm 1, with a wire codec, DisPFL sparse
+masks and cosine alignment as options), ``"fedspd_permute"`` (the same on
+the edge-coloured permute wiring) and the paper's six baselines
+(``"local"``, and ``dfl_``/``cfl_`` × ``fedavg``, ``fedem``, ``ifca``,
+``fedsoft``, ``pfedme``). A baseline given ``comm`` or ``sparse`` raises
+``ValueError``.
 """
 from __future__ import annotations
 
@@ -54,9 +55,6 @@ from repro_torch.core.sparse import SparseConfig, init_masks
 from repro_torch.device import make_generator
 from repro_torch.graphs.topology import Graph, complete, make_graph
 from repro_torch.models.smallnets import make_classifier
-
-# registered by the JAX package and not ported yet
-UNPORTED_METHODS = ("fedspd_permute",)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,10 +217,6 @@ def register(method: Method) -> Method:
 
 
 def get_method(name: str) -> Method:
-    if name in UNPORTED_METHODS:
-        raise ValueError(
-            f"method {name!r} is not ported yet; the port has "
-            f"{available_methods()}")
     if name not in _REGISTRY:
         raise KeyError(f"unknown method {name!r}; available: {available_methods()}")
     return _REGISTRY[name]
@@ -234,15 +228,20 @@ def available_methods() -> tuple[str, ...]:
 
 class FedSPDMethod(Method):
     """Paper Algorithm 1 behind the registry contract, on the packed
-    ``(S, N, X)`` plane; the exchange runs the CUDA kernels (their plain
-    versions on CPU tensors). Takes ``comm`` (a wire codec) and
-    ``sparse`` (DisPFL masks)."""
+    ``(S, N, X)`` plane. ``mode`` is the gossip wiring ("dense" or
+    "permute"; ``ctx.options["mode"]`` overrides it), coloured over the
+    context's graph (the union graph under per-seed graphs or a
+    scenario, so every round's adjacency is a subgraph of it). The
+    exchange runs the CUDA kernels on the "cuda" backend (their plain
+    versions on CPU tensors). Takes ``comm`` (a wire codec), ``sparse``
+    (DisPFL masks) and ``cos_align_threshold``."""
 
     features = ("comm", "sparse")
     supports_dynamic_graph = True
 
-    def __init__(self, name: str):
+    def __init__(self, name: str, mode: str = "dense"):
         self.name = name
+        self.mode = mode
 
     def _fcfg(self, ctx: ExperimentContext) -> FedSPDConfig:
         exp = ctx.exp
@@ -275,8 +274,13 @@ class FedSPDMethod(Method):
                 mask=init_masks(gen, ctx.n_clients, ctx.pack_spec.size, sp))
         return state
 
+    def _spec(self, ctx: ExperimentContext) -> GossipSpec:
+        return GossipSpec.from_graph(
+            ctx.graph, mode=ctx.opt("mode", self.mode),
+            cos_align_threshold=ctx.opt("cos_align_threshold", -1.0))
+
     def make_step(self, ctx):
-        spec = GossipSpec.from_graph(ctx.graph)
+        spec = self._spec(ctx)
         comm = ctx.opt("comm")
         mix_fn = make_mix_fn(spec, ctx.opt("gossip_backend", "cuda"), comm=comm)
         step = make_round_step(ctx.loss_fn, ctx.pel_fn, spec, self._fcfg(ctx),
@@ -307,7 +311,11 @@ class FedSPDMethod(Method):
 
     def cohort_axes(self, ctx, state):
         """centers (S, N, X) on axis 1; u, z, ef and mask on axis 0; round,
-        gen and comm_bytes global."""
+        gen and comm_bytes global. The dense wiring only, as in JAX."""
+        if ctx.opt("mode", self.mode) != "dense":
+            raise ValueError(
+                "cohort subsampling needs the dense gossip wiring — the "
+                "permute edge coloring is sized to the full client axis")
         return FedSPDState(
             centers=1, u=0, z=0, round=None, gen=None, comm_bytes=None,
             ef=None if state.ef is None else 0,
@@ -474,6 +482,7 @@ class PFedMeMethod(_PairedMethod):
 # --------------------------------------------------------------------------
 
 register(FedSPDMethod("fedspd"))
+register(FedSPDMethod("fedspd_permute", mode="permute"))
 register(LocalMethod())
 for _cls, _base in (
     (FedAvgMethod, "fedavg"),

@@ -1,5 +1,12 @@
-"""Client graphs (numpy): the topologies, their dynamic schedules and
-the mixing matrices; see the module docstrings."""
+"""Client graphs (numpy): the topologies, their dynamic schedules, the
+mixing matrices and the edge colouring of the permute wiring; see the
+module docstrings."""
+from repro_torch.graphs.coloring import (  # noqa: F401
+    greedy_edge_coloring,
+    permute_schedule,
+    schedule_stats,
+    validate_coloring,
+)
 from repro_torch.graphs.mixing import (  # noqa: F401
     consensus_rate_p,
     expected_fedspd_consensus_rate,

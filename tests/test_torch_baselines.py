@@ -340,7 +340,10 @@ def test_evaluation_does_not_move_the_training_trajectory():
 
 
 def test_every_baseline_id_is_registered_and_fedspd_permute_is_refused():
-    assert set(BASELINES) | {"fedspd"} == set(repro_torch.experiments.available_methods())
+    """Every id of the JAX registry: ``fedspd_permute``, refused until its
+    slice, is registered now, on the permute wiring."""
+    assert set(BASELINES) | {"fedspd", "fedspd_permute"} == set(
+        repro_torch.experiments.available_methods())
     assert callable(repro_torch.experiments.run_method_batch)
-    with pytest.raises(ValueError, match="fedspd_permute"):
-        get_method("fedspd_permute")
+    assert get_method("fedspd_permute").mode == "permute"
+    assert get_method("fedspd").mode == "dense"

@@ -247,8 +247,15 @@ def test_default_mix_is_the_kernel_path_and_scatters_in_place(world, jax_rounds)
 
 
 def test_stream_regime_is_refused(world):
+    """The stream regime, refused until its slice, now makes a step
+    (tests/test_torch_variants.py holds it against JAX's); a regime the
+    port does not have is refused, naming itself."""
     spec = GossipSpec.from_graph(world["graph"])
     cfg = FedSPDConfig(n_clients=N, n_clusters=S, regime="stream")
-    with pytest.raises(ValueError, match="stream"):
-        make_round_step(world["t_loss"], world["t_pel"], spec, cfg,
+    step = make_round_step(world["t_loss"], world["t_pel"], spec, cfg,
+                           pack_spec=world["tps"])
+    assert step.__name__ == "step_stream_packed"
+    with pytest.raises(ValueError, match="online"):
+        make_round_step(world["t_loss"], world["t_pel"], spec,
+                        FedSPDConfig(n_clients=N, n_clusters=S, regime="online"),
                         pack_spec=world["tps"])

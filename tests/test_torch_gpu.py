@@ -377,6 +377,34 @@ def test_train_export_serve_through_the_dequant_kernels(cuda, tmp_path):
         assert float((out.cpu() - want).abs().max()) <= 1e-4
 
 
+def test_conv_export_serves_through_the_dequant_kernels(cuda, tmp_path):
+    """The conv classifier's plane (X = 4,814 at dim 16) exported as int8
+    and int4 and served with its forward: one kernel 4 / kernel 7 launch a
+    predict, within 1e-4 of the same artifact served on the CPU."""
+    from repro_torch.models.smallnets import apply_conv1d_classifier
+
+    data = make_mixture_classification(n_clients=8, n_per_client=64, dim=16,
+                                       n_classes=4)
+    exp = PaperExpConfig(n_clients=8, n_per_client=64, dim=16, n_classes=4,
+                         rounds=2, avg_degree=3.0, model="conv")
+    res = run_method("fedspd", data, exp, cfg=RunConfig(options={"keep_state": True}))
+    spec = res.extras["pack_spec"]
+    x = torch.as_tensor(data.x[:, 0])
+    for codec, kernel in (("int8", gossip_mix_dequant), ("int4", mixture_mix_dequant4)):
+        path = str(tmp_path / f"conv_{codec}.npz")
+        export_run(res, path, arch="conv", codec=codec, qblock=64)
+        art = load_servable(path, spec)
+        srv = ClusterPlaneServer.from_artifact(art, spec, apply_fn=apply_conv1d_classifier)
+        reset_launch_counts()
+        out = srv.predict(art.u_table, x)
+        assert kernel.launches == 1
+        cpu = ClusterPlaneServer.from_artifact(art, spec, apply_fn=apply_conv1d_classifier,
+                                               device="cpu")
+        want = cpu.predict(art.u_table.cpu(), x)
+        assert out.shape == (8, 4) and bool(torch.isfinite(out).all())
+        assert float((out.cpu() - want).abs().max()) <= 1e-4
+
+
 # --------------------------------------- kernels 5 and 6: sparse exchange
 
 # (N, X, mask): the main path's shape, an odd X, N one more than a 32-row
@@ -996,4 +1024,81 @@ def test_scenario_replay_equals_the_eager_loop(cuda, dp):
     assert (loop.extras["staleness"] == scan.extras["staleness"]).all()
     assert counts["gossip_mix_fused_dp" if dp else "gossip_mix_flat"] == exp.rounds
     assert _replayed_exchange_kernels(prof) == [1] * exp.rounds
+    assert (scan.extras["n_captures"], scan.extras["n_dispatches"]) == (1, exp.rounds)
+
+
+# the main-path variants on the card: a conv round and an aligned DP round
+# against the same round on the CPU with the same injected draws, and the
+# conv, permute-wiring and aligned-DP replays against their loops
+VARIANT_ROUNDS = {
+    "conv": ("conv", {}),
+    "aligned-dp": ("mlp", dict(ENGINE_DP, cos_align_threshold=0.0)),
+}
+
+
+@pytest.mark.parametrize("label", list(VARIANT_ROUNDS))
+def test_variant_round_on_the_card_equals_the_cpu(cuda, label):
+    from repro_torch.core.fedspd import make_round_step
+    from repro_torch.experiments.registry import build_context, get_method
+
+    model, options = VARIANT_ROUNDS[label]
+    data, exp = _engine_setup()
+    exp = dataclasses.replace(exp, model=model)
+    n, m_pts, cpu = data.n_clients, data.x.shape[1], torch.device("cpu")
+    opts = RunConfig(options=options).resolve_options()
+    m = get_method("fedspd")
+    st0 = m.init(build_context(data, exp, cpu, options=opts), torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    x = st0.centers.shape[-1]
+    draws = dict(s=torch.randint(0, 2, (n,), generator=g),
+                 idx=torch.randint(0, m_pts, (exp.tau, n, exp.batch), generator=g),
+                 noise=torch.randn((n, x), generator=g))
+    out = {}
+    for dev in (cpu, cuda):
+        ctx = build_context(data, exp, dev, options=opts)
+        spec = m._spec(ctx)
+        step = make_round_step(ctx.loss_fn, ctx.pel_fn, spec, m._fcfg(ctx),
+                               pack_spec=ctx.pack_spec)
+        reset_launch_counts()
+        new, _ = step(_fedspd_state_to(st0, dev), ctx.train,
+                      **{k: v.to(dev) for k, v in draws.items()})
+        # an aligned DP round sanitizes, then mixes in kernel 1: never kernel 2
+        assert gossip_mix_fused_dp.launches == 0
+        assert gossip_mix_flat.launches == (1 if dev.type == "cuda" else 0)
+        out[dev.type] = [t.cpu() for t in (new.centers, new.u, new.comm_bytes)]
+    (pc, uc, bc), (pg, ug, bg) = out["cpu"], out["cuda"]
+    assert _max_err(pg, pc) <= TOL and _max_err(ug, uc) <= TOL
+    assert float(bg) == float(bc)
+
+
+VARIANT_REPLAYS = {
+    "conv": ("fedspd", "conv", {}),
+    "conv-dp": ("fedspd", "conv", dict(options=ENGINE_DP)),
+    "fedspd_permute": ("fedspd_permute", "mlp", {}),
+    "permute-reference": ("fedspd_permute", "mlp", dict(gossip_backend="reference")),
+    "aligned-dp": ("fedspd", "mlp", dict(options=dict(ENGINE_DP, cos_align_threshold=0.0))),
+}
+
+
+@pytest.mark.parametrize("label", list(VARIANT_REPLAYS))
+def test_variant_replay_equals_the_eager_loop(cuda, label):
+    """Each replay equals its loop bit for bit, with one exchange kernel in
+    every replayed round on the kernels' backend (the permute wiring on
+    "reference" mixes by gathers: no exchange kernel)."""
+    method, model, kw = VARIANT_REPLAYS[label]
+    kw = dict(kw, options=dict(kw.get("options", {}), keep_state=True))
+    data, exp = _engine_setup()
+    exp = dataclasses.replace(exp, model=model)
+    reset_launch_counts()
+    loop = run_method(method, data, exp, cfg=RunConfig(eval_every=1, scan_rounds=False, **kw))
+    counts = {k.__name__: k.launches for k in KERNELS}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        scan = run_method(method, data, exp, cfg=RunConfig(eval_every=1, **kw))
+    _assert_same_run(loop, scan)
+    per_round = 0 if label == "permute-reference" else 1
+    assert _replayed_exchange_kernels(prof) == [per_round] * exp.rounds
+    assert sum(counts.values()) == per_round * exp.rounds
+    fused = label == "conv-dp"
+    assert counts["gossip_mix_fused_dp"] == (exp.rounds if fused else 0)
     assert (scan.extras["n_captures"], scan.extras["n_dispatches"]) == (1, exp.rounds)

@@ -129,9 +129,9 @@ def test_run_method_without_device_raises_on_a_host_without_cuda():
     assert resolve_device("cpu").type == "cpu"
 
 
-# what = "comm" / "sparse" / "cohort_size" / "scan_rounds": a feature
-# refused until its slice, which now runs; any other: the refusal's
-# message names it
+# what = "comm" / "sparse" / "cohort_size" / "scan_rounds" / "permute" /
+# "cos_align": a feature refused until its slice, which now runs; any
+# other: the refusal's message names it
 @pytest.mark.parametrize("cfg,what", [
     (RunConfig(param_plane=False), "param_plane"),
     (RunConfig(gossip_mode="permute"), "permute"),
@@ -162,6 +162,10 @@ def test_unported_features_are_refused(cfg, what):
         assert np.isfinite(r.mean_acc) and r.comm_bytes > 0
         assert r.extras["n_captures"] == (what == "scan_rounds")
         return
+    if what in ("permute", "cos_align"):
+        r = run_method("fedspd", data, PaperExpConfig(rounds=2), cfg=cfg)
+        assert np.isfinite(r.mean_acc) and r.comm_bytes > 0
+        return
     with pytest.raises(ValueError, match=what):
         run_method("fedspd", data, PaperExpConfig(rounds=1), cfg=cfg)
 
@@ -170,12 +174,18 @@ def test_unported_features_are_refused(cfg, what):
                                   "run_method_batch", "cfl_fedem-sparse",
                                   "local-comm-fp32"])
 def test_unported_method_ids_are_refused(case):
-    """What the slices so far leave out stays refused, naming itself: the
-    permute wiring's id, a wire codec or sparse masks on a baseline (the
-    JAX baselines would ignore ``sparse`` and still charge sparse wire
-    bytes), and per-seed graphs in the multi-seed batch driver on a
-    baseline (its step takes no per-round adjacency)."""
+    """What the slices so far leave out stays refused, naming itself: a
+    wire codec or sparse masks on a baseline (the JAX baselines would
+    ignore ``sparse`` and still charge sparse wire bytes), and per-seed
+    graphs in the multi-seed batch driver on a baseline (its step takes
+    no per-round adjacency). The permute wiring's id, refused until its
+    slice, now runs."""
     data = make_mixture_classification(n_clients=4, n_per_client=16)
+    if case == "fedspd_permute":
+        r = run_method("fedspd_permute", data, PaperExpConfig(rounds=2),
+                       cfg=RunConfig(device="cpu"))
+        assert np.isfinite(r.mean_acc) and r.comm_bytes > 0
+        return
     if case == "run_method_batch":
         graphs = [make_graph("er", 4, 2.0, seed=s) for s in (0, 1)]
         with pytest.raises(ValueError, match="dfl_fedavg.*per-seed graphs"):
@@ -191,8 +201,6 @@ def test_unported_method_ids_are_refused(case):
                              "sparse.*cfl_fedem"),
         "local-comm-fp32": ("local", RunConfig(device="cpu", comm=CommConfig()),
                             "comm.*local"),
-        "fedspd_permute": ("fedspd_permute", RunConfig(device="cpu"),
-                           "fedspd_permute"),
     }[case]
     with pytest.raises(ValueError, match=what):
         run_method(method, data, PaperExpConfig(rounds=1), cfg=cfg)
@@ -206,7 +214,12 @@ def test_unknown_method_id_is_a_key_error():
 
 
 def test_conv_model_is_refused():
+    """The conv classifier, refused until its slice, now runs; a model the
+    port does not have is refused, naming itself."""
     data = make_mixture_classification(n_clients=4, n_per_client=16, dim=16)
-    with pytest.raises(ValueError, match="conv"):
-        run_method("fedspd", data, PaperExpConfig(rounds=1, model="conv"),
+    r = run_method("fedspd", data, PaperExpConfig(rounds=1, model="conv"),
+                   cfg=RunConfig(device="cpu"))
+    assert np.isfinite(r.mean_acc) and r.comm_bytes > 0
+    with pytest.raises(ValueError, match="cnn2d"):
+        run_method("fedspd", data, PaperExpConfig(rounds=1, model="cnn2d"),
                    cfg=RunConfig(device="cpu"))
