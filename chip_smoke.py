@@ -140,12 +140,14 @@ Phases, in order; any failure exits non-zero before the result line:
 12. the LM kernels: ``flash_attention`` (kernel 8) at olmo-1b's prefill
    (B = 4 requests, L = 512, 16 heads, hd 128, bf16; also fp32), a
    danube-like GQA 32/8 hd-80 layer with a 256 window and a gemma3-like
-   hd-256 layer over one kv head, each bf16 row beside the count of
+   hd-256 layer over one kv head, zamba2-1.2b's shared block (MHA 32/32,
+   hd 64) and olmoe-1b-7b's prefill (B = 1), each bf16 row beside the count of
    tensor-core instructions (``HMMA``/``HGMMA``, by ``cuobjdump -sass`` of
    the built library) in the bf16 kernel it runs, which must not be 0
    (checked for every head dim right after the build), and ``ssd_scan``
    (kernel 9) at mamba2-370m's prefill layer (B = 4, L = 512, H = 32, P =
-   64, N = 128, chunk 128, bf16; also fp32 and with an initial state),
+   64, N = 128, chunk 128, bf16; also fp32 and with an initial state) and
+   zamba2-1.2b's Mamba2 layer (H = 64, N = 64, bf16),
    each row with its three stages' device ms from a torch.profiler pass
    (which must see the tensor-core kernels ``ssd_chunk_state_mma`` and
    ``ssd_chunk_out_mma`` in bf16, the CUDA-core ones in fp32) and, in
@@ -156,25 +158,34 @@ Phases, in order; any failure exits non-zero before the result line:
    CUDA-graph replay beside its bound (bytes over 3.35 TB/s or FLOPs over
    989 TFLOP/s bf16 / 67 TFLOP/s fp32), its plain version and, for
    attention, ``scaled_dot_product_attention``;
-13. LM generation, the fifth path: ``olmo-1b`` and ``mamba2-370m`` at full
-   width, ``launch/serve``'s random S = 2 plane (``build_server``) in
-   fp32, int8 and int4, B = 4 requests with their own mixtures, prompt
-   512, 16 greedy tokens, every launch counter set to 0 just before each
-   ``generate`` and read just after (one ``flash_attention`` launch per
-   olmo layer, three ``ssd_scan`` launches per mamba2 layer, one dequant
-   launch per int8/int4 call: the mix and the prefill stay eager, the
-   decode tokens are replays of the server's captured CUDA graph);
+13. LM generation, the fifth path: ``olmo-1b``, ``mamba2-370m`` and (the
+   MoE and hybrid slice) ``zamba2-1.2b`` at full width in fp32, int8 and
+   int4 with B = 4 requests, and ``olmoe-1b-7b`` in int8 and int4 with B
+   = 1 (``LM_SERVE``: its fp32 plane, or a second request, does not fit
+   in 80 GB), ``launch/serve``'s random S = 2 plane (``build_server``;
+   int8/int4 drawn, packed and encoded one cluster at a time), each
+   request with its own mixture, prompt 512, 16 greedy tokens, every
+   launch counter set to 0 just before each ``generate`` and read just
+   after (one ``flash_attention`` launch per olmo / olmoe layer and per
+   invocation of zamba2's shared block, three ``ssd_scan`` launches per
+   mamba2 / zamba2 Mamba2 layer, one dequant launch per int8/int4 call:
+   the mix and the prefill stay eager, the decode tokens are replays of
+   the server's captured CUDA graph); for olmoe, the (token, expert)
+   pairs each MoE layer's capacity drops in the prefill;
    the captured generate's tokens and last logits against the eager
    decode's (``decode_eager``: the same steps launched one by one), bit
    for bit; ``n_compiles`` 2 after calls of two shape keys (gen 1 and
    16); decode ms a token of both engines (the card's clock between CUDA
    events around the 16 tokens of a call, median of 3 calls), prefill ms
    (a 1-token call less a token), tok/s, the capture's ms; the int8/int4 mix
-   kernel's device time at that shape beside its bound and ``torch.matmul``
-   of u by the fp32-decoded plane; the tokens against the same card's
-   tokens through the plain versions of kernels 8 and 9 (where a bf16
-   near-tie flips one, the logit gap at that step must be under 5e-2 or
-   two bf16 steps at the logits' magnitude); plane bytes and peak memory;
+   kernel at that shape against its plain version (over the whole width,
+   in chunks of 2^26 columns) and its device time beside its bound and
+   ``torch.matmul`` of u by the fp32-decoded plane (not at olmoe: that
+   55 GB plane does not fit beside the server); the tokens against the
+   same card's tokens through the plain versions of kernels 8 and 9 (where
+   a bf16 near-tie flips one, the logit gap at that step must be under
+   5e-2 or two bf16 steps at the logits' magnitude, or else the fp32
+   reference must pick the kernel run's token); plane bytes and peak memory;
    then per model (int8) one 16-token generate and one eager decode under
    torch.profiler, cut into their decode tokens (the server's
    ``DECODE_SPAN``): device ms and kernels a token, and each engine's busy
@@ -259,12 +270,17 @@ WIRE_PER_MSG = {"int8": 17498, "topk": 8608, "sparse": 15934, "sparse_int8": 565
 # (the main row) in bf16 and fp32, a danube-like GQA layer with a window
 # shorter than L, a gemma3-like hd-256 layer over one kv head
 FLASH_SHAPES = [(4, 512, 16, 16, 128, None, "bfloat16"), (4, 512, 16, 16, 128, None, "float32"),
-                (4, 512, 32, 8, 80, 256, "bfloat16"), (4, 512, 4, 1, 256, None, "bfloat16")]
+                (4, 512, 32, 8, 80, 256, "bfloat16"), (4, 512, 4, 1, 256, None, "bfloat16"),
+                # zamba2-1.2b's shared block (MHA 32/32, hd 64) and olmoe-1b-7b's
+                # prefill layer (one request)
+                (4, 512, 32, 32, 64, None, "bfloat16"), (1, 512, 16, 16, 128, None, "bfloat16")]
 # kernel 9, (B, L, H, G, P, N, chunk, dtype, initial state): mamba2-370m's
 # prefill layer (the main row), in fp32, and with an initial state
 SSD_SHAPES = [(4, 512, 32, 1, 64, 128, 128, "bfloat16", False),
               (4, 512, 32, 1, 64, 128, 128, "float32", False),
-              (4, 512, 32, 1, 64, 128, 128, "float32", True)]
+              (4, 512, 32, 1, 64, 128, 128, "float32", True),
+              # zamba2-1.2b's Mamba2 layer: 64 heads, state 64
+              (4, 512, 64, 1, 64, 64, 128, "bfloat16", False)]
 SSD_MMA_KERNELS = ("ssd_chunk_state_mma", "ssd_chunk_out_mma")   # kernel 9's bf16 kernels
 # the scenarios phase (the slice's path on the main path's population):
 # scenario A, examples/connectivity_sweep.py's rewired ER schedule with
@@ -274,11 +290,23 @@ SCENARIO_DROPOUT = 0.2
 SCENARIO_REWIRE = dict(kind="er", n=20, avg_degree=5.0, p_rewire=0.3, seed=2)
 SCENARIO_SYSTEM = dict(slow_fraction=0.34, slow_factor=4.0, time_budget=2.0, jitter=0.3,
                        markov=(0.3, 0.7), staleness_gamma=0.9, seed=5)
-LM_ARCHS = {"olmo-1b": 1_280_311_296, "mamba2-370m": 420_136_448}   # X of each plane
+LM_ARCHS = {"olmo-1b": 1_280_311_296, "mamba2-370m": 420_136_448,   # X of each plane
+            "zamba2-1.2b": 1_170_473_856, "olmoe-1b-7b": 6_919_620_608}
 LM_B, LM_PROMPT, LM_GEN = 4, 512, 16
+# (requests, codecs) each arch is served with. olmoe-1b-7b: B = 1 and no
+# fp32 plane: its fp32 (2, X) plane (55.4 GB) beside the (B, X) fp32 mix
+# (27.7 GB a request) and the bf16 leaves (13.8 GB a request) does not fit
+# in 80 GB, nor does B >= 2 in any codec
+LM_SERVE = {"olmo-1b": (LM_B, ("fp32", "int8", "int4")),
+            "mamba2-370m": (LM_B, ("fp32", "int8", "int4")),
+            "zamba2-1.2b": (LM_B, ("fp32", "int8", "int4")),
+            "olmoe-1b-7b": (1, ("int8", "int4"))}
+LM_NEW = ("zamba2-1.2b", "olmoe-1b-7b")   # the MoE and hybrid slice's archs
+PLAIN_MIX_COLUMNS = 1 << 26   # the LM mixes' plain versions run in chunks this wide
 LM_MIXTURE = [[0.7, 0.3], [0.5, 0.5], [0.1, 0.9], [1.0, 0.0]]
 BF16_GAP = 5e-2   # a greedy flip between kernel and plain runs must be a near-tie:
-# a logit gap under this, or under two bf16 steps at the logits' magnitude
+# a logit gap under this, or under two bf16 steps at the logits' magnitude;
+# past it, the fp32 reference must pick the kernel run's token
 
 
 def fail(msg: str) -> None:
@@ -2031,40 +2059,66 @@ class _PlainLMKernels:
         attention.flash_attention, ssm.ssd_scan = self.saved
 
 
-def _first_flip(torch, server, bundle, u, prompts, got, want) -> tuple[str, float]:
-    """Tokens of the kernel run (``got``) against the plain run
-    (``want``): ("equal", 0), or the first step where they differ and the
-    kernel run's logit gap there between the two tokens, replayed through
-    the server's own steps (mix, cast, prefill, re-score, decode ``got``'s
-    tokens), which must be a bf16 near-tie."""
-    from repro_torch.models.layers import cast_params_for_compute
-
-    if torch.equal(got, want):
-        return "equal", 0.0
-    step = int((got != want).any(dim=0).nonzero()[0])
-    row = int((got[:, step] != want[:, step]).nonzero()[0])
+def _replay_logits(torch, bundle, params, prompts, got, step: int):
+    """The logits ``generate`` drew token ``step`` from, replayed through
+    its own steps (prefill, re-score of the last prompt token, decode of
+    ``got``'s tokens before ``step``)."""
     b, lp = prompts.shape
     with torch.no_grad():
-        params = cast_params_for_compute(server.personalized(u),
-                                         bundle.cfg.compute_dtype_torch())
         cache = bundle.init_cache(b, lp + LM_GEN + 1, device=prompts.device)
         cache = bundle.prefill(params, {"tokens": prompts}, cache)
         cache["pos"].fill_(lp - 1)
         logits, cache = bundle.decode_step(params, cache, prompts[:, -1:])
         for i in range(step):
             logits, cache = bundle.decode_step(params, cache, got[:, i:i + 1].long())
-    a, b_ = (float(logits[row, -1, int(t[row, step])]) for t in (got, want))
+    return logits[:, -1, :bundle.cfg.vocab].float()
+
+
+def _first_flip(torch, server, bundle, u, prompts, got, want) -> tuple[str, bool]:
+    """Tokens of the kernel run (``got``) against the plain run
+    (``want``): ("equal", True), or the first step where they differ with
+    the kernel run's logit gap there between the two tokens (replayed
+    through the server's own steps: mix, cast, prefill, re-score, decode
+    ``got``'s tokens) and whether the flip is a bf16 near-tie: a gap under
+    BF16_GAP or two bf16 steps at the logits' magnitude. A wider gap is
+    judged by the fp32 reference (fp32 activations and weights, the plain
+    versions of kernels 8 and 9, ``got``'s tokens): the flip passes only
+    if its argmax is the kernel run's token, i.e. the plain bf16 run is
+    the one rounded off the precise answer."""
+    from repro_torch.models.layers import cast_params_for_compute
+    from repro_torch.models.registry import build_model
+
+    if torch.equal(got, want):
+        return "equal", True
+    step = int((got != want).any(dim=0).nonzero()[0])
+    row = int((got[:, step] != want[:, step]).nonzero()[0])
+    tk, tp = int(got[row, step]), int(want[row, step])
+    params = cast_params_for_compute(server.personalized(u), bundle.cfg.compute_dtype_torch())
+    logits = _replay_logits(torch, bundle, params, prompts, got, step)
+    del params
+    a, b_ = float(logits[row, tk]), float(logits[row, tp])
     gap = abs(a - b_)
     # two bf16 steps (8 significant bits) at the larger logit's magnitude
     steps = 2.0 ** (math.floor(math.log2(max(abs(a), abs(b_), 1e-30))) - 6)
-    return (f"first flip at step {step} (request {row}), logit gap {gap:.4g} (logits "
-            f"{a:.4g}, {b_:.4g}; two bf16 steps {steps:.4g})", gap / max(BF16_GAP, steps))
+    verdict = (f"first flip at step {step} (request {row}), logit gap {gap:.4g} (logits "
+               f"{a:.4g}, {b_:.4g}; two bf16 steps {steps:.4g})")
+    if gap <= max(BF16_GAP, steps):
+        return verdict, True
+    ref_bundle = build_model(bundle.cfg.with_overrides(compute_dtype="float32"),
+                             attn_mode="cuda")
+    with _PlainLMKernels():
+        ref = _replay_logits(torch, ref_bundle, server.personalized(u), prompts, got, step)
+    top = int(ref[row].argmax())
+    verdict += (f"; past a bf16 near-tie, the fp32 reference's logits {float(ref[row, tk]):.4g}, "
+                f"{float(ref[row, tp]):.4g} pick token {top} (kernel run {tk}, plain run {tp})")
+    return verdict, top == tk
 
 
 def _lm_server(torch, arch: str, codec: str, gen: int = LM_GEN):
     """(arch config, bundle, server, u, prompts): ``launch/serve``'s random
-    S = 2 plane of ``arch`` at full width in ``codec``, B = LM_B requests
-    with their own mixtures, prompts of LM_PROMPT tokens from seed 0."""
+    S = 2 plane of ``arch`` at full width in ``codec``, the arch's B
+    requests (``LM_SERVE``) with their own mixtures, prompts of LM_PROMPT
+    tokens from seed 0."""
     import numpy as np
 
     from repro_torch.core.packing import make_pack_spec
@@ -2072,17 +2126,71 @@ def _lm_server(torch, arch: str, codec: str, gen: int = LM_GEN):
     from repro_torch.models.registry import build_model
     from repro_torch.serve import ServeConfig
 
-    cfg = ServeConfig(arch=arch, smoke=False, batch=LM_B, prompt_len=LM_PROMPT, gen=gen,
-                      codec=codec, mixture=np.array(LM_MIXTURE, np.float32)).resolve()
+    b = LM_SERVE[arch][0]
+    cfg = ServeConfig(arch=arch, smoke=False, batch=b, prompt_len=LM_PROMPT, gen=gen,
+                      codec=codec, mixture=np.array(LM_MIXTURE[:b], np.float32)).resolve()
     arch_cfg = cfg.arch_config()
     bundle = build_model(arch_cfg, attn_mode="cuda")
     spec = make_pack_spec(bundle.init(None))
     check(spec.size == LM_ARCHS[arch], f"{arch}: X = {spec.size}, expected {LM_ARCHS[arch]}")
     dev = torch.device("cuda")
     server, u = launch_serve.build_server(cfg, bundle, spec, device=dev)
-    prompts = torch.randint(0, arch_cfg.vocab, (LM_B, LM_PROMPT),
+    prompts = torch.randint(0, arch_cfg.vocab, (b, LM_PROMPT),
                             generator=torch.Generator(device=dev).manual_seed(0), device=dev)
     return arch_cfg, bundle, server, torch.as_tensor(u, device=dev), prompts
+
+
+def _lm_launches(cfg) -> dict:
+    """Kernel 8 / 9 launches of one generate (the eager prefill; the
+    decode launches neither): one flash launch per attention layer (per
+    invocation of zamba2's shared block), three SSD-scan launches per
+    Mamba2 layer."""
+    if cfg.family == "ssm":
+        return {"ssd_scan": 3 * cfg.n_layers}
+    if cfg.family == "hybrid":
+        return {"flash_attention": cfg.n_layers // cfg.attn_every,
+                "ssd_scan": 3 * cfg.n_layers}
+    return {"flash_attention": cfg.n_layers}
+
+
+class _CountDrops:
+    """Within the block, every MoE routing records its dropped (token,
+    expert) pairs: ``counts`` holds one ``(dropped, pairs, capacity)`` per
+    MoE layer call, read on the host after the block."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.saved, self.calls = moe._slots, []
+
+        def slots(flat_expert, e, capacity, dispatch):
+            keep, slot = self.saved(flat_expert, e, capacity, dispatch)
+            self.calls.append(((~keep).sum(), keep.numel(), capacity))
+            return keep, slot
+
+        moe._slots = slots
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe._slots = self.saved
+
+    @property
+    def counts(self) -> list:
+        return [(int(d), n, c) for d, n, c in self.calls]
+
+
+def _prefill_drops(torch, server, bundle, u, prompts) -> list:
+    """The dropped (token, expert) pairs of each MoE layer in the prefill
+    of ``prompts``, as the server runs it (each request routed alone)."""
+    params = _eager_params(torch, server, u)
+    cache = bundle.init_cache(prompts.shape[0], prompts.shape[1] + LM_GEN + 1,
+                              device=prompts.device)
+    with torch.no_grad(), _CountDrops() as drops:
+        bundle.prefill(params, {"tokens": prompts}, cache)
+    del params, cache
+    return drops.counts
 
 
 def _eager_params(torch, server, u):
@@ -2121,7 +2229,7 @@ def _captured_call(server, u, prompts):
     def run(gen, clock=None):
         if clock is None:
             return server.generate(u, prompts, gen=gen)
-        engine = server.engines[(LM_B, LM_PROMPT, gen, 0.0)]
+        engine = server.engines[(prompts.shape[0], LM_PROMPT, gen, 0.0)]
         graph = engine.graph
 
         class Marked:
@@ -2204,26 +2312,53 @@ def _decoded_plane(torch, server):
     return plane
 
 
-def phase_lm_serve(torch, gm) -> dict:
+def _mix_against_plain(torch, gm, name: str, server, u, out) -> tuple[float, float]:
+    """(max abs error, device ms) of the plain version of the server's mix
+    kernel ``name`` against its output ``out`` ``(B, Xp)``, over the whole
+    width in chunks of PLAIN_MIX_COLUMNS columns (the plain version
+    decodes its chunk of the plane to fp32: at full width that plane would
+    not fit beside the server); the ms are the chunks' CUDA-event times
+    summed."""
+    plain = getattr(gm, name + "_ref")
+    sc, qb = server.plane_scale, server.qblock
+    xp, step = out.shape[1], PLAIN_MIX_COLUMNS // qb * qb
+    err, ms = 0.0, 0.0
+    for c0 in range(0, xp, step):
+        c1 = min(c0 + step, xp)
+        payload = (server.plane_q[:, c0:c1] if name == "gossip_mix_dequant"
+                   else server.plane_packed[:, c0 // 2:c1 // 2])
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = plain(u, payload, sc[:, c0 // qb:c1 // qb], qblock=qb)
+        end.record()
+        err = max(err, float((out[:, c0:c1] - want).abs().max()))
+        ms += start.elapsed_time(end)
+    return err, ms
+
+
+def phase_lm_serve(torch, gm) -> tuple[dict, dict]:
     """The fifth path: LM generation at full width, the server's captured
-    decode beside the eager decode. Returns the launches summed over the
-    counted generate calls (every kernel, kernels 8 and 9 included)."""
+    decode beside the eager decode, for each arch of ``LM_SERVE`` in each
+    of its codecs. Returns the launches summed over the counted generate
+    calls (every kernel, kernels 8 and 9 included) and the int8 / int4
+    mixes' kernel rows at each arch's shape."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.serve.server import decode_eager
 
     kernels = gm.KERNELS + (flash_attention, ssd_scan)
     total = {k.__name__: 0 for k in kernels}
-    for arch in LM_ARCHS:
-        for codec in ("fp32", "int8", "int4"):
+    mix_rows = {"gossip_mix_dequant": [], "mixture_mix_dequant4": []}
+    t_new = 0.0
+    for arch, (lm_b, codecs) in LM_SERVE.items():
+        t_arch = time.perf_counter()
+        for codec in codecs:
             _free(torch)
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             arch_cfg, bundle, server, u, prompts = _lm_server(torch, arch, codec)
             torch.cuda.synchronize()
             build_s = time.perf_counter() - t0
-            kernel, per_layer = ((ssd_scan, 3) if arch_cfg.family == "ssm"
-                                 else (flash_attention, 1))
             server.generate(u, prompts, gen=1)                       # first use
             for k in kernels:
                 k.launches = 0
@@ -2232,7 +2367,7 @@ def phase_lm_serve(torch, gm) -> dict:
             for name, c in counts.items():
                 total[name] += c
             peak = torch.cuda.max_memory_allocated()
-            engine = server.engines[(LM_B, LM_PROMPT, LM_GEN, 0.0)]
+            engine = server.engines[(lm_b, LM_PROMPT, LM_GEN, 0.0)]
             prefill_ms, decode_ms, gen_ms = _decode_ms(torch, _captured_call(server, u, prompts))
             check(server.n_compiles == 2,
                   f"lm serve {arch} {codec}: n_compiles {server.n_compiles} after calls "
@@ -2254,6 +2389,7 @@ def phase_lm_serve(torch, gm) -> dict:
                 # kernel 4 / 7 alone at the LM mix shape (device ms by CUDA
                 # events, after the launches above were read), beside its
                 # bound and torch.matmul of u by the fp32-decoded plane
+                # where that (S, Xp) fp32 plane fits beside the server
                 sc = server.plane_scale
                 xp = sc.shape[1] * server.qblock
                 if codec == "int8":
@@ -2262,45 +2398,75 @@ def phase_lm_serve(torch, gm) -> dict:
                 else:
                     mix_name, mix = "mixture_mix_dequant4", lambda: gm.mixture_mix_dequant4(
                         u, server.plane_packed, sc, qblock=server.qblock)
-                b_ms, b_by = bound(sc.shape[0], xp, mix_name, m=LM_B, qblock=server.qblock)
+                b_ms, b_by = bound(sc.shape[0], xp, mix_name, m=lm_b, qblock=server.qblock)
+                out = mix()
+                mix_err, mix_plain_ms = _mix_against_plain(torch, gm, mix_name, server, u, out)
+                check(mix_err <= TOL, f"lm serve {arch} {codec}: {mix_name} max abs err "
+                                      f"{mix_err} > {TOL} against its plain version")
+                del out
                 mix_ms_dev = time_ms(mix, 3)
-                decoded = _decoded_plane(torch, server)
-                lib_ms = time_ms(lambda: torch.matmul(u, decoded), 3)
-                mix_dev = (f"mix_device_ms {mix_ms_dev:.3f} mix_bound_ms {b_ms:.3f} "
-                           f"mix_library_ms {lib_ms:.3f} (torch.matmul of u by the "
-                           f"fp32-decoded plane; {b_by}, {mix_name}, B={LM_B} "
+                lib_ms = None
+                if 4 * sc.shape[0] * xp < 24e9:
+                    decoded = _decoded_plane(torch, server)
+                    lib_ms = time_ms(lambda: torch.matmul(u, decoded), 3)
+                    del decoded
+                lib = ("not measured (the fp32-decoded plane does not fit beside the "
+                       "server)" if lib_ms is None else f"{lib_ms:.3f} (torch.matmul of u "
+                       "by the fp32-decoded plane)")
+                mix_dev = (f"mix_device_ms {mix_ms_dev:.3f} mix_max_abs_err {mix_err} "
+                           f"mix_plain_ms {mix_plain_ms:.3f} mix_bound_ms {b_ms:.3f} "
+                           f"mix_library_ms {lib}; {b_by}, {mix_name}, B={lm_b} "
                            f"S={sc.shape[0]} Xp={xp}) ")
-                del mix, decoded
+                mix_rows[mix_name].append(dict(
+                    m=lm_b, n=sc.shape[0], x=LM_ARCHS[arch], xp=xp, qblock=server.qblock,
+                    max_abs_err=mix_err, ms=mix_ms_dev, plain_ms=mix_plain_ms,
+                    plain_in_chunks_of=PLAIN_MIX_COLUMNS, library_ms=lib_ms, bound_ms=b_ms,
+                    bound_by=b_by, variant=f"lm mix {arch}"))
+                del mix
             with _PlainLMKernels():
                 plain = server.generate(u, prompts, gen=LM_GEN)
-            verdict, gap_ratio = _first_flip(torch, server, bundle, u, prompts, toks, plain)
+            verdict, flip_ok = _first_flip(torch, server, bundle, u, prompts, toks, plain)
+            drops = ""
+            if arch_cfg.n_experts > 0:
+                per_layer = _prefill_drops(torch, server, bundle, u, prompts)
+                check(len(per_layer) == arch_cfg.n_layers and all(
+                    c == int(max(1, arch_cfg.capacity_factor * arch_cfg.top_k * LM_PROMPT
+                                 / arch_cfg.n_experts)) for _, _, c in per_layer),
+                      f"lm serve {arch} {codec}: MoE prefill routings {per_layer}")
+                drops = (f"prefill capacity {per_layer[0][2]} slots an expert, dropped "
+                         f"(token, expert) pairs per layer of {per_layer[0][1]}: "
+                         f"{json.dumps([d for d, _, _ in per_layer])} ")
             want = {k.__name__: 0 for k in kernels}
-            want[kernel.__name__] = arch_cfg.n_layers * per_layer
+            want.update(_lm_launches(arch_cfg))
             if codec == "int8":
                 want["gossip_mix_dequant"] = 1
             if codec == "int4":
                 want["mixture_mix_dequant4"] = 1
             print(f"lm serve {arch} {codec}: prefill_ms {prefill_ms:.3f} "
                   f"decode_ms_per_token {decode_ms:.4f} eager_decode_ms_per_token "
-                  f"{e_decode_ms:.4f} decode_tok_s {LM_B / decode_ms * 1e3:.1f} eager_decode_tok_s "
-                  f"{LM_B / e_decode_ms * 1e3:.1f} tok_s {LM_B * LM_GEN / gen_ms * 1e3:.1f} "
-                  f"eager_tok_s {LM_B * LM_GEN / (mix_ms + e_gen_ms) * 1e3:.1f} "
+                  f"{e_decode_ms:.4f} decode_tok_s {lm_b / decode_ms * 1e3:.1f} eager_decode_tok_s "
+                  f"{lm_b / e_decode_ms * 1e3:.1f} tok_s {lm_b * LM_GEN / gen_ms * 1e3:.1f} "
+                  f"eager_tok_s {lm_b * LM_GEN / (mix_ms + e_gen_ms) * 1e3:.1f} "
                   f"generate_ms {gen_ms:.3f} "
-                  f"(B={LM_B}, prompt {LM_PROMPT}, gen {LM_GEN}; medians of 3) capture_ms "
+                  f"(B={lm_b}, prompt {LM_PROMPT}, gen {LM_GEN}; medians of 3) capture_ms "
                   f"{engine.capture_ms:.1f} n_compiles {server.n_compiles} mix_ms {mix_ms:.3f} "
                   f"{mix_dev}plane_bytes {server.plane_bytes} max_memory_allocated {peak} "
-                  f"build_s {build_s:.2f} captured vs eager: equal tokens and last logits; "
-                  f"tokens vs plain: {verdict} launches {json.dumps(counts)} tokens[0] "
+                  f"build_s {build_s:.2f} {drops}captured vs eager: equal tokens and last "
+                  f"logits; tokens vs plain: {verdict} launches {json.dumps(counts)} tokens[0] "
                   f"{json.dumps(toks[0].tolist())}", flush=True)
-            check(tuple(toks.shape) == (LM_B, LM_GEN) and int(toks.min()) >= 0
+            check(tuple(toks.shape) == (lm_b, LM_GEN) and int(toks.min()) >= 0
                   and int(toks.max()) < arch_cfg.vocab,
                   f"lm serve {arch} {codec}: tokens {tuple(toks.shape)} out of range")
             check(counts == want, f"lm serve {arch} {codec}: launches {counts}, expected {want}")
-            check(gap_ratio <= 1.0, f"lm serve {arch} {codec}: kernel and plain tokens "
-                                    f"differ, {verdict}: not a bf16 near-tie")
+            check(flip_ok, f"lm serve {arch} {codec}: kernel and plain tokens differ, "
+                           f"{verdict}: not a bf16 near-tie")
             del server, engine, toks, plain, bundle
+        if arch in LM_NEW:
+            t_new += time.perf_counter() - t_arch
     _free(torch)
-    return total
+    print(f"lm serve phase, the MoE and hybrid archs ({', '.join(LM_NEW)}): {t_new:.1f} s",
+          flush=True)
+    return total, mix_rows
 
 
 def _span_profile(torch, prof, wall_ms: float) -> dict:
@@ -2346,7 +2512,7 @@ def phase_lm_profile(torch) -> None:
             torch.cuda.synchronize()
         eager = _span_profile(torch, prof, e_decode_ms)
         for label, p, ms in (("captured", cap, decode_ms), ("eager", eager, e_decode_ms)):
-            print(f"lm profile {arch} int8 {label} decode (gen {LM_GEN}, B={LM_B}): "
+            print(f"lm profile {arch} int8 {label} decode (gen {LM_GEN}, B={prompts.shape[0]}): "
                   f"device_ms_per_token {p['device_ms']:.4f} kernels_per_token "
                   f"{p['kernels']} decode_ms_per_token {ms:.4f} (unprofiled, median of 3) "
                   f"device_busy_share {p['busy']:.4f}", flush=True)
@@ -2455,9 +2621,13 @@ def main() -> None:
     phase_profile(torch, sparse_round_ms, label="sparse+int8", sparse=SparseConfig(**SPARSE),
                   comm=CommConfig(codec="int8", error_feedback=True))
     lm_rows = phase_lm_kernels(torch, mma_counts)
-    lm_launches = phase_lm_serve(torch, gm)
+    t = time.perf_counter()
+    lm_launches, lm_mix_rows = phase_lm_serve(torch, gm)
+    for name, rs in lm_mix_rows.items():
+        serve_rows[name].extend(rs)
     phase_lm_profile(torch)
     phase_lm_cli()
+    print(f"lm phases: {time.perf_counter() - t:.1f} s", flush=True)
 
     # every launch on the paths driven on the loop engine: the FedSPD main
     # path (DP off and on), serving, the baselines, the sparse/comm runs,

@@ -66,6 +66,13 @@ def build_config(args) -> ServeConfig:
     ).resolve()
 
 
+def _random_row(bundle: ModelBundle, spec: PackSpec, seed: int,
+                dev: torch.device) -> torch.Tensor:
+    """``bundle.init`` drawn with ``seed``, packed to one fp32 ``(X,)`` row
+    (the tree is freed as soon as it is packed)."""
+    return pack(bundle.init(make_generator(dev, seed)), spec)
+
+
 def random_plane(bundle: ModelBundle, spec: PackSpec, *, seed: int, n_clusters: int = 2,
                  device: str | torch.device = "cuda") -> torch.Tensor:
     """The ``(S, X)`` fp32 plane of ``bundle.init`` drawn with seeds
@@ -73,8 +80,45 @@ def random_plane(bundle: ModelBundle, spec: PackSpec, *, seed: int, n_clusters: 
     dev = resolve_device(device)
     plane = torch.empty((n_clusters, spec.size), dtype=torch.float32, device=dev)
     for s in range(n_clusters):
-        plane[s] = pack(bundle.init(make_generator(dev, seed + s)), spec)
+        plane[s] = _random_row(bundle, spec, seed + s, dev)
     return plane
+
+
+# columns encoded at a time (a whole number of blocks): the encode's fp32
+# temporaries stay a few hundred MB whatever the width of the plane
+ENCODE_COLUMNS = 1 << 24
+
+
+class _PlaneEncoder:
+    """An ``(S, X)`` plane's serving form in ``codec`` (int8 or int4),
+    filled one fp32 row at a time, each row in chunks of whole blocks:
+    per-block scales make the chunks' bytes the whole row's."""
+
+    def __init__(self, n_clusters: int, x: int, codec: str, qblock: int,
+                 device: torch.device):
+        self.codec, self.qblock = codec, qblock
+        self.ch = Channel(CommConfig(codec=codec, block=qblock), x)
+        nq = -(-x // qblock)
+        width = nq * qblock // 2 if codec == "int4" else nq * qblock
+        self.q = torch.empty((n_clusters, width), dtype=torch.uint8 if codec == "int4"
+                             else torch.int8, device=device)
+        self.scale = torch.empty((n_clusters, nq), dtype=torch.float32, device=device)
+        self.step = max(1, ENCODE_COLUMNS // qblock) * qblock
+
+    def put(self, s: int, row: torch.Tensor) -> None:
+        """Encode fp32 ``row`` ``(X,)`` as cluster row ``s`` (nearest
+        rounding, as ``save_servable``)."""
+        for c0 in range(0, row.shape[0], self.step):
+            enc = self.ch.encode(row[None, c0:c0 + self.step], rounding="nearest")
+            q = int4_pack(enc["q"]) if self.codec == "int4" else enc["q"]
+            a, b0 = (c0 // 2 if self.codec == "int4" else c0), c0 // self.qblock
+            self.q[s, a:a + q.shape[1]] = q[0]
+            self.scale[s, b0:b0 + enc["scale"].shape[1]] = enc["scale"][0]
+
+    def keywords(self) -> dict:
+        if self.codec == "int8":
+            return {"plane_q": self.q, "plane_scale": self.scale}
+        return {"plane_packed": self.q, "plane_scale": self.scale}
 
 
 def encode_plane(plane: torch.Tensor, codec: str, qblock: int = 64) -> dict:
@@ -85,13 +129,30 @@ def encode_plane(plane: torch.Tensor, codec: str, qblock: int = 64) -> dict:
     cluster row at a time."""
     if codec == "fp32":
         return {"plane": plane}
-    ch = Channel(CommConfig(codec=codec, block=qblock), plane.shape[1])
-    encs = [ch.encode(plane[s:s + 1], rounding="nearest") for s in range(plane.shape[0])]
-    q = torch.cat([e["q"] for e in encs])
-    scale = torch.cat([e["scale"] for e in encs])
-    if codec == "int8":
-        return {"plane_q": q, "plane_scale": scale}
-    return {"plane_packed": int4_pack(q), "plane_scale": scale}
+    enc = _PlaneEncoder(plane.shape[0], plane.shape[1], codec, qblock, plane.device)
+    for s in range(plane.shape[0]):
+        enc.put(s, plane[s])
+    return enc.keywords()
+
+
+def random_server_plane(bundle: ModelBundle, spec: PackSpec, *, seed: int, codec: str,
+                        qblock: int = 64, n_clusters: int = 2,
+                        device: str | torch.device = "cuda") -> dict:
+    """``random_plane`` in ``codec``'s serving form (the
+    ``ClusterPlaneServer`` keywords), equal to ``encode_plane`` of it.
+    int8 and int4 never hold the fp32 plane: each cluster's model is
+    drawn, packed, encoded and freed before the next (at olmoe-1b-7b's
+    X = 6.9 B the fp32 plane alone is 55 GB)."""
+    dev = resolve_device(device)
+    if codec == "fp32":
+        return {"plane": random_plane(bundle, spec, seed=seed, n_clusters=n_clusters,
+                                      device=dev)}
+    enc = _PlaneEncoder(n_clusters, spec.size, codec, qblock, dev)
+    for s in range(n_clusters):
+        row = _random_row(bundle, spec, seed + s, dev)
+        enc.put(s, row)
+        del row
+    return enc.keywords()
 
 
 def build_server(cfg: ServeConfig, bundle: ModelBundle, spec: PackSpec, *,
@@ -107,9 +168,10 @@ def build_server(cfg: ServeConfig, bundle: ModelBundle, spec: PackSpec, *,
         u_table = None if art.u_table is None else art.u_table.cpu().numpy()
         print(f"serving {server.n_clusters}-cluster {art.codec} plane from {artifact}")
         return server, cfg.request_mixture(server.n_clusters, u_table)
-    plane = random_plane(bundle, spec, seed=cfg.seed, device=dev)
+    planes = random_server_plane(bundle, spec, seed=cfg.seed, codec=cfg.codec,
+                                 qblock=cfg.qblock, device=dev)
     server = ClusterPlaneServer(spec, codec=cfg.codec, qblock=cfg.qblock, bundle=bundle,
-                                device=dev, **encode_plane(plane, cfg.codec, cfg.qblock))
+                                device=dev, **planes)
     print(f"serving a randomly initialized 2-cluster {cfg.codec} plane (no --artifact)")
     return server, cfg.request_mixture(2)
 

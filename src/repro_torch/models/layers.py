@@ -29,7 +29,8 @@ def init_device(gen: torch.Generator | None) -> torch.device:
     return torch.device("meta") if gen is None else gen.device
 
 
-def _randn(gen: torch.Generator | None, shape: tuple) -> torch.Tensor:
+def normal(gen: torch.Generator | None, shape: tuple) -> torch.Tensor:
+    """N(0, 1) fp32 draws from ``gen`` on its device (meta for None)."""
     return torch.randn(shape, generator=gen, device=init_device(gen), dtype=torch.float32)
 
 
@@ -43,12 +44,12 @@ def dense_init(gen: torch.Generator | None, d_in: int, d_out: int,
     """``(d_in, d_out)`` Gaussian weights with std ``1/sqrt(d_in)`` (or
     ``scale``), drawn from ``gen`` on its device (meta for None)."""
     std = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    return (_randn(gen, (d_in, d_out)) * std).to(dtype)
+    return (normal(gen, (d_in, d_out)) * std).to(dtype)
 
 
 def embed_init(gen: torch.Generator | None, vocab: int, d: int,
                dtype=torch.float32) -> torch.Tensor:
-    return (_randn(gen, (vocab, d)) * 0.02).to(dtype)
+    return (normal(gen, (vocab, d)) * 0.02).to(dtype)
 
 
 def rmsnorm_init(d: int, dtype=torch.float32, device=None) -> dict:
@@ -176,15 +177,28 @@ def apply_mlp(params: dict, x: torch.Tensor, act: str) -> torch.Tensor:
 
 def stack_init(init_one: Callable, gen: torch.Generator | None, n_layers: int) -> dict:
     """``init_one(gen)`` for each of ``n_layers`` layers, leaves stacked on
-    a new leading ``(L,)`` axis."""
-    layers = [init_one(gen) for _ in range(n_layers)]
+    a new leading ``(L,)`` axis. Each layer is drawn and copied into the
+    stack before the next is drawn, so a full-width init holds the stack
+    and one layer, never the stack twice."""
+    def alloc(node):
+        if isinstance(node, dict):
+            return {k: alloc(v) for k, v in node.items()}
+        return torch.empty((n_layers, *node.shape), dtype=node.dtype, device=node.device)
 
-    def stack(nodes):
-        if isinstance(nodes[0], dict):
-            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
-        return torch.stack(nodes)
+    def put(dst, src, i):
+        if isinstance(src, dict):
+            for k, v in src.items():
+                put(dst[k], v, i)
+        else:
+            dst[i].copy_(src)
 
-    return stack(layers)
+    first = init_one(gen)
+    out = alloc(first)
+    put(out, first, 0)
+    del first
+    for i in range(1, n_layers):
+        put(out, init_one(gen), i)
+    return out
 
 
 # --------------------------------------------------------------------------

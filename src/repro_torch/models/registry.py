@@ -1,8 +1,9 @@
 """Uniform model bundle: one construction point for the LM model zoo.
 
 The JAX package's ``models/registry.py`` for the families the port has:
-``dense`` and ``vlm`` (``models/transformer.py``) and ``ssm``
-(``models/ssm.py``). Every bundle offers
+``dense``, ``moe`` and ``vlm`` (``models/transformer.py``, MoE layers from
+``models/moe.py``), ``ssm`` (``models/ssm.py``) and ``hybrid``
+(``models/hybrid.py``). Every bundle offers
 
     init(gen) -> params                          (drawn on gen's device)
     loss(params, batch) -> scalar                (training objective)
@@ -16,8 +17,8 @@ The cache's ``pos`` is a 0-dim int64 tensor on its device, and prefill and
 decode write into the tensors of the cache they are given, so a captured
 decode step (``serve/server.py``) reads what the last call wrote.
 
-batch: ``{"tokens": (B, L)}``. ``moe``, ``hybrid`` and ``audio`` wait for
-later slices and raise ``ValueError``.
+batch: ``{"tokens": (B, L)}``. ``audio`` (whisper, ``models/encdec.py``)
+waits for a later slice and raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -25,13 +26,11 @@ import dataclasses
 from typing import Callable
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import ssm
+from repro_torch.models import hybrid, ssm
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import next_token_loss
 
 _LATER = {
-    "moe": "the MoE slice (models/moe.py)",
-    "hybrid": "the hybrid slice (models/hybrid.py, zamba2)",
     "audio": "the audio slice (models/encdec.py, whisper)",
 }
 
@@ -54,13 +53,12 @@ def _masked_next_token_loss(logits, tokens, cfg):
 
 def build_model(cfg: ArchConfig, *, attn_mode: str = "cuda") -> ModelBundle:
     fam = cfg.family
-    if fam in _LATER or cfg.n_experts > 0:
-        later = _LATER.get(fam, _LATER["moe"])
+    if fam in _LATER:
         raise ValueError(
             f"{cfg.name} (family {fam!r}) is not in the port yet: it waits for "
-            f"{later}; the port has the dense, vlm and ssm families")
+            f"{_LATER[fam]}; the port has the dense, moe, vlm, ssm and hybrid families")
 
-    if fam in ("dense", "vlm"):
+    if fam in ("dense", "moe", "vlm"):
         def init(gen):
             return tfm.init_transformer(gen, cfg)
 
@@ -101,6 +99,29 @@ def build_model(cfg: ArchConfig, *, attn_mode: str = "cuda") -> ModelBundle:
 
         def decode_step(params, cache, tokens):
             return ssm.ssm_decode_step(params, cache, tokens, cfg)
+
+    elif fam == "hybrid":
+        def init(gen):
+            return hybrid.init_hybrid(gen, cfg)
+
+        def forward(params, batch):
+            logits, aux, _ = hybrid.hybrid_forward(params, batch["tokens"], cfg,
+                                                   attn_mode=attn_mode)
+            return logits, aux
+
+        def loss(params, batch):
+            logits, _ = forward(params, batch)
+            return _masked_next_token_loss(logits, batch["tokens"], cfg).mean()
+
+        def init_cache(batch, max_len, *, device="cuda"):
+            return hybrid.hybrid_init_cache(cfg, batch, max_len, device=device)
+
+        def prefill(params, batch, cache):
+            return hybrid.hybrid_prefill(params, batch["tokens"], cfg, cache,
+                                         attn_mode=attn_mode)
+
+        def decode_step(params, cache, tokens):
+            return hybrid.hybrid_decode_step(params, cache, tokens, cfg)
 
     else:
         raise ValueError(f"unknown family {fam!r}")

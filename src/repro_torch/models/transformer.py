@@ -1,10 +1,13 @@
-"""Decoder-only transformer (dense and VLM backbone) with GQA, RoPE, qk-norm,
-sliding-window and local:global attention, and a KV-cache decode path.
+"""Decoder-only transformer (dense, MoE and VLM backbone) with GQA, RoPE,
+qk-norm, sliding-window and local:global attention, and a KV-cache decode
+path.
 
-One implementation covers olmo-1b, h2o-danube, gemma3-1b, granite-3-8b
-and chameleon-34b (the VLM backbone reads VQ image tokens through the same
-vocab), as the JAX package's ``models/transformer.py`` does; MoE layers
-(olmoe, phi3.5-moe) wait for the MoE slice and raise.
+One implementation covers olmo-1b, olmoe-1b-7b, phi3.5-moe, h2o-danube,
+gemma3-1b, granite-3-8b and chameleon-34b (the VLM backbone reads VQ image
+tokens through the same vocab), as the JAX package's
+``models/transformer.py`` does. A config with ``n_experts > 0`` has an MoE
+FFN in every layer (``models/moe.py``); ``forward`` sums the layers'
+load-balance ``aux`` (one value per request for request-batched params).
 
 The layer stack keeps the JAX package's stacked ``(L, ...)`` leaves and
 runs them as a Python loop. Each layer's window is therefore a static
@@ -48,13 +51,7 @@ from repro_torch.models.layers import (
     rmsnorm_init,
     stack_init,
 )
-
-
-def _refuse_moe(cfg: ArchConfig) -> None:
-    if cfg.n_experts > 0:
-        raise ValueError(
-            f"{cfg.name}: MoE layers (n_experts={cfg.n_experts}) wait for the MoE "
-            "slice of the port (models/moe.py is not ported yet)")
+from repro_torch.models.moe import apply_moe, init_moe
 
 
 def _norm_params(cfg: ArchConfig, dtype, device) -> dict:
@@ -91,7 +88,6 @@ def _window(cfg: ArchConfig, i: int) -> Optional[int]:
 
 
 def init_layer(gen: torch.Generator | None, cfg: ArchConfig) -> dict:
-    _refuse_moe(cfg)
     dtype, dev, hd = cfg.param_dtype_torch(), init_device(gen), cfg.head_dim
     p = {
         "ln1": _norm_params(cfg, dtype, dev),
@@ -102,18 +98,20 @@ def init_layer(gen: torch.Generator | None, cfg: ArchConfig) -> dict:
             "wv": dense_init(gen, cfg.d_model, cfg.n_kv_heads * hd, dtype),
             "wo": dense_init(gen, cfg.n_heads * hd, cfg.d_model, dtype),
         },
-        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype),
     }
     if cfg.qk_norm:
         p["attn"]["q_norm"] = rmsnorm_init(hd, dtype, dev)
         p["attn"]["k_norm"] = rmsnorm_init(hd, dtype, dev)
+    if cfg.n_experts > 0:
+        p["moe"] = init_moe(gen, cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.act, dtype)
+    else:
+        p["mlp"] = init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype)
     return p
 
 
 def init_transformer(gen: torch.Generator | None, cfg: ArchConfig) -> dict:
     """Random parameters drawn from ``gen`` on its device (``gen=None``:
     the tree on the meta device, shapes and dtypes only)."""
-    _refuse_moe(cfg)
     dtype = cfg.param_dtype_torch()
     params = {
         "embed": embed_init(gen, cfg.vocab_padded, cfg.d_model, dtype),
@@ -148,8 +146,19 @@ def apply_layer(p: dict, h: torch.Tensor, *, cfg: ArchConfig, positions: torch.T
     b, l = attn_out.shape[:2]
     h = h + linear(attn_out.reshape(b, l, -1), p["attn"]["wo"])
     x2 = apply_norm(cfg.norm, p.get("ln2"), h)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    return h + apply_mlp(p["mlp"], x2, cfg.act), (k, v), aux
+    ffn_out, aux = _ffn(p, x2, cfg)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h + ffn_out, (k, v), aux
+
+
+def _ffn(p: dict, x: torch.Tensor, cfg: ArchConfig):
+    """The layer's FFN: (out, aux), the MoE's, or the MLP's with aux None
+    (a dense decode step makes no aux)."""
+    if cfg.n_experts > 0:
+        return apply_moe(p["moe"], x, top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+                         act=cfg.act, dispatch=cfg.moe_dispatch)
+    return apply_mlp(p["mlp"], x, cfg.act), None
 
 
 def _head(params: dict, cfg: ArchConfig, compute: torch.dtype) -> torch.Tensor:
@@ -161,30 +170,32 @@ def _head(params: dict, cfg: ArchConfig, compute: torch.dtype) -> torch.Tensor:
 def _run_layers(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *, attn_mode: str,
                 keep_kv: bool):
     """Embed, the layer stack, the final norm. Returns (h, compute-cast
-    params, per-layer (k, v) list or None)."""
-    _refuse_moe(cfg)
+    params, per-layer (k, v) list or None, the layers' summed aux)."""
     compute = cfg.compute_dtype_torch()
     batched = params["embed"].dim() == 3
     h = embed_lookup(params["embed"], tokens).to(compute)
     params = cast_params_for_compute(params, compute)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     kvs = [] if keep_kv else None
+    aux_sum = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.n_layers):
-        h, kv, _ = apply_layer(layer_slice(params["layers"], i, batched), h, cfg=cfg,
-                               positions=positions, mode=attn_mode, window=_window(cfg, i))
+        h, kv, aux = apply_layer(layer_slice(params["layers"], i, batched), h, cfg=cfg,
+                                 positions=positions, mode=attn_mode, window=_window(cfg, i))
+        if cfg.n_experts > 0:
+            aux_sum = aux_sum + aux
         if keep_kv:
             kvs.append(kv)
-    return apply_norm(cfg.norm, params.get("ln_f"), h), params, kvs
+    return apply_norm(cfg.norm, params.get("ln_f"), h), params, kvs, aux_sum
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
             attn_mode: str = "cuda", return_cache: bool = False):
-    """Full forward. Returns (logits, aux, cache_or_None); cache leaves
-    carry a leading (n_layers,) axis: k/v ``(L_layers, B, L, Hkv, hd)``."""
-    h, params, kvs = _run_layers(params, tokens, cfg, attn_mode=attn_mode,
-                                 keep_kv=return_cache)
+    """Full forward. Returns (logits, aux, cache_or_None): aux the layers'
+    summed MoE load-balance loss (0 for dense layers); cache leaves carry
+    a leading (n_layers,) axis: k/v ``(L_layers, B, L, Hkv, hd)``."""
+    h, params, kvs, aux = _run_layers(params, tokens, cfg, attn_mode=attn_mode,
+                                      keep_kv=return_cache)
     logits = linear(h, _head(params, cfg, h.dtype))
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if return_cache:
         cache = {"k": torch.stack([k for k, _ in kvs]),
                  "v": torch.stack([v for _, v in kvs]),
@@ -199,7 +210,7 @@ def prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig, cache: dict, *,
     ``cache`` and L into its ``pos``, all in place; returns ``cache``. The
     logits are not computed (the JAX package's prefill computes and drops
     them)."""
-    _, _, kvs = _run_layers(params, tokens, cfg, attn_mode=attn_mode, keep_kv=True)
+    _, _, kvs, _ = _run_layers(params, tokens, cfg, attn_mode=attn_mode, keep_kv=True)
     l = tokens.shape[1]
     for i, (k, v) in enumerate(kvs):
         cache["k"][i, :, :l] = k
@@ -220,7 +231,6 @@ def _position(value: int, device: torch.device) -> torch.Tensor:
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None, *,
                device: str | torch.device = "cuda") -> dict:
-    _refuse_moe(cfg)
     dtype = dtype or cfg.compute_dtype_torch()
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     dev = resolve_device(device)
@@ -246,13 +256,12 @@ def decode_layer(p: dict, h: torch.Tensor, layer_cache: dict, *, cfg: ArchConfig
     b = attn_out.shape[0]
     h = h + linear(attn_out.reshape(b, 1, -1), p["attn"]["wo"])
     x2 = apply_norm(cfg.norm, p.get("ln2"), h)
-    return h + apply_mlp(p["mlp"], x2, cfg.act), {"k": kc, "v": vc}
+    return h + _ffn(p, x2, cfg)[0], {"k": kc, "v": vc}
 
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor, cfg: ArchConfig):
     """tokens: (B, 1). Returns (logits (B, 1, V), cache): the same cache
     and tensors, its k/v row written and ``pos`` advanced by one in place."""
-    _refuse_moe(cfg)
     compute = cfg.compute_dtype_torch()
     batched = params["embed"].dim() == 3
     h = embed_lookup(params["embed"], tokens).to(compute)

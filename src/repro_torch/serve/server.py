@@ -15,7 +15,8 @@ into ``(B, ...)`` leaves and go straight into one batched forward (the
 counterpart of the JAX package's ``jax.vmap``): ``predict`` runs a
 classifier (``apply_fn``), ``generate`` and ``serve_client`` decode with a
 language model (``bundle``, a ``models/registry`` ModelBundle of the
-dense, vlm or ssm family). ``n_dispatches`` counts calls and
+dense, moe, vlm, ssm or hybrid family; an MoE routes each request alone,
+as the JAX server's ``vmap`` does). ``n_dispatches`` counts calls and
 ``dequant_calls`` the calls that ran a dequant kernel.
 
 ``generate`` is the counterpart of the JAX server's one jitted program. Per

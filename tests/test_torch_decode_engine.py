@@ -2,9 +2,10 @@
 on the CPU (~15 s in one process; three JAX compiles, at smoke width).
 
 - ``decode_step`` against the JAX package's ``dynamic_update_slice`` path
-  on the olmo-1b, gemma3-1b and mamba2-370m smoke configs: two steps after
-  a prefill give JAX's logits and caches (k/v rows, or the SSD state and
-  conv tail) at 1e-4 (two fp32 layers), the position advances in place,
+  on the olmo-1b, gemma3-1b, mamba2-370m, olmoe-1b-7b, phi3.5-moe and
+  zamba2-1.2b smoke configs: two steps after a prefill give JAX's logits
+  and caches (k/v rows, the SSD state and conv tail, the shared block's
+  k/v rows) at 1e-4 (two fp32 layers), the position advances in place,
   every cache tensor keeps its storage (``data_ptr``), and no op of a
   step reads a device value on the host (what a CUDA-graph capture
   refuses);
@@ -33,7 +34,8 @@ from repro_torch.models.registry import build_model
 from repro_torch.serve import ClusterPlaneServer
 from repro_torch.serve.server import decode_eager
 
-ARCHS = ["olmo-1b", "gemma3-1b", "mamba2-370m"]
+ARCHS = ["olmo-1b", "gemma3-1b", "mamba2-370m", "olmoe-1b-7b", "phi3.5-moe-42b-a6.6b",
+         "zamba2-1.2b"]
 U = np.array([[0.7, 0.3], [0.5, 0.5], [0.0, 1.0], [0.2, 0.8]], np.float32)
 
 
@@ -78,10 +80,10 @@ def test_decode_steps_on_a_device_position_match_jax_in_place(arch):
     np.testing.assert_allclose(_np(logits[0]), _np(la), atol=1e-4)
     np.testing.assert_allclose(_np(logits[1]), _np(lb), atol=1e-4)
     assert int(cj["pos"]) == int(pos) == 18
-    for key in ("k", "v", "ssm", "conv"):
-        if key in cj:
-            assert tuple(cache[key].shape) == cj[key].shape
-            np.testing.assert_allclose(_np(cache[key]), _np(cj[key]), atol=1e-4)
+    assert set(cache) == set(cj)
+    for key in set(cj) - {"pos"}:
+        assert tuple(cache[key].shape) == cj[key].shape
+        np.testing.assert_allclose(_np(cache[key]), _np(cj[key]), atol=1e-4)
 
 
 def _server(arch, codec="fp32"):

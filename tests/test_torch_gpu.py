@@ -5,7 +5,8 @@ SSD scan 2e-3 and, on a bf16 y, one bf16 step), the wrappers' checks and launch 
 of the main path through the kernels, a short run of each baseline family
 through its exchange kernel, a short train → export → serve run through
 the dequant kernels, a short run of each codec and sparse path
-through its kernels, LM generation through kernels 8 and 9, and the
+through its kernels, LM generation through kernels 8 and 9 (the MoE and
+hybrid families too, with an MoE layer against the CPU), and the
 round engines: every path replayed from its captured round
 (``scan_rounds``) equal bit for bit to the eager loop.
 
@@ -801,6 +802,116 @@ def test_captured_generate_equals_the_eager_decode_bit_for_bit(
                               temperature=temperature, noise=noise)
     assert torch.equal(outs[1], want)
     assert torch.equal(engine.logits, last)
+
+
+# the MoE and hybrid families (olmoe-1b-7b, phi3.5-moe, zamba2-1.2b at
+# smoke width): generate through kernels 8 and 9 gives the CPU's tokens,
+# its captured decode the eager decode's bits, and an MoE layer on the
+# card the CPU's output and drops
+MOE_HYBRID = ["olmoe-1b-7b", "phi3.5-moe-42b-a6.6b", "zamba2-1.2b"]
+
+
+def _lm_kernel_launches(cfg) -> dict:
+    """Kernels 8 and 9 in one generate: the eager prefill launches one
+    flash kernel per attention layer (per shared-block invocation) and
+    three SSD-scan kernels per Mamba2 layer; the decode launches neither."""
+    if cfg.family == "hybrid":
+        return {"flash": cfg.n_layers // cfg.attn_every, "ssd": 3 * cfg.n_layers}
+    return {"flash": cfg.n_layers, "ssd": 0}
+
+
+@pytest.mark.parametrize("codec", ["fp32", "int8", "int4"])
+@pytest.mark.parametrize("arch", MOE_HYBRID)
+def test_moe_and_hybrid_generate_run_the_kernels_and_match_the_cpu(cuda, arch, codec):
+    cfg = get_smoke_config(arch)
+    bundle = build_model(cfg, attn_mode="cuda")
+    spec = make_pack_spec(bundle.init(None))
+    plane = random_plane(bundle, spec, seed=0, device="cpu")
+    prompts = torch.randint(0, cfg.vocab, (4, 64), generator=torch.Generator().manual_seed(1))
+    u = torch.tensor([[0.7, 0.3], [0.5, 0.5], [0.0, 1.0], [0.2, 0.8]])
+    toks = {}
+    for dev in ("cpu", "cuda"):
+        server = ClusterPlaneServer(spec, codec=codec, bundle=bundle, device=dev,
+                                    **encode_plane(plane, codec))
+        flash_attention.launches = ssd_scan.launches = 0
+        toks[dev] = server.generate(u, prompts, gen=8).cpu()
+        want = _lm_kernel_launches(cfg) if dev == "cuda" else {"flash": 0, "ssd": 0}
+        assert {"flash": flash_attention.launches, "ssd": ssd_scan.launches} == want
+    assert torch.equal(toks["cpu"], toks["cuda"])
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.7])
+@pytest.mark.parametrize("codec", ["fp32", "int8", "int4"])
+@pytest.mark.parametrize("arch,compute", [
+    ("olmoe-1b-7b", "float32"), ("olmoe-1b-7b", "bfloat16"), ("phi3.5-moe-42b-a6.6b", "float32"),
+    ("zamba2-1.2b", "float32"), ("zamba2-1.2b", "bfloat16")])
+def test_moe_and_hybrid_captured_generate_equals_the_eager_decode_bit_for_bit(
+        cuda, arch, compute, codec, temperature):
+    """The MoE routing (stable sort, scatter-add dispatch, gather combine)
+    and the hybrid's per-invocation k/v rows replay from the captured
+    decode step to ``decode_eager``'s bits."""
+    cfg, server, prompts, u = _lm_server(cuda, arch, codec, compute)
+    gen = 8
+    noise = None
+    if temperature > 0:
+        uni = torch.rand((gen, 4, cfg.vocab), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(2))
+        noise = -torch.log(-torch.log(uni.clamp_min(1e-20)))
+    outs = []
+    for _ in range(2):
+        reset_launch_counts()
+        flash_attention.launches = ssd_scan.launches = 0
+        outs.append(server.generate(u, prompts, gen=gen, temperature=temperature,
+                                    noise=noise))
+        assert {"flash": flash_attention.launches, "ssd": ssd_scan.launches} == \
+            _lm_kernel_launches(cfg)
+        assert gossip_mix_dequant.launches == (codec == "int8")
+        assert mixture_mix_dequant4.launches == (codec == "int4")
+    assert server.n_compiles == 1 and torch.equal(outs[0], outs[1])
+    engine = server.engines[(4, 64, gen, temperature)]
+    assert engine.graph is not None
+    params = cast_params_for_compute(server.personalized(u), cfg.compute_dtype_torch())
+    want, last = decode_eager(server.bundle, params, prompts, gen=gen,
+                              temperature=temperature, noise=noise)
+    assert torch.equal(outs[1], want)
+    assert torch.equal(engine.logits, last)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("dispatch", ["cumsum", "sort", "grouped"])
+def test_moe_layer_on_the_card_equals_the_cpu(cuda, dispatch, batched, monkeypatch):
+    """One MoE layer at olmoe's routing (64 experts, top-8) on a small
+    width, fp32: out and aux within 1e-5 of the CPU's, the same drops
+    (capacity factor 1.0 forces some), one decode token drop-free."""
+    from repro_torch.models import moe
+
+    g = torch.Generator().manual_seed(3)
+    b, l, d, f, e, k = 2, 96, 64, 32, 64, 8
+    params = moe.init_moe(g, d, f, e, "silu", torch.float32)
+    if batched:
+        params = {n: torch.stack([w, w * 0.5]) for n, w in params.items()}
+    x = torch.randn((b, l, d), generator=g)
+    real, calls = moe._slots, []
+
+    def counting(fe, ne, cap, mode):
+        keep, slot = real(fe, ne, cap, mode)
+        calls.append(int((~keep).sum()))
+        return keep, slot
+
+    monkeypatch.setattr(moe, "_slots", counting)
+    outs, drops = {}, {}
+    for dev in ("cpu", "cuda"):
+        p = {n: w.to(dev) for n, w in params.items()}
+        calls.clear()
+        outs[dev] = moe.apply_moe(p, x.to(dev), top_k=k, capacity_factor=1.0, act="silu",
+                                  dispatch=dispatch)
+        tok = moe.apply_moe(p, x[:, :1].to(dev), top_k=k, capacity_factor=1.0, act="silu",
+                            dispatch=dispatch)
+        drops[dev] = list(calls)
+        assert drops[dev][-1] == 0 and bool(torch.isfinite(tok[0]).all())
+    assert drops["cpu"] == drops["cuda"] and drops["cpu"][0] > 0
+    torch.testing.assert_close(outs["cuda"][0].cpu(), outs["cpu"][0], atol=1e-5, rtol=0)
+    torch.testing.assert_close(outs["cuda"][1].cpu(), outs["cpu"][1], atol=1e-5, rtol=0)
 
 
 # the round engines: the card's default engine replays one captured round
