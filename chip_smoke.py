@@ -64,6 +64,22 @@ Phases, in order; any failure exits non-zero before the result line:
    launches once per round in the FedEM ids and nowhere else,
    ``gossip_mix_flat`` once per round in the FedAvg, pFedMe and IFCA ids;
    accuracy finite in [0, 1] and comm bytes equal to the static formula;
+   then the baselines' compressed exchange (``phase_baselines_comm``, its
+   seconds printed): one compressed round of ``dfl_fedavg`` (int8 + error
+   feedback: kernel 4) and ``dfl_fedem`` (top-k + error feedback: kernel
+   3) on the card against the CPU with the same injected draws (1e-5,
+   near-ties counted and left out as in phase 7), one FedSPD round driven
+   by AdamW (eps 1e-3) and a cosine schedule and ``local_sgd`` with
+   momentum the same way; then the 10 paired ids under int8 + error
+   feedback and ``dfl_fedavg`` and ``dfl_fedem`` also under int4 and
+   top-k + error feedback, 5 rounds each on the loop and on the replay
+   (as in phase 8: bit for bit, the replays' kernels in the trace), each
+   loop run's launches checked exactly (kernel 4 for FedAvg and pFedMe
+   under int8/int4, kernel 1 for IFCA and under top-k, kernel 3 for
+   FedEM, none for FedSoft), its ``wire_bytes`` equal to ``comm_bytes``
+   times the channel's ratio and ``comm_bytes`` to the static formula;
+   and a replayed ``run_method_batch`` of ``dfl_fedavg`` over seeds 0, 1
+   under int8 + error feedback equal to each seed's ``run_method``;
 7. the sparse and compressed exchange, the fourth path: the sparse mix
    (``gossip_mix_sparse``) and the masked dequant mix
    (``gossip_mix_dequant_masked``) against their plain versions (max abs
@@ -192,7 +208,8 @@ Phases, in order; any failure exits non-zero before the result line:
    share (device ms a token over its unprofiled decode ms a token); then
    ``python -m repro_torch.launch.serve`` once.
 
-It then prints one ``{"kernels": [...]}`` line and, last, the
+It then prints its seconds (``chip_smoke: … s``), one
+``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, "device": {...}}`` line. Needs one card and no network; it
 imports nothing of JAX.
 """
@@ -845,6 +862,14 @@ def phase_sparse_comm_path(torch, gm) -> tuple[dict, float]:
 def _state_tensors(torch, state) -> list:
     fields = (state,) if isinstance(state, torch.Tensor) else tuple(state)
     return [v for v in fields if isinstance(v, torch.Tensor)]
+
+
+def _state_to(torch, state, device):
+    """A copy of a baseline state (a bare plane, ``WithEF`` or a state
+    NamedTuple) on ``device``; fields that are None stay None."""
+    if isinstance(state, torch.Tensor):
+        return state.to(device, copy=True)
+    return type(state)(*(None if t is None else t.to(device, copy=True) for t in state))
 
 
 def _same_run(torch, a, b) -> list:
@@ -1643,9 +1668,9 @@ def phase_agreement(torch) -> None:
     idx = torch.randint(0, m, (data.n_clusters, exp.tau, n, exp.batch), generator=g)
     out = {}
     for d in (cpu, gpu):
-        st_d = type(st)(*(t.to(d, copy=True) for t in st))
+        st_d = _state_to(torch, st, d)
         new, _ = fem.make_step(ctxs[d])(st_d, ctxs[d].train, None, exp.lr0, idx=idx.to(d))
-        out[d.type] = [t.cpu() for t in new]
+        out[d.type] = [new.centers.cpu(), new.u.cpu()]
     (pc, uc), (pg, ug) = out["cpu"], out["cuda"]
     err, u_err = float((pc - pg).abs().max()), float((uc - ug).abs().max())
     print(f"agreement dfl_fedem: plane max abs err {err:.3g}, u max abs err {u_err:.3g}, "
@@ -1870,6 +1895,205 @@ def phase_baselines(torch, gm) -> dict:
               f"baseline {method}: mean_acc {r.mean_acc} not finite in [0, 1]")
         check(r.comm_bytes == per_round * ROUNDS,
               f"baseline {method}: comm_bytes {r.comm_bytes} != {per_round} x {ROUNDS}")
+    return total
+
+
+def _comm_expected(method: str, codec: str, rounds: int) -> dict:
+    """The launches a compressed baseline run makes on the loop: FedAvg and
+    pFedMe mix the int8/int4 payload in ``gossip_mix_dequant`` and a top-k
+    decode in ``gossip_mix_flat``, IFCA mixes its decoded slab in
+    ``gossip_mix_flat``, FedEM its decoded (S, N, X) stack in
+    ``gossip_mix_stack``, once a round; FedSoft aggregates in torch."""
+    family = method.split("_", 1)[1]
+    kernel = {"fedavg": "gossip_mix_dequant" if codec != "topk" else "gossip_mix_flat",
+              "pfedme": "gossip_mix_dequant" if codec != "topk" else "gossip_mix_flat",
+              "ifca": "gossip_mix_flat", "fedem": "gossip_mix_stack"}.get(family)
+    return {} if kernel is None else {kernel: rounds}
+
+
+def _comm_agreement(torch, gm, ctxs, method: str, comm, g) -> None:
+    """One compressed round of ``method`` on the card against the CPU, from
+    one state (after a first CPU round, so the residual is not zero) with
+    the same injected batch indices and rounding draw. As in
+    ``phase_sparse_agreement``, a near-tie (an input within the two sides'
+    last-bit difference of a rounding step, or of top-k's k-th magnitude)
+    shows as a residual more than 1e-5 apart: those columns are counted
+    and left out, and every other column must agree within 1e-5."""
+    from repro_torch.experiments.registry import get_method
+
+    cpu, gpu = torch.device("cpu"), torch.device("cuda")
+    opts = {"comm": comm}
+    cctx = {d: dataclasses.replace(ctxs[d], options=opts) for d in (cpu, gpu)}
+    m, exp = get_method(method), cctx[cpu].exp
+    n, mm, x = cctx[cpu].n_clients, cctx[cpu].train["inputs"].shape[1], cctx[cpu].pack_spec.size
+    st = m.init(cctx[cpu], torch.Generator().manual_seed(5))
+    st, _ = m.make_step(cctx[cpu])(st, cctx[cpu].train, torch.Generator().manual_seed(6),
+                                   exp.lr0)
+    fedem = method.endswith("fedem")
+    prefix = (cctx[cpu].n_clusters,) if fedem else ()
+    idx = torch.randint(0, mm, prefix + (exp.tau, n, exp.batch), generator=g)
+    u = (None if comm.codec == "topk" else
+         torch.rand(prefix + (n, -(-x // QBLOCK), QBLOCK), generator=g))
+    out = []   # the CPU's, then the card's
+    for d in (cpu, gpu):
+        gm.reset_launch_counts()
+        new, _ = m.make_step(cctx[d])(_state_to(torch, st, d), cctx[d].train, None, exp.lr0,
+                                      idx=idx.to(d), comm_u=None if u is None else u.to(d))
+        out.append(tuple(t.cpu() for t in ((new.centers if fedem else new.x), new.ef)))
+    launched = {k.__name__: k.launches for k in gm.KERNELS}   # the card's round
+    (pc, ec), (pg, eg) = out
+    ties = (ec - eg).abs() > TOL
+    clean = ~ties.reshape(-1, x).any(dim=0)
+    plane_err = float((pc - pg)[..., clean].abs().max())
+    ef_err = float((ec - eg)[..., clean].abs().max())
+    want = _comm_expected(method, comm.codec, 1)
+    print(f"agreement {method} {comm.codec}+ef: plane max abs err {plane_err:.3g}, ef max abs "
+          f"err {ef_err:.3g} (near-ties {int(ties.sum())} of {ec.numel()} entries, "
+          f"{int((~clean).sum())} of {x} columns left out, max tie diff "
+          f"{float((ec - eg).abs().max()):.3g}), card launches {json.dumps(launched)}",
+          flush=True)
+    check(bool(torch.isfinite(pg).all()) and bool(torch.isfinite(eg).all()),
+          f"agreement {method}: non-finite plane or residual on the card")
+    check(int(ties.sum()) <= max(8, ec.numel() // 10000),
+          f"agreement {method}: {int(ties.sum())} near-ties, more than rounding noise explains")
+    check(plane_err <= TOL and ef_err <= TOL,
+          f"agreement {method}: plane err {plane_err}, ef err {ef_err} > {TOL}")
+    check({k: c for k, c in launched.items() if c} == want,
+          f"agreement {method}: card launches {launched}, expected {want}")
+
+
+def _optimizer_agreement(torch, ctxs) -> None:
+    """One FedSPD round driven by AdamW and a cosine schedule, and
+    ``local_sgd`` with momentum, on the card against the CPU from one state
+    with the same injected draws, within 1e-5. AdamW runs at eps 1e-3:
+    its step m / (sqrt(v) + eps) magnifies the two sides' last-bit gradient
+    differences by up to lr / (sqrt(v) + eps), past 1e-5 at the default
+    eps on the coordinates with the smallest gradients (as in
+    tests/test_torch_optim.py)."""
+    from repro_torch.baselines.common import local_sgd
+    from repro_torch.core.fedspd import FedSPDConfig, make_round_step, seeded_init
+    from repro_torch.core.gossip import GossipSpec
+    from repro_torch.optim import adamw, cosine_with_warmup, momentum
+
+    cpu, gpu = torch.device("cpu"), torch.device("cuda")
+    ctx, exp = ctxs[cpu], ctxs[cpu].exp
+    n, mm, ps = ctx.n_clients, ctx.train["inputs"].shape[1], ctx.pack_spec
+    g = torch.Generator().manual_seed(8)
+    cfg = FedSPDConfig(n_clients=n, n_clusters=ctx.n_clusters, tau=exp.tau, batch=exp.batch)
+    st = seeded_init(torch.Generator().manual_seed(0), ctx.model_init, cfg, ctx.loss_fn,
+                     ctx.train, ps, epochs=2)._replace(round=3)
+    s = torch.randint(0, ctx.n_clusters, (n,), generator=g)
+    idx = torch.randint(0, mm, (cfg.tau, n, cfg.batch), generator=g)
+    sched = cosine_with_warmup(exp.lr0, warmup=2, total=6)
+    out = []   # the CPU's, then the card's
+    for d in (cpu, gpu):
+        spec = GossipSpec.from_graph(ctxs[d].graph)
+        step = make_round_step(ctxs[d].loss_fn, ctxs[d].pel_fn, spec, cfg, pack_spec=ps,
+                               optimizer=adamw(eps=1e-3), lr_schedule=sched)
+        st_d = st._replace(centers=st.centers.to(d, copy=True), u=st.u.to(d), z=st.z.to(d),
+                           comm_bytes=st.comm_bytes.to(d), gen=torch.Generator(device=d))
+        new, met = step(st_d, ctxs[d].train, s=s.to(d), idx=idx.to(d))
+        plane = local_sgd(ctxs[d].loss_fn, st.centers[0].to(d, copy=True), ctxs[d].train,
+                          None, exp.tau, exp.batch, exp.lr0, pack_spec=ps,
+                          optimizer=momentum(), idx=idx.to(d))
+        out.append([t.cpu() for t in (new.centers, new.u, new.z, met["lr"], plane)])
+    (pc, uc, zc, lc, qc), (pg, ug, zg, lg, qg) = out
+    err, u_err = float((pc - pg).abs().max()), float((uc - ug).abs().max())
+    sgd_err = float((qc - qg).abs().max())
+    agree = float((zc == zg).float().mean())
+    print(f"agreement fedspd adamw + cosine lr (round 3: lr {float(lc):.9g} cpu, "
+          f"{float(lg):.9g} card): plane max abs err {err:.3g}, u max abs err {u_err:.3g}, "
+          f"z agreement {agree:.6f}; local_sgd momentum: plane max abs err {sgd_err:.3g}",
+          flush=True)
+    check(bool(torch.isfinite(pg).all()) and bool(torch.isfinite(qg).all()),
+          "optimizer agreement: non-finite plane on the card")
+    check(err <= TOL and sgd_err <= TOL,
+          f"optimizer agreement: fedspd err {err}, local_sgd err {sgd_err} > {TOL}")
+    check(agree >= 0.99, f"optimizer agreement: z agreement {agree} < 0.99")
+
+
+def phase_baselines_comm(torch, gm) -> dict:
+    """The baselines' compressed exchange: one compressed round of
+    ``dfl_fedavg`` (int8 + error feedback) and ``dfl_fedem`` (top-k + error
+    feedback) on the card against the CPU, the optimizer-driven round
+    likewise; then each paired baseline id for ROUNDS rounds under int8 +
+    error feedback, and ``dfl_fedavg`` and ``dfl_fedem`` also under int4
+    and top-k + error feedback, each on the loop and on the replay
+    (``_engine_pair``: bit for bit, the trace's replays). The loop run's
+    launches must be ``_comm_expected``'s, its ``wire_bytes`` the channel's
+    static ratio of its ``comm_bytes``, and ``comm_bytes`` the static
+    formula. Returns the loop runs' launches summed over the ids."""
+    from repro_torch.comm.codecs import CommConfig, make_channel
+    from repro_torch.configs.paper_cnn import PaperExpConfig
+    from repro_torch.data.synthetic import make_mixture_classification
+    from repro_torch.experiments import RunConfig, run_method, run_method_batch
+    from repro_torch.experiments.registry import build_context, edges_bytes, star_bytes
+    from repro_torch.graphs.topology import make_graph
+
+    data, exp = make_mixture_classification(), PaperExpConfig(rounds=ROUNDS)
+    ctxs = {d: build_context(data, exp, torch.device(d)) for d in ("cpu", "cuda")}
+    ctxs = {torch.device(d): c for d, c in ctxs.items()}
+    g = torch.Generator().manual_seed(7)
+    for method, codec in (("dfl_fedavg", "int8"), ("dfl_fedem", "topk")):
+        _comm_agreement(torch, gm, ctxs, method, CommConfig(codec=codec, error_feedback=True), g)
+    _optimizer_agreement(torch, ctxs)
+
+    ctx = ctxs[torch.device("cpu")]
+    mb, n, s, x = ctx.pack_spec.model_bytes, ctx.n_clients, ctx.n_clusters, ctx.pack_spec.size
+    codecs = {"int8+ef": CommConfig(codec="int8", error_feedback=True),
+              "int4": CommConfig(codec="int4"),
+              "topk+ef": CommConfig(codec="topk", error_feedback=True)}
+    runs = [(b, "int8+ef") for b in BASELINES if b != "local"]
+    runs += [(b, c) for b in ("dfl_fedavg", "dfl_fedem") for c in ("int4", "topk+ef")]
+    total = {k.__name__: 0 for k in gm.KERNELS}
+    for method, label in runs:
+        comm = codecs[label]
+        models = s if method.endswith("fedem") else 1
+        per_round = (star_bytes(n, mb, models) if method.startswith("cfl_")
+                     else edges_bytes(ctx.graph, mb, models))
+        cfg = RunConfig(eval_every=10**9, comm=comm, options={"keep_state": True})
+        pair = _engine_pair(torch, gm, f"{method} {label}", method, data, exp, cfg)
+        loop, scan, counts = pair["loop"], pair["scan"], pair["loop_counts"]
+        for k, c in counts.items():
+            total[k] += c
+        ratio = make_channel(comm, x).wire_ratio(mb)
+        lm, sm = loop.extras["round_ms"], scan.extras["round_ms"]
+        print(f"baseline comm {method} {label}: mean_acc {loop.mean_acc:.6f} comm_bytes "
+              f"{loop.comm_bytes:.0f} wire_bytes {loop.wire_bytes:.0f} (ratio {ratio:.6f}) "
+              f"loop launches {json.dumps(counts)} replay counters (warm-up + capture) "
+              f"{json.dumps(pair['counts'])} loop round_ms median(rounds 2-{ROUNDS}) "
+              f"{statistics.median(lm[1:]):.4f} replay round_ms median "
+              f"{statistics.median(sm[1:]):.4f} first {sm[0]:.4f} (profiled) capture_ms "
+              f"{json.dumps([round(v, 1) for v in scan.extras['capture_ms']])} "
+              "replay vs loop: equal", flush=True)
+        want = {k: 0 for k in counts}
+        want.update(_comm_expected(method, comm.codec, ROUNDS))
+        check(counts == want, f"baseline comm {method} {label}: launches {counts}, "
+                              f"expected {want}")
+        check(scan.extras["n_captures"] == 1,
+              f"baseline comm {method} {label}: {scan.extras['n_captures']} captures")
+        check(loop.comm_bytes == per_round * ROUNDS,
+              f"baseline comm {method} {label}: comm_bytes {loop.comm_bytes} != "
+              f"{per_round} x {ROUNDS}")
+        check(loop.wire_bytes == loop.comm_bytes * ratio,
+              f"baseline comm {method} {label}: wire_bytes {loop.wire_bytes} != "
+              f"{loop.comm_bytes} x {ratio}")
+        check(math.isfinite(loop.mean_acc) and 0.0 <= loop.mean_acc <= 1.0,
+              f"baseline comm {method} {label}: mean_acc {loop.mean_acc} not in [0, 1]")
+
+    # run_method_batch under a codec: each seed of a replayed 2-seed batch
+    # equals its own replayed run_method on the batch's graph
+    graph = make_graph(exp.graph_kind, exp.n_clients, exp.avg_degree, seed=0)
+    cfg = RunConfig(eval_every=10**9, comm=codecs["int8+ef"], options={"keep_state": True})
+    batch = run_method_batch("dfl_fedavg", data, exp, seeds=(0, 1), graph=graph, cfg=cfg)
+    for seed, got in zip((0, 1), batch):
+        one = run_method("dfl_fedavg", data, exp, graph=graph, seed=seed, cfg=cfg)
+        diff = _same_run(torch, got, one)
+        check(not diff and got.extras["n_captures"] == 1,
+              f"baseline comm dfl_fedavg int8+ef: run_method_batch seed {seed} differs from "
+              f"its run_method in {diff} ({got.extras['n_captures']} captures)")
+    print("baseline comm dfl_fedavg int8+ef: run_method_batch over seeds 0, 1 (replay) "
+          "equals each seed's run_method: equal", flush=True)
     return total
 
 
@@ -2547,6 +2771,7 @@ def phase_lm_cli() -> None:
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -2604,6 +2829,9 @@ def main() -> None:
     launches, (round_ms, dp_round_ms), kept = phase_main_path(torch, gm)
     serve_launches = phase_serve(torch, gm, kept)
     baseline_launches = phase_baselines(torch, gm)
+    t = time.perf_counter()
+    baseline_comm_launches = phase_baselines_comm(torch, gm)
+    print(f"baselines comm phase: {time.perf_counter() - t:.1f} s", flush=True)
     sparse_launches, sparse_round_ms = phase_sparse_comm_path(torch, gm)
     phase_engines(torch, gm)
     t = time.perf_counter()
@@ -2630,12 +2858,13 @@ def main() -> None:
     print(f"lm phases: {time.perf_counter() - t:.1f} s", flush=True)
 
     # every launch on the paths driven on the loop engine: the FedSPD main
-    # path (DP off and on), serving, the baselines, the sparse/comm runs,
+    # path (DP off and on), serving, the baselines (uncompressed and
+    # compressed), the sparse/comm runs,
     # the scenario runs, the variants' loop and stream runs and LM
     # generation (the replays launch through the graph, not the wrappers:
     # the engines, scenarios and variants phases count them in their traces)
-    for path in (serve_launches, baseline_launches, sparse_launches, scenario_launches,
-                 variant_launches, lm_launches):
+    for path in (serve_launches, baseline_launches, baseline_comm_launches, sparse_launches,
+                 scenario_launches, variant_launches, lm_launches):
         for name, c in path.items():
             launches[name] = launches.get(name, 0) + c
     replaces = {"gossip_mix_flat": "src/repro/kernels/gossip_mix.py:63",
@@ -2709,6 +2938,7 @@ def main() -> None:
             # the same kernel on scenario B's weighted W
             k["scenario_w_max_abs_err"] = scenario_errs[k["name"]]
             k["max_abs_err"] = max(k["max_abs_err"], scenario_errs[k["name"]])
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

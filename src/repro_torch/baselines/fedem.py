@@ -10,7 +10,9 @@ The whole ``(S, N, X)`` center stack is ONE packed plane. The E-step is
 one forward of all S×N models on all N×M points; the M-step runs the S
 clusters' responsibility-weighted SGD batched into each forward (the JAX
 package vmaps the same independent per-cluster updates); the all-S
-exchange is one ``gossip_mix_stack`` launch.
+exchange is one ``gossip_mix_stack`` launch. Behind a wire codec every
+one of the S messages is encoded and decoded before that launch; with
+error feedback the residual covers the whole stack.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from repro_torch.optim.sgd import sgd_update
 class FedEMState(NamedTuple):
     centers: torch.Tensor  # (S, N, X) packed plane
     u: torch.Tensor        # (N, S)
+    ef: torch.Tensor | None = None  # (S, N, X) error-feedback residual (comm)
 
 
 def init_state(gen: torch.Generator, model_init: Callable, n_clients: int,
@@ -48,11 +51,13 @@ def e_step(per_example_loss: Callable, plane: torch.Tensor, u: torch.Tensor,
 
 
 def make_step(per_example_loss: Callable, w: torch.Tensor, *, tau: int,
-              batch: int, s_clusters: int, pack_spec: PackSpec):
-    """``step(state, data, gen, lr, *, idx=None) -> (state, {"u": u})``;
-    ``w`` is the ``(N, N)`` mixing matrix on the plane's device.
-    Injectable ``idx`` ``(S, τ, N, batch)``: cluster s's batch indices
-    at each of its τ M-step steps."""
+              batch: int, s_clusters: int, pack_spec: PackSpec, channel=None):
+    """``step(state, data, gen, lr, *, idx=None, comm_u=None) -> (state,
+    {"u": u})``; ``w`` is the ``(N, N)`` mixing matrix on the plane's
+    device; ``channel`` runs all S messages through a wire codec.
+    Injectable: ``idx`` ``(S, τ, N, batch)``, cluster s's batch indices at
+    each of its τ M-step steps; ``comm_u`` the codec's uniform rounding
+    draw ``(S, N, Xp/block, block)`` (else drawn from ``gen``)."""
 
     def weighted_loss(params, b):
         # Σ ℓ·r / max(Σ r, 1e-6) per (cluster, client) row
@@ -60,7 +65,7 @@ def make_step(per_example_loss: Callable, w: torch.Tensor, *, tau: int,
         return ((per_example_loss(params, b) * rw).sum(dim=-1)
                 / rw.sum(dim=-1).clamp_min(1e-6))
 
-    def step(state: FedEMState, data, gen, lr, *, idx=None):
+    def step(state: FedEMState, data, gen, lr, *, idx=None, comm_u=None):
         x, y = data["inputs"], data["targets"]
         n, m = x.shape[0], x.shape[1]
         with torch.no_grad():
@@ -81,7 +86,9 @@ def make_step(per_example_loss: Callable, w: torch.Tensor, *, tau: int,
             p = sgd_update(p, flat_grad(weighted_loss, p, b, pack_spec), lr)
 
         # exchange ALL S models (the S× communication cost): one launch
-        return FedEMState(centers=gossip_avg_comm(p, w), u=u), {"u": u}
+        p, ef = gossip_avg_comm(p, w, channel=channel,
+                                key=comm_u if comm_u is not None else gen, ef=state.ef)
+        return FedEMState(centers=p, u=u, ef=ef), {"u": u}
 
     return step
 

@@ -11,7 +11,9 @@ low-connectivity DFL.
 Both the center stack ``(S, N, X)`` and the client models y ``(N, X)``
 are packed planes. The aggregation is S separate importance-weighted,
 renormalised products ``W·diag(u_s)·y`` — an einsum in the JAX package,
-outside any Pallas kernel — and stays ``torch.matmul`` here.
+outside any Pallas kernel — and stays ``torch.matmul`` here. Behind a
+wire codec the client models y cross the wire: the aggregation runs on
+the decoded values while each client keeps its own y exact.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ class FedSoftState(NamedTuple):
     centers: torch.Tensor  # (S, N, X) each client's center estimates
     y: torch.Tensor        # (N, X) client local models
     u: torch.Tensor        # (N, S)
+    ef: torch.Tensor | None = None  # (N, X) error-feedback residual on y
 
 
 def init_state(gen: torch.Generator, model_init: Callable, n_clients: int,
@@ -42,12 +45,14 @@ def init_state(gen: torch.Generator, model_init: Callable, n_clients: int,
 
 def make_step(loss_fn: Callable, per_example_loss: Callable, w: torch.Tensor,
               *, tau: int, batch: int, s_clusters: int,
-              prox_lambda: float = 0.1, pack_spec: PackSpec):
-    """``step(state, data, gen, lr, *, idx=None) -> (state, {"u": u})``;
-    ``w`` is the ``(N, N)`` aggregation matrix on the plane's device;
-    injectable ``idx`` ``(τ, N, batch)``."""
+              prox_lambda: float = 0.1, pack_spec: PackSpec, channel=None):
+    """``step(state, data, gen, lr, *, idx=None, comm_u=None) -> (state,
+    {"u": u})``; ``w`` is the ``(N, N)`` aggregation matrix on the plane's
+    device; ``channel`` runs y through a wire codec. Injectable: ``idx``
+    ``(τ, N, batch)``, ``comm_u`` the codec's uniform rounding draw (else
+    drawn from ``gen``)."""
 
-    def step(state: FedSoftState, data, gen, lr, *, idx=None):
+    def step(state: FedSoftState, data, gen, lr, *, idx=None, comm_u=None):
         centers = state.centers
         with torch.no_grad():
             # importance: per-point min-loss counts (FedSoft Eq. 4)
@@ -64,15 +69,20 @@ def make_step(loss_fn: Callable, per_example_loss: Callable, w: torch.Tensor,
         y = local_sgd(loss_fn, state.y, data, gen, tau, batch, lr,
                       pack_spec=pack_spec, extra_grad=prox_grad, idx=idx)
 
+        ef, y_tx = state.ef, y
+        if channel is not None:
+            y_tx, ef = channel.roundtrip(
+                y, comm_u if comm_u is not None else gen, ef)
+
         # importance-weighted center aggregation over the neighborhood:
         # c_s[i] = Σ_j W_ij u_js y_j / Σ_j W_ij u_js
-        y32 = y.float()
+        y32 = y_tx.float()
         out = []
         for s in range(s_clusters):
             wu = w * u[None, :, s]
             wu = wu / wu.sum(dim=1, keepdim=True).clamp_min(1e-9)
             out.append(torch.matmul(wu, y32))
-        new = FedSoftState(centers=torch.stack(out).to(y.dtype), y=y, u=u)
+        new = FedSoftState(centers=torch.stack(out).to(y.dtype), y=y, u=u, ef=ef)
         return new, {"u": u}
 
     return step

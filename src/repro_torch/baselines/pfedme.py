@@ -4,7 +4,8 @@ Each client maintains a "global" iterate w_i; per round it approximately
 solves θ_i = argmin f_i(θ) + λ/2 ||θ - w_i||² with K inner SGD steps, then
 takes the outer step w_i <- w_i - η λ (w_i - θ_i). Decentralized variant
 gossips w with the static Metropolis matrix (one ``gossip_mix_flat``
-launch). Personalized model = θ_i.
+launch; behind a wire codec, ``baselines/common.gossip_avg_comm``).
+Personalized model = θ_i.
 
 w lives on the packed ``(N, X)`` plane: the inner proximal steps and the
 outer Moreau step are single-tensor updates over the plane.
@@ -23,6 +24,7 @@ from repro_torch.data.pipeline import gather_batches, uniform_batch_indices
 
 class PFedMeState(NamedTuple):
     w: torch.Tensor  # (N, X) packed plane
+    ef: torch.Tensor | None = None  # (N, X) error-feedback residual (comm)
 
 
 def init_state(gen: torch.Generator, model_init: Callable, n_clients: int,
@@ -47,13 +49,15 @@ def _inner_solve(loss_fn, w, data, gen, k_inner, batch, inner_lr, lam, *,
 
 def make_step(loss_fn: Callable, w_mix: torch.Tensor, *, tau: int, batch: int,
               lam: float = 15.0, k_inner: int = 5, inner_lr: float = 5e-2,
-              pack_spec: PackSpec):
-    """``step(state, data, gen, lr, *, idx=None) -> (state, {})``;
-    ``w_mix`` is the ``(N, N)`` mixing matrix on the plane's device.
-    Injectable ``idx`` ``(τ, K, N, batch)``: the inner solve's batch
-    indices at each outer step."""
+              pack_spec: PackSpec, channel=None):
+    """``step(state, data, gen, lr, *, idx=None, comm_u=None) -> (state,
+    {})``; ``w_mix`` is the ``(N, N)`` mixing matrix on the plane's
+    device; ``channel`` runs the exchange of w, after the τ outer steps,
+    through a wire codec. Injectable: ``idx`` ``(τ, K, N, batch)``, the
+    inner solve's batch indices at each outer step; ``comm_u`` the codec's
+    uniform rounding draw (else drawn from ``gen``)."""
 
-    def step(state: PFedMeState, data, gen, lr, *, idx=None):
+    def step(state: PFedMeState, data, gen, lr, *, idx=None, comm_u=None):
         # η·λ taken in fp32 on the device, as the JAX step multiplies its
         # fp32 lr by λ (lr may be a 0-d device tensor read from a tape)
         lr_lam = torch.as_tensor(lr, dtype=torch.float32,
@@ -64,7 +68,9 @@ def make_step(loss_fn: Callable, w_mix: torch.Tensor, *, tau: int, batch: int,
                                  inner_lr, lam, pack_spec=pack_spec,
                                  idx=None if idx is None else idx[t])
             w = w - lr_lam * (w - theta)
-        return PFedMeState(w=gossip_avg_comm(w, w_mix)), {}
+        w, ef = gossip_avg_comm(w, w_mix, channel=channel,
+                                key=comm_u if comm_u is not None else gen, ef=state.ef)
+        return PFedMeState(w=w, ef=ef), {}
 
     return step
 

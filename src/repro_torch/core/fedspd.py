@@ -70,7 +70,7 @@ from repro_torch.data.pipeline import (
     uniform_batch_indices,
 )
 from repro_torch.device import copy_generator, fork_generator
-from repro_torch.optim.sgd import sgd_update
+from repro_torch.optim.sgd import Optimizer, sgd
 
 
 class FedSPDState(NamedTuple):
@@ -139,12 +139,13 @@ def seeded_init(gen: torch.Generator, model_init: Callable, cfg: FedSPDConfig,
                 epochs: int = 15, lr: float = 0.1,
                 seeds: torch.Tensor | None = None,
                 init_params: torch.Tensor | None = None,
-                idx_tape: torch.Tensor | None = None) -> FedSPDState:
+                idx_tape: torch.Tensor | None = None,
+                optimizer: Optimizer | None = None) -> FedSPDState:
     """Client-seeded warm start: S distinct random clients each pretrain
     one cluster center on their own local data (``epochs · max(1, M //
-    batch)`` SGD steps at ``lr``); every client starts from those S seeds.
-    The S pretrainings are independent and run batched, as one ``(S, X)``
-    slab.
+    batch)`` steps at ``lr`` of ``optimizer``, plain SGD by default);
+    every client starts from those S seeds. The S pretrainings are
+    independent and run batched, as one ``(S, X)`` slab.
 
     Injectable draws: ``seeds`` ``(S,)`` client ids, ``init_params``
     ``(S, X)`` packed initial models, ``idx_tape`` ``(S, steps, B)`` batch
@@ -164,11 +165,26 @@ def seeded_init(gen: torch.Generator, model_init: Callable, cfg: FedSPDConfig,
     seeds = torch.as_tensor(seeds, device=x.device).long()
     xs, ys = x[seeds], y[seeds]
     p = init_params.to(x.device, torch.float32)
-    for t in range(steps):
-        b = gather_batches(xs, ys, idx_tape[:, t])
-        p = sgd_update(p, flat_grad(loss_fn, p, b, spec), lr)
+    p = _optimize(optimizer, p, steps, lambda t: gather_batches(xs, ys, idx_tape[:, t]),
+                  loss_fn, spec, lr)
     plane = p[:, None, :].expand(s_clusters, n, spec.size).contiguous()
     return _state(plane, cfg, m, fork_generator(gen))
+
+
+def _optimize(optimizer: Optimizer | None, p: torch.Tensor, steps: int,
+              batch_of: Callable, loss_fn: Callable, spec: PackSpec, lr,
+              grad_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """``steps`` steps on the slab ``p``, step t on ``batch_of(t)``, with
+    ``optimizer`` (plain SGD for None; its state made fresh here); with
+    ``grad_mask`` every gradient is projected on it first."""
+    optimizer = optimizer or sgd()
+    state = optimizer.init(p)
+    for t in range(steps):
+        g = flat_grad(loss_fn, p, batch_of(t), spec)
+        if grad_mask is not None:
+            g = g * grad_mask
+        p, state = optimizer.update(g, state, p, lr)
+    return p
 
 
 def select_clusters(gen: torch.Generator, u: torch.Tensor) -> torch.Tensor:
@@ -188,7 +204,9 @@ def make_round_step(loss_fn: Callable, per_example_loss: Callable,
                     gossip: GossipSpec, cfg: FedSPDConfig, *,
                     pack_spec: PackSpec, mix_fn: Callable | None = None,
                     comm: CommConfig | None = None,
-                    sparse: SparseConfig | None = None):
+                    sparse: SparseConfig | None = None,
+                    optimizer: Optimizer | None = None,
+                    lr_schedule: Callable | None = None):
     """Returns ``step(state, data, adj=None, *, lr=None, s=None, idx=None,
     noise=None, comm_u=None, rigl_idx=None, regrow_scores=None) -> (state,
     metrics)`` for the "full" regime on the packed plane. ``data`` is
@@ -201,9 +219,14 @@ def make_round_step(loss_fn: Callable, per_example_loss: Callable,
     ``adj`` ``(N, N)`` on the plane's device overrides the graph's
     adjacency for this round (a per-seed graph, a cohort's minor); ``lr``
     (a float or a 0-d fp32 tensor on the device, as a captured round
-    reads it from a tape) overrides ``round_lr(cfg, state.round)``. The
-    step reads ``state.round`` on the host only there and in the sparse
-    mask's ``update_due``.
+    reads it from a tape) overrides the round's schedule:
+    ``lr_schedule(state.round)`` (optim/schedules.py; moved to the plane's
+    device) or, without one, ``round_lr(cfg, state.round)``. The step
+    reads ``state.round`` on the host only there and in the sparse mask's
+    ``update_due``.
+
+    ``optimizer`` (optim/sgd.py; plain SGD by default) takes the τ local
+    steps, its state made fresh every round as the JAX step's is.
 
     Injectable draws: ``s`` ``(N,)`` selections, ``idx`` ``(τ, N, B)``
     batch indices, ``noise`` ``(N, X)`` standard-normal DP noise (used
@@ -261,14 +284,10 @@ def make_round_step(loss_fn: Callable, per_example_loss: Callable,
         return (pel * m).sum(dim=-1) / m.sum(dim=-1).clamp_min(1.0)
 
     def local_updates(c, batch_of, loss, lr, grad_mask):
-        """τ SGD steps on the ``(N, X)`` slab, step t on ``batch_of(t)``;
+        """τ steps on the ``(N, X)`` slab, step t on ``batch_of(t)``;
         with ``grad_mask`` every step's gradient is projected on it."""
-        for t in range(cfg.tau):
-            g = flat_grad(loss, c, batch_of(t), pack_spec)
-            if grad_mask is not None:
-                g = g * grad_mask
-            c = sgd_update(c, g, lr)
-        return c
+        return _optimize(optimizer, c, cfg.tau, batch_of, loss, pack_spec, lr,
+                         grad_mask)
 
     def dp_flat_parts(c_old, c_new, gen, noise):
         """One L2 norm per client row; the noise only when σ > 0."""
@@ -360,7 +379,10 @@ def make_round_step(loss_fn: Callable, per_example_loss: Callable,
                 adj_dev[dev] = torch.as_tensor(gossip.adj, dtype=torch.float32,
                                                device=dev)
             adj = adj_dev[dev]
-        if lr is None:
+        if lr is None and lr_schedule is not None:
+            lr = torch.as_tensor(lr_schedule(state.round), dtype=torch.float32,
+                                 device=dev)
+        elif lr is None:
             lr = round_lr(cfg, state.round)
         if sparse_on and state.mask is None:
             raise ValueError(
@@ -480,9 +502,11 @@ def personalize(state: FedSPDState, pack_spec: PackSpec) -> dict:
 def final_phase(state: FedSPDState, loss_fn: Callable, data: dict,
                 cfg: FedSPDConfig, pack_spec: PackSpec, *,
                 lr: float | None = None,
-                idx_tape: torch.Tensor | None = None) -> dict:
+                idx_tape: torch.Tensor | None = None,
+                optimizer: Optimizer | None = None) -> dict:
     """Eq. (2), then τ_final local epochs (``tau_final · max(1, M //
-    batch)`` SGD steps on uniform batches) on all local data. Draws from
+    batch)`` steps of ``optimizer``, plain SGD by default, on uniform
+    batches) on all local data. Draws from
     a copy of ``state.gen``, so the run's stream does not advance (JAX
     reuses ``state.key`` here). Injectable: ``idx_tape`` ``(steps, N,
     B)``. Returns the personalized parameter dict, leaves ``(N, ...)``."""
@@ -493,10 +517,11 @@ def final_phase(state: FedSPDState, loss_fn: Callable, data: dict,
                    * np.float32(cfg.lr_decay) ** np.float32(state.round))
     steps = cfg.tau_final * max(1, m // cfg.batch)
     gen = copy_generator(state.gen) if idx_tape is None else None
-    p = _eq2(state)
-    for t in range(steps):
+
+    def batch_of(t):
         it = (idx_tape[t] if idx_tape is not None
               else uniform_batch_indices(gen, n, m, cfg.batch))
-        b = gather_batches(x, y, it)
-        p = sgd_update(p, flat_grad(loss_fn, p, b, pack_spec), lr)
-    return unpack(p, pack_spec)
+        return gather_batches(x, y, it)
+
+    return unpack(_optimize(optimizer, _eq2(state), steps, batch_of, loss_fn,
+                            pack_spec, lr), pack_spec)

@@ -3,8 +3,8 @@
 The JAX package's ``RunConfig`` fields, less ``donate`` (the port always
 updates the plane in place), plus ``device`` and ``on_round``. The port
 honours ``gossip_mode`` ("dense" or "permute"), ``gossip_backend``
-("cuda" or "reference"), ``comm`` and ``sparse`` (FedSPD only),
-``eval_every``, ``scan_rounds``, ``cohort_size`` (FedSPD only),
+("cuda" or "reference"), ``comm`` (every method), ``sparse`` (FedSPD
+only), ``eval_every``, ``scan_rounds``, ``cohort_size`` (FedSPD only),
 ``scenario`` (FedSPD only), ``options`` (``mode``, ``dp_clip``,
 ``dp_noise_multiplier``, ``tau_final``, ``cos_align_threshold``,
 ``keep_state``, ``comm``, ``sparse``), ``device`` and ``on_round``.
@@ -73,7 +73,8 @@ class RunConfig:
                     mix_permute; with "dense", the "cuda" path)
     param_plane     the port always runs the packed (S, N, X) plane; False
                     is refused
-    comm            comm.codecs.CommConfig wire codec (FedSPD only)
+    comm            comm.codecs.CommConfig wire codec (every method; local
+                    exchanges nothing)
     sparse          core.sparse.SparseConfig DisPFL masks (FedSPD only)
     eval_every      train-curve cadence (the final round always evaluates)
     scan_rounds     the engine. True: one captured round replayed every

@@ -26,8 +26,9 @@ FedSPD (``"fedspd"``, paper Algorithm 1, with a wire codec, DisPFL sparse
 masks and cosine alignment as options), ``"fedspd_permute"`` (the same on
 the edge-coloured permute wiring) and the paper's six baselines
 (``"local"``, and ``dfl_``/``cfl_`` × ``fedavg``, ``fedem``, ``ifca``,
-``fedsoft``, ``pfedme``). A baseline given ``comm`` or ``sparse`` raises
-``ValueError``.
+``fedsoft``, ``pfedme``). Every baseline takes ``comm`` (a wire codec on
+its exchange; ``local`` exchanges nothing, so it only accepts one, as in
+JAX); a baseline given ``sparse`` raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ import torch
 
 from repro_torch.baselines import fedavg, fedem, fedsoft, ifca, local, pfedme
 from repro_torch.baselines.common import init_planes, mixing_matrix, per_client_eval
-from repro_torch.comm.codecs import Channel, make_channel
+from repro_torch.comm.codecs import Channel, join_ef, make_channel
 from repro_torch.configs.paper_cnn import PaperExpConfig
 from repro_torch.core.fedspd import (
     FedSPDConfig,
@@ -203,6 +204,23 @@ class Method:
                      else edges_bytes(ctx.graph, mb, models))
         return CommModel(kind="static", per_round_bytes=per_round)
 
+    def _channel(self, ctx: ExperimentContext) -> Channel | None:
+        """The run's wire channel, or None without a compressing codec
+        (``codec="fp32"`` included: the uncompressed exchange stays bit
+        for bit what it was)."""
+        return make_channel(ctx.opt("comm"), ctx.pack_spec.size)
+
+    def _with_ef(self, ctx: ExperimentContext, state, prefix: tuple | None = None):
+        """``state`` with the error-feedback residual in its ``ef`` field
+        when the run's channel carries one (as it is otherwise). ``prefix``
+        is the residual's batch shape: one message per client by default;
+        FedEM ships (S, N)."""
+        ch = self._channel(ctx)
+        if ch is None or not ch.has_ef:
+            return state
+        return state._replace(
+            ef=ch.init_residual(prefix or (ctx.n_clients,), device=ctx.device))
+
 
 _REGISTRY: dict[str, Method] = {}
 
@@ -253,20 +271,12 @@ class FedSPDMethod(Method):
             dp_noise_multiplier=ctx.opt("dp_noise_multiplier", 0.0),
         )
 
-    def _channel(self, ctx: ExperimentContext) -> Channel | None:
-        """The run's wire channel, or None without a compressing codec."""
-        return make_channel(ctx.opt("comm"), ctx.pack_spec.size)
-
     def _sparse(self, ctx: ExperimentContext) -> SparseConfig | None:
         return ctx.opt("sparse")
 
     def init(self, ctx, gen):
-        state = seeded_init(gen, ctx.model_init, self._fcfg(ctx), ctx.loss_fn,
-                            ctx.train, ctx.pack_spec)
-        ch = self._channel(ctx)
-        if ch is not None and ch.has_ef:
-            state = state._replace(
-                ef=ch.init_residual((ctx.n_clients,), device=ctx.device))
+        state = self._with_ef(ctx, seeded_init(gen, ctx.model_init, self._fcfg(ctx),
+                                               ctx.loss_fn, ctx.train, ctx.pack_spec))
         sp = self._sparse(ctx)
         if sp is not None:
             # masks ride along even at density 1.0 (all ones, no draw)
@@ -342,7 +352,11 @@ class FedSPDMethod(Method):
 
 
 class LocalMethod(Method):
+    """No exchange: a wire codec is accepted and changes nothing (its
+    bytes are 0 either way), as in the JAX registry."""
+
     name = "local"
+    features = ("comm",)
 
     def init(self, ctx, gen):
         return init_planes(gen, ctx.model_init, ctx.n_clients, ctx.pack_spec)
@@ -359,7 +373,11 @@ class LocalMethod(Method):
 
 
 class _PairedMethod(Method):
-    """A baseline registered as a ``dfl_`` and a ``cfl_`` variant."""
+    """A baseline registered as a ``dfl_`` and a ``cfl_`` variant. Its
+    exchange takes the run's wire codec (``comm``); with error feedback
+    the state carries the residual."""
+
+    features = ("comm",)
 
     def __init__(self, name: str, centralized: bool):
         self.name = name
@@ -368,14 +386,20 @@ class _PairedMethod(Method):
 
 class FedAvgMethod(_PairedMethod):
     def init(self, ctx, gen):
-        return init_planes(gen, ctx.model_init, ctx.n_clients, ctx.pack_spec)
+        plane = init_planes(gen, ctx.model_init, ctx.n_clients, ctx.pack_spec)
+        ch = self._channel(ctx)
+        ef = (ch.init_residual((ctx.n_clients,), device=ctx.device)
+              if ch is not None else None)
+        return join_ef(plane, ef, ch)
 
     def make_step(self, ctx):
         return fedavg.make_step(ctx.loss_fn, self.mixing(ctx), tau=ctx.exp.tau,
-                                batch=ctx.exp.batch, pack_spec=ctx.pack_spec)
+                                batch=ctx.exp.batch, pack_spec=ctx.pack_spec,
+                                channel=self._channel(ctx))
 
     def personalize(self, ctx, state, gen=None):
-        return fedavg.personalized_params(state, ctx.pack_spec)
+        return fedavg.personalized_params(state, ctx.pack_spec,
+                                          channel=self._channel(ctx))
 
     def comm_model(self, ctx):
         return self._static_comm(ctx)
@@ -387,13 +411,15 @@ class FedEMMethod(_PairedMethod):
     ``evaluate`` overrides the personalize-based default."""
 
     def init(self, ctx, gen):
-        return fedem.init_state(gen, ctx.model_init, ctx.n_clients,
-                                ctx.n_clusters, ctx.pack_spec)
+        state = fedem.init_state(gen, ctx.model_init, ctx.n_clients,
+                                 ctx.n_clusters, ctx.pack_spec)
+        # FedEM ships every one of the S stacks each round
+        return self._with_ef(ctx, state, prefix=(ctx.n_clusters, ctx.n_clients))
 
     def make_step(self, ctx):
         return fedem.make_step(ctx.pel_fn, self.mixing(ctx), tau=ctx.exp.tau,
                                batch=ctx.exp.batch, s_clusters=ctx.n_clusters,
-                               pack_spec=ctx.pack_spec)
+                               pack_spec=ctx.pack_spec, channel=self._channel(ctx))
 
     def personalize(self, ctx, state, gen=None):
         """The u-weighted parameter average, for serve-style export;
@@ -414,14 +440,14 @@ class FedEMMethod(_PairedMethod):
 
 class IFCAMethod(_PairedMethod):
     def init(self, ctx, gen):
-        return ifca.init_state(gen, ctx.model_init, ctx.n_clients,
-                               ctx.n_clusters, ctx.pack_spec)
+        return self._with_ef(ctx, ifca.init_state(gen, ctx.model_init, ctx.n_clients,
+                                                  ctx.n_clusters, ctx.pack_spec))
 
     def make_step(self, ctx):
         g_eff = complete(ctx.n_clients) if self.centralized else ctx.graph
         return ifca.make_step(ctx.loss_fn, ctx.pel_fn, GossipSpec.from_graph(g_eff),
                               tau=ctx.exp.tau, batch=ctx.exp.batch,
-                              pack_spec=ctx.pack_spec)
+                              pack_spec=ctx.pack_spec, channel=self._channel(ctx))
 
     def personalize(self, ctx, state, gen=None):
         return ifca.personalized_params(state, ctx.pack_spec)
@@ -435,14 +461,14 @@ class IFCAMethod(_PairedMethod):
 
 class FedSoftMethod(_PairedMethod):
     def init(self, ctx, gen):
-        return fedsoft.init_state(gen, ctx.model_init, ctx.n_clients,
-                                  ctx.n_clusters, ctx.pack_spec)
+        return self._with_ef(ctx, fedsoft.init_state(gen, ctx.model_init, ctx.n_clients,
+                                                     ctx.n_clusters, ctx.pack_spec))
 
     def make_step(self, ctx):
         return fedsoft.make_step(ctx.loss_fn, ctx.pel_fn, self.mixing(ctx),
                                  tau=ctx.exp.tau, batch=ctx.exp.batch,
                                  s_clusters=ctx.n_clusters,
-                                 pack_spec=ctx.pack_spec)
+                                 pack_spec=ctx.pack_spec, channel=self._channel(ctx))
 
     def personalize(self, ctx, state, gen=None):
         return fedsoft.personalized_params(state, ctx.pack_spec)
@@ -456,12 +482,13 @@ class FedSoftMethod(_PairedMethod):
 
 class PFedMeMethod(_PairedMethod):
     def init(self, ctx, gen):
-        return pfedme.init_state(gen, ctx.model_init, ctx.n_clients,
-                                 ctx.pack_spec)
+        return self._with_ef(ctx, pfedme.init_state(gen, ctx.model_init, ctx.n_clients,
+                                                    ctx.pack_spec))
 
     def make_step(self, ctx):
         return pfedme.make_step(ctx.loss_fn, self.mixing(ctx), tau=ctx.exp.tau,
-                                batch=ctx.exp.batch, pack_spec=ctx.pack_spec)
+                                batch=ctx.exp.batch, pack_spec=ctx.pack_spec,
+                                channel=self._channel(ctx))
 
     def personalize(self, ctx, state, gen=None):
         """A fresh inner solve from the final w, drawing from ``gen``

@@ -69,7 +69,9 @@ data-dependent bytes, read from ``state.comm_bytes``) or "static"
 (per-round bytes × rounds), as in the JAX package. These are logical
 bytes (the models' own dtypes); ``RunResult.wire_bytes`` is the physical
 count under the run's codec and sparse format, an exact static ratio of
-the logical one.
+the logical one, for FedSPD and the baselines alike. A baseline's codec
+draws its rounding noise from the run's stream (the step's ``gen``),
+which the replay registers with its graph as it does FedSPD's own.
 """
 from __future__ import annotations
 
@@ -546,12 +548,15 @@ def _drive(entry: str, method: str, data, exp: PaperExpConfig, graph,
     t0 = time.time()
     m = get_method(method)
     options = cfg.resolve_options()
-    for feature in ("comm", "sparse"):
-        if options.get(feature) is not None and feature not in m.features:
-            raise ValueError(
-                f"RunConfig.{feature} on {method!r} is not ported: the port "
-                f"runs {feature} in FedSPD only (the baselines' compressed "
-                "exchange comes later)")
+    if options.get("comm") is not None and "comm" not in m.features:
+        raise ValueError(f"RunConfig.comm on {method!r}: the method takes no wire codec")
+    if options.get("sparse") is not None and "sparse" not in m.features:
+        # the JAX baselines would ignore the masks and still charge sparse
+        # wire bytes: the port refuses instead
+        raise ValueError(
+            f"RunConfig.sparse on {method!r}: the port runs sparse masks in "
+            "FedSPD only (a JAX baseline ignores them but charges their wire "
+            "bytes)")
     device = resolve_device(cfg.device)
     scenario = cfg.scenario
     if (entry == "run_method_batch" and scenario is not None and scenario.data_stack

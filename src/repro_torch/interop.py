@@ -16,6 +16,7 @@ from repro_torch.baselines.fedem import FedEMState
 from repro_torch.baselines.fedsoft import FedSoftState
 from repro_torch.baselines.ifca import IFCAState
 from repro_torch.baselines.pfedme import PFedMeState
+from repro_torch.comm.codecs import WithEF
 from repro_torch.core.fedspd import FedSPDState
 from repro_torch.device import make_generator, resolve_device
 
@@ -76,33 +77,52 @@ def _as_tensor(a, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(a, dtype=dtype, device=device)
 
 
+def _bare_plane(a, device: torch.device) -> torch.Tensor:
+    plane = _as_tensor(a, device)
+    if plane.dim() != 2:
+        raise ValueError(
+            f"a bare state must be the packed (N, X) plane, got shape "
+            f"{tuple(plane.shape)}")
+    return plane
+
+
+def _check_residual(ef: torch.Tensor | None, plane: torch.Tensor) -> None:
+    """The residual covers what crosses the wire: a plane of the
+    exchanged models' shape."""
+    if ef is not None and ef.shape != plane.shape:
+        raise ValueError(
+            f"the error-feedback residual ef {tuple(ef.shape)} does not match "
+            f"the exchanged plane {tuple(plane.shape)}")
+
+
 def baseline_state_from_numpy(state, *, device: str | torch.device = "cuda"):
     """A port baseline state from a JAX one whose fields are numpy arrays
     on the packed plane: a bare ``(N, X)`` plane (FedAvg, Local) becomes
-    one fp32 tensor; a ``FedEMState``, ``IFCAState``, ``FedSoftState`` or
-    ``PFedMeState`` becomes the port's state of that name (integer fields
-    int64, the rest fp32). A state carrying an error-feedback residual
-    (``ef``, a wire codec's) is refused: comm is not ported."""
+    one fp32 tensor, FedAvg's ``WithEF(x, ef)`` the port's ``WithEF``; a
+    ``FedEMState``, ``IFCAState``, ``FedSoftState`` or ``PFedMeState``
+    becomes the port's state of that name (integer fields int64, the rest
+    fp32). An error-feedback residual ``ef`` (a wire codec's) carries over
+    when it has the exchanged plane's shape: FedEM's ``(S, N, X)``
+    centers, FedSoft's y, pFedMe's w, IFCA's chosen ``(N, X)`` slab."""
     device = resolve_device(device)
     if not isinstance(state, tuple):
-        plane = _as_tensor(state, device)
-        if plane.dim() != 2:
-            raise ValueError(
-                f"a bare state must be the packed (N, X) plane, got shape "
-                f"{tuple(plane.shape)}")
-        return plane
+        return _bare_plane(state, device)
+    if type(state).__name__ == "WithEF":
+        out = WithEF(_bare_plane(state.x, device), _as_tensor(state.ef, device))
+        _check_residual(out.ef, out.x)
+        return out
     cls = _BASELINE_STATES.get(type(state).__name__)
     if cls is None:
         raise ValueError(
             f"no port baseline state for {type(state).__name__}; the port "
-            f"has {sorted(_BASELINE_STATES)}")
-    if getattr(state, "ef", None) is not None:
-        raise ValueError(
-            "the state carries an error-feedback residual (ef): comm is not "
-            "ported yet")
-    out = cls(**{f: _as_tensor(getattr(state, f), device) for f in cls._fields})
+            f"has {sorted(_BASELINE_STATES)} and WithEF")
+    out = cls(**{f: None if getattr(state, f, None) is None
+                 else _as_tensor(getattr(state, f), device) for f in cls._fields})
     if hasattr(out, "centers") and out.centers.dim() != 3:
         raise ValueError(
             f"centers must be the packed (S, N, X) plane, got shape "
             f"{tuple(out.centers.shape)}")
+    sent = {"FedEMState": "centers", "FedSoftState": "y",
+            "PFedMeState": "w"}.get(cls.__name__)
+    _check_residual(out.ef, getattr(out, sent) if sent else out.centers[0])
     return out

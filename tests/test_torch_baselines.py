@@ -39,7 +39,8 @@ from repro.graphs import mixing as j_mixing
 from repro.graphs.topology import make_graph as j_graph
 from repro.kernels.gossip_mix import gossip_mix_stack as j_stack
 from repro_torch.baselines import pfedme
-from repro_torch.baselines.common import gossip_avg_comm, local_sgd, mixing_matrix
+from repro_torch.baselines.common import gossip_avg_comm, mixing_matrix
+from repro_torch.comm.codecs import CommConfig, make_channel
 from repro_torch.configs.paper_cnn import PaperExpConfig
 from repro_torch.data.synthetic import make_mixture_classification
 from repro_torch.experiments import RunConfig, run_method
@@ -48,6 +49,8 @@ from repro_torch.graphs import mixing
 from repro_torch.graphs.topology import make_graph
 from repro_torch.interop import baseline_state_from_numpy
 from repro_torch.kernels.gossip_mix import (
+    KERNELS,
+    gossip_mix_dequant_ref,
     gossip_mix_flat,
     gossip_mix_stack,
     gossip_mix_stack_ref,
@@ -130,18 +133,26 @@ def test_stack_wrapper_takes_the_plain_version_on_cpu_and_counts_no_launch():
     c = torch.as_tensor(rng.standard_normal((3, 6, 301)).astype(np.float32))
     reset_launch_counts()
     assert torch.equal(gossip_mix_stack(w, c), gossip_mix_stack_ref(w, c))
-    assert torch.equal(gossip_avg_comm(c, w), gossip_mix_stack_ref(w, c))
-    assert torch.equal(gossip_avg_comm(c[0], w), torch.einsum("ij,jx->ix", w, c[0]))
-    assert gossip_mix_stack.launches == 0 and gossip_mix_flat.launches == 0
+    mixed, ef = gossip_avg_comm(c, w)
+    assert torch.equal(mixed, gossip_mix_stack_ref(w, c)) and ef is None
+    assert torch.equal(gossip_avg_comm(c[0], w)[0], torch.einsum("ij,jx->ix", w, c[0]))
+    # the exchange behind a codec (refused until the baselines' comm slice)
+    # takes the plain versions on the CPU too: the encoded payload's
+    # dequant mix on a plane, the decoded stack's mix
+    ch = make_channel(CommConfig(codec="int8", block=64), 301)
+    u = torch.rand((6, 5, 64), generator=torch.Generator().manual_seed(1))
+    enc = ch.encode(c[0], u)
+    mixed, _ = gossip_avg_comm(c[0], w, channel=ch, key=u)
+    assert torch.equal(mixed, gossip_mix_dequant_ref(w, enc["q"], enc["scale"],
+                                                     qblock=64)[:, :301])
+    mixed, _ = gossip_avg_comm(c, w, channel=ch, key=u.expand(3, 6, 5, 64))
+    assert torch.equal(mixed, gossip_mix_stack_ref(w, ch.roundtrip(c, u.expand(
+        3, 6, 5, 64), None)[0].contiguous()))
+    assert all(k.launches == 0 for k in KERNELS)
     with pytest.raises(ValueError, match="stack"):
         gossip_mix_stack(w, c[0])
     with pytest.raises(ValueError, match="shape"):
         gossip_mix_stack(w[:5, :5], c)
-    with pytest.raises(ValueError, match="comm"):
-        gossip_avg_comm(c, w, channel=object())
-    with pytest.raises(ValueError, match="optimizer"):
-        local_sgd(None, c[0], {"inputs": c, "targets": c}, None, 1, 1, 0.1,
-                  pack_spec=None, optimizer=object())
 
 
 # --------------------------------------------------------------------------

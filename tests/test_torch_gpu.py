@@ -1213,3 +1213,67 @@ def test_variant_replay_equals_the_eager_loop(cuda, label):
     fused = label == "conv-dp"
     assert counts["gossip_mix_fused_dp"] == (exp.rounds if fused else 0)
     assert (scan.extras["n_captures"], scan.extras["n_dispatches"]) == (1, exp.rounds)
+
+
+# the baselines' compressed exchange: each replay against its loop, one
+# exchange kernel (the one named) in every replayed round
+BASELINE_COMM = {
+    "dfl_fedavg-int8-ef": ("dfl_fedavg", INT8, "gossip_mix_dequant"),
+    "dfl_fedavg-int4": ("dfl_fedavg", CommConfig(codec="int4"), "gossip_mix_dequant"),
+    "dfl_fedavg-topk-ef": ("dfl_fedavg", CommConfig(codec="topk", error_feedback=True),
+                           "gossip_mix_flat"),
+    "dfl_fedem-int8-ef": ("dfl_fedem", INT8, "gossip_mix_stack"),
+    "dfl_fedem-topk-ef": ("dfl_fedem", CommConfig(codec="topk", error_feedback=True),
+                          "gossip_mix_stack"),
+}
+
+
+@pytest.mark.parametrize("label", list(BASELINE_COMM))
+def test_compressed_baseline_replay_equals_the_eager_loop(cuda, label):
+    method, comm, kernel = BASELINE_COMM[label]
+    data, exp = _engine_setup()
+    cfg = RunConfig(eval_every=1, comm=comm, options={"keep_state": True})
+    reset_launch_counts()
+    loop = run_method(method, data, exp, cfg=dataclasses.replace(cfg, scan_rounds=False))
+    counts = {k.__name__: k.launches for k in KERNELS}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        scan = run_method(method, data, exp, cfg=cfg)
+    _assert_same_run(loop, scan)
+    assert counts == {k: (exp.rounds if k == kernel else 0) for k in counts}
+    assert _replayed_exchange_kernels(prof) == [1] * exp.rounds
+    assert 0 < scan.wire_bytes < scan.comm_bytes
+    assert (scan.extras["n_captures"], scan.extras["n_dispatches"]) == (1, exp.rounds)
+
+
+def test_optimizer_round_on_the_card_equals_the_cpu(cuda):
+    """One FedSPD round driven by AdamW (eps 1e-3, as in
+    tests/test_torch_optim.py) and a cosine schedule, and ``local_sgd``
+    with momentum, on the card against the CPU with the same draws."""
+    from repro_torch.baselines.common import local_sgd
+    from repro_torch.core.fedspd import make_round_step
+    from repro_torch.experiments.registry import build_context, get_method
+    from repro_torch.optim import adamw, cosine_with_warmup, momentum
+
+    data, exp = _engine_setup()
+    n, m_pts, cpu = data.n_clients, data.x.shape[1], torch.device("cpu")
+    m = get_method("fedspd")
+    st0 = m.init(build_context(data, exp, cpu), torch.Generator().manual_seed(0))
+    st0 = st0._replace(round=3)
+    g = torch.Generator().manual_seed(1)
+    s = torch.randint(0, 2, (n,), generator=g)
+    idx = torch.randint(0, m_pts, (exp.tau, n, exp.batch), generator=g)
+    out = {}
+    for dev in (cpu, cuda):
+        ctx = build_context(data, exp, dev)
+        step = make_round_step(ctx.loss_fn, ctx.pel_fn, m._spec(ctx), m._fcfg(ctx),
+                               pack_spec=ctx.pack_spec, optimizer=adamw(eps=1e-3),
+                               lr_schedule=cosine_with_warmup(exp.lr0, warmup=2, total=6))
+        new, met = step(_fedspd_state_to(st0, dev), ctx.train, s=s.to(dev), idx=idx.to(dev))
+        plane = local_sgd(ctx.loss_fn, st0.centers[0].to(dev, copy=True), ctx.train, None,
+                          exp.tau, exp.batch, exp.lr0, pack_spec=ctx.pack_spec,
+                          optimizer=momentum(), idx=idx.to(dev))
+        assert met["lr"].device.type == dev.type
+        out[dev.type] = [t.cpu() for t in (new.centers, new.u, plane)]
+    (pc, uc, qc), (pg, ug, qg) = out["cpu"], out["cuda"]
+    assert _max_err(pg, pc) <= TOL and _max_err(ug, uc) <= TOL and _max_err(qg, qc) <= TOL

@@ -1,6 +1,7 @@
 """PyTorch port, the FedSPD main-path variants against the live JAX package
-on the CPU (~2 min in one process, ~60 s of it three 10-seed JAX batches'
-compiles; the JAX compiles stay at smoke width):
+on the CPU (~2.5 min in one process, most of it three 10-seed JAX
+batches' compiles, made least optimized, and their conv runs; the JAX
+compiles stay at smoke width):
 
 - ``graphs/coloring`` bit for bit and ``clustering_accuracy`` exactly;
   ``consensus_distance`` within 1e-6 relative;
@@ -29,6 +30,7 @@ compiles; the JAX compiles stay at smoke width):
 
 The draws are made in JAX the way the JAX step splits its keys and fed to
 both packages (the port takes them as overrides)."""
+import contextlib
 import dataclasses
 import pathlib
 import types
@@ -561,17 +563,34 @@ RUN_CASES = {
 }
 
 
+@contextlib.contextmanager
+def _jax_least_optimized():
+    """JAX compiles with ``jax_disable_most_optimizations`` inside (LLVM at
+    -O0; XLA's HLO passes, and so the fusions, as by default): the 10-seed
+    batches compile many small programs (their eager, vmapped inits), and
+    LLVM's optimization is most of each compile. The flag is not part of
+    JAX's compile cache key, so the caches are cleared on the way out and
+    no later test reuses a program compiled here."""
+    jax.config.update("jax_disable_most_optimizations", True)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_disable_most_optimizations", False)
+        jax.clear_caches()
+
+
 @pytest.mark.parametrize("case", list(RUN_CASES))
 def test_whole_runs_match_jax_within_the_seed_statistical_bound(case):
     """The batch population (N = 8, 96 points, dim 16), 5 rounds (as
     tests/test_torch_sparse.py's runs), seeds 0-9: the port's batch
     (replayed) against JAX's batch on its loop engine (the scan's results;
-    its conv scan compiles for 3× as long)."""
+    its conv scan compiles for 3× as long), compiled least optimized."""
     method, model = RUN_CASES[case]
     seeds = tuple(range(10))
     ekw = dict(EKW, rounds=5, model=model)
-    jres = j_run_method_batch(method, j_data(**DKW), JExp(**ekw), seeds=seeds,
-                              cfg=JRunConfig(param_plane=True, eval_every=10**9))
+    with _jax_least_optimized():
+        jres = j_run_method_batch(method, j_data(**DKW), JExp(**ekw), seeds=seeds,
+                                  cfg=JRunConfig(param_plane=True, eval_every=10**9))
     tres = run_method_batch(method, make_mixture_classification(**DKW),
                             PaperExpConfig(**ekw), seeds=seeds,
                             cfg=RunConfig(device="cpu", eval_every=10**9, scan_rounds=True))
