@@ -26,7 +26,9 @@ Phases, in order; any failure exits non-zero before the result line:
    (``sanitized_matmul_ms``, a yardstick) and its bound's share. The serving
    kernels (``gossip_mix_dequant``, int8; ``mixture_mix_dequant4``, int4)
    the same way at B = 20, 256 and 1,024 requests over S = 2 clusters of
-   the mlp's plane (qblock 64), with the fp32 serving path's own
+   the mlp's plane (qblock 64), at one request (the stream kernel's
+   latency-bound end) and at B = 1 and 4 past the 50 MB L2 (X =
+   4,194,304), with the fp32 serving path's own
    ``torch.matmul(u, plane)`` and a store of the output alone
    (``fill_``) timed beside them; ``gossip_mix_dequant``
    also at the int8 exchange's shape (M = N = 20, qblock 256, with the
@@ -196,8 +198,10 @@ Phases, in order; any failure exits non-zero before the result line:
    (a 1-token call less a token), tok/s, the capture's ms; the int8/int4 mix
    kernel at that shape against its plain version (over the whole width,
    in chunks of 2^26 columns) and its device time beside its bound and
-   ``torch.matmul`` of u by the fp32-decoded plane (not at olmoe: that
-   55 GB plane does not fit beside the server); the tokens against the
+   ``torch.matmul`` of u by the fp32-decoded plane (at olmoe, where that
+   55 GB plane does not fit beside the server, over the width in chunks of
+   2^26 columns, each decoded before its clock starts, the CUDA-event
+   times summed); the tokens against the
    same card's tokens through the plain versions of kernels 8 and 9 (where
    a bf16 near-tie flips one, the logit gap at that step must be under
    5e-2 or two bf16 steps at the logits' magnitude, or else the fp32
@@ -243,8 +247,11 @@ DP_OPTIONS = {"dp_clip": 1.0, "dp_noise_multiplier": 0.5}   # the DP main path: 
 DP_OPS = ("aten::square", "aten::sqrt", "aten::clamp", "aten::randn", "aten::normal_")
 # serving kernels, (B requests, S clusters, X, qblock): a batch of the 20
 # trained clients, the serving batch of benchmarks/perf_roundstep.py
-# bench_mixture_qps, and a batch whose 70.8 MB output is past the L2
-SERVE_SHAPES = [(20, 2, 17226, 64), (256, 2, 17226, 64), (1024, 2, 17226, 64)]
+# bench_mixture_qps, a batch whose 70.8 MB output is past the L2, one
+# request, and one and four requests past the L2 (the LM mix's regime:
+# olmoe-1b-7b serves one request, the dense LMs four)
+SERVE_SHAPES = [(20, 2, 17226, 64), (256, 2, 17226, 64), (1024, 2, 17226, 64),
+                (1, 2, 17226, 64), (1, 2, 4194304, 64), (4, 2, 4194304, 64)]
 SERVE_B = 256
 # gossip_mix_dequant also at the int8 exchange's shape (M = N = 20, timed),
 # and for correctness only at widths padded to Xp = 1,010 (no 16-byte
@@ -2536,6 +2543,34 @@ def _decoded_plane(torch, server):
     return plane
 
 
+def _library_mix_ms_in_chunks(torch, gm, name: str, server, u) -> float:
+    """Device ms of ``torch.matmul`` of u by the server's plane decoded to
+    fp32, over the whole width in chunks of PLAIN_MIX_COLUMNS columns
+    (where the whole decoded plane would not fit beside the server): each
+    chunk is decoded (the plain version with W = I) before its clock
+    starts; the chunks' CUDA-event times summed."""
+    plain = getattr(gm, name + "_ref")
+    sc, qb = server.plane_scale, server.qblock
+    xp, step = sc.shape[1] * qb, PLAIN_MIX_COLUMNS // qb * qb
+    eye = torch.eye(sc.shape[0], device=sc.device)
+    ms = 0.0
+    for c0 in range(0, xp, step):
+        c1 = min(c0 + step, xp)
+        payload = (server.plane_q[:, c0:c1] if name == "gossip_mix_dequant"
+                   else server.plane_packed[:, c0 // 2:c1 // 2])
+        decoded = plain(eye, payload, sc[:, c0 // qb:c1 // qb], qblock=qb)
+        if c0 == 0:
+            torch.matmul(u, decoded)   # warm-up
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.matmul(u, decoded)
+        end.record()
+        end.synchronize()
+        ms += start.elapsed_time(end)
+        del decoded
+    return ms
+
+
 def _mix_against_plain(torch, gm, name: str, server, u, out) -> tuple[float, float]:
     """(max abs error, device ms) of the plain version of the server's mix
     kernel ``name`` against its output ``out`` ``(B, Xp)``, over the whole
@@ -2629,14 +2664,15 @@ def phase_lm_serve(torch, gm) -> tuple[dict, dict]:
                                       f"{mix_err} > {TOL} against its plain version")
                 del out
                 mix_ms_dev = time_ms(mix, 3)
-                lib_ms = None
-                if 4 * sc.shape[0] * xp < 24e9:
+                chunks = 4 * sc.shape[0] * xp >= 24e9   # the decoded plane does not fit
+                if chunks:
+                    lib_ms = _library_mix_ms_in_chunks(torch, gm, mix_name, server, u)
+                else:
                     decoded = _decoded_plane(torch, server)
                     lib_ms = time_ms(lambda: torch.matmul(u, decoded), 3)
                     del decoded
-                lib = ("not measured (the fp32-decoded plane does not fit beside the "
-                       "server)" if lib_ms is None else f"{lib_ms:.3f} (torch.matmul of u "
-                       "by the fp32-decoded plane)")
+                lib = f"{lib_ms:.3f} (torch.matmul of u by the fp32-decoded plane" + (
+                    f", in chunks of {PLAIN_MIX_COLUMNS} columns)" if chunks else ")")
                 mix_dev = (f"mix_device_ms {mix_ms_dev:.3f} mix_max_abs_err {mix_err} "
                            f"mix_plain_ms {mix_plain_ms:.3f} mix_bound_ms {b_ms:.3f} "
                            f"mix_library_ms {lib}; {b_by}, {mix_name}, B={lm_b} "
@@ -2645,7 +2681,8 @@ def phase_lm_serve(torch, gm) -> tuple[dict, dict]:
                     m=lm_b, n=sc.shape[0], x=LM_ARCHS[arch], xp=xp, qblock=server.qblock,
                     max_abs_err=mix_err, ms=mix_ms_dev, plain_ms=mix_plain_ms,
                     plain_in_chunks_of=PLAIN_MIX_COLUMNS, library_ms=lib_ms, bound_ms=b_ms,
-                    bound_by=b_by, variant=f"lm mix {arch}"))
+                    bound_by=b_by, variant=f"lm mix {arch}",
+                    **({"library_in_chunks_of": PLAIN_MIX_COLUMNS} if chunks else {})))
                 del mix
             with _PlainLMKernels():
                 plain = server.generate(u, prompts, gen=LM_GEN)

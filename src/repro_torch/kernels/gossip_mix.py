@@ -76,11 +76,21 @@ codec, on the square W (M = N), once per round: on the narrow plane
 through ``csrc/gossip_mix.cu``'s narrow kernel, else through the serving
 kernel.
 
-At serving shapes both are bound by their ``(M, Xp)`` fp32 output
-writes: they move 4·M·N + N·Xp·(1 or ½) + 4·N·Xp/qblock + 4·M·Xp bytes
-for 2·M·N·Xp FLOPs. Each thread dequantizes a few columns of the plane
-into registers once and writes them for a block of output rows with
-coalesced vector stores; see the source.
+At serving and LM-mix shapes both are bound by their ``(M, Xp)`` fp32
+output writes: they move 4·M·N + N·Xp·(1 or ½) + 4·N·Xp/qblock + 4·M·Xp
+bytes for 2·M·N·Xp FLOPs. Up to S = 4 clusters, with Xp and qblock
+multiples of 4 (every serving plane and LM mix the port builds) and M
+not 3 or 4, ``mix_dequant_stream`` gives each thread one group of 4
+adjacent columns, which share one scale, for a block of 1, 2 or 4 output
+rows (by M): W in registers, no barrier, the scale index found without a
+64-bit division, one coalesced 16-byte streaming store a row; the grid
+covers the width (striding on past 2^31 columns, as olmoe-1b-7b's plane
+does). Other shapes take the earlier template (4, 2 or 1 columns a
+thread, W staged in shared memory between barriers, N in chunks of 16
+rows); at M = 4, the dense LMs' four-request mix, it measured as fast as
+any variant of the stream kernel. Every route sums each output j
+ascending from 0, so a row's bits do not depend on M or on the route;
+see the source.
 
 Beside each kernel: its plain PyTorch version (``*_ref``, an fp32 einsum
 with the prologue written out) and a launch counter (``.launches`` on the

@@ -286,12 +286,20 @@ def test_baselines_launch_their_exchange_kernel_once_per_round(cuda, method, ker
 # S=2, the mlp's Xp), gossip (N=20, qblock 256), M above one 32-row block
 # and N above one 16-row chunk, N = 1, one scale block (Xp/qblock = 1),
 # and widths that rule out 16-byte (Xp % 4 = 2) and 8-byte (odd Xp) rows;
-# then the square W at both sides of its route (the narrow kernel up to
-# N = 32 below kNarrowMaxX, the serving template at N = 33 and from
-# kNarrowMaxX) with Xp % 4 = 0, Xp % 4 = 2 and odd Xp
+# one and two requests over S = 2 (the stream kernel; M = 2 also the
+# square W on the narrow kernel) and three (the template), a width past
+# the L2 with a ragged last tile, at M = 1 a qblock that is not a multiple of 4 and the widths
+# without 16-byte rows (the general template), S = 3 and 4 (four plane
+# rows a group) and S = 5 (the template); then the square W at both sides of its route (the narrow
+# kernel up to N = 32 below kNarrowMaxX, the serving template at N = 33
+# and from kNarrowMaxX) with Xp % 4 = 0, Xp % 4 = 2 and odd Xp
 DEQUANT_SHAPES = [(20, 2, 17280, 64), (256, 2, 17280, 64), (20, 20, 17408, 256),
                   (37, 33, 4096, 64), (70, 1, 640, 16), (5, 3, 16, 16),
-                  (9, 4, 1030, 10), (6, 5, 333, 3)] + [
+                  (9, 4, 1030, 10), (6, 5, 333, 3),
+                  (1, 2, 17280, 64), (2, 2, 17280, 64), (3, 2, 4096, 64),
+                  (1, 2, 16778304, 64), (3, 2, 16778304, 64), (1, 2, 1020, 6),
+                  (1, 2, 1030, 10), (1, 2, 999, 3), (1, 3, 4096, 64), (2, 4, 1024, 4),
+                  (1, 5, 1024, 64)] + [
     (n, n, xp, qb) for n in (1, 4, 7, 20, 32, 33)
     for xp, qb in ((1024, 64), (1010, 10), (999, 3))] + [
     (20, 20, NARROW_MAX_X - 1, 3), (20, 20, NARROW_MAX_X + 2, 3), (32, 32, NARROW_MAX_X, 64)]
@@ -333,6 +341,57 @@ def test_dequant4_kernel_matches_plain(cuda, m, n, xp, qblock):
     assert out.shape == (m, xp) and out.dtype == torch.float32
     want = mixture_mix_dequant4_ref(u, packed, scales, qblock=qblock)
     assert _max_err(out, want) <= TOL
+
+
+# requests in one call of a serving kernel over S = 2: a row's bits must
+# not depend on M (M picks the rows a block, the column groups a thread
+# and, at 256 rows, the persistent grid's split) or on the route
+ROW_COUNTS = (1, 4, 8, 9, 256)
+
+
+@pytest.mark.parametrize("codec", ["int8", "int4"])
+@pytest.mark.parametrize("xp", [17280, 4195392])
+def test_dequant_rows_do_not_depend_on_m(cuda, codec, xp):
+    u, q, packed, scales = _dequant_operands(cuda, max(ROW_COUNTS), 2, xp, 64, seed=2)
+    kernel, plane = ((gossip_mix_dequant, q) if codec == "int8"
+                     else (mixture_mix_dequant4, packed))
+    outs = {k: kernel(u[:k].contiguous(), plane, scales, qblock=64) for k in ROW_COUNTS}
+    for k in ROW_COUNTS:
+        for k2 in ROW_COUNTS:
+            rows = min(k, k2)
+            assert torch.equal(outs[k][:rows], outs[k2][:rows]), (k, k2)
+
+
+# one request over S = 2 past 2^31 columns, where each block of the stream
+# kernel strides on by the grid (olmoe-1b-7b's plane is 6.9e9 wide), with a
+# ragged last tile
+WIDE_XP = 2**31 + 3 * 512 + 64
+
+
+@pytest.mark.parametrize("codec", ["int8", "int4"])
+def test_dequant_stream_past_one_grid_step(cuda, codec):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    u = torch.tensor([[0.3, 0.7]], device=cuda)
+    if codec == "int8":
+        kernel, plain = gossip_mix_dequant, gossip_mix_dequant_ref
+        plane = torch.randint(-127, 128, (2, WIDE_XP), generator=g, device=cuda,
+                              dtype=torch.int8)
+    else:
+        kernel, plain = mixture_mix_dequant4, mixture_mix_dequant4_ref
+        plane = torch.randint(0, 256, (2, WIDE_XP // 2), generator=g, device=cuda,
+                              dtype=torch.uint8)
+    scales = torch.rand((2, WIDE_XP // 64), generator=g, device=cuda) / 64
+    out = kernel(u, plane, scales, qblock=64)
+    step = 2**26
+    # the first chunks, one across 2^31 (the grid's step is 2^31 - 512
+    # columns) and the last, each against the plain version and, bit for
+    # bit, the kernel on that chunk alone
+    for c0 in (0, step, 2**31 - step + 1024, WIDE_XP - 4096):
+        c1 = min(c0 + step, WIDE_XP)
+        part = (plane[:, c0:c1] if codec == "int8" else plane[:, c0 // 2:c1 // 2]).contiguous()
+        sc = scales[:, c0 // 64:c1 // 64].contiguous()
+        assert _max_err(out[:, c0:c1], plain(u, part, sc, qblock=64)) <= TOL
+        assert torch.equal(out[:, c0:c1], kernel(u, part, sc, qblock=64)), c0
 
 
 def test_dequant_wrappers_refuse_what_the_kernels_do_not_take(cuda):

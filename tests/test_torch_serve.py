@@ -95,10 +95,13 @@ def world():
 # (M, N, Xp, qblock): serving (B over S), gossip (M = N), M > N, one
 # scale block per row, an odd qblock; then the square W at the edges of
 # the card's route (the narrow kernel from N = 1 to 32, the main path's
-# exchange at N = 20; the serving template at N = 33)
+# exchange at N = 20; the serving template at N = 33); one request over
+# S = 2 (the card's stream kernel), two at a qblock that is not a
+# multiple of 4
 DEQUANT_SHAPES = [(5, 3, 160, 16), (20, 2, 1024, 64), (8, 8, 512, 256),
                   (37, 5, 1010, 10), (4, 1, 64, 64), (6, 3, 999, 3),
-                  (1, 1, 64, 64), (20, 20, 17408, 256), (32, 32, 999, 3), (33, 33, 1010, 10)]
+                  (1, 1, 64, 64), (20, 20, 17408, 256), (32, 32, 999, 3), (33, 33, 1010, 10),
+                  (1, 2, 1024, 64), (2, 2, 1010, 10)]
 
 
 def _dequant_operands(m, n, xp, qblock, seed=0):

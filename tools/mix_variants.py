@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time variants of the gossip mix side by side on one GPU.
 
-    python3 tools/mix_variants.py [wide] [narrow] [crossover] [masked] [square] [dp]
+    python3 tools/mix_variants.py [wide] [narrow] [crossover] [masked] [square] [dp] [serving]
 
 Builds ``tools/mix_variants.cu`` (which includes the shipped
 ``src/repro_torch/kernels/csrc/gossip_mix.cu``) with ``nvcc``
@@ -61,6 +61,26 @@ beforehand (``sanitized_matmul``, a yardstick) and ``bound_ms``, kernel
 2's byte bound; the shipped entry is also held bit for bit against
 ``gossip_mix_stack`` (``mix_kernel``) of that sanitized plane.
 
+``serving`` (``SERVING``): the serving template behind kernels 4 and 7
+(``src/repro_torch/kernels/csrc/gossip_mix_dequant.cu``), built from
+``tools/mix_variants_serving.cu`` (which includes that source) into its
+own library: at M requests over S = 2 clusters and Xp columns (qblock
+64), int8 (``gossip_mix_dequant``) and int4 (``mixture_mix_dequant4``),
+the shipped entry point beside the template as it stood before
+``mix_dequant_stream`` (``parent``); ``mix_dequant_stream`` generalised
+(rows a block, column groups a thread, threads a block, a persistent
+grid, a prefetch of the next tile: ``s_r<R>_u<U>_t<T>[_np][_full]``),
+with its warps held in step (``ls_*``) and, at M = 1, with its stores
+written by a 1-D bulk copy a warp (``bulk_u<U>``); the template with one
+division a thread (``pdiv1``). Each is timed by CUDA-graph replay (the
+output allocated once), by CUDA events over 5 calls at the LM mixes'
+widths, twice in turns. The parent is held within 1e-5 of the plain
+version (in 2^26-column chunks), every other entry bit for bit against
+the parent.
+First it prints each dequant kernel's registers (``ptxas -v``) and its
+``CALL`` instructions in ``cuobjdump -sass`` (``sass …``; the template's
+only calls are to the 64-bit division routine), with the first such line.
+
 Every variant is held against ``torch.matmul`` within 1e-5 (TF32 off)
 and, bit for bit (``torch.equal``), against the shipped kernel's
 output; the script prints every row first and exits non-zero if any
@@ -71,6 +91,7 @@ from __future__ import annotations
 import ctypes
 import json
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -147,17 +168,42 @@ DP_CROSSOVER = {(n, x): ["first_dp", "narrow_dp"] + (["vec_dp"] if x % 2 == 0 el
                           1048576)}
 QBLOCK = 256   # the exchange's int8 block
 TOL = 1e-5
+# the serving template (kernels 4 and 7), (M, S, Xp) -> variants: one
+# request at the mlp's width, one past the 50 MB L2 and four, the serving
+# batches, and the LM mixes of olmoe-1b-7b (one request) and olmo-1b (four)
+_SV1 = ["s_r1_u1_t128_full_np", "s_r1_u1_t64_full_np", "s_r1_u1_t256_full_np",
+        "s_r1_u2_t128_full_np", "s_r1_u1_t128_full", "s_r1_u1_t128", "s_r1_u2_t128",
+        "s_r1_u4_t128", "s_r1_u4_t128_np", "ls_r1_sync", "pdiv1", "bulk_u2", "bulk_u4"]
+_SV4 = ["s_r4_u1_t128_full_np", "s_r2_u1_t128_full_np", "s_r1_u1_t128_full_np",
+        "s_r4_u2_t128_full_np", "s_r4_u1_t128_full", "s_r4_u1_t128", "s_r4_u2_t128",
+        "s_r4_u4_t128", "ls_r4_sync", "ls_r4_wlate", "ls_r4_sync_wlate", "pdiv1"]
+_SVB = ["s_r8_u1_t128_full_np", "s_r4_u1_t128_full_np", "s_r16_u1_t128_full_np",
+        "s_r8_u1_t256_full_np", "s_r8_u1_t128_full", "s_r8_u1_t128", "s_r4_u1_t128",
+        "s_r8_u4_t128", "ls_r4_sync", "pdiv1"]
+SERVING = {(1, 2, 17280): _SV1, (1, 2, 4194304): _SV1, (4, 2, 4194304): _SV4,
+           (20, 2, 17280): _SVB, (256, 2, 17280): _SVB, (1024, 2, 17280): _SVB,
+           (1, 2, 6919620608): _SV1, (4, 2, 1280311296): _SV4,
+           # the parent and the shipped entry alone: the conv artifact's
+           # serving batch and the LM mixes of mamba2-370m and zamba2-1.2b
+           (20, 2, 14720): [], (4, 2, 420136448): ["ls_r4_sync", "pdiv1"],
+           (4, 2, 1170473856): ["ls_r4_sync", "pdiv1"]}
+SERVE_QBLOCK = 64   # the serving plane's block
 
 
-def build() -> pathlib.Path:
+def build(sources=("tools/mix_variants.cu",), name: str = "libmix_variants.so",
+          kernels=("mixn", "mix_kernel", "mixdq")) -> pathlib.Path:
+    """Compile ``sources`` (paths from the repository's root) into one
+    shared library under ``build/mix_variants/``; print the registers and
+    spills ``ptxas -v`` reports for kernels whose mangled name holds one of
+    ``kernels``."""
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels.build import NVCC_FLAGS, find_nvcc
 
     out = ROOT / "build" / "mix_variants"
     out.mkdir(parents=True, exist_ok=True)
-    lib = out / "libmix_variants.so"
+    lib = out / name
     r = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(lib),
-                        str(ROOT / "tools" / "mix_variants.cu")],
+                        *(str(ROOT / src) for src in sources)],
                        capture_output=True, text=True)
     if r.returncode != 0:
         sys.exit(f"nvcc failed:\n{r.stdout}{r.stderr}")
@@ -166,7 +212,7 @@ def build() -> pathlib.Path:
     for line in r.stderr.splitlines():
         if "Compiling entry function" in line:
             fn = line.split("'")[1] if "'" in line else line
-        elif "registers" in line and ("mixn" in fn or "mix_kernel" in fn or "mixdq" in fn):
+        elif "registers" in line and any(k in fn for k in kernels):
             print(f"ptxas {fn}: {line.split(':', 1)[-1].strip()}", flush=True)
     return lib
 
@@ -476,24 +522,142 @@ def dp(torch, lib, dev, bad: list, shapes: dict, sigmas) -> None:
         torch.cuda.empty_cache()
 
 
+def sass_calls(lib_path: pathlib.Path) -> tuple[dict, str]:
+    """({kernel: CALL instructions}, the first CALL line) from ``cuobjdump
+    -sass`` of the library, for every kernel whose name holds
+    ``mix_dequant`` (demangled by ``cu++filt`` where the toolkit has it).
+    The template's only calls are to the 64-bit division routine."""
+    from repro_torch.kernels.build import find_nvcc
+
+    bin_dir = pathlib.Path(find_nvcc()).parent
+    r = subprocess.run([str(bin_dir / "cuobjdump"), "-sass", str(lib_path)],
+                       capture_output=True, text=True)
+    if r.returncode != 0:
+        sys.exit(f"cuobjdump -sass failed: {r.stderr.strip()[-500:]}")
+    counts, fn, example = {}, None, ""
+    for line in r.stdout.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            fn = found.group(1) if "mix_dequant" in found.group(1) else None
+            if fn:
+                counts[fn] = 0
+        elif fn and re.search(r"\bCALL\b", line):
+            counts[fn] += 1
+            example = example or line.strip()
+    filt = bin_dir / "cu++filt"
+    if filt.is_file() and counts:
+        names = subprocess.run([str(filt)], input="\n".join(counts), capture_output=True,
+                               text=True).stdout.split("\n")
+        if len(names) >= len(counts):
+            counts = dict(zip(names, counts.values()))
+    return counts, example
+
+
+def _equal_chunked(torch, a, b, cols: int = 1 << 28) -> bool:
+    return all(torch.equal(a[:, c:c + cols], b[:, c:c + cols])
+               for c in range(0, a.shape[1], cols))
+
+
+def serving_shape(torch, lib, dev, bad: list, codec: str, m: int, s: int, xp: int,
+                  names: list) -> None:
+    """One row of the serving mode: the parent, the shipped entry point and
+    ``names`` at (M, S, Xp) in ``codec``."""
+    from repro_torch.kernels.gossip_mix import gossip_mix_dequant_ref, mixture_mix_dequant4_ref
+
+    entry, sfx, plain = (("gossip_mix_dequant", "_i8", gossip_mix_dequant_ref) if codec == "int8"
+                         else ("mixture_mix_dequant4", "_i4", mixture_mix_dequant4_ref))
+    qb = SERVE_QBLOCK
+    sig = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                                   ctypes.c_longlong, ctypes.c_void_p]
+    g = torch.Generator(device=dev).manual_seed(m * 7 + xp)
+    w = torch.rand((m, s), generator=g, device=dev)
+    w = w / w.sum(dim=1, keepdim=True)
+    if codec == "int8":
+        plane = torch.randint(-127, 128, (s, xp), generator=g, device=dev, dtype=torch.int8)
+    else:
+        plane = torch.randint(0, 256, (s, xp // 2), generator=g, device=dev, dtype=torch.uint8)
+    sc = torch.rand((s, xp // qb), generator=g, device=dev) / 64
+    ref = torch.empty((m, xp), device=dev)
+    out = torch.empty_like(ref)
+    args = (w.data_ptr(), plane.data_ptr(), sc.data_ptr())
+    tag = f"{codec} (M, S, Xp) = {(m, s, xp)}"
+    calls = {}
+    for name in ["parent", entry] + names:
+        fn = getattr(lib, name if name == entry else name + sfx)
+        fn.argtypes, fn.restype = sig, ctypes.c_int
+        dst = ref if name == "parent" else out
+
+        def call(fn=fn, dst=dst):
+            return fn(*args, dst.data_ptr(), m, s, xp, qb, stream(torch))
+
+        if call() != 0:
+            sys.exit(f"{name} at {tag}: launch failed")
+        torch.cuda.synchronize()
+        if name == "parent":
+            step, err = (1 << 26) // qb * qb, 0.0
+            for c0 in range(0, xp, step):
+                c1 = min(c0 + step, xp)
+                part = plane[:, c0:c1] if codec == "int8" else plane[:, c0 // 2:c1 // 2]
+                want = plain(w, part, sc[:, c0 // qb:c1 // qb], qblock=qb)
+                err = max(err, float((ref[:, c0:c1] - want).abs().max()))
+            if err > TOL:
+                sys.exit(f"parent at {tag}: max abs err {err} > {TOL}")
+        elif not _equal_chunked(torch, out, ref):
+            bad.append(f"{name} at {tag}")
+        calls[name] = call
+    lm = xp > 10**8   # an LM mix: milliseconds a call, so CUDA events suffice
+    times = {k: [] for k in calls}
+    for seq in (list(calls), list(calls)[::-1]):
+        for k in seq:
+            times[k].append(time_ms(torch, calls[k], 5) if lm else graph_ms(torch, calls[k]))
+    nbytes = (4 * m * s + (s * xp if codec == "int8" else s * xp // 2) + 4 * s * xp // qb
+              + 4 * m * xp)
+    row = {"codec": codec, "m": m, "s": s, "xp": xp, "qblock": qb,
+           "bound_ms": nbytes / 3.35e12 * 1e3}
+    row.update({k + "_ms": v for k, v in times.items()})
+    print(json.dumps(row), flush=True)
+
+
+def serving(torch, dev, bad: list) -> None:
+    lib_path = build(("tools/mix_variants_serving.cu",
+                      "src/repro_torch/kernels/csrc/gossip_mix.cu"),
+                     "libmix_serving.so", ("mix_dequant",))
+    counts, example = sass_calls(lib_path)
+    for fn, calls in counts.items():
+        print("sass " + json.dumps({"kernel": fn, "calls": calls}), flush=True)
+    print("sass " + json.dumps({"first_call": example}), flush=True)
+    lib = ctypes.CDLL(str(lib_path))
+    for codec in ("int8", "int4"):
+        for (m, s, xp), names in SERVING.items():
+            serving_shape(torch, lib, dev, bad, codec, m, s, xp, names)
+            torch.cuda.empty_cache()
+
+
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         sys.exit("mix_variants: needs a CUDA device")
-    which = sys.argv[1:] or ["wide", "narrow", "crossover", "masked", "square", "dp"]
+    which = sys.argv[1:] or ["wide", "narrow", "crossover", "masked", "square", "dp", "serving"]
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
+    dev = torch.device("cuda")
+    bad: list = []
+    if "serving" in which:
+        serving(torch, dev, bad)
+        which = [w for w in which if w != "serving"]
+    if not which:
+        if bad:
+            sys.exit("not the parent template's bits: " + ", ".join(bad))
+        return
     lib = ctypes.CDLL(str(build()))
     P = ctypes.c_void_p
     lib.gossip_mix_flat.argtypes = [P, P, P, ctypes.c_int, ctypes.c_longlong, P]
     lib.gossip_mix_sparse.argtypes = [P, P, P, P, ctypes.c_int, ctypes.c_longlong, P]
     lib.gossip_mix_stack.argtypes = [P, P, P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, P]
     lib.empty.argtypes = [P]
-    dev = torch.device("cuda")
-    bad: list = []
     if "wide" in which:
         wide(torch, lib, dev, bad)
     if "narrow" in which:
@@ -508,7 +672,8 @@ def main() -> None:
         dp(torch, lib, dev, bad, DP, (0.0, 0.5))
         dp(torch, lib, dev, bad, DP_CROSSOVER, (0.5,))
     if bad:
-        sys.exit("not the shipped kernel's bits: " + ", ".join(bad))
+        sys.exit("not the shipped kernel's (serving: the parent template's) bits: "
+                 + ", ".join(bad))
 
 
 if __name__ == "__main__":
