@@ -106,8 +106,9 @@ Phases, in order; any failure exits non-zero before the result line:
    (``scan_rounds=False``) and on the card's default engine, the replay
    (one round captured into a CUDA graph, replayed 60 times); then a
    cohort of 10 of the 20 clients, ``run_method_batch`` over seeds 0, 1,
-   2 (one graph for all three), sparse d0.2 + int8 + error feedback (two
-   graphs) and the 11 baseline ids, 5 rounds each, both ways; every
+   2 (one graph for all three; 12 rounds, phase 11's depth), sparse d0.2
+   + int8 + error feedback (two graphs) and the 11 baseline ids, 5 rounds
+   each, both ways; every
    launch counter set to 0 just before each run and read just after, the
    replayed run under torch.profiler. Each replayed run equals its loop
    run bit for bit (per-client accuracy, curve, u, bytes and every tensor
@@ -150,12 +151,36 @@ Phases, in order; any failure exits non-zero before the result line:
    the card against the CPU with injected draws (1e-5); then kernels 1, 2
    and 4 at the conv plane's shape (20, 14,720) against their plain
    versions, timed beside their bounds and ``torch.matmul``;
-11. a torch.profiler window over 3 rounds of the main path, one over 3
+11. the per-leaf pytree engine (``RunConfig(param_plane=False)``, the
+   JAX package's default): ``run_method("fedspd", ...)``
+   for 12 rounds (``PYTREE_ROUNDS``) at the main path's width (N = 20, S =
+   2, the mlp's X = 17,226 in 6 leaves), DP off and on, and the conv
+   classifier DP off, each on the loop and on the replay (bit for bit;
+   the replay's rounds 7-9 traced by ``_windowed``: 6 exchange kernels in
+   each, its kernels, device ms a round and busy share printed), the
+   loop's counters read exactly
+   (kernel 1 six times a round, kernel 2 never), each beside the plane's
+   runs of the same configuration, which the earlier phases made: the
+   mlp's seeds 0, 1 and 2 of phase 8's ``run_method_batch``, the conv's
+   seed 0 of phase 10, and for the mlp DP seed 0 replayed here
+   (``comm_bytes`` equal to seed 0's where the two engines draw alike,
+   DP off; ``mean_acc`` above chance and within max(0.02, the plane
+   seeds' std) of seed 0's; the plane's DP-off round ms of phase 8
+   printed beside); one id per baseline class on the
+   pytree engine for 5 rounds on the loop, launches a round checked
+   (kernel 1 a leaf for FedAvg, IFCA and pFedMe, kernel 3 a leaf for
+   FedEM, none for Local and FedSoft) and held against phase 8's plane
+   loop run of that id; then kernel 1 at each mlp leaf width (N = 20; X = 8,192,
+   640, 128, 64, 10) against its plain version, timed by graph replay
+   beside its bound and ``torch.matmul``, and the six launches of a
+   pytree round against the plane's one launch;
+12. a torch.profiler window over 3 rounds of the main path, one over 3
    DP rounds (``dp``: the clip, the noise draw and kernel 2, which it must
-   see), one over 3 rounds of the conv classifier (``conv``) and one of
+   see), one over 3 rounds of the conv classifier (``conv``), one over 3
+   pytree rounds (``pytree``, the mlp on ``param_plane=False``) and one of
    the sparse + int8 path: device time per round, the
    kernels that take it, and the device's busy share;
-12. the LM kernels: ``flash_attention`` (kernel 8) at olmo-1b's prefill
+13. the LM kernels: ``flash_attention`` (kernel 8) at olmo-1b's prefill
    (B = 4 requests, L = 512, 16 heads, hd 128, bf16; also fp32), a
    danube-like GQA 32/8 hd-80 layer with a 256 window and a gemma3-like
    hd-256 layer over one kv head, zamba2-1.2b's shared block (MHA 32/32,
@@ -176,7 +201,7 @@ Phases, in order; any failure exits non-zero before the result line:
    CUDA-graph replay beside its bound (bytes over 3.35 TB/s or FLOPs over
    989 TFLOP/s bf16 / 67 TFLOP/s fp32), its plain version and, for
    attention, ``scaled_dot_product_attention``;
-13. LM generation, the fifth path: ``olmo-1b``, ``mamba2-370m`` and (the
+14. LM generation, the fifth path: ``olmo-1b``, ``mamba2-370m`` and (the
    MoE and hybrid slice) ``zamba2-1.2b`` at full width in fp32, int8 and
    int4 with B = 4 requests, and ``olmoe-1b-7b`` in int8 and int4 with B
    = 1 (``LM_SERVE``: its fp32 plane, or a second request, does not fit
@@ -241,6 +266,13 @@ ROUNDS = 5
 ENGINE_ROUNDS = 60   # the paper's rounds (configs/paper_cnn.py), for the engines phase
 SCENARIO_ROUNDS = 30   # the scenarios phase's depth (half the paper's rounds)
 VARIANT_ROUNDS = 12    # the variants phase's runs
+PYTREE_ROUNDS = 12     # the pytree phase's FedSPD runs
+# the pytree phase's baselines, one id per class, and the mlp's leaf widths
+PYTREE_BASELINES = {"local": None, "dfl_fedavg": "gossip_mix_flat",
+                    "dfl_fedem": "gossip_mix_stack", "dfl_ifca": "gossip_mix_flat",
+                    "dfl_fedsoft": None, "dfl_pfedme": "gossip_mix_flat"}
+PYTREE_WIDTHS = (8192, 640, 128, 64, 10)
+PYTREE_LEAVES = 6      # the mlp's and the conv's leaves: three layers' w and b
 STREAM_ROUNDS, STREAM_B = 20, 32   # the stream regime's rounds and fresh batch a client
 CONV_X = 14720   # the conv1d classifier's plane at the main path's dim 64 and 10 classes
 DP_OPTIONS = {"dp_clip": 1.0, "dp_noise_multiplier": 0.5}   # the DP main path: sigma 0.5
@@ -866,11 +898,6 @@ def phase_sparse_comm_path(torch, gm) -> tuple[dict, float]:
     return total, sparse_ms
 
 
-def _state_tensors(torch, state) -> list:
-    fields = (state,) if isinstance(state, torch.Tensor) else tuple(state)
-    return [v for v in fields if isinstance(v, torch.Tensor)]
-
-
 def _state_to(torch, state, device):
     """A copy of a baseline state (a bare plane, ``WithEF`` or a state
     NamedTuple) on ``device``; fields that are None stay None."""
@@ -900,8 +927,10 @@ def _same_run(torch, a, b) -> list:
     if "u" in a.extras and not np.array_equal(a.extras["u"], b.extras["u"]):
         diff.append("u")
     if "state" in a.extras:
-        for i, (x, y) in enumerate(zip(_state_tensors(torch, a.extras["state"]),
-                                       _state_tensors(torch, b.extras["state"]))):
+        from repro_torch.utils.pytree import state_tensors
+
+        for i, (x, y) in enumerate(zip(state_tensors(a.extras["state"]),
+                                       state_tensors(b.extras["state"]))):
             if not torch.equal(x, y):
                 diff.append(f"state field {i}")
     return diff
@@ -1035,7 +1064,8 @@ def _engine_pair(torch, gm, label, method, data, exp, cfg, seeds=None, busy=Fals
         first_r, end_r = profiled(exp.rounds)
         same(loop, scan_w, f"the replay profiled over rounds {first_r + 1}-{end_r}")
     out.update(loop=loop[0] if seeds is not None else loop, scan=first, counts=counts,
-               loop_counts=loop_counts, windows=windows)
+               loop_counts=loop_counts, windows=windows,
+               runs=scan if seeds is not None else [scan])
     return out
 
 
@@ -1072,7 +1102,7 @@ def _engine_line(label, pair) -> None:
           "replay vs loop: equal", flush=True)
 
 
-def phase_engines(torch, gm) -> None:
+def phase_engines(torch, gm) -> dict:
     """The sixth path, the round engines: FedSPD for ENGINE_ROUNDS (the
     paper's 60) rounds, DP off and on, on the loop engine and on the
     card's default engine, replayed from one captured round, each engine's
@@ -1081,7 +1111,11 @@ def phase_engines(torch, gm) -> None:
     sparse d0.2 + int8 + error feedback (two graphs: the mask update
     rounds and the rest) and each of the 11 baseline ids for ROUNDS
     rounds. Every replay equals its loop run bit for bit and its trace
-    shows the replays' kernels (``_engine_pair``)."""
+    shows the replays' kernels (``_engine_pair``). The batch runs for
+    PYTREE_ROUNDS, the pytree phase's depth. Returns the plane runs that
+    the pytree phase holds its own against: ``"fedspd"`` (the DP-off
+    pair), ``"batch"`` (the replayed seeds 0-2) and each baseline's loop
+    run under its id."""
     from repro_torch.configs.paper_cnn import PaperExpConfig
     from repro_torch.comm.codecs import CommConfig
     from repro_torch.core.sparse import SparseConfig
@@ -1090,11 +1124,13 @@ def phase_engines(torch, gm) -> None:
 
     data = make_mixture_classification()
     long = PaperExpConfig(rounds=ENGINE_ROUNDS)
+    planes: dict = {}
     for label, opts, kernel in (("fedspd", {}, gm.gossip_mix_flat),
                                 ("fedspd dp", DP_OPTIONS, gm.gossip_mix_fused_dp)):
         cfg = RunConfig(eval_every=10, options=dict(opts, keep_state=True))
         pair = _engine_pair(torch, gm, label, "fedspd", data, long, cfg, busy=True)
         _engine_line(label, pair)
+        planes.setdefault("fedspd", pair)
         scan = pair["scan"]
         check(scan.extras["n_captures"] == 1,
               f"engines {label}: {scan.extras['n_captures']} captures, expected 1")
@@ -1115,13 +1151,19 @@ def phase_engines(torch, gm) -> None:
              RunConfig(sparse=SparseConfig(**SPARSE), comm=int8, options=keep), None, 2),
             *((f"baseline {b}", b, RunConfig(eval_every=10**9, options=keep), None, 1)
               for b in BASELINES)):
-        pair = _engine_pair(torch, gm, label, method, data, short, cfg, seeds)
+        exp = short if seeds is None else PaperExpConfig(rounds=PYTREE_ROUNDS)
+        pair = _engine_pair(torch, gm, label, method, data, exp, cfg, seeds)
         _engine_line(label, pair)
+        if seeds is not None:
+            planes["batch"] = pair["runs"]
+        elif label.startswith("baseline "):
+            planes[method] = pair["loop"]
         scan = pair["scan"]
         check(scan.extras["n_captures"] == captures,
               f"engines {label}: {scan.extras['n_captures']} captures, expected {captures}")
         check(math.isfinite(scan.mean_acc) and 0.0 <= scan.mean_acc <= 1.0,
               f"engines {label}: mean_acc {scan.mean_acc} not finite in [0, 1]")
+    return planes
 
 
 def _scenario(rounds: int, kind: str):
@@ -1495,7 +1537,7 @@ def _plain_pair(torch, gm, label, method, data, exp, cfg) -> dict:
     return out
 
 
-def phase_variants(torch, gm, card: str) -> tuple[dict, dict, float]:
+def phase_variants(torch, gm, card: str) -> tuple[dict, dict, float, dict]:
     """The slice's path, the main-path variants on the main path's
     population, VARIANT_ROUNDS rounds a run: the conv classifier (X =
     14,720) DP off (``_engine_pair``: one exchange kernel in every
@@ -1510,7 +1552,7 @@ def phase_variants(torch, gm, card: str) -> tuple[dict, dict, float]:
     regime (mlp and conv, B = STREAM_B) and one stream round card against
     CPU; then kernels 1, 2 and 4 at the conv plane's shape. Returns (the
     loop and stream runs' launches, the kernel rows, the conv loop's round
-    ms)."""
+    ms, the conv DP-off pair)."""
     from repro_torch.configs.paper_cnn import PaperExpConfig
     from repro_torch.data.synthetic import make_mixture_classification
     from repro_torch.experiments import RunConfig, run_method
@@ -1550,7 +1592,8 @@ def phase_variants(torch, gm, card: str) -> tuple[dict, dict, float]:
 
     # the conv classifier on both engines, DP off (traced) and on
     cfg = RunConfig(eval_every=10**9, options=keep)
-    pair = _engine_pair(torch, gm, "variant conv", "fedspd", data, conv, cfg, busy=True)
+    pair = conv_pair = _engine_pair(torch, gm, "variant conv", "fedspd", data, conv, cfg,
+                                    busy=True)
     _engine_line("variant conv", pair)
     per = [sum(_is_exchange(k.name) for k in w) for w in pair["windows"]]
     check(per == [1] * VARIANT_ROUNDS, f"variant conv: exchange kernels per replay {per}")
@@ -1620,7 +1663,195 @@ def phase_variants(torch, gm, card: str) -> tuple[dict, dict, float]:
     for rs in rows.values():
         for r in rs:
             r["variant"] = "conv plane"
-    return launches, rows, conv_loop_ms
+    return launches, rows, conv_loop_ms, conv_pair
+
+
+def _pytree_kernel_rows(torch, gm) -> tuple[list, dict]:
+    """Kernel 1 at each mlp leaf width at N = 20 against its plain version,
+    timed by graph replay beside its bound and ``torch.matmul``; then a
+    pytree round's exchange (``gossip_mix_tree`` over the mlp's 6
+    contiguous leaves: six launches) against the plane's one launch over
+    the same (20, 17,226) values."""
+    from repro_torch.core.packing import unpack
+    from repro_torch.experiments.registry import build_context
+    from repro_torch.configs.paper_cnn import PaperExpConfig
+    from repro_torch.data.synthetic import make_mixture_classification
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    dev = torch.device("cuda")
+    rows = []
+    for x in PYTREE_WIDTHS:
+        g = torch.Generator(device=dev).manual_seed(x)
+        w = torch.rand((20, 20), generator=g, device=dev)
+        w = w / w.sum(dim=1, keepdim=True)
+        c = torch.randn((20, x), generator=g, device=dev)
+        out = gm.gossip_mix_flat(w, c)
+        err = float((out - gm.gossip_mix_flat_ref(w, c)).abs().max())
+        check(err <= TOL, f"pytree leaf gossip_mix_flat N=20 X={x}: max abs err {err}")
+        b_ms, b_by = bound(20, x, "gossip_mix_flat")
+        rows.append(dict(n=20, x=x, variant="pytree leaf", max_abs_err=err,
+                         ms=graph_ms(lambda: gm.gossip_mix_flat(w, c)),
+                         plain_ms=graph_ms(lambda: gm.gossip_mix_flat_ref(w, c)),
+                         library_ms=graph_ms(lambda: torch.matmul(w, c)),
+                         bound_ms=b_ms, bound_by=b_by))
+    spec = build_context(make_mixture_classification(), PaperExpConfig(), dev).pack_spec
+    g = torch.Generator(device=dev).manual_seed(1)
+    w = torch.rand((20, 20), generator=g, device=dev)
+    w = w / w.sum(dim=1, keepdim=True)
+    plane = torch.randn((20, spec.size), generator=g, device=dev)
+    tree = tree_map(lambda leaf: leaf.contiguous(), unpack(plane, spec))
+    check(len(tree_leaves(tree)) == PYTREE_LEAVES, "the mlp's tree has not 6 leaves")
+    gm.reset_launch_counts()
+    mixed = gm.gossip_mix_tree(w, tree)
+    check(gm.gossip_mix_flat.launches == PYTREE_LEAVES,
+          f"gossip_mix_tree launched kernel 1 {gm.gossip_mix_flat.launches} times")
+    whole = gm.gossip_mix_flat(w, plane)
+    err = max(float((a - b).abs().max()) for a, b in zip(
+        tree_leaves(mixed), tree_leaves(unpack(whole, spec))))
+    check(err == 0.0, f"the pytree exchange differs from the plane's by {err}")
+    b_ms, b_by = bound(20, spec.size, "gossip_mix_flat")
+    round_row = dict(n=20, x=spec.size, leaves=PYTREE_LEAVES,
+                     widths=[leaf[0].numel() for leaf in tree_leaves(tree)],
+                     max_abs_err_vs_plane=err,
+                     ms=graph_ms(lambda: gm.gossip_mix_tree(w, tree)),
+                     plane_ms=graph_ms(lambda: gm.gossip_mix_flat(w, plane)),
+                     bound_ms=b_ms, bound_by=b_by)
+    for r in rows:
+        print("kernel gossip_mix_flat " + json.dumps(r), flush=True)
+    print("pytree round exchange (6 launches vs the plane's 1) " + json.dumps(round_row),
+          flush=True)
+    return rows, round_row
+
+
+def phase_pytree(torch, gm, card: str, planes: dict,
+                 conv_pair: dict) -> tuple[dict, list, dict, float]:
+    """The per-leaf pytree engine's path (``param_plane=False``)
+    on the main path's population: FedSPD for PYTREE_ROUNDS rounds, mlp DP
+    off and on and conv DP off, loop against replay (bit for bit; the
+    replay's busy share from ``_windowed``), each against the plane's
+    runs of the same configuration: the engines phase's replayed seeds 0-2
+    (``planes["batch"]``) for the mlp, the variants phase's conv pair for
+    the conv, the plane's seed 0 replayed here for the mlp DP; one id per
+    baseline class for ROUNDS rounds on the loop against the engines
+    phase's plane loop run of that id; kernel 1 at the mlp's leaf widths.
+    Returns (the pytree loop runs' launches, the kernel rows, the pytree
+    round's exchange row, the mlp pytree loop's round ms)."""
+    from repro_torch.configs.paper_cnn import PaperExpConfig
+    from repro_torch.data.synthetic import make_mixture_classification
+    from repro_torch.experiments import RunConfig, run_method
+    from repro_torch.experiments.registry import build_context
+
+    data = make_mixture_classification()
+    keep = {"keep_state": True}
+    launches: dict = {}
+    loop_ms = 0.0
+    for label, model, opts in (("mlp", "mlp", {}), ("mlp dp", "mlp", DP_OPTIONS),
+                               ("conv", "conv", {})):
+        exp = PaperExpConfig(rounds=PYTREE_ROUNDS, model=model)
+        cfg = RunConfig(eval_every=10**9, param_plane=False, options=dict(opts, **keep))
+        # the loop (its counters), then the replay with rounds
+        # profiled(PYTREE_ROUNDS) traced (``_windowed``: its busy share)
+        gm.reset_launch_counts()
+        loop = run_method("fedspd", data, exp, cfg=dataclasses.replace(cfg, scan_rounds=False))
+        counts = {k.__name__: k.launches for k in gm.KERNELS}
+        gm.reset_launch_counts()
+        scan, windows, busy = _windowed(lambda c: run_method("fedspd", data, exp, cfg=c),
+                                        dataclasses.replace(cfg, scan_rounds=None),
+                                        PYTREE_ROUNDS)
+        replay_counts = {k.__name__: k.launches for k in gm.KERNELS}
+        for name, c in counts.items():
+            launches[name] = launches.get(name, 0) + c
+        diff = _same_run(torch, loop, scan)
+        check(not diff, f"pytree {label}: the replay differs from the loop in {diff}")
+        check(scan.extras["n_captures"] == 1 and scan.extras["n_dispatches"] == PYTREE_ROUNDS,
+              f"pytree {label}: {scan.extras['n_captures']} captures, "
+              f"{scan.extras['n_dispatches']} dispatches")
+        check(isinstance(scan.extras["state"].centers, dict),
+              f"pytree {label}: the run's centers are not a tree")
+        check(counts == {k: (PYTREE_LEAVES * PYTREE_ROUNDS if k == "gossip_mix_flat" else 0)
+                         for k in counts},
+              f"pytree {label}: loop launches {counts}, expected kernel 1 "
+              f"{PYTREE_LEAVES} times a round and nothing else")
+        check(replay_counts["gossip_mix_fused_dp"] == 0,
+              f"pytree {label}: the replay launched kernel 2")
+        per = [sum(_is_exchange(k.name) for k in w) for w in windows]
+        first, end = profiled(PYTREE_ROUNDS)
+        check(per == [PYTREE_LEAVES] * (end - first),
+              f"pytree {label}: exchange kernels per traced replay {per}")
+        # the plane's runs of this configuration (seed 0 first): the
+        # engines phase's seeds 0-2, the variants phase's conv, the mlp DP
+        # seed 0 replayed here; max(0.02, pstdev) is 0.02 for one seed
+        if label == "mlp":
+            ref = planes["batch"]
+        elif label == "conv":
+            ref = [conv_pair["scan"]]
+        else:
+            ref = [run_method("fedspd", data, exp, cfg=RunConfig(eval_every=10**9,
+                                                                 options=opts))]
+        accs = [p.mean_acc for p in ref]
+        tol = max(0.02, statistics.pstdev(accs))
+        same_draws = not opts
+        lm = statistics.median(loop.extras["round_ms"][1:])
+        plane_ms = ""
+        if label == "mlp":
+            # the plane's DP-off pair of the engines phase, traced the same way
+            pp = planes["fedspd"]
+            lb, rb = pp["loop_busy"], pp["replay_busy"]
+            pf, pe = profiled(ENGINE_ROUNDS)
+            plane_ms = (f" plane (engines phase, {ENGINE_ROUNDS} rounds, {pf + 1}-{pe} "
+                        f"profiled): loop {lb['round_ms']:.4f} replay {rb['round_ms']:.4f} "
+                        f"kernels_per_round {len(pp['windows'][-1])} device_ms_per_round "
+                        f"{rb['device_ms']:.4f} device_busy_share {rb['busy']:.4f};")
+        print(f"pytree {label} ({card}): round_ms median(rounds 2-{PYTREE_ROUNDS}) loop "
+              f"{lm:.4f} replay (less the profiled {first + 1}-{end}) {busy['round_ms']:.4f} "
+              f"replay (rounds {first + 1}-{end} profiled): kernels_per_round "
+              f"{len(windows[-1])} device_ms_per_round {busy['device_ms']:.4f} "
+              f"device_busy_share {busy['busy']:.4f};{plane_ms} capture_ms "
+              f"{json.dumps([round(v, 1) for v in scan.extras['capture_ms']])} mean_acc "
+              f"{scan.mean_acc:.6f} plane seeds {json.dumps([round(a, 6) for a in accs])} "
+              f"tolerance {tol:.6f} comm_bytes {scan.comm_bytes:.0f} plane seed 0 "
+              f"{ref[0].comm_bytes:.0f} loop launches "
+              f"{json.dumps({k: c for k, c in counts.items() if c})} exchange kernels a "
+              f"replay {per[-1]} replay vs loop: equal", flush=True)
+        if label == "mlp":
+            loop_ms = lm
+        check(math.isfinite(scan.mean_acc) and scan.mean_acc > 0.1,
+              f"pytree {label}: mean_acc {scan.mean_acc} not above chance 0.1")
+        check(abs(scan.mean_acc - accs[0]) <= tol,
+              f"pytree {label}: mean_acc {scan.mean_acc} vs the plane's {accs[0]} (tol {tol})")
+        if same_draws:
+            check(scan.comm_bytes == ref[0].comm_bytes,
+                  f"pytree {label}: comm_bytes {scan.comm_bytes} != the plane's "
+                  f"{ref[0].comm_bytes}")
+        else:
+            # the engines draw DP noise differently (per leaf, one plane):
+            # the selections part, and the bytes are whole models
+            model_b = build_context(data, exp, torch.device("cuda")).pack_spec.model_bytes
+            check(scan.comm_bytes > 0 and scan.comm_bytes % model_b == 0,
+                  f"pytree {label}: comm_bytes {scan.comm_bytes} not whole models")
+
+    short = PaperExpConfig(rounds=ROUNDS)
+    for method, kernel in PYTREE_BASELINES.items():
+        gm.reset_launch_counts()
+        r = run_method(method, data, short, cfg=RunConfig(
+            eval_every=10**9, param_plane=False, scan_rounds=False))
+        counts = {k.__name__: k.launches for k in gm.KERNELS}
+        for name, c in counts.items():
+            launches[name] = launches.get(name, 0) + c
+        p = planes[method]
+        print(f"pytree baseline {method} ({card}): mean_acc {r.mean_acc:.6f} plane "
+              f"{p.mean_acc:.6f} comm_bytes {r.comm_bytes:.0f} plane {p.comm_bytes:.0f} "
+              f"launches a round {json.dumps({k: c / ROUNDS for k, c in counts.items() if c})} "
+              f"round_ms median(rounds 2-{ROUNDS}) loop "
+              f"{statistics.median(r.extras['round_ms'][1:]):.4f} plane loop "
+              f"{statistics.median(p.extras['round_ms'][1:]):.4f}", flush=True)
+        check(counts == {k: (PYTREE_LEAVES * ROUNDS if k == kernel else 0) for k in counts},
+              f"pytree baseline {method}: launches {counts}")
+        check(r.comm_bytes == p.comm_bytes and abs(r.mean_acc - p.mean_acc) <= 0.02,
+              f"pytree baseline {method}: {r.mean_acc} / {r.comm_bytes} bytes against the "
+              f"plane's {p.mean_acc} / {p.comm_bytes}")
+    rows, round_row = _pytree_kernel_rows(torch, gm)
+    return launches, rows, round_row, loop_ms
 
 
 def phase_agreement(torch) -> None:
@@ -2870,19 +3101,25 @@ def main() -> None:
     baseline_comm_launches = phase_baselines_comm(torch, gm)
     print(f"baselines comm phase: {time.perf_counter() - t:.1f} s", flush=True)
     sparse_launches, sparse_round_ms = phase_sparse_comm_path(torch, gm)
-    phase_engines(torch, gm)
+    planes = phase_engines(torch, gm)
     t = time.perf_counter()
     scenario_errs = phase_scenario_agreement(torch, gm)
     scenario_launches = phase_scenarios(torch, gm, card)
     print(f"scenarios phase: {time.perf_counter() - t:.1f} s", flush=True)
     t = time.perf_counter()
-    variant_launches, variant_rows, conv_round_ms = phase_variants(torch, gm, card)
+    variant_launches, variant_rows, conv_round_ms, conv_pair = phase_variants(torch, gm, card)
     print(f"variants phase: {time.perf_counter() - t:.1f} s", flush=True)
     for name, rs in variant_rows.items():
         (serve_rows if name == "gossip_mix_dequant" else rows)[name].extend(rs)
+    t = time.perf_counter()
+    pytree_launches, pytree_rows, pytree_round, pytree_ms = phase_pytree(
+        torch, gm, card, planes, conv_pair)
+    print(f"pytree phase: {time.perf_counter() - t:.1f} s", flush=True)
+    rows["gossip_mix_flat"].extend(pytree_rows)
     phase_profile(torch, round_ms)
     phase_profile(torch, dp_round_ms, label="dp", options=DP_OPTIONS)
     phase_profile(torch, conv_round_ms, label="conv", model="conv")
+    phase_profile(torch, pytree_ms, label="pytree", param_plane=False)
     phase_profile(torch, sparse_round_ms, label="sparse+int8", sparse=SparseConfig(**SPARSE),
                   comm=CommConfig(codec="int8", error_feedback=True))
     lm_rows = phase_lm_kernels(torch, mma_counts)
@@ -2897,11 +3134,11 @@ def main() -> None:
     # every launch on the paths driven on the loop engine: the FedSPD main
     # path (DP off and on), serving, the baselines (uncompressed and
     # compressed), the sparse/comm runs,
-    # the scenario runs, the variants' loop and stream runs and LM
-    # generation (the replays launch through the graph, not the wrappers:
+    # the scenario runs, the variants' loop and stream runs, the pytree
+    # engine's loop runs and LM generation (the replays launch through the graph, not the wrappers:
     # the engines, scenarios and variants phases count them in their traces)
     for path in (serve_launches, baseline_launches, baseline_comm_launches, sparse_launches,
-                 scenario_launches, variant_launches, lm_launches):
+                 scenario_launches, variant_launches, pytree_launches, lm_launches):
         for name, c in path.items():
             launches[name] = launches.get(name, 0) + c
     replaces = {"gossip_mix_flat": "src/repro/kernels/gossip_mix.py:63",
@@ -2923,7 +3160,9 @@ def main() -> None:
             max_abs_err=max(r["max_abs_err"] for r in rs), ms=main["ms"],
             plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
             bound_by=main["bound_by"], library_ms=main["library_ms"],
-            shape={"n": main["n"], "x": main["x"]}, card=card, shapes=rs))
+            shape={"n": main["n"], "x": main["x"]}, card=card, shapes=rs,
+            **({"pytree_launches": pytree_launches[name], "pytree_round": pytree_round}
+               if name == "gossip_mix_flat" else {})))
     # the FedEM exchange's own shape; launches from the baselines path
     main = next(r for r in stack_rows if (r["s"], r["n"], r["x"]) == STACK_SHAPES[0])
     kernels.append(dict(

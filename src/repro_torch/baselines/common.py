@@ -12,6 +12,13 @@ launch, and, behind an int8/int4 wire codec on an ``(N, X)`` plane,
 picks the execution: the kernel on a CUDA tensor, its plain version on a
 CPU tensor.
 
+On the pytree engine (``pack_spec=None``; ``RunConfig(param_plane=False)``)
+the same helpers take nested dicts of ``(N, ...)`` / ``(S, N, ...)``
+leaves (utils/pytree.py), as the JAX helpers do: the exchange launches
+its kernel once per leaf, and ``local_sgd`` takes per-leaf gradients and
+the optimizer's per-leaf update (a regularizer's gradient added to the
+loss's, one step). No codec runs there.
+
 Every random draw can be injected (``idx``: batch indices; ``comm_u``:
 the codec's rounding draw), so tests can feed both packages the same
 numbers; without them the draws come from the ``torch.Generator`` the
@@ -24,23 +31,26 @@ from typing import Callable
 import numpy as np
 import torch
 
-from repro_torch.core.packing import PackSpec, flat_grad, pack
+from repro_torch.core.packing import PackSpec, grad, stack_models
 from repro_torch.data.pipeline import gather_batches, uniform_batch_indices
 from repro_torch.graphs.mixing import metropolis_weights
 from repro_torch.graphs.topology import Graph
 from repro_torch.kernels.gossip_mix import (
     gossip_mix_encoded,
-    gossip_mix_flat,
     gossip_mix_stack,
+    gossip_mix_tree,
 )
-from repro_torch.optim.sgd import Optimizer, sgd_update
+from repro_torch.optim.sgd import Optimizer, sgd, tree_init, tree_update
+from repro_torch.utils.pytree import tree_add, tree_map
 
 
 def init_planes(gen: torch.Generator, model_init: Callable, count: int,
-                pack_spec: PackSpec) -> torch.Tensor:
+                pack_spec: PackSpec | None, lead: tuple | None = None):
     """``count`` independently initialised models, drawn from ``gen`` one
-    after another and packed: ``(count, X)``."""
-    return torch.stack([pack(model_init(gen), pack_spec) for _ in range(count)])
+    after another: packed, ``(*lead, X)``, or with ``pack_spec=None`` a
+    tree of ``(*lead, ...)`` leaves (``lead`` defaults to ``(count,)``)."""
+    return stack_models([model_init(gen) for _ in range(count)], pack_spec,
+                        (count,) if lead is None else lead)
 
 
 def mixing_matrix(graph: Graph | None, n: int, centralized: bool) -> np.ndarray:
@@ -53,15 +63,22 @@ def mixing_matrix(graph: Graph | None, n: int, centralized: bool) -> np.ndarray:
     return metropolis_weights(graph)
 
 
-def gossip_avg(plane: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``(N, X)`` plane <- W·plane: one ``gossip_mix_flat`` launch."""
-    return gossip_mix_flat(w, plane).to(plane.dtype)
+def gossip_avg(plane, w: torch.Tensor):
+    """``(N, X)`` plane <- W·plane: one ``gossip_mix_flat`` launch; a tree
+    of ``(N, ...)`` leaves, one launch per leaf (``gossip_mix_tree``)."""
+    return gossip_mix_tree(w, plane)
 
 
-def gossip_avg_stack(plane: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def gossip_avg_stack(plane, w: torch.Tensor):
     """``(S, N, X)`` stack <- W·C_s for EVERY cluster s (the FedEM
-    exchange): one ``gossip_mix_stack`` launch."""
-    return gossip_mix_stack(w, plane).to(plane.dtype)
+    exchange): one ``gossip_mix_stack`` launch; a tree of ``(S, N, ...)``
+    leaves, one launch per leaf, each viewed as ``(S, N, -1)``."""
+    def one(leaf):
+        s, n = leaf.shape[:2]
+        return gossip_mix_stack(w, leaf.reshape(s, n, -1).contiguous()) \
+            .reshape(leaf.shape).to(leaf.dtype)
+
+    return tree_map(one, plane)
 
 
 def gossip_avg_comm(plane: torch.Tensor, w: torch.Tensor, *, channel=None,
@@ -71,7 +88,8 @@ def gossip_avg_comm(plane: torch.Tensor, w: torch.Tensor, *, channel=None,
     messages goes through the codec). Returns (mixed, ef').
 
     - ``channel=None``: the uncompressed exchange, ``gossip_avg`` or
-      ``gossip_avg_stack``, bit for bit; ``ef`` passes through.
+      ``gossip_avg_stack``, bit for bit; ``ef`` passes through. A tree
+      (the pytree engine) takes ``gossip_avg``, as in JAX.
     - int8/int4 on an ``(N, X)`` plane: the payload is encoded (with the
       residual update under error feedback) and mixed by
       ``gossip_mix_dequant``: nothing is decoded outside the kernel for
@@ -83,8 +101,8 @@ def gossip_avg_comm(plane: torch.Tensor, w: torch.Tensor, *, channel=None,
     generator or the uniform draw itself), ``ef`` the error-feedback
     residual of the plane's shape."""
     if channel is None:
-        mixed = gossip_avg_stack(plane, w) if plane.dim() == 3 else gossip_avg(plane, w)
-        return mixed, ef
+        stack = isinstance(plane, torch.Tensor) and plane.dim() == 3
+        return (gossip_avg_stack if stack else gossip_avg)(plane, w), ef
     if channel.fused and plane.dim() == 2:
         enc, _, ef = channel.encode_stream(plane, key, ef)
         mixed = gossip_mix_encoded(w, enc, qblock=channel.cfg.block,
@@ -96,14 +114,19 @@ def gossip_avg_comm(plane: torch.Tensor, w: torch.Tensor, *, channel=None,
     return mixed.to(plane.dtype), ef
 
 
-def local_sgd(loss_fn: Callable, plane: torch.Tensor, data: dict,
+def local_sgd(loss_fn: Callable, plane, data: dict,
               gen: torch.Generator | None, tau: int, batch: int, lr: float, *,
-              pack_spec: PackSpec, extra_grad: Callable | None = None,
+              pack_spec: PackSpec | None, extra_grad: Callable | None = None,
               optimizer: Optimizer | None = None,
-              idx: torch.Tensor | None = None) -> torch.Tensor:
+              idx: torch.Tensor | None = None):
     """τ uniform-batch steps for every client of the ``(N, X)`` plane, all
     clients batched into each forward. Injectable: ``idx`` ``(τ, N,
     batch)``.
+
+    With ``pack_spec=None`` the models are a tree of ``(N, ...)`` leaves
+    (the JAX pytree branch): each step takes the per-leaf gradients, adds
+    ``extra_grad(tree)`` to them, and takes one step of ``optimizer``
+    (plain SGD by default) leaf by leaf.
 
     Without an ``optimizer``, the paper's plain SGD: ``extra_grad(plane)``
     (a regularizer's ``(N, X)`` gradient) is applied first, at the step's
@@ -113,18 +136,23 @@ def local_sgd(loss_fn: Callable, plane: torch.Tensor, data: dict,
     the optimizer takes the one step, as the JAX stateful path does."""
     x, y = data["inputs"], data["targets"]
     n, m = x.shape[0], x.shape[1]
-    opt_state = optimizer.init(plane) if optimizer is not None else None
-    for t in range(tau):
+
+    def batch_of(t):
         it = idx[t] if idx is not None else uniform_batch_indices(gen, n, m, batch)
-        g = flat_grad(loss_fn, plane, gather_batches(x, y, it), pack_spec)
-        if optimizer is not None:
-            if extra_grad is not None:
-                g = g + extra_grad(plane)
-            plane, opt_state = optimizer.update(g, opt_state, plane, lr)
-            continue
+        return gather_batches(x, y, it)
+
+    # the JAX plane path's plain SGD takes the regularizer's step first
+    extra_first = optimizer is None and pack_spec is not None
+    optimizer = optimizer or sgd()
+    opt_state = tree_init(optimizer, plane)
+    for t in range(tau):
+        g = grad(loss_fn, plane, batch_of(t), pack_spec)
         if extra_grad is not None:
-            plane = plane - lr * extra_grad(plane)
-        plane = sgd_update(plane, g, lr)
+            if extra_first:
+                plane = plane - lr * extra_grad(plane)
+            else:
+                g = tree_add(g, extra_grad(plane))
+        plane, opt_state = tree_update(optimizer, g, opt_state, plane, lr)
     return plane
 
 

@@ -5,7 +5,9 @@ The state is the packed ``(N, X)`` plane: local SGD is one batched update
 over the plane, and the W-average is one ``gossip_mix_flat`` launch (one
 ``gossip_mix_dequant`` over the encoded payload behind an int8/int4 wire
 codec). With error feedback the state is ``WithEF(plane, ef)``, so the
-residual crosses rounds.
+residual crosses rounds. On the pytree engine (``pack_spec=None``) the
+state is a tree of ``(N, ...)`` leaves and the W-average launches
+``gossip_mix_flat`` once per leaf.
 """
 from __future__ import annotations
 
@@ -15,11 +17,11 @@ import torch
 
 from repro_torch.baselines.common import gossip_avg_comm, local_sgd
 from repro_torch.comm.codecs import join_ef, split_ef
-from repro_torch.core.packing import PackSpec, unpack
+from repro_torch.core.packing import PackSpec, maybe_unpack
 
 
 def make_step(loss_fn: Callable, w: torch.Tensor, *, tau: int, batch: int,
-              pack_spec: PackSpec, channel=None):
+              pack_spec: PackSpec | None, channel=None):
     """``step(state, data, gen, lr, *, idx=None, comm_u=None) -> (state,
     {})``; ``w`` is the ``(N, N)`` mixing matrix on the plane's device;
     ``channel`` (comm/codecs.Channel) runs the exchange through a wire
@@ -37,9 +39,9 @@ def make_step(loss_fn: Callable, w: torch.Tensor, *, tau: int, batch: int,
     return step
 
 
-def personalized_params(state, pack_spec: PackSpec, channel=None) -> dict:
+def personalized_params(state, pack_spec: PackSpec | None, channel=None) -> dict:
     """FedAvg has no personalization: every client evaluates its own copy
     (equal to the consensus model up to gossip error); an EF-wrapped state
     drops its residual."""
     plane, _ = split_ef(state, channel)
-    return unpack(plane, pack_spec)
+    return maybe_unpack(plane, pack_spec)

@@ -20,12 +20,24 @@ a round, assigns its points under the current centers, trains with the
 cluster-masked loss and updates u as an EMA of the batch's assignment
 fractions (z is not used).
 
-``state.centers`` is ONE ``(S, N, X)`` fp32 tensor. The gather of the
-selected rows is one advanced-index copy, local SGD runs on that
-``(N, X)`` slab with every client batched into each forward, the exchange
-is one kernel launch, and the scatter writes the mixed rows back into the
-plane IN PLACE (the counterpart of the JAX engine's donated buffer): a
-state passed to the round step must not be reused.
+Two parameter representations (``make_round_step(pack_spec=...)``), as
+in the JAX package:
+
+- the packed plane (a ``PackSpec``; the port's default):
+  ``state.centers`` is ONE ``(S, N, X)`` fp32 tensor. The gather of the
+  selected rows is one advanced-index copy, local SGD runs on that
+  ``(N, X)`` slab with every client batched into each forward, the
+  exchange is one kernel launch, and the scatter writes the mixed rows
+  back into the plane IN PLACE (the counterpart of the JAX engine's
+  donated buffer): a state passed to the round step must not be reused.
+- the pytree engine (``pack_spec=None``; the JAX package's default,
+  ``RunConfig(param_plane=False)``): ``state.centers`` is a nested dict
+  of ``(S, N, ...)`` leaves (``utils/pytree.py``). Every cross-client
+  stage walks the leaves: the gather and the in-place scatter, the
+  optimizer's per-leaf update, the DP clip (one fp32 norm per client
+  over all leaves, per-leaf sums added in leaf order) and its per-leaf
+  noise, and the exchange, one ``gossip_mix_flat`` launch per leaf
+  (never the fused DP kernel). No codec and no sparse masks, as in JAX.
 
 With a wire codec (``make_round_step(comm=...)``) the exchange sends the
 encoded slab and mixes what receivers decode; with error feedback the
@@ -37,7 +49,8 @@ updates the mask every ``update_every`` rounds.
 
 Random draws come from ``state.gen`` (a ``torch.Generator`` on the plane's
 device). Every draw can be injected instead — the round's selections,
-batch indices, DP noise, the codec's rounding draw, RigL's dense-gradient
+batch indices, DP noise (a tree of ``(N, ...)`` leaves on the pytree
+engine), the codec's rounding draw, RigL's dense-gradient
 batch indices and its random-regrow scores; ``seeded_init``'s seed
 clients, initial parameters and index tape; ``final_phase``'s index tape —
 so tests can feed both packages the same numbers.
@@ -62,7 +75,17 @@ from repro_torch.core.gossip import (
     make_mix_fn,
     round_comm_bytes,
 )
-from repro_torch.core.packing import PackSpec, flat_grad, pack, unpack
+from repro_torch.core.packing import (
+    PackSpec,
+    flat_grad,
+    grad,
+    make_pack_spec,
+    maybe_unpack,
+    mixture,
+    pack,
+    stack_models,
+    unpack,
+)
 from repro_torch.core.sparse import SparseConfig, column_activity, rigl_update
 from repro_torch.data.pipeline import (
     cluster_batch_indices,
@@ -70,11 +93,20 @@ from repro_torch.data.pipeline import (
     uniform_batch_indices,
 )
 from repro_torch.device import copy_generator, fork_generator
-from repro_torch.optim.sgd import Optimizer, sgd
+from repro_torch.optim.sgd import Optimizer, sgd, tree_init, tree_update
+from repro_torch.utils.pytree import (
+    tree_bytes,
+    tree_gather_rows,
+    tree_index,
+    tree_leaves,
+    tree_map,
+    tree_scatter_rows_,
+)
 
 
 class FedSPDState(NamedTuple):
-    centers: torch.Tensor     # (S, N, X) fp32 plane: client i's center s
+    centers: torch.Tensor     # (S, N, X) fp32 plane (or a tree of (S, N, ...)
+    #                           leaves on the pytree engine): client i's center s
     u: torch.Tensor           # (N, S) mixture coefficients
     z: torch.Tensor           # (N, M) int64 per-point assignments
     round: int
@@ -114,18 +146,18 @@ def round_lr(cfg: FedSPDConfig, r: int) -> float:
 
 
 def init_state(gen: torch.Generator, model_init: Callable, cfg: FedSPDConfig,
-               data_m: int, spec: PackSpec) -> FedSPDState:
-    """Independent random init per (cluster, client) pair, packed."""
-    plane = torch.stack([pack(model_init(gen), spec)
-                         for _ in range(cfg.n_clusters * cfg.n_clients)])
-    return _state(plane.view(cfg.n_clusters, cfg.n_clients, spec.size), cfg,
-                  data_m, fork_generator(gen))
+               data_m: int, spec: PackSpec | None = None) -> FedSPDState:
+    """Independent random init per (cluster, client) pair: packed through
+    ``spec``, or (``spec=None``) a tree of ``(S, N, ...)`` leaves."""
+    models = [model_init(gen) for _ in range(cfg.n_clusters * cfg.n_clients)]
+    centers = stack_models(models, spec, (cfg.n_clusters, cfg.n_clients))
+    return _state(centers, cfg, data_m, fork_generator(gen))
 
 
-def _state(plane, cfg, data_m, gen) -> FedSPDState:
-    dev = plane.device
+def _state(centers, cfg, data_m, gen) -> FedSPDState:
+    dev = tree_leaves(centers)[0].device
     return FedSPDState(
-        centers=plane,
+        centers=centers,
         u=torch.full((cfg.n_clients, cfg.n_clusters), 1.0 / cfg.n_clusters,
                      device=dev),
         z=torch.zeros((cfg.n_clients, data_m), dtype=torch.int64, device=dev),
@@ -135,21 +167,25 @@ def _state(plane, cfg, data_m, gen) -> FedSPDState:
 
 
 def seeded_init(gen: torch.Generator, model_init: Callable, cfg: FedSPDConfig,
-                loss_fn: Callable, data: dict, spec: PackSpec, *,
+                loss_fn: Callable, data: dict, spec: PackSpec | None = None, *,
                 epochs: int = 15, lr: float = 0.1,
                 seeds: torch.Tensor | None = None,
-                init_params: torch.Tensor | None = None,
+                init_params=None,
                 idx_tape: torch.Tensor | None = None,
                 optimizer: Optimizer | None = None) -> FedSPDState:
     """Client-seeded warm start: S distinct random clients each pretrain
     one cluster center on their own local data (``epochs · max(1, M //
     batch)`` steps at ``lr`` of ``optimizer``, plain SGD by default);
     every client starts from those S seeds. The S pretrainings are
-    independent and run batched, as one ``(S, X)`` slab.
+    independent and run batched, as one ``(S, X)`` slab. The centers come
+    back packed through ``spec``, or (``spec=None``, the pytree engine) as
+    a tree of ``(S, N, ...)`` leaves, one contiguous tensor each: the same
+    numbers either way, as JAX's one ``seeded_init`` serves both engines.
 
-    Injectable draws: ``seeds`` ``(S,)`` client ids, ``init_params``
-    ``(S, X)`` packed initial models, ``idx_tape`` ``(S, steps, B)`` batch
-    indices into each seed client's M points."""
+    Injectable draws: ``seeds`` ``(S,)`` client ids, ``init_params`` the
+    S initial models (``(S, X)`` packed, or with ``spec=None`` a tree of
+    ``(S, ...)`` leaves), ``idx_tape`` ``(S, steps, B)`` batch indices
+    into each seed client's M points."""
     x, y = data["inputs"], data["targets"]
     n, m = x.shape[0], x.shape[1]
     s_clusters = cfg.n_clusters
@@ -157,33 +193,40 @@ def seeded_init(gen: torch.Generator, model_init: Callable, cfg: FedSPDConfig,
     if seeds is None:
         seeds = torch.randperm(n, generator=gen, device=gen.device)[:s_clusters]
     if init_params is None:
-        init_params = torch.stack([pack(model_init(gen), spec)
-                                   for _ in range(s_clusters)])
+        init_params = stack_models([model_init(gen) for _ in range(s_clusters)],
+                                   spec, (s_clusters,))
     if idx_tape is None:
         idx_tape = torch.randint(0, m, (s_clusters, steps, cfg.batch),
                                  generator=gen, device=gen.device)
+    tree_out = spec is None
+    if tree_out:
+        spec = make_pack_spec(tree_index(init_params, 0))
+        init_params = pack(init_params, spec)
     seeds = torch.as_tensor(seeds, device=x.device).long()
     xs, ys = x[seeds], y[seeds]
     p = init_params.to(x.device, torch.float32)
     p = _optimize(optimizer, p, steps, lambda t: gather_batches(xs, ys, idx_tape[:, t]),
                   loss_fn, spec, lr)
-    plane = p[:, None, :].expand(s_clusters, n, spec.size).contiguous()
-    return _state(plane, cfg, m, fork_generator(gen))
+    centers = p[:, None, :].expand(s_clusters, n, spec.size).contiguous()
+    if tree_out:
+        centers = tree_map(lambda leaf: leaf.contiguous(), unpack(centers, spec))
+    return _state(centers, cfg, m, fork_generator(gen))
 
 
-def _optimize(optimizer: Optimizer | None, p: torch.Tensor, steps: int,
-              batch_of: Callable, loss_fn: Callable, spec: PackSpec, lr,
-              grad_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """``steps`` steps on the slab ``p``, step t on ``batch_of(t)``, with
+def _optimize(optimizer: Optimizer | None, p, steps: int,
+              batch_of: Callable, loss_fn: Callable, spec: PackSpec | None, lr,
+              grad_mask: torch.Tensor | None = None):
+    """``steps`` steps on the slab ``p`` (or, with ``spec=None``, on the
+    tree ``p``, leaf by leaf), step t on ``batch_of(t)``, with
     ``optimizer`` (plain SGD for None; its state made fresh here); with
     ``grad_mask`` every gradient is projected on it first."""
     optimizer = optimizer or sgd()
-    state = optimizer.init(p)
+    state = tree_init(optimizer, p)
     for t in range(steps):
-        g = flat_grad(loss_fn, p, batch_of(t), spec)
+        g = grad(loss_fn, p, batch_of(t), spec)
         if grad_mask is not None:
             g = g * grad_mask
-        p, state = optimizer.update(g, state, p, lr)
+        p, state = tree_update(optimizer, g, state, p, lr)
     return p
 
 
@@ -192,24 +235,33 @@ def select_clusters(gen: torch.Generator, u: torch.Tensor) -> torch.Tensor:
     return torch.multinomial(u, 1, generator=gen).squeeze(1)
 
 
-def _consensus_per_cluster_flat(plane: torch.Tensor) -> torch.Tensor:
-    """Theorem 5.10's E_t per cluster as one flat reduction over the
-    ``(S, N, X)`` plane."""
-    p32 = plane.float()
-    mean = p32.mean(dim=1, keepdim=True)
-    return (p32 - mean).square().sum(dim=(1, 2)) / plane.shape[1]
+def _consensus_per_cluster(centers) -> torch.Tensor:
+    """Theorem 5.10's E_t per cluster, every cluster at once, leaf by leaf
+    over the ``(S, N, ...)`` leaves (the ``(S, N, X)`` plane is one leaf):
+    JAX's per-cluster ``consensus_distance``, its per-leaf terms added in
+    leaf order."""
+    total = None
+    for leaf in tree_leaves(centers):
+        l32 = leaf.float()
+        d = (l32 - l32.mean(dim=1, keepdim=True)).square().flatten(1).sum(dim=1) \
+            / leaf.shape[1]
+        total = d if total is None else total + d
+    return total
 
 
 def make_round_step(loss_fn: Callable, per_example_loss: Callable,
                     gossip: GossipSpec, cfg: FedSPDConfig, *,
-                    pack_spec: PackSpec, mix_fn: Callable | None = None,
+                    pack_spec: PackSpec | None = None,
+                    mix_fn: Callable | None = None,
                     comm: CommConfig | None = None,
                     sparse: SparseConfig | None = None,
                     optimizer: Optimizer | None = None,
                     lr_schedule: Callable | None = None):
     """Returns ``step(state, data, adj=None, *, lr=None, s=None, idx=None,
     noise=None, comm_u=None, rigl_idx=None, regrow_scores=None) -> (state,
-    metrics)`` for the "full" regime on the packed plane. ``data`` is
+    metrics)`` for the "full" regime, on the packed plane through
+    ``pack_spec`` or, with ``pack_spec=None``, on the pytree engine (the
+    JAX ``step_full`` / ``step_stream``). ``data`` is
     ``{"inputs": (N, M, d), "targets": (N, M)}`` on the plane's device.
     For the "stream" regime, ``step(state, batch, adj=None, *, lr=None,
     s=None, noise=None, comm_u=None, regrow_scores=None)`` with ``batch``
@@ -229,8 +281,10 @@ def make_round_step(loss_fn: Callable, per_example_loss: Callable,
     steps, its state made fresh every round as the JAX step's is.
 
     Injectable draws: ``s`` ``(N,)`` selections, ``idx`` ``(τ, N, B)``
-    batch indices, ``noise`` ``(N, X)`` standard-normal DP noise (used
-    only when σ = dp_clip · dp_noise_multiplier > 0), ``comm_u`` ``(N,
+    batch indices, ``noise`` ``(N, X)`` standard-normal DP noise (on the
+    pytree engine a tree of ``(N, ...)`` leaves, one draw per leaf as the
+    JAX pytree step draws it; used only when σ = dp_clip ·
+    dp_noise_multiplier > 0), ``comm_u`` ``(N,
     Xp/block, block)`` the int8/int4 codec's uniform rounding draw,
     ``rigl_idx`` ``(N, B)`` the batch indices of RigL's dense gradient,
     ``regrow_scores`` ``(N, X)`` the uniform scores of ``regrow="random"``.
@@ -253,18 +307,34 @@ def make_round_step(loss_fn: Callable, per_example_loss: Callable,
     post-update rows stores the new mask every ``update_every`` rounds.
     Density 1.0 runs the dense paths bit for bit, the mask riding along.
 
+    The pytree engine takes neither a codec nor sparse masks (each raises,
+    as in JAX), gives a DP round one fp32 clip norm a client over all
+    leaves and per-leaf noise, and mixes with ``mix_fn`` (by default
+    ``make_mix_fn(plane=False)``: one flat-kernel launch per leaf) without
+    ever taking ``fused_dp``; it counts ``tree_bytes`` of a client's
+    selected model a link, which is ``PackSpec.model_bytes``.
+
     The mixed rows are scattered into ``state.centers`` in place."""
     if cfg.regime not in ("full", "stream"):
         raise ValueError(f"unknown regime {cfg.regime!r}; expected 'full' or 'stream'")
-    channel = make_channel(comm, pack_spec.size)
+    tree = pack_spec is None
     sparse_on = sparse is not None and sparse.enabled
+    if tree and comm is not None and comm.codec != "fp32":
+        raise ValueError(
+            f"comm codec {comm.codec!r} requires the packed parameter plane "
+            "(pass pack_spec; fp32 is the only pytree-safe codec)")
+    if tree and sparse_on:
+        raise ValueError(
+            f"sparse training (density={sparse.density}) requires the packed "
+            "parameter plane (pass pack_spec)")
+    channel = None if tree else make_channel(comm, pack_spec.size)
     if sparse_on and gossip.aligned:
         raise ValueError(
             "sparse training does not compose with cosine-alignment "
             "filtering: the masked mixing weights are support-, not "
             "value-, dependent")
     if mix_fn is None:
-        mix_fn = make_mix_fn(gossip, comm=comm)
+        mix_fn = make_mix_fn(gossip, comm=comm, plane=not tree)
     if (channel is not None) != bool(getattr(mix_fn, "comm_aware", False)):
         raise ValueError(
             "mix_fn must be core/gossip.make_mix_fn(comm=...) for the same "
@@ -308,6 +378,29 @@ def make_round_step(loss_fn: Callable, per_example_loss: Callable,
             c_sel = c_sel + sigma * noise
         return c_sel
 
+    def dp_sanitized_tree(c_old, c_new, gen, noise):
+        """The pytree DP round, as the JAX pytree step: δ = c_new − c_old
+        leaf by leaf in fp32, one clip scale a client from the per-leaf
+        sums of squares added in leaf order, then c_old + (δ·scale + σ·ξ)
+        with per-leaf noise ξ (drawn leaf by leaf when not given)."""
+        delta = tree_map(lambda a, b: a.float() - b.float(), c_new, c_old)
+        sq = None
+        for leaf in tree_leaves(delta):
+            v = leaf.square().reshape(leaf.shape[0], -1).sum(dim=1)
+            sq = v if sq is None else sq + v
+        scale = torch.clamp(cfg.dp_clip / torch.sqrt(sq + 1e-12), max=1.0)
+        if sigma > 0 and noise is None:
+            noise = tree_map(lambda leaf: torch.randn(leaf.shape, generator=gen,
+                                                      device=leaf.device), delta)
+
+        def one(old, d, nz=None):
+            d = d * scale.reshape((-1,) + (1,) * (d.dim() - 1))
+            if nz is not None:
+                d = d + sigma * nz
+            return (old.float() + d).to(old.dtype)
+
+        return tree_map(one, c_old, delta, *((noise,) if sigma > 0 else ()))
+
     def channel_mix(c_sel, s, key, ef, adj):
         if channel is None:
             return mix_fn(c_sel, s, adj=adj), ef
@@ -326,7 +419,7 @@ def make_round_step(loss_fn: Callable, per_example_loss: Callable,
             c_sel = (dp_sanitized(c_old, c_new, gen, noise) if cfg.dp_clip > 0
                      else c_new)
             c_mixed, ef = channel_mix(c_sel, s, key, ef, adj)
-        plane[s, torch.arange(s.shape[0], device=s.device)] = c_mixed.to(plane.dtype)
+        tree_scatter_rows_(plane, s, c_mixed)
         return plane, ef
 
     def exchange_sparse(plane, c_old, c_new, s, smask, gen, noise, key, ef,
@@ -357,7 +450,7 @@ def make_round_step(loss_fn: Callable, per_example_loss: Callable,
         den = mix_fn.sparse_matmul(w, smask, colact)
         c_mixed = torch.where((smask > 0) & (den > 0),
                               num / den.clamp_min(1e-12), c_sel)
-        plane[s, torch.arange(s.shape[0], device=s.device)] = c_mixed.to(plane.dtype)
+        tree_scatter_rows_(plane, s, c_mixed)
         return plane, ef
 
     def sparse_mask_update(state, c_new, dense_grad, regrow_scores):
@@ -372,8 +465,8 @@ def make_round_step(loss_fn: Callable, per_example_loss: Callable,
 
     def begin(state, adj, lr, s):
         """The round's adjacency, lr and selections, and the gathered rows
-        (an advanced-index copy)."""
-        dev = state.centers.device
+        (an advanced-index copy of each leaf)."""
+        dev = state.u.device
         if adj is None:
             if dev not in adj_dev:
                 adj_dev[dev] = torch.as_tensor(gossip.adj, dtype=torch.float32,
@@ -390,8 +483,7 @@ def make_round_step(loss_fn: Callable, per_example_loss: Callable,
         if s is None:
             s = select_clusters(state.gen, state.u)
         s = torch.as_tensor(s, device=dev).long()
-        c_old = state.centers[s, torch.arange(s.shape[0], device=dev)]
-        return adj, lr, s, c_old
+        return adj, lr, s, tree_gather_rows(state.centers, s)
 
     def finish(state, c_old, c_new, s, adj, lr, noise, comm_u, dense_grad,
                regrow_scores):
@@ -399,7 +491,12 @@ def make_round_step(loss_fn: Callable, per_example_loss: Callable,
         rounds) and the byte count. Returns (plane, ef', mask', bytes)."""
         plane, gen = state.centers, state.gen
         key = comm_u if comm_u is not None else gen
-        if sparse_on:
+        if tree:
+            mask, ef = state.mask, state.ef
+            c_sel = (dp_sanitized_tree(c_old, c_new, gen, noise) if cfg.dp_clip > 0
+                     else c_new)
+            tree_scatter_rows_(plane, s, mix_fn(c_sel, s, adj=adj))
+        elif sparse_on:
             mask = sparse_mask_update(state, c_new, dense_grad, regrow_scores)
             plane, ef = exchange_sparse(plane, c_old, c_new, s, state.mask,
                                         gen, noise, key, state.ef, adj)
@@ -407,9 +504,10 @@ def make_round_step(loss_fn: Callable, per_example_loss: Callable,
             mask = state.mask
             plane, ef = exchange_packed(plane, c_old, c_new, s, gen, noise,
                                         key, state.ef, adj)
+        # one model's wire bytes in its own dtypes (a host int from shapes)
+        model_b = tree_bytes(c_new) // cfg.n_clients if tree else pack_spec.model_bytes
         comm = state.comm_bytes + round_comm_bytes(
-            gossip, s, pack_spec.model_bytes, point_to_point=cfg.point_to_point,
-            adj=adj)
+            gossip, s, model_b, point_to_point=cfg.point_to_point, adj=adj)
         return plane, ef, mask, comm
 
     def step_full_packed(state: FedSPDState, data: dict, adj=None, *, lr=None,
@@ -440,7 +538,7 @@ def make_round_step(loss_fn: Callable, per_example_loss: Callable,
                                        comm_u, dense_grad, regrow_scores)
 
         # (4) re-cluster every local point under the new centers
-        z, u = cluster_all_clients(per_example_loss, unpack(plane, pack_spec),
+        z, u = cluster_all_clients(per_example_loss, maybe_unpack(plane, pack_spec),
                                    {"x": x, "y": y}, cfg.n_clusters)
         return _result(state, plane, u, z, comm, ef, mask, lr, s)
 
@@ -450,8 +548,7 @@ def make_round_step(loss_fn: Callable, per_example_loss: Callable,
         # (1) selection and gather; the batch's points assigned under the
         # current centers; τ steps of the cluster-masked loss on the batch
         adj, lr, s, c_old = begin(state, adj, lr, s)
-        zb, _ = assign_clusters(per_example_loss, unpack(state.centers, pack_spec),
-                                batch)
+        zb, _ = assign_clusters(per_example_loss, maybe_unpack(state.centers, pack_spec), batch)
         sbatch = {"x": batch["x"], "y": batch["y"],
                   "mask": (zb == s[:, None]).float()}
         grad_mask = None
@@ -477,7 +574,7 @@ def _result(state, plane, u, z, comm, ef, mask, lr, s):
     new_state = FedSPDState(centers=plane, u=u, z=z, round=state.round + 1,
                             gen=state.gen, comm_bytes=comm, ef=ef, mask=mask)
     metrics = {"lr": lr, "selected": s,
-               "consensus": _consensus_per_cluster_flat(plane),
+               "consensus": _consensus_per_cluster(plane),
                "comm_bytes": comm}
     return new_state, metrics
 
@@ -487,26 +584,22 @@ def _result(state, plane, u, z, comm, ef, mask, lr, s):
 # --------------------------------------------------------------------------
 
 
-def _eq2(state: FedSPDState) -> torch.Tensor:
-    plane = state.centers
-    return torch.einsum("ns,snx->nx", state.u.to(plane.dtype), plane)
-
-
-def personalize(state: FedSPDState, pack_spec: PackSpec) -> dict:
-    """Eq. (2): x_i = Σ_s u_{i,s} c_{i,s}, one contraction over the plane.
-    Returns the parameter dict with leaves ``(N, ...)`` (views of one new
-    ``(N, X)`` tensor)."""
-    return unpack(_eq2(state), pack_spec)
+def personalize(state: FedSPDState, pack_spec: PackSpec | None = None) -> dict:
+    """Eq. (2): x_i = Σ_s u_{i,s} c_{i,s}. Returns the parameter dict with
+    leaves ``(N, ...)``: views of one new ``(N, X)`` tensor on the plane,
+    new tensors on the pytree engine (``pack_spec=None``)."""
+    return maybe_unpack(mixture(state.centers, state.u), pack_spec)
 
 
 def final_phase(state: FedSPDState, loss_fn: Callable, data: dict,
-                cfg: FedSPDConfig, pack_spec: PackSpec, *,
+                cfg: FedSPDConfig, pack_spec: PackSpec | None = None, *,
                 lr: float | None = None,
                 idx_tape: torch.Tensor | None = None,
                 optimizer: Optimizer | None = None) -> dict:
     """Eq. (2), then τ_final local epochs (``tau_final · max(1, M //
     batch)`` steps of ``optimizer``, plain SGD by default, on uniform
-    batches) on all local data. Draws from
+    batches) on all local data, on the plane (``pack_spec``) or leaf by
+    leaf (``pack_spec=None``). Draws from
     a copy of ``state.gen``, so the run's stream does not advance (JAX
     reuses ``state.key`` here). Injectable: ``idx_tape`` ``(steps, N,
     B)``. Returns the personalized parameter dict, leaves ``(N, ...)``."""
@@ -523,5 +616,6 @@ def final_phase(state: FedSPDState, loss_fn: Callable, data: dict,
               else uniform_batch_indices(gen, n, m, cfg.batch))
         return gather_batches(x, y, it)
 
-    return unpack(_optimize(optimizer, _eq2(state), steps, batch_of, loss_fn,
-                            pack_spec, lr), pack_spec)
+    params = _optimize(optimizer, mixture(state.centers, state.u), steps, batch_of,
+                       loss_fn, pack_spec, lr)
+    return maybe_unpack(params, pack_spec)

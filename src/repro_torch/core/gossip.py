@@ -43,7 +43,9 @@ from repro_torch.kernels.gossip_mix import (
     gossip_mix_flat,
     gossip_mix_fused_dp,
     gossip_mix_sparse,
+    gossip_mix_tree,
 )
+from repro_torch.utils.pytree import tree_leaves, tree_map
 
 # "cuda" is the JAX package's "pallas": the dense W through the kernels.
 # "reference" is the JAX package's default: the spec's wiring (``mix``)
@@ -95,11 +97,16 @@ def _adjacency(spec: GossipSpec, adj, device) -> torch.Tensor:
     return torch.as_tensor(adj, dtype=torch.float32, device=device)
 
 
-def _pairwise_cos(c_sel: torch.Tensor) -> torch.Tensor:
-    """``(N, N)`` cosine similarity between the rows of the ``(N, X)``
-    plane: the Gram matrix over the outer product of the row norms."""
-    flat = c_sel.float().reshape(c_sel.shape[0], -1)
-    gram = torch.matmul(flat, flat.T)
+def _pairwise_cos(c_sel) -> torch.Tensor:
+    """``(N, N)`` cosine similarity between the clients' selected models
+    (an ``(N, X)`` plane or a tree of ``(N, ...)`` leaves): the Gram
+    matrices of the leaves, each viewed as ``(N, -1)`` in fp32, added in
+    leaf order, over the outer product of the row norms."""
+    gram = None
+    for leaf in tree_leaves(c_sel):
+        flat = leaf.float().reshape(leaf.shape[0], -1)
+        g = torch.matmul(flat, flat.T)
+        gram = g if gram is None else gram + g
     norms = torch.sqrt(torch.diagonal(gram).clamp_min(1e-24))
     return gram / (norms[:, None] * norms[None, :])
 
@@ -120,27 +127,28 @@ def fedspd_weight_matrix(spec: GossipSpec, s: torch.Tensor, c_sel=None,
     return w / w.sum(dim=1, keepdim=True)
 
 
-def mix_dense(spec: GossipSpec, c_sel: torch.Tensor, s: torch.Tensor,
-              adj=None) -> torch.Tensor:
+def mix_dense(spec: GossipSpec, c_sel, s: torch.Tensor, adj=None):
     """Paper-faithful C <- W C over the client axis, fp32: one
-    ``gossip_mix_flat`` launch on a CUDA tensor, its plain version on a
-    CPU tensor."""
-    w = fedspd_weight_matrix(spec, s, c_sel, adj=adj)
-    return gossip_mix_flat(w, c_sel).to(c_sel.dtype)
+    ``gossip_mix_flat`` launch per leaf (one for the plane) on CUDA
+    tensors, its plain version on CPU tensors."""
+    return gossip_mix_tree(fedspd_weight_matrix(spec, s, c_sel, adj=adj), c_sel)
 
 
-def mix_permute(spec: GossipSpec, c_sel: torch.Tensor, s: torch.Tensor,
-                adj=None) -> torch.Tensor:
+def mix_permute(spec: GossipSpec, c_sel, s: torch.Tensor, adj=None):
     """The edge-coloured accumulate: per colour class one gather of the
-    partners' rows and one masked add, then the division by the count.
-    ``adj`` (this round's adjacency) must be a subgraph of the spec's
-    graph, the colouring being the spec's; it is read as a binary mask
-    (a weighted entry counts as a link)."""
+    partners' rows and one masked add (leaf by leaf), then the division
+    by the count. ``adj`` (this round's adjacency) must be a subgraph of
+    the spec's graph, the colouring being the spec's; it is read as a
+    binary mask (a weighted entry counts as a link)."""
     n = s.shape[0]
-    c32 = c_sel.float()
+    c32 = tree_map(lambda leaf: leaf.float(), c_sel)
     cos = _pairwise_cos(c32) if spec.aligned else None
     idx = torch.arange(n, device=s.device)
     acc, cnt = c32, torch.ones(n, device=s.device)
+
+    def rows(v, leaf):
+        return v.reshape((-1,) + (1,) * (leaf.dim() - 1))
+
     for p in spec.perms_on(s.device):
         match = (s[p] == s) & (p != idx)
         if adj is not None:
@@ -148,13 +156,13 @@ def mix_permute(spec: GossipSpec, c_sel: torch.Tensor, s: torch.Tensor,
         if cos is not None:
             match = match & (cos[idx, p] >= spec.cos_align_threshold)
         mf = match.float()
-        acc = acc + mf[:, None] * c32[p]
+        acc = tree_map(lambda a, leaf: a + rows(mf, leaf) * leaf[p], acc, c32)
         cnt = cnt + mf
-    return (acc * (1.0 / cnt)[:, None]).to(c_sel.dtype)
+    inv = 1.0 / cnt
+    return tree_map(lambda a, leaf: (a * rows(inv, a)).to(leaf.dtype), acc, c_sel)
 
 
-def mix(spec: GossipSpec, c_sel: torch.Tensor, s: torch.Tensor,
-        adj=None) -> torch.Tensor:
+def mix(spec: GossipSpec, c_sel, s: torch.Tensor, adj=None):
     """Eq. (1) on the spec's wiring."""
     if spec.mode == "dense":
         return mix_dense(spec, c_sel, s, adj=adj)
@@ -164,9 +172,10 @@ def mix(spec: GossipSpec, c_sel: torch.Tensor, s: torch.Tensor,
 
 
 def make_mix_fn(spec: GossipSpec, backend: str = "cuda",
-                comm: CommConfig | None = None):
-    """The exchange for ``core/fedspd.make_round_step`` over the packed
-    ``(N, X)`` plane (the JAX ``plane=True`` form).
+                comm: CommConfig | None = None, *, plane: bool = True):
+    """The exchange for ``core/fedspd.make_round_step``: over the packed
+    ``(N, X)`` plane (the JAX ``plane=True`` form), or with
+    ``plane=False`` over the pytree engine's tree of ``(N, ...)`` leaves.
 
     Backends, as in the JAX package: ``"cuda"`` (JAX's ``pallas``) builds
     the dense W, with the cosine mask from the mixed values when
@@ -194,13 +203,31 @@ def make_mix_fn(spec: GossipSpec, backend: str = "cuda",
     one in either wiring): ``mix.sparse_matmul(w, v, col_active)``
     (``gossip_mix_sparse``) and, with a codec, ``mix.sparse_dequant(w,
     enc, mask, col_active)`` (``gossip_mix_dequant_masked``, for int8/int4
-    payloads)."""
+    payloads).
+
+    With ``plane=False`` (the JAX ``plane=False`` form) the mix is
+    ``mix(c_sel, s, adj=None)`` on a tree: on ``"cuda"`` the dense W, then
+    one ``gossip_mix_flat`` launch per leaf (``gossip_mix_tree``, the JAX
+    ``pallas`` backend's pytree branch). It carries no ``fused_dp`` (a
+    pytree DP round sanitizes leaf by leaf, then mixes) and no sparse
+    products; a compressing codec raises, as in JAX."""
     if backend not in MIX_BACKENDS:
         raise ValueError(
             f"unknown gossip backend {backend!r}; the port has {MIX_BACKENDS}")
     by_mode = backend == "reference" and spec.mode != "dense"
+    compressing = comm is not None and comm.codec != "fp32"
+    if compressing and not plane:
+        raise ValueError(
+            f"comm codec {comm.codec!r} operates on packed (N, X) plane "
+            "slices; build the mix with plane=True (run_method enables "
+            "param_plane automatically when comm is set)")
+    if not plane:
+        def tree_mix(c_sel, s, adj=None):
+            return (mix if by_mode else mix_dense)(spec, c_sel, s, adj=adj)
 
-    if comm is None or comm.codec == "fp32":
+        return tree_mix
+
+    if not compressing:
         if by_mode:
             def mix_fn(c_sel, s, adj=None):
                 return mix(spec, c_sel, s, adj=adj)
@@ -262,15 +289,10 @@ def round_comm_bytes(spec: GossipSpec, s: torch.Tensor, model_bytes: int, *,
 def consensus_distance(c_stack) -> torch.Tensor:
     """Theorem 5.10's E_t: the mean over clients of the squared distance of
     each client's center to the client average, summed over the leaves of
-    a dict of ``(N, ...)`` leaves (in sorted key order, as the JAX package
+    a tree of ``(N, ...)`` leaves (in sorted key order, as the JAX package
     walks them) or over one ``(N, X)`` tensor."""
-    def leaves(t):
-        if isinstance(t, dict):
-            return [leaf for k in sorted(t) for leaf in leaves(t[k])]
-        return [t]
-
     total = None
-    for leaf in leaves(c_stack):
+    for leaf in tree_leaves(c_stack):
         l32 = leaf.float()
         d = (l32 - l32.mean(dim=0, keepdim=True)).square().sum() / leaf.shape[0]
         total = d if total is None else total + d

@@ -20,6 +20,14 @@ import math
 
 import torch
 
+from repro_torch.utils.pytree import (
+    tree_grad,
+    tree_leaves,
+    tree_map,
+    tree_stack,
+    tree_weighted_sum,
+)
+
 
 @dataclasses.dataclass(frozen=True)
 class PackSpec:
@@ -121,9 +129,38 @@ def unpack(plane: torch.Tensor, spec: PackSpec) -> dict:
     return tree
 
 
-def leaves(tree: dict) -> list:
-    """The leaves of a parameter dict in the spec's order."""
-    return [leaf for _, leaf in _flatten(tree)]
+def maybe_unpack(plane, spec: PackSpec | None):
+    """``unpack(plane, spec)``, or ``plane`` itself when ``spec`` is None:
+    a state of the pytree engine already holds its parameter dict."""
+    return plane if spec is None else unpack(plane, spec)
+
+
+def stack_models(models: list, spec: PackSpec | None, lead: tuple):
+    """Parameter dicts stacked as ``(*lead, X)``, packed through ``spec``,
+    or (``spec=None``, the pytree engine) as a tree of ``(*lead, ...)``
+    leaves."""
+    if spec is None:
+        return tree_map(lambda leaf: leaf.reshape(tuple(lead) + leaf.shape[1:]),
+                        tree_stack(models))
+    return torch.stack([pack(m, spec) for m in models]).view(tuple(lead) + (spec.size,))
+
+
+def grad(loss_fn, params, batch: dict, spec: PackSpec | None):
+    """d Σ loss / d params in the run's representation: ``flat_grad`` of
+    a packed slab through ``spec``, ``tree_grad`` of a tree with
+    ``spec=None``."""
+    if spec is None:
+        return tree_grad(loss_fn, params, batch)
+    return flat_grad(loss_fn, params, batch, spec)
+
+
+def mixture(centers, u: torch.Tensor):
+    """Eq. (2) for every client, x_i = Σ_s u_{i,s} c_{i,s}: one
+    contraction over an ``(S, N, X)`` plane, or Σ_s over every ``(S, N,
+    ...)`` leaf of the pytree engine's tree."""
+    if isinstance(centers, torch.Tensor):
+        return torch.einsum("ns,snx->nx", u.to(centers.dtype), centers)
+    return tree_weighted_sum(centers, u.T)
 
 
 def flat_grad(loss_fn, vec: torch.Tensor, batch: dict,
@@ -140,11 +177,11 @@ def flat_grad(loss_fn, vec: torch.Tensor, batch: dict,
     gradient is written once into its slice of the output instead: no
     padding and no concatenation."""
     tree = unpack(vec.detach(), spec)
-    params = leaves(tree)
+    params = tree_leaves(tree)
     for leaf in params:
         leaf.requires_grad_(True)
     grads = torch.autograd.grad(loss_fn(tree, batch).sum(), params)
     out = torch.empty_like(vec)
-    for view, g in zip(leaves(unpack(out, spec)), grads):
+    for view, g in zip(tree_leaves(unpack(out, spec)), grads):
         view.copy_(g)
     return out

@@ -3,9 +3,11 @@
 The JAX package's ``RunConfig`` fields, less ``donate`` (the port always
 updates the plane in place), plus ``device`` and ``on_round``. The port
 honours ``gossip_mode`` ("dense" or "permute"), ``gossip_backend``
-("cuda" or "reference"), ``comm`` (every method), ``sparse`` (FedSPD
-only), ``eval_every``, ``scan_rounds``, ``cohort_size`` (FedSPD only),
-``scenario`` (FedSPD only), ``options`` (``mode``, ``dp_clip``,
+("cuda" or "reference"), ``param_plane`` (the packed plane, the port's
+default, or the per-leaf pytree engine), ``comm`` (every method),
+``sparse`` (FedSPD only), ``eval_every``, ``scan_rounds``,
+``cohort_size`` (FedSPD only), ``scenario`` (FedSPD only), ``options``
+(``mode``, ``param_plane``, ``dp_clip``,
 ``dp_noise_multiplier``, ``tau_final``, ``cos_align_threshold``,
 ``keep_state``, ``comm``, ``sparse``), ``device`` and ``on_round``.
 Every field that selects a feature the port does not have yet is refused
@@ -71,8 +73,11 @@ class RunConfig:
                     the wiring; their plain versions on CPU tensors) or
                     "reference" (the wiring itself: with "permute",
                     mix_permute; with "dense", the "cuda" path)
-    param_plane     the port always runs the packed (S, N, X) plane; False
-                    is refused
+    param_plane     the parameter representation: the packed (S, N, X)
+                    plane (True, and the port's default when unset) or the
+                    per-leaf pytree engine (False: nested dicts of leaves,
+                    the JAX package's default; no codec, no sparse masks,
+                    no cohort and no Scenario.system there, as in JAX)
     comm            comm.codecs.CommConfig wire codec (every method; local
                     exchanges nothing)
     sparse          core.sparse.SparseConfig DisPFL masks (FedSPD only)
@@ -147,10 +152,6 @@ class RunConfig:
             options.setdefault("sparse", self.sparse)
         _normalize_comm(options)
         _normalize_sparse(options)
-        if options.get("param_plane", True) is False:
-            raise ValueError(
-                "param_plane=False (the per-leaf pytree engine) is not "
-                "ported; the port runs the packed (S, N, X) plane")
         if options.get("mode", "dense") not in MODES:
             raise ValueError(f"unknown gossip mode {options['mode']!r}")
         backend = options.setdefault("gossip_backend", "cuda")

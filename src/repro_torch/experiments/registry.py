@@ -21,14 +21,20 @@ cohort's minor, a scenario's round); ``cohort_axes`` maps its state's fields to 
 axis for cohort subsampling; ``round_branch(ctx, r)`` names the host-side
 branch round r takes (a captured round needs one graph per branch).
 
-The port has every id of the JAX registry, all on the packed plane:
-FedSPD (``"fedspd"``, paper Algorithm 1, with a wire codec, DisPFL sparse
-masks and cosine alignment as options), ``"fedspd_permute"`` (the same on
-the edge-coloured permute wiring) and the paper's six baselines
-(``"local"``, and ``dfl_``/``cfl_`` × ``fedavg``, ``fedem``, ``ifca``,
-``fedsoft``, ``pfedme``). Every baseline takes ``comm`` (a wire codec on
-its exchange; ``local`` exchanges nothing, so it only accepts one, as in
-JAX); a baseline given ``sparse`` raises ``ValueError``.
+The port has every id of the JAX registry: FedSPD (``"fedspd"``, paper
+Algorithm 1, with a wire codec, DisPFL sparse masks and cosine alignment
+as options), ``"fedspd_permute"`` (the same on the edge-coloured permute
+wiring) and the paper's six baselines (``"local"``, and ``dfl_``/``cfl_``
+× ``fedavg``, ``fedem``, ``ifca``, ``fedsoft``, ``pfedme``). Every
+baseline takes ``comm`` (a wire codec on its exchange; ``local``
+exchanges nothing, so it only accepts one, as in JAX); a baseline given
+``sparse`` raises ``ValueError``.
+
+Every id runs on both parameter representations (``Method.plane_spec``):
+the packed plane (the port's default, ``options["param_plane"]`` unset
+or True) or the per-leaf pytree engine (``param_plane=False``, the JAX
+package's default), where states hold nested dicts of leaves and no
+codec, sparse mask or cohort runs, as in JAX.
 """
 from __future__ import annotations
 
@@ -188,6 +194,12 @@ class Method:
             "(RunConfig.cohort_size) — its adapter defines no per-field "
             "client-axis map; override Method.cohort_axes")
 
+    def plane_spec(self, ctx: ExperimentContext) -> PackSpec | None:
+        """The run's PackSpec on the packed plane (``param_plane`` True or
+        unset: the port's default), None on the pytree engine
+        (``param_plane=False``)."""
+        return ctx.pack_spec if ctx.opt("param_plane", True) else None
+
     def mixing(self, ctx: ExperimentContext) -> torch.Tensor:
         """(N, N) averaging weights on the run's device: exact global mean
         (centralized) or Metropolis gossip over the client graph
@@ -207,8 +219,14 @@ class Method:
     def _channel(self, ctx: ExperimentContext) -> Channel | None:
         """The run's wire channel, or None without a compressing codec
         (``codec="fp32"`` included: the uncompressed exchange stays bit
-        for bit what it was)."""
-        return make_channel(ctx.opt("comm"), ctx.pack_spec.size)
+        for bit what it was). A codec needs the plane, as in JAX."""
+        ch = make_channel(ctx.opt("comm"), ctx.pack_spec.size)
+        if ch is not None and self.plane_spec(ctx) is None:
+            raise ValueError(
+                f"comm codec {ch.cfg.codec!r} operates on the packed "
+                "parameter plane; run with param_plane=True (run_method "
+                "enables it automatically when comm is set)")
+        return ch
 
     def _with_ef(self, ctx: ExperimentContext, state, prefix: tuple | None = None):
         """``state`` with the error-feedback residual in its ``ef`` field
@@ -246,7 +264,7 @@ def available_methods() -> tuple[str, ...]:
 
 class FedSPDMethod(Method):
     """Paper Algorithm 1 behind the registry contract, on the packed
-    ``(S, N, X)`` plane. ``mode`` is the gossip wiring ("dense" or
+    ``(S, N, X)`` plane or the pytree engine. ``mode`` is the gossip wiring ("dense" or
     "permute"; ``ctx.options["mode"]`` overrides it), coloured over the
     context's graph (the union graph under per-seed graphs or a
     scenario, so every round's adjacency is a subgraph of it). The
@@ -272,11 +290,20 @@ class FedSPDMethod(Method):
         )
 
     def _sparse(self, ctx: ExperimentContext) -> SparseConfig | None:
-        return ctx.opt("sparse")
+        """The run's SparseConfig; masks live on the packed X axis, so any
+        config (density 1.0 too) needs the plane, as in JAX."""
+        sp = ctx.opt("sparse")
+        if sp is not None and self.plane_spec(ctx) is None:
+            raise ValueError(
+                f"sparse training (density={sp.density}) runs on the "
+                "packed parameter plane; set RunConfig(param_plane=True) "
+                "(run_method enables it automatically when sparse is set)")
+        return sp
 
     def init(self, ctx, gen):
         state = self._with_ef(ctx, seeded_init(gen, ctx.model_init, self._fcfg(ctx),
-                                               ctx.loss_fn, ctx.train, ctx.pack_spec))
+                                               ctx.loss_fn, ctx.train,
+                                               self.plane_spec(ctx)))
         sp = self._sparse(ctx)
         if sp is not None:
             # masks ride along even at density 1.0 (all ones, no draw)
@@ -292,9 +319,11 @@ class FedSPDMethod(Method):
     def make_step(self, ctx):
         spec = self._spec(ctx)
         comm = ctx.opt("comm")
-        mix_fn = make_mix_fn(spec, ctx.opt("gossip_backend", "cuda"), comm=comm)
+        ps = self.plane_spec(ctx)
+        mix_fn = make_mix_fn(spec, ctx.opt("gossip_backend", "cuda"), comm=comm,
+                             plane=ps is not None)
         step = make_round_step(ctx.loss_fn, ctx.pel_fn, spec, self._fcfg(ctx),
-                               pack_spec=ctx.pack_spec, mix_fn=mix_fn,
+                               pack_spec=ps, mix_fn=mix_fn,
                                comm=comm, sparse=self._sparse(ctx))
 
         def wrapped(state, train, gen, lr, adj=None):
@@ -321,7 +350,14 @@ class FedSPDMethod(Method):
 
     def cohort_axes(self, ctx, state):
         """centers (S, N, X) on axis 1; u, z, ef and mask on axis 0; round,
-        gen and comm_bytes global. The dense wiring only, as in JAX."""
+        gen and comm_bytes global. The packed plane and the dense wiring
+        only, as in JAX (a client-system scenario masks its rows through
+        the same map)."""
+        if self.plane_spec(ctx) is None:
+            raise ValueError(
+                "cohort subsampling and client-system heterogeneity "
+                "(Scenario.system) run on the packed (S, N, X) parameter "
+                "plane; set RunConfig(param_plane=True)")
         if ctx.opt("mode", self.mode) != "dense":
             raise ValueError(
                 "cohort subsampling needs the dense gossip wiring — the "
@@ -334,7 +370,7 @@ class FedSPDMethod(Method):
     def personalize(self, ctx, state, gen=None):
         with torch.enable_grad():
             return final_phase(state, ctx.loss_fn, ctx.train, self._fcfg(ctx),
-                               ctx.pack_spec)
+                               self.plane_spec(ctx))
 
     def comm_model(self, ctx):
         return CommModel(kind="tracked")
@@ -359,14 +395,14 @@ class LocalMethod(Method):
     features = ("comm",)
 
     def init(self, ctx, gen):
-        return init_planes(gen, ctx.model_init, ctx.n_clients, ctx.pack_spec)
+        return init_planes(gen, ctx.model_init, ctx.n_clients, self.plane_spec(ctx))
 
     def make_step(self, ctx):
         return local.make_step(ctx.loss_fn, tau=ctx.exp.tau,
-                               batch=ctx.exp.batch, pack_spec=ctx.pack_spec)
+                               batch=ctx.exp.batch, pack_spec=self.plane_spec(ctx))
 
     def personalize(self, ctx, state, gen=None):
-        return local.personalized_params(state, ctx.pack_spec)
+        return local.personalized_params(state, self.plane_spec(ctx))
 
     def comm_model(self, ctx):
         return CommModel(kind="static", per_round_bytes=0.0)
@@ -386,7 +422,7 @@ class _PairedMethod(Method):
 
 class FedAvgMethod(_PairedMethod):
     def init(self, ctx, gen):
-        plane = init_planes(gen, ctx.model_init, ctx.n_clients, ctx.pack_spec)
+        plane = init_planes(gen, ctx.model_init, ctx.n_clients, self.plane_spec(ctx))
         ch = self._channel(ctx)
         ef = (ch.init_residual((ctx.n_clients,), device=ctx.device)
               if ch is not None else None)
@@ -394,11 +430,11 @@ class FedAvgMethod(_PairedMethod):
 
     def make_step(self, ctx):
         return fedavg.make_step(ctx.loss_fn, self.mixing(ctx), tau=ctx.exp.tau,
-                                batch=ctx.exp.batch, pack_spec=ctx.pack_spec,
+                                batch=ctx.exp.batch, pack_spec=self.plane_spec(ctx),
                                 channel=self._channel(ctx))
 
     def personalize(self, ctx, state, gen=None):
-        return fedavg.personalized_params(state, ctx.pack_spec,
+        return fedavg.personalized_params(state, self.plane_spec(ctx),
                                           channel=self._channel(ctx))
 
     def comm_model(self, ctx):
@@ -412,24 +448,24 @@ class FedEMMethod(_PairedMethod):
 
     def init(self, ctx, gen):
         state = fedem.init_state(gen, ctx.model_init, ctx.n_clients,
-                                 ctx.n_clusters, ctx.pack_spec)
+                                 ctx.n_clusters, self.plane_spec(ctx))
         # FedEM ships every one of the S stacks each round
         return self._with_ef(ctx, state, prefix=(ctx.n_clusters, ctx.n_clients))
 
     def make_step(self, ctx):
         return fedem.make_step(ctx.pel_fn, self.mixing(ctx), tau=ctx.exp.tau,
                                batch=ctx.exp.batch, s_clusters=ctx.n_clusters,
-                               pack_spec=ctx.pack_spec, channel=self._channel(ctx))
+                               pack_spec=self.plane_spec(ctx), channel=self._channel(ctx))
 
     def personalize(self, ctx, state, gen=None):
         """The u-weighted parameter average, for serve-style export;
         accuracy uses the probability mixture."""
-        return fedem.personalize(state, ctx.pack_spec)
+        return fedem.personalize(state, self.plane_spec(ctx))
 
     def evaluate(self, ctx, state, on, gen=None):
         with torch.no_grad():
             return fedem.personalized_accuracy(ctx.apply_fn, state, on,
-                                               ctx.pack_spec)
+                                               self.plane_spec(ctx))
 
     def comm_model(self, ctx):
         return self._static_comm(ctx, models=ctx.n_clusters)
@@ -441,16 +477,16 @@ class FedEMMethod(_PairedMethod):
 class IFCAMethod(_PairedMethod):
     def init(self, ctx, gen):
         return self._with_ef(ctx, ifca.init_state(gen, ctx.model_init, ctx.n_clients,
-                                                  ctx.n_clusters, ctx.pack_spec))
+                                                  ctx.n_clusters, self.plane_spec(ctx)))
 
     def make_step(self, ctx):
         g_eff = complete(ctx.n_clients) if self.centralized else ctx.graph
         return ifca.make_step(ctx.loss_fn, ctx.pel_fn, GossipSpec.from_graph(g_eff),
                               tau=ctx.exp.tau, batch=ctx.exp.batch,
-                              pack_spec=ctx.pack_spec, channel=self._channel(ctx))
+                              pack_spec=self.plane_spec(ctx), channel=self._channel(ctx))
 
     def personalize(self, ctx, state, gen=None):
-        return ifca.personalized_params(state, ctx.pack_spec)
+        return ifca.personalized_params(state, self.plane_spec(ctx))
 
     def comm_model(self, ctx):
         return self._static_comm(ctx)
@@ -462,16 +498,16 @@ class IFCAMethod(_PairedMethod):
 class FedSoftMethod(_PairedMethod):
     def init(self, ctx, gen):
         return self._with_ef(ctx, fedsoft.init_state(gen, ctx.model_init, ctx.n_clients,
-                                                     ctx.n_clusters, ctx.pack_spec))
+                                                     ctx.n_clusters, self.plane_spec(ctx)))
 
     def make_step(self, ctx):
         return fedsoft.make_step(ctx.loss_fn, ctx.pel_fn, self.mixing(ctx),
                                  tau=ctx.exp.tau, batch=ctx.exp.batch,
                                  s_clusters=ctx.n_clusters,
-                                 pack_spec=ctx.pack_spec, channel=self._channel(ctx))
+                                 pack_spec=self.plane_spec(ctx), channel=self._channel(ctx))
 
     def personalize(self, ctx, state, gen=None):
-        return fedsoft.personalized_params(state, ctx.pack_spec)
+        return fedsoft.personalized_params(state, self.plane_spec(ctx))
 
     def comm_model(self, ctx):
         return self._static_comm(ctx)
@@ -483,11 +519,11 @@ class FedSoftMethod(_PairedMethod):
 class PFedMeMethod(_PairedMethod):
     def init(self, ctx, gen):
         return self._with_ef(ctx, pfedme.init_state(gen, ctx.model_init, ctx.n_clients,
-                                                    ctx.pack_spec))
+                                                    self.plane_spec(ctx)))
 
     def make_step(self, ctx):
         return pfedme.make_step(ctx.loss_fn, self.mixing(ctx), tau=ctx.exp.tau,
-                                batch=ctx.exp.batch, pack_spec=ctx.pack_spec,
+                                batch=ctx.exp.batch, pack_spec=self.plane_spec(ctx),
                                 channel=self._channel(ctx))
 
     def personalize(self, ctx, state, gen=None):
@@ -498,7 +534,7 @@ class PFedMeMethod(_PairedMethod):
         with torch.enable_grad():
             return pfedme.personalized_params(state, ctx.loss_fn, ctx.train, gen,
                                               batch=ctx.exp.batch,
-                                              pack_spec=ctx.pack_spec)
+                                              pack_spec=self.plane_spec(ctx))
 
     def comm_model(self, ctx):
         return self._static_comm(ctx)

@@ -55,6 +55,12 @@ adjacency, cohort indices, activity weights. The streams are shared by
 every seed of a batch, as in the JAX driver, and ``extras["staleness"]``
 holds the final per-client staleness counters.
 
+Both engines run either parameter representation: the packed plane, or
+the per-leaf pytree engine (``RunConfig(param_plane=False)``), whose
+states hold nested dicts of leaves; the replay's static buffers, its
+throwaway copies and its write-back walk those leaves as they walk a
+state's fields.
+
 The run's generators: one seeded from ``seed`` initialises the state, and
 a stream forked from it after the init feeds the rounds (FedSPD forks its
 own into its state instead). Evaluation draws (pFedMe's personalization)
@@ -125,7 +131,8 @@ class RunResult:
     wall_s: float
     extras: dict        # method diagnostics; "round_ms": per-round times;
                         # "n_captures", "n_dispatches"; "state",
-                        # "pack_spec" with options["keep_state"];
+                        # "pack_spec" (None on the pytree engine) with
+                        # options["keep_state"];
                         # "staleness" under a ClientSystemModel
 
 
@@ -296,7 +303,9 @@ class _ScenarioRun:
 
 
 def _fields(state) -> tuple:
-    return (state,) if isinstance(state, torch.Tensor) else tuple(state)
+    """A state's top-level parts: a bare tensor or a tree (the pytree
+    engine's baseline states) is one part, a NamedTuple its fields."""
+    return (state,) if isinstance(state, (torch.Tensor, dict)) else tuple(state)
 
 
 def _at_round(state, r: int):
@@ -308,22 +317,32 @@ def _at_round(state, r: int):
 
 
 def _copy_state(state):
-    """A throwaway copy: tensors cloned, generators copied."""
-    def one(v):
-        if isinstance(v, torch.Tensor):
-            return v.clone()
-        return copy_generator(v) if isinstance(v, torch.Generator) else v
+    """A throwaway copy: tensors cloned, generators copied, through the
+    fields of a NamedTuple and the leaves of a tree."""
     if isinstance(state, torch.Tensor):
         return state.clone()
-    return type(state)(*map(one, state))
+    if isinstance(state, torch.Generator):
+        return copy_generator(state)
+    if isinstance(state, dict):
+        return {k: _copy_state(v) for k, v in state.items()}
+    if isinstance(state, tuple):
+        return type(state)(*map(_copy_state, state))
+    return state
 
 
 def _write_back(buf, new) -> None:
     """Copy every tensor of the step's new state into the static buffer
-    it replaces (a field the step updated in place is the buffer)."""
-    for b, v in zip(_fields(buf), _fields(new)):
-        if isinstance(b, torch.Tensor) and v is not b:
-            b.copy_(v)
+    it replaces, through the fields of a NamedTuple and the leaves of a
+    tree (a tensor the step updated in place is the buffer)."""
+    if isinstance(buf, torch.Tensor):
+        if new is not buf:
+            buf.copy_(new)
+    elif isinstance(buf, dict):
+        for k, b in buf.items():
+            _write_back(b, new[k])
+    elif isinstance(buf, tuple):
+        for b, v in zip(buf, new):
+            _write_back(b, v)
 
 
 class _CapturedRound:
@@ -472,7 +491,7 @@ def _result(m: Method, sd: _Seed, acc: torch.Tensor, t0: float,
         # serve export (experiments/export.py) lifts the cluster plane
         # from the final state through the run's own packing
         extras["state"] = state
-        extras["pack_spec"] = ctx.pack_spec
+        extras["pack_spec"] = m.plane_spec(ctx)   # None on the pytree engine
     acc = acc.cpu().numpy()
     return RunResult(
         method=m.name, acc_per_client=acc, mean_acc=float(acc.mean()),

@@ -36,19 +36,24 @@ def state_from_numpy(state, *, device: str | torch.device = "cuda",
                      gen: torch.Generator | None = None,
                      seed: int = 0) -> FedSPDState:
     """A port ``FedSPDState`` from a JAX ``FedSPDState`` whose fields are
-    numpy arrays and whose ``centers`` is the packed ``(S, N, X)`` plane.
-    The plane, ``u``, ``z``, ``round``, ``comm_bytes`` and, where the
-    state has them, the error-feedback residual ``ef`` and the sparse
-    masks ``mask`` carry over; the key is replaced by ``gen`` (default: a
-    generator seeded with ``seed``)."""
-    centers = np.array(state.centers)
-    if centers.ndim != 3:
-        raise ValueError(
-            f"centers must be the packed (S, N, X) plane, got shape "
-            f"{centers.shape}")
+    numpy arrays: ``centers`` the packed ``(S, N, X)`` plane, or the
+    pytree engine's nested dict of ``(S, N, ...)`` leaves (fp32 tensors
+    of the same keys). The centers, ``u``, ``z``, ``round``,
+    ``comm_bytes`` and, where the state has them, the error-feedback
+    residual ``ef`` and the sparse masks ``mask`` carry over; the key is
+    replaced by ``gen`` (default: a generator seeded with ``seed``)."""
     device = resolve_device(device)
+    if isinstance(state.centers, dict):
+        centers = _tree(state.centers, device)
+    else:
+        centers = np.array(state.centers)
+        if centers.ndim != 3:
+            raise ValueError(
+                f"centers must be the packed (S, N, X) plane, got shape "
+                f"{centers.shape}")
+        centers = torch.as_tensor(centers, dtype=torch.float32, device=device)
     return FedSPDState(
-        centers=torch.as_tensor(centers, dtype=torch.float32, device=device),
+        centers=centers,
         u=torch.as_tensor(np.array(state.u), dtype=torch.float32, device=device),
         z=torch.as_tensor(np.array(state.z), dtype=torch.int64, device=device),
         round=int(np.asarray(state.round)),
@@ -77,7 +82,17 @@ def _as_tensor(a, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(a, dtype=dtype, device=device)
 
 
-def _bare_plane(a, device: torch.device) -> torch.Tensor:
+def _tree(a, device: torch.device):
+    """A nested dict of arrays as the same dict of tensors (integer leaves
+    int64, the rest fp32); an array as one tensor."""
+    if isinstance(a, dict):
+        return {k: _tree(v, device) for k, v in a.items()}
+    return _as_tensor(a, device)
+
+
+def _bare_plane(a, device: torch.device):
+    if isinstance(a, dict):
+        return _tree(a, device)   # a pytree-engine state: the (N, ...) leaves
     plane = _as_tensor(a, device)
     if plane.dim() != 2:
         raise ValueError(
@@ -96,14 +111,17 @@ def _check_residual(ef: torch.Tensor | None, plane: torch.Tensor) -> None:
 
 
 def baseline_state_from_numpy(state, *, device: str | torch.device = "cuda"):
-    """A port baseline state from a JAX one whose fields are numpy arrays
-    on the packed plane: a bare ``(N, X)`` plane (FedAvg, Local) becomes
-    one fp32 tensor, FedAvg's ``WithEF(x, ef)`` the port's ``WithEF``; a
-    ``FedEMState``, ``IFCAState``, ``FedSoftState`` or ``PFedMeState``
-    becomes the port's state of that name (integer fields int64, the rest
-    fp32). An error-feedback residual ``ef`` (a wire codec's) carries over
-    when it has the exchanged plane's shape: FedEM's ``(S, N, X)``
-    centers, FedSoft's y, pFedMe's w, IFCA's chosen ``(N, X)`` slab."""
+    """A port baseline state from a JAX one whose fields are numpy arrays,
+    on the packed plane or the pytree engine: a bare ``(N, X)`` plane
+    (FedAvg, Local) becomes one fp32 tensor, a bare tree of ``(N, ...)``
+    leaves the same dict of tensors, FedAvg's ``WithEF(x, ef)`` the port's
+    ``WithEF``; a ``FedEMState``, ``IFCAState``, ``FedSoftState`` or
+    ``PFedMeState`` becomes the port's state of that name (integer fields
+    int64, the rest fp32; a field holding a tree, the same dict of
+    tensors). An error-feedback residual ``ef`` (a wire codec's, on the
+    plane only) carries over when it has the exchanged plane's shape:
+    FedEM's ``(S, N, X)`` centers, FedSoft's y, pFedMe's w, IFCA's chosen
+    ``(N, X)`` slab."""
     device = resolve_device(device)
     if not isinstance(state, tuple):
         return _bare_plane(state, device)
@@ -117,7 +135,12 @@ def baseline_state_from_numpy(state, *, device: str | torch.device = "cuda"):
             f"no port baseline state for {type(state).__name__}; the port "
             f"has {sorted(_BASELINE_STATES)} and WithEF")
     out = cls(**{f: None if getattr(state, f, None) is None
-                 else _as_tensor(getattr(state, f), device) for f in cls._fields})
+                 else _tree(getattr(state, f), device) for f in cls._fields})
+    if isinstance(getattr(out, "centers", None), dict) or isinstance(
+            getattr(out, "w", None), dict):
+        if out.ef is not None:
+            raise ValueError("a pytree-engine state carries no error-feedback residual ef")
+        return out
     if hasattr(out, "centers") and out.centers.dim() != 3:
         raise ValueError(
             f"centers must be the packed (S, N, X) plane, got shape "

@@ -6,7 +6,9 @@ Seven kernels, built by ``kernels/build.py``. In ``csrc/gossip_mix.cu``:
 - ``gossip_mix_flat`` replaces the Pallas TPU kernel
   ``src/repro/kernels/gossip_mix.py:gossip_mix_flat``: C' = W·C over the
   packed ``(N, X)`` plane, once per round on the main path (and in the
-  FedAvg, pFedMe and IFCA baselines' exchange).
+  FedAvg, pFedMe and IFCA baselines' exchange); on the pytree engine
+  (``RunConfig(param_plane=False)``) ``gossip_mix_tree`` launches it once
+  per leaf of the ``(N, ...)`` tree instead.
 - ``gossip_mix_stack`` replaces
   ``src/repro/kernels/gossip_mix.py:gossip_mix_stack``: C'_s = W·C_s for
   every slab of an ``(S, N, X)`` stack in one launch (grid.y = S), the
@@ -108,6 +110,7 @@ from repro_torch.kernels.build import load_library
 from repro_torch.kernels.common import check as _check
 from repro_torch.kernels.common import on_cpu as _on_cpu
 from repro_torch.kernels.common import raise_on as _raise_on
+from repro_torch.utils.pytree import tree_map
 
 
 def gossip_mix_flat_ref(w: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -183,6 +186,27 @@ def gossip_mix_flat(w: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 
 gossip_mix_flat.launches = 0
+
+
+def gossip_mix_tree_ref(w: torch.Tensor, c_tree):
+    """Plain C' = W·C leaf by leaf over a tree of ``(N, ...)`` leaves
+    (``utils/pytree.py``): ``gossip_mix_flat_ref`` of each leaf viewed as
+    ``(N, -1)``, cast back to the leaf's dtype."""
+    return tree_map(lambda leaf: gossip_mix_flat_ref(w, leaf.reshape(leaf.shape[0], -1))
+                    .reshape(leaf.shape).to(leaf.dtype), c_tree)
+
+
+def gossip_mix_tree(w: torch.Tensor, c_tree):
+    """C' = W·C over a tree of ``(N, ...)`` leaves, the pytree engine's
+    exchange (``src/repro/kernels/gossip_mix.py:gossip_mix_tree``, which
+    the JAX package's ``kernels/ops.gossip_mix`` jits): one
+    ``gossip_mix_flat`` launch per leaf, each leaf viewed as ``(N, -1)``
+    (copied first when that view is not contiguous, so the kernel never
+    reads a wrong stride) and the result cast back to the leaf's dtype. A
+    bare ``(N, X)`` tensor is one leaf: one launch, as on the plane."""
+    return tree_map(lambda leaf: gossip_mix_flat(w, leaf.reshape(leaf.shape[0], -1)
+                                                 .contiguous())
+                    .reshape(leaf.shape).to(leaf.dtype), c_tree)
 
 
 def gossip_mix_stack(w: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

@@ -9,10 +9,13 @@ counterparts, optax-style ``Optimizer(init, update)`` pairs with
 Every update works on one packed ``(..., X)`` tensor (a client's row, an
 ``(N, X)`` slab of clients stepping together), accumulates in fp32 and
 casts once to the parameters' dtype, as the JAX package does leaf by
-leaf. ``lr`` is a float or a 0-d fp32 tensor on the device (a captured
-round reads it from a tape). AdamW's step count is a 0-d int32 tensor on
-the parameters' device and its bias corrections ``1 - b ** count`` are
-taken there in fp32, so a replayed round reads them without a host sync.
+leaf. On the pytree engine ``tree_init`` and ``tree_update`` apply an
+optimizer leaf by leaf over a nested dict of parameters (one state per
+leaf: the JAX optimizers' per-leaf ``tree.map``). ``lr`` is a float or a
+0-d fp32 tensor on the device (a captured round reads it from a tape).
+AdamW's step count is a 0-d int32 tensor on the parameters' device and
+its bias corrections ``1 - b ** count`` are taken there in fp32, so a
+replayed round reads them without a host sync.
 """
 from __future__ import annotations
 
@@ -97,6 +100,23 @@ def adamw(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         return (p32 - lr * upd).to(params.dtype), AdamState(mu=mu, nu=nu, count=count)
 
     return Optimizer(init, update)
+
+
+def tree_init(opt: Optimizer, params):
+    """``opt``'s state for every leaf of a parameter dict, as a dict of the
+    same keys (a bare tensor is one leaf)."""
+    if isinstance(params, dict):
+        return {k: tree_init(opt, v) for k, v in params.items()}
+    return opt.init(params)
+
+
+def tree_update(opt: Optimizer, grads, state, params, lr) -> tuple:
+    """One step of ``opt`` on every leaf of a parameter dict with its own
+    state: returns (params, state), dicts of the same keys."""
+    if not isinstance(params, dict):
+        return opt.update(grads, state, params, lr)
+    out = {k: tree_update(opt, grads[k], state[k], v, lr) for k, v in params.items()}
+    return {k: p for k, (p, _) in out.items()}, {k: st for k, (_, st) in out.items()}
 
 
 _REGISTRY = {"sgd": sgd, "momentum": momentum, "adamw": adamw}

@@ -6,9 +6,11 @@ of the main path through the kernels, a short run of each baseline family
 through its exchange kernel, a short train → export → serve run through
 the dequant kernels, a short run of each codec and sparse path
 through its kernels, LM generation through kernels 8 and 9 (the MoE and
-hybrid families too, with an MoE layer against the CPU), and the
+hybrid families too, with an MoE layer against the CPU), the
 round engines: every path replayed from its captured round
-(``scan_rounds``) equal bit for bit to the eager loop.
+(``scan_rounds``) equal bit for bit to the eager loop, and the per-leaf
+pytree engine (``param_plane=False``): kernel 1 once a leaf, never
+kernel 2, kernel 3 once a leaf in FedEM.
 
 Marked ``gpu``: each test asks a fixture for the card and skips without
 one. Run on a machine with an H100: ``python -m pytest -q -m gpu
@@ -54,6 +56,7 @@ from repro_torch.models.smallnets import make_classifier
 from repro_torch.models.layers import cast_params_for_compute
 from repro_torch.serve import ClusterPlaneServer, load_servable
 from repro_torch.serve.server import decode_eager
+from repro_torch.utils.pytree import state_tensors
 
 pytestmark = pytest.mark.gpu
 
@@ -1005,18 +1008,13 @@ def _engine_setup():
     return data, exp
 
 
-def _state_tensors(state):
-    fields = (state,) if isinstance(state, torch.Tensor) else tuple(state)
-    return [v for v in fields if isinstance(v, torch.Tensor)]
-
-
 def _assert_same_run(a, b):
     assert (a.acc_per_client == b.acc_per_client).all()
     assert a.curve == b.curve
     assert a.comm_bytes == b.comm_bytes and a.wire_bytes == b.wire_bytes
     if "u" in a.extras:
         assert (a.extras["u"] == b.extras["u"]).all()
-    for x, y in zip(_state_tensors(a.extras["state"]), _state_tensors(b.extras["state"])):
+    for x, y in zip(state_tensors(a.extras["state"]), state_tensors(b.extras["state"])):
         assert torch.equal(x, y)
 
 
@@ -1336,3 +1334,116 @@ def test_optimizer_round_on_the_card_equals_the_cpu(cuda):
         out[dev.type] = [t.cpu() for t in (new.centers, new.u, plane)]
     (pc, uc, qc), (pg, ug, qg) = out["cpu"], out["cuda"]
     assert _max_err(pg, pc) <= TOL and _max_err(ug, uc) <= TOL and _max_err(qg, qc) <= TOL
+
+
+# --------------------------------------------------------------------------
+# the per-leaf pytree engine (RunConfig(param_plane=False))
+# --------------------------------------------------------------------------
+
+# the mlp's leaf widths at dim 64 and 10 classes, and a one-column leaf
+TREE_WIDTHS = [1, 10, 64, 640, 8192]
+
+
+@pytest.mark.parametrize("x", TREE_WIDTHS)
+def test_tree_mix_launches_kernel_1_once_a_leaf(cuda, x):
+    """``gossip_mix_tree`` at N = 20 over a contiguous ``(20, x)`` leaf, a
+    column slice of a wider plane (the view ``unpack`` gives: its rows are
+    not contiguous) and a transposed ``(20, 2, x)`` leaf: one launch a
+    leaf, each against its plain version, and the views' results equal to
+    the kernel on their contiguous copies bit for bit."""
+    from repro_torch.kernels.gossip_mix import gossip_mix_tree, gossip_mix_tree_ref
+
+    g = torch.Generator(device=cuda).manual_seed(x)
+    w, c, _, _, _ = _operands(cuda, 20, x, seed=x)
+    wide = torch.randn((20, x + 7), generator=g, device=cuda)
+    base = torch.randn((20, x, 2), generator=g, device=cuda)
+    tree = {"a": c, "b": {"slice": wide[:, 3:3 + x], "t": base.transpose(1, 2)}}
+    # (the transposed view of a one-column leaf is contiguous by torch's rule)
+    assert not tree["b"]["slice"].is_contiguous()
+    assert tree["b"]["t"].is_contiguous() == (x == 1)
+    reset_launch_counts()
+    out = gossip_mix_tree(w, tree)
+    assert gossip_mix_flat.launches == 3
+    assert all(k.launches == 0 for k in KERNELS if k is not gossip_mix_flat)
+    ref = gossip_mix_tree_ref(w, tree)
+    for key, got, want in (("a", out["a"], ref["a"]),
+                           ("slice", out["b"]["slice"], ref["b"]["slice"]),
+                           ("t", out["b"]["t"], ref["b"]["t"])):
+        assert got.shape == want.shape and _max_err(got, want) <= TOL, key
+    assert torch.equal(out["b"]["slice"],
+                       gossip_mix_flat(w, wide[:, 3:3 + x].contiguous()))
+    assert torch.equal(out["b"]["t"], gossip_mix_flat(
+        w, base.transpose(1, 2).contiguous().reshape(20, -1)).reshape(20, 2, x))
+
+
+PYTREE_RUNS = {
+    # label: (method, options, the kernel a leaf launches)
+    "fedspd": ("fedspd", {}, "gossip_mix_flat"),
+    "fedspd-dp": ("fedspd", {"dp_clip": 1.0, "dp_noise_multiplier": 0.5}, "gossip_mix_flat"),
+    "dfl_fedavg": ("dfl_fedavg", {}, "gossip_mix_flat"),
+    "dfl_fedem": ("dfl_fedem", {}, "gossip_mix_stack"),
+}
+
+
+@pytest.mark.parametrize("label", list(PYTREE_RUNS))
+def test_pytree_replay_equals_the_eager_loop(cuda, label):
+    """The pytree engine's replay equals its loop bit for bit; the loop
+    launches the exchange kernel once a leaf a round (6 leaves: the mlp's
+    three layers' w and b) and kernel 2 never, DP or not; every replayed
+    round launches 6 exchange kernels."""
+    method, opts, kernel = PYTREE_RUNS[label]
+    data, exp = _engine_setup()
+    cfg = RunConfig(eval_every=1, param_plane=False, options=dict(opts, keep_state=True))
+    reset_launch_counts()
+    loop = run_method(method, data, exp, cfg=dataclasses.replace(cfg, scan_rounds=False))
+    counts = {k.__name__: k.launches for k in KERNELS}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        scan = run_method(method, data, exp, cfg=cfg)
+    _assert_same_run(loop, scan)
+    st = scan.extras["state"]
+    assert isinstance(st if isinstance(st, dict) else st.centers, dict)
+    assert counts == {k: (6 * exp.rounds if k == kernel else 0) for k in counts}
+    assert _replayed_exchange_kernels(prof) == [6] * exp.rounds
+    assert (scan.extras["n_captures"], scan.extras["n_dispatches"]) == (1, exp.rounds)
+
+
+@pytest.mark.parametrize("dp", [False, True])
+def test_pytree_round_on_the_card_equals_the_cpu(cuda, dp):
+    """One pytree FedSPD round on the card (kernel 1 a leaf) against the
+    same round on the CPU (the plain versions), with the same selections,
+    batch indices and per-leaf DP noise."""
+    from repro_torch.core.fedspd import make_round_step
+    from repro_torch.core.gossip import make_mix_fn
+    from repro_torch.experiments.registry import build_context, get_method
+    from repro_torch.utils.pytree import tree_leaves, tree_map
+
+    data, exp = _engine_setup()
+    opts = {"param_plane": False}
+    if dp:
+        opts.update(dp_clip=1.0, dp_noise_multiplier=0.5)
+    n, m_pts, cpu = data.n_clients, data.x.shape[1], torch.device("cpu")
+    m = get_method("fedspd")
+    st0 = m.init(build_context(data, exp, cpu, options=opts), torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    s = torch.randint(0, 2, (n,), generator=g)
+    idx = torch.randint(0, m_pts, (exp.tau, n, exp.batch), generator=g)
+    noise = tree_map(lambda leaf: torch.randn(leaf.shape[1:], generator=g), st0.centers)
+    out = {}
+    for dev in (cpu, cuda):
+        ctx = build_context(data, exp, dev, options=opts)
+        spec = m._spec(ctx)
+        step = make_round_step(ctx.loss_fn, ctx.pel_fn, spec, m._fcfg(ctx),
+                               mix_fn=make_mix_fn(spec, plane=False))
+        st = st0._replace(centers=tree_map(lambda leaf: leaf.to(dev, copy=True), st0.centers),
+                          u=st0.u.to(dev), z=st0.z.to(dev), comm_bytes=st0.comm_bytes.to(dev),
+                          gen=torch.Generator(device=dev))
+        reset_launch_counts()
+        new, _ = step(st, ctx.train, s=s.to(dev), idx=idx.to(dev),
+                      noise=tree_map(lambda t: t.to(dev), noise) if dp else None)
+        if dev.type == "cuda":
+            assert gossip_mix_flat.launches == 6 and gossip_mix_fused_dp.launches == 0
+        out[dev.type] = [t.cpu() for t in tree_leaves(new.centers)] + [new.u.cpu()]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert _max_err(a, b) <= TOL
+

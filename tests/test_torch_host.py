@@ -130,8 +130,9 @@ def test_run_method_without_device_raises_on_a_host_without_cuda():
 
 
 # what = "comm" / "sparse" / "cohort_size" / "scan_rounds" / "permute" /
-# "cos_align": a feature refused until its slice, which now runs; any
-# other: the refusal's message names it
+# "cos_align", and "param_plane" alone (the pytree engine): a feature
+# once refused, which now runs; any other (param_plane=False beside a
+# codec or sparse masks among them): the refusal's message names it
 @pytest.mark.parametrize("cfg,what", [
     (RunConfig(param_plane=False), "param_plane"),
     (RunConfig(gossip_mode="permute"), "permute"),
@@ -162,7 +163,8 @@ def test_unported_features_are_refused(cfg, what):
         assert np.isfinite(r.mean_acc) and r.comm_bytes > 0
         assert r.extras["n_captures"] == (what == "scan_rounds")
         return
-    if what in ("permute", "cos_align"):
+    pytree = what == "param_plane" and cfg.comm is None and cfg.sparse is None
+    if what in ("permute", "cos_align") or pytree:
         r = run_method("fedspd", data, PaperExpConfig(rounds=2), cfg=cfg)
         assert np.isfinite(r.mean_acc) and r.comm_bytes > 0
         return

@@ -74,6 +74,7 @@ from repro.serve import load_servable as j_load_servable
 from repro_torch.comm.codecs import CommConfig, make_channel
 from repro_torch.configs.paper_cnn import PaperExpConfig
 from repro_torch.core import gossip as tgossip
+from repro_torch.kernels import gossip_mix as tkernels
 from repro_torch.core.clustering import clustering_accuracy
 from repro_torch.core.fedspd import FedSPDConfig, make_round_step
 from repro_torch.core.gossip import (
@@ -506,7 +507,10 @@ def test_no_aligned_dp_round_calls_the_fused_dp_kernel(monkeypatch, aligned):
             calls[_name] += 1
             return _real(*a, **k)
 
-        monkeypatch.setattr(tgossip, name, counted)
+        # the dense mix reaches kernel 1 through gossip_mix_tree, which
+        # looks it up in the kernels module: count it there as well
+        for module in (tgossip, tkernels):
+            monkeypatch.setattr(module, name, counted)
     data = make_mixture_classification(n_clients=6, n_per_client=32, dim=16)
     opts = dict(DP, **({"cos_align_threshold": 0.5} if aligned else {}))
     r = run_method("fedspd", data, PaperExpConfig(rounds=3, n_clients=6, dim=16),
