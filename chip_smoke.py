@@ -133,8 +133,11 @@ Phases, in order; any failure exits non-zero before the result line:
    on, and B with a cohort of 10, with dense int8 + error feedback and
    with sparse d0.2 + int8 + error feedback, each on the loop and on the
    replay as in phase 8 (bit for bit, staleness included; one exchange
-   kernel in every replayed round, two with sparse; busy shares from
-   rounds 16-18), beside the same run's replay without the scenario;
+   kernel in every replayed round, two with sparse), beside the same
+   run's replay without the scenario; one run of each kind (A and B, DP
+   off: ``SCENARIO_TRACED``) has its replay traced (its kernels round by
+   round, busy shares from rounds 16-18), every other run's exchange
+   kernels a replay come from its loop's counters;
 10. the main-path variants, the slice's path, on the main path's
    population for 12 rounds a run (``VARIANT_ROUNDS``), each loop against
    replay, bit for bit: the conv1d classifier
@@ -174,13 +177,30 @@ Phases, in order; any failure exits non-zero before the result line:
    640, 128, 64, 10) against its plain version, timed by graph replay
    beside its bound and ``torch.matmul``, and the six launches of a
    pytree round against the plane's one launch;
-12. a torch.profiler window over 3 rounds of the main path, one over 3
+12. the telemetry layer (``RunConfig(telemetry=TelemetryConfig())``):
+   FedSPD for 12 rounds (``TELEMETRY_ROUNDS``) on the main path's
+   population with telemetry off and on, each on the loop and on the
+   replay: the mlp DP off and on and the pytree engine, their replays
+   traced over rounds 7-9 (round ms, kernels, device ms and busy share a
+   round, with and without the collector), the fully composed run
+   (scenario B's dropout and ClientSystemModel, a cohort of 10, int8 +
+   error feedback) and sparse d0.2 + int8 + error feedback; every stream
+   of the replay equal to the loop's bit for bit, and telemetry changing
+   no accuracy, curve, byte, u, final tensor, ``n_captures``,
+   ``n_compiles``, ``n_dispatches`` or loop launch; the streams' shapes,
+   finite values, stale_hist rows summing to N, the logical bytes summing
+   to ``comm_bytes``, inactive clients under scenario B, mask churn on the
+   RigL rounds only; the collector alone at the main path's shape, stream
+   by stream (kernels by torch.profiler, µs by graph replay); the mlp
+   replay's JSONL event log written, read back exactly and rendered by
+   ``summary_table``;
+13. a torch.profiler window over 3 rounds of the main path, one over 3
    DP rounds (``dp``: the clip, the noise draw and kernel 2, which it must
    see), one over 3 rounds of the conv classifier (``conv``), one over 3
    pytree rounds (``pytree``, the mlp on ``param_plane=False``) and one of
    the sparse + int8 path: device time per round, the
    kernels that take it, and the device's busy share;
-13. the LM kernels: ``flash_attention`` (kernel 8) at olmo-1b's prefill
+14. the LM kernels: ``flash_attention`` (kernel 8) at olmo-1b's prefill
    (B = 4 requests, L = 512, 16 heads, hd 128, bf16; also fp32), a
    danube-like GQA 32/8 hd-80 layer with a 256 window and a gemma3-like
    hd-256 layer over one kv head, zamba2-1.2b's shared block (MHA 32/32,
@@ -201,7 +221,7 @@ Phases, in order; any failure exits non-zero before the result line:
    CUDA-graph replay beside its bound (bytes over 3.35 TB/s or FLOPs over
    989 TFLOP/s bf16 / 67 TFLOP/s fp32), its plain version and, for
    attention, ``scaled_dot_product_attention``;
-14. LM generation, the fifth path: ``olmo-1b``, ``mamba2-370m`` and (the
+15. LM generation, the fifth path: ``olmo-1b``, ``mamba2-370m`` and (the
    MoE and hybrid slice) ``zamba2-1.2b`` at full width in fp32, int8 and
    int4 with B = 4 requests, and ``olmoe-1b-7b`` in int8 and int4 with B
    = 1 (``LM_SERVE``: its fp32 plane, or a second request, does not fit
@@ -235,7 +255,8 @@ Phases, in order; any failure exits non-zero before the result line:
    torch.profiler, cut into their decode tokens (the server's
    ``DECODE_SPAN``): device ms and kernels a token, and each engine's busy
    share (device ms a token over its unprofiled decode ms a token); then
-   ``python -m repro_torch.launch.serve`` once.
+   ``python -m repro_torch.launch.serve`` once, with ``--telemetry-out``:
+   its serve events read back and rendered by ``summary_table``.
 
 It then prints its seconds (``chip_smoke: … s``), one
 ``{"kernels": [...]}`` line and, last, the
@@ -267,6 +288,7 @@ ENGINE_ROUNDS = 60   # the paper's rounds (configs/paper_cnn.py), for the engine
 SCENARIO_ROUNDS = 30   # the scenarios phase's depth (half the paper's rounds)
 VARIANT_ROUNDS = 12    # the variants phase's runs
 PYTREE_ROUNDS = 12     # the pytree phase's FedSPD runs
+TELEMETRY_ROUNDS = 12  # the telemetry phase's runs
 # the pytree phase's baselines, one id per class, and the mlp's leaf widths
 PYTREE_BASELINES = {"local": None, "dfl_fedavg": "gossip_mix_flat",
                     "dfl_fedem": "gossip_mix_stack", "dfl_ifca": "gossip_mix_flat",
@@ -343,6 +365,7 @@ SSD_MMA_KERNELS = ("ssd_chunk_state_mma", "ssd_chunk_out_mma")   # kernel 9's bf
 # link dropout, and scenario B, a Markov client-system model with
 # stragglers and stale-gossip decay, with the same dropout
 SCENARIO_DROPOUT = 0.2
+SCENARIO_TRACED = ("A", "B")   # the scenario runs whose replays are traced, one a kind
 SCENARIO_REWIRE = dict(kind="er", n=20, avg_degree=5.0, p_rewire=0.3, seed=2)
 SCENARIO_SYSTEM = dict(slow_fraction=0.34, slow_factor=4.0, time_budget=2.0, jitter=0.3,
                        markov=(0.3, 0.7), staleness_gamma=0.9, seed=5)
@@ -987,14 +1010,16 @@ def profiled(rounds: int) -> tuple[int, int]:
 
 def _windowed(run, cfg, rounds: int):
     """``run`` with a profiler over the rounds ``profiled(rounds)`` only,
-    started and stopped by the run's ``on_round`` hook. Returns the result, the
+    started and stopped by the run's ``on_round`` hook. The profiler starts
+    one round early and that round's kernels are dropped: the trace can miss
+    the first launches after the profiler starts. Returns the result, the
     profiled rounds' kernels, and the device ms a round, the median round
-    ms of the rounds not profiled (round 1 aside: first-use costs) and
+    ms of the rounds not profiled (round 1 and the dropped round aside) and
     their ratio, the busy share, all of this one run."""
     prof, (first, end) = _profiler(), profiled(rounds)
 
     def on_round(r):
-        if r == first - 1:
+        if r == first - 2:
             prof.start()
         elif r == end - 1:
             prof.stop()
@@ -1002,25 +1027,29 @@ def _windowed(run, cfg, rounds: int):
     res = run(dataclasses.replace(cfg, on_round=on_round))
     one = res[0] if isinstance(res, list) else res
     windows = _round_kernels(prof)
-    check(len(windows) == end - first,
-          f"the profiled window holds {len(windows)} rounds, expected {end - first}")
+    check(len(windows) == end - first + 1,
+          f"the profiled window holds {len(windows)} rounds, expected {end - first + 1}")
+    windows = windows[1:]
     dev = statistics.median(sum(k.time_range.elapsed_us() for k in w) / 1e3 for w in windows)
     free = statistics.median(v for i, v in enumerate(one.extras["round_ms"])
-                             if i and not first <= i < end)
+                             if i and not first - 1 <= i < end)
     return res, windows, {"device_ms": dev, "round_ms": free, "busy": dev / free}
 
 
-def _engine_pair(torch, gm, label, method, data, exp, cfg, seeds=None, busy=False):
+def _engine_pair(torch, gm, label, method, data, exp, cfg, seeds=None, busy=False,
+                 trace=True):
     """The same run on the loop engine (``scan_rounds=False``) and on the
     card's default engine, the replay, each with every launch counter set
     to 0 just before it and read just after, the replayed run under
-    torch.profiler. Fails unless the two are equal bit for bit, the
+    torch.profiler (``trace``; without it the replay runs unprofiled and
+    ``windows`` is None). Fails unless the two are equal bit for bit, the
     replay's counters (its warm-up's and capture's launches) name the
-    kernels the loop's name, every replayed round ran kernels on the card,
-    and the replays launched as many exchange kernels as the loop's
-    counters. With ``busy``, the loop run and a second replayed run are
-    profiled over ``profiled(rounds)`` only (``_windowed``): each engine's
-    device ms a round and busy share from one run. Returns a dict."""
+    kernels the loop's name and, traced, every replayed round ran kernels
+    on the card and the replays launched as many exchange kernels as the
+    loop's counters. With ``busy``, the loop run and a second replayed run
+    are profiled over ``profiled(rounds)`` only (``_windowed``): each
+    engine's device ms a round and busy share from one run. Returns a
+    dict."""
     from repro_torch.experiments import run_method, run_method_batch
 
     def run(c):
@@ -1042,7 +1071,10 @@ def _engine_pair(torch, gm, label, method, data, exp, cfg, seeds=None, busy=Fals
         loop = run(loop_cfg)
     loop_counts = {k.__name__: k.launches for k in gm.KERNELS}
     gm.reset_launch_counts()
-    with _profiler() as prof:
+    if trace:
+        with _profiler() as prof:
+            scan = run(scan_cfg)
+    else:
         scan = run(scan_cfg)
     counts = {k.__name__: k.launches for k in gm.KERNELS}
     same(loop, scan, "the replay")
@@ -1051,14 +1083,17 @@ def _engine_pair(torch, gm, label, method, data, exp, cfg, seeds=None, busy=Fals
     first = scan[0] if seeds is not None else scan
     check(first.extras["n_dispatches"] == exp.rounds,
           f"engines {label}: {first.extras['n_dispatches']} dispatches in {exp.rounds} rounds")
-    windows = _round_kernels(prof)
-    check(len(windows) == exp.rounds,
-          f"engines {label}: the trace holds {len(windows)} round spans, expected {exp.rounds}")
-    check(all(windows), f"engines {label}: a replayed round ran no kernel on the card")
-    replayed = sum(_is_exchange(k.name) for w in windows for k in w)
-    check(replayed == sum(loop_counts.values()),
-          f"engines {label}: the replays launched {replayed} exchange kernels, the loop "
-          f"{sum(loop_counts.values())}")
+    windows = None
+    if trace:
+        windows = _round_kernels(prof)
+        check(len(windows) == exp.rounds,
+              f"engines {label}: the trace holds {len(windows)} round spans, expected "
+              f"{exp.rounds}")
+        check(all(windows), f"engines {label}: a replayed round ran no kernel on the card")
+        replayed = sum(_is_exchange(k.name) for w in windows for k in w)
+        check(replayed == sum(loop_counts.values()),
+              f"engines {label}: the replays launched {replayed} exchange kernels, the loop "
+              f"{sum(loop_counts.values())}")
     if busy:
         scan_w, _, out["replay_busy"] = _windowed(run, scan_cfg, exp.rounds)
         first_r, end_r = profiled(exp.rounds)
@@ -1076,7 +1111,7 @@ def _engine_line(label, pair) -> None:
     loop, scan, windows = pair["loop"], pair["scan"], pair["windows"]
     lm, sm = loop.extras["round_ms"], scan.extras["round_ms"]
     names: dict = {}
-    for k in windows[-1]:
+    for k in (windows or [[]])[-1]:
         if _is_exchange(k.name):
             sym = re.search(r"\w*mix_\w*kernel\w*(<.*?>(?=\())?", k.name)
             key = (sym.group(0) if sym else k.name[:80]).replace("(anonymous namespace)::", "")
@@ -1091,15 +1126,17 @@ def _engine_line(label, pair) -> None:
                      f"{b['round_ms']:.4f} device_busy_share {b['busy']:.4f}")
     print(f"engines {label}: loop round_ms median(rounds 2-{len(lm)}) "
           f"{statistics.median(lm[1:]):.4f} replay round_ms median "
-          f"{statistics.median(sm[1:]):.4f} first {sm[0]:.4f} (whole run profiled) "
-          f"kernels_per_round {len(windows[-1])}{busy} capture_ms "
+          f"{statistics.median(sm[1:]):.4f} first {sm[0]:.4f} "
+          + (f"(whole run profiled) kernels_per_round {len(windows[-1])}" if windows else
+             "(not profiled) kernels_per_round not traced")
+          + f"{busy} capture_ms "
           f"{json.dumps([round(v, 1) for v in scan.extras['capture_ms']])} n_captures "
           f"{scan.extras['n_captures']} n_dispatches {scan.extras['n_dispatches']} "
           f"(loop {loop.extras['n_dispatches']}) mean_acc {scan.mean_acc:.6f} comm_bytes "
           f"{scan.comm_bytes:.0f} replay counters (warm-up + capture) "
           f"{json.dumps(pair['counts'])} exchange kernels in the last replay "
-          f"{json.dumps(names)} loop wall_s {loop.wall_s:.2f} replay wall_s {scan.wall_s:.2f} "
-          "replay vs loop: equal", flush=True)
+          f"{json.dumps(names) if windows else 'not traced'} loop wall_s {loop.wall_s:.2f} "
+          f"replay wall_s {scan.wall_s:.2f} replay vs loop: equal", flush=True)
 
 
 def phase_engines(torch, gm) -> dict:
@@ -1294,12 +1331,15 @@ def phase_scenarios(torch, gm, card: str) -> dict:
     (rewired ER schedule + dropout) and B (Markov heterogeneity + dropout),
     DP off and on, and B also with a cohort of 10, with dense int8 + error
     feedback and with sparse d0.2 + int8 + error feedback, each on the loop
-    engine and on the replay (``_engine_pair``, busy shares from
-    ``_windowed``): bit for bit equal (accuracies, bytes, staleness, the
-    final plane), one exchange kernel in every replayed round (two with
-    sparse), and beside each the same run's replay without the scenario.
-    The runs evaluate once, after the last round. Returns the loop runs'
-    launches."""
+    engine and on the replay (``_engine_pair``): bit for bit equal
+    (accuracies, bytes, staleness, the final plane), one exchange kernel
+    in every replayed round (two with sparse), and beside each the same
+    run's replay without the scenario. One run of each scenario kind (A
+    and B, DP off) is traced (``SCENARIO_TRACED``): its replay's kernels
+    counted round by round, busy shares from ``_windowed``; every other
+    run's exchange kernels a replay come from its loop's counters, and its
+    replay's counters name the loop's kernels. The runs evaluate once,
+    after the last round. Returns the loop runs' launches."""
     from repro_torch.comm.codecs import CommConfig
     from repro_torch.configs.paper_cnn import PaperExpConfig
     from repro_torch.core.sparse import SparseConfig
@@ -1323,22 +1363,37 @@ def phase_scenarios(torch, gm, card: str) -> dict:
         # one evaluation, after the last round: the traced runs stay short
         plain_cfg = RunConfig(eval_every=10**9, **kw)
         cfg = dataclasses.replace(plain_cfg, scenario=_scenario(SCENARIO_ROUNDS, kind))
-        pair = _engine_pair(torch, gm, f"scenario {label}", "fedspd", data, exp, cfg, busy=True)
+        traced = label in SCENARIO_TRACED
+        pair = _engine_pair(torch, gm, f"scenario {label}", "fedspd", data, exp, cfg,
+                            busy=traced, trace=traced)
         _engine_line(f"scenario {label}", pair)
         for name, c in pair["loop_counts"].items():
             launches[name] = launches.get(name, 0) + c
         scan = pair["scan"]
-        per = [sum(_is_exchange(k.name) for k in w) for w in pair["windows"]]
+        if traced:
+            per = [sum(_is_exchange(k.name) for k in w) for w in pair["windows"]]
+            per_what = "exchange kernels per replay (trace)"
+            lb, rb = pair["loop_busy"], pair["replay_busy"]
+            timing = (f"round_ms median(rounds 2-{SCENARIO_ROUNDS} less the profiled "
+                      f"{first}-{end}) loop {lb['round_ms']:.4f} replay {rb['round_ms']:.4f} "
+                      f"device_ms_per_round replay {rb['device_ms']:.4f} busy share replay "
+                      f"{rb['busy']:.4f} loop {lb['busy']:.4f}")
+        else:
+            # the loop launches a wrapper's kernel once a call: its counters
+            # over the rounds are the exchange kernels a round
+            total = sum(pair["loop_counts"].values())
+            per = [total // SCENARIO_ROUNDS] * (SCENARIO_ROUNDS - 1) + [
+                total - (SCENARIO_ROUNDS - 1) * (total // SCENARIO_ROUNDS)]
+            per_what = "exchange kernels per replay (the loop's counters)"
+            timing = (f"round_ms median(rounds 2-{SCENARIO_ROUNDS}) loop "
+                      f"{statistics.median(pair['loop'].extras['round_ms'][1:]):.4f} replay "
+                      f"{statistics.median(scan.extras['round_ms'][1:]):.4f} (not traced)")
         plain = run_method("fedspd", data, exp, cfg=plain_cfg)
         stale = scan.extras.get("staleness")
-        lb, rb = pair["loop_busy"], pair["replay_busy"]
-        print(f"scenario {label} ({card}): round_ms median(rounds 2-{SCENARIO_ROUNDS} less the "
-              f"profiled {first + 1}-{end}) loop {lb['round_ms']:.4f} "
-              f"replay {rb['round_ms']:.4f} device_ms_per_round replay {rb['device_ms']:.4f} "
-              f"busy share replay {rb['busy']:.4f} loop {lb['busy']:.4f} "
+        print(f"scenario {label} ({card}): {timing} "
               f"capture_ms {json.dumps([round(v, 1) for v in scan.extras['capture_ms']])} "
               f"n_captures {scan.extras['n_captures']} n_dispatches "
-              f"{scan.extras['n_dispatches']} exchange kernels per replay "
+              f"{scan.extras['n_dispatches']} {per_what} "
               f"{json.dumps(sorted(set(per)))} mean_acc {scan.mean_acc:.6f} without the "
               f"scenario {plain.mean_acc:.6f} comm_bytes {scan.comm_bytes:.0f} without "
               f"{plain.comm_bytes:.0f} staleness "
@@ -1573,7 +1628,7 @@ def phase_variants(torch, gm, card: str) -> tuple[dict, dict, float, dict]:
         scan = pair["scan"]
         if "replay_busy" in pair:
             lb, rb = pair["loop_busy"], pair["replay_busy"]
-            ms = (f"round_ms median(rounds 2-{VARIANT_ROUNDS} less the profiled {first + 1}-"
+            ms = (f"round_ms median(rounds 2-{VARIANT_ROUNDS} less the profiled {first}-"
                   f"{end}) loop {lb['round_ms']:.4f} replay {rb['round_ms']:.4f} "
                   f"device_ms_per_round replay {rb['device_ms']:.4f} busy share replay "
                   f"{rb['busy']:.4f} loop {lb['busy']:.4f}")
@@ -1803,7 +1858,7 @@ def phase_pytree(torch, gm, card: str, planes: dict,
                         f"kernels_per_round {len(pp['windows'][-1])} device_ms_per_round "
                         f"{rb['device_ms']:.4f} device_busy_share {rb['busy']:.4f};")
         print(f"pytree {label} ({card}): round_ms median(rounds 2-{PYTREE_ROUNDS}) loop "
-              f"{lm:.4f} replay (less the profiled {first + 1}-{end}) {busy['round_ms']:.4f} "
+              f"{lm:.4f} replay (less the profiled {first}-{end}) {busy['round_ms']:.4f} "
               f"replay (rounds {first + 1}-{end} profiled): kernels_per_round "
               f"{len(windows[-1])} device_ms_per_round {busy['device_ms']:.4f} "
               f"device_busy_share {busy['busy']:.4f};{plane_ms} capture_ms "
@@ -1852,6 +1907,266 @@ def phase_pytree(torch, gm, card: str, planes: dict,
               f"plane's {p.mean_acc} / {p.comm_bytes}")
     rows, round_row = _pytree_kernel_rows(torch, gm)
     return launches, rows, round_row, loop_ms
+
+
+def _telemetry_pair(torch, gm, label, method, data, exp, cfg, traced: bool) -> dict:
+    """The same run with telemetry off and on, each on the loop engine and
+    on the replay, every launch counter set to 0 just before each loop run
+    and read just after. Fails unless telemetry changed nothing of the
+    training (per-client accuracy, curve, bytes, u, every tensor of the
+    final state, ``n_captures``, ``n_compiles``, ``n_dispatches`` and the
+    loop's launches), the replay equals the loop bit for bit, and every
+    stream of the replay equals the loop's bit for bit. With ``traced`` both
+    replays run under ``_windowed``: kernels, device ms and busy share a
+    round from rounds ``profiled(rounds)``. Returns {"off": …, "on": …}."""
+    import numpy as np
+
+    from repro_torch.experiments import run_method
+    from repro_torch.telemetry import TelemetryConfig
+
+    def run(c):
+        return run_method(method, data, exp, cfg=c)
+
+    out = {}
+    for key, tel in (("off", None), ("on", TelemetryConfig())):
+        c = dataclasses.replace(cfg, telemetry=tel)
+        gm.reset_launch_counts()
+        loop = run(dataclasses.replace(c, scan_rounds=False))
+        counts = {k.__name__: k.launches for k in gm.KERNELS}
+        scan_cfg = dataclasses.replace(c, scan_rounds=None)
+        if traced:
+            scan, windows, busy = _windowed(run, scan_cfg, exp.rounds)
+        else:
+            scan, windows, busy = run(scan_cfg), None, None
+        diff = _same_run(torch, loop, scan)
+        check(not diff, f"telemetry {label} ({key}): the replay differs from the loop in {diff}")
+        out[key] = dict(loop=loop, scan=scan, counts=counts, windows=windows, busy=busy)
+    off, on = out["off"], out["on"]
+    for engine in ("loop", "scan"):
+        a, b = off[engine], on[engine]
+        diff = _same_run(torch, a, b)
+        if "staleness" not in a.extras:
+            # with telemetry, a run without a system model reports its
+            # all-zero staleness counters
+            check(not np.any(b.extras["staleness"]),
+                  f"telemetry {label}: staleness {b.extras['staleness']} without a system model")
+            diff = [d for d in diff if d != "staleness"]
+        diff += [k for k in ("n_captures", "n_compiles", "n_dispatches")
+                 if a.extras[k] != b.extras[k]]
+        check(not diff, f"telemetry {label}: the {engine} with telemetry differs from the run "
+                        f"without it in {diff}")
+        check(a.telemetry is None and b.telemetry is not None,
+              f"telemetry {label}: streams off {a.telemetry is not None}, on "
+              f"{b.telemetry is not None}")
+    check(off["counts"] == on["counts"],
+          f"telemetry {label}: loop launches {on['counts']} with telemetry, "
+          f"{off['counts']} without")
+    ls, rs = on["loop"].telemetry["streams"], on["scan"].telemetry["streams"]
+    differ = [k for k in ls if not np.array_equal(ls[k], rs[k], equal_nan=True)]
+    check(not differ, f"telemetry {label}: the replay's streams {differ} differ from the loop's")
+    if traced:
+        per = {key: [sum(_is_exchange(k.name) for k in w) for w in out[key]["windows"]]
+               for key in out}
+        check(per["off"] == per["on"],
+              f"telemetry {label}: exchange kernels a traced replay {per['on']} with "
+              f"telemetry, {per['off']} without")
+    return out
+
+
+def _telemetry_breakdown(torch, card: str) -> None:
+    """The collector alone at the main path's shape (N = 20, S = 2, the
+    mlp's X = 17,226): each stream's ops and the runner's whole round of
+    telemetry (the snapshot of the old u and bytes, the collector and the
+    11 tape writes at a device round counter), each captured in a CUDA
+    graph and timed by replay (``graph_ms``), its kernels counted in one
+    torch.profiler trace from the second of two eager calls each (the
+    trace can miss the first launches after the profiler starts)."""
+    from repro_torch.configs.paper_cnn import PaperExpConfig
+    from repro_torch.data.synthetic import make_mixture_classification
+    from repro_torch.device import make_generator
+    from repro_torch.experiments.registry import build_context, get_method
+    from repro_torch.experiments.runner import _Telemetry
+    from repro_torch.telemetry import TelemetryConfig
+    from repro_torch.telemetry import metrics as tm
+
+    dev = torch.device("cuda")
+    ctx = build_context(make_mixture_classification(), PaperExpConfig(), dev)
+    m, cfg = get_method("fedspd"), TelemetryConfig()
+    state = m.init(ctx, make_generator(dev, 0))
+    tel = _Telemetry(m, ctx, state, cfg, TELEMETRY_ROUNDS)
+    new = state._replace(u=torch.softmax(torch.randn_like(state.u), -1),
+                         comm_bytes=state.comm_bytes + 68904.0)
+    ctr = torch.zeros(1, dtype=torch.int64, device=dev)
+    n = ctx.n_clients
+    stale = torch.randint(0, 7, (n,), dtype=torch.int32, device=dev)
+    fns = {
+        "u_entropy": lambda: tm.mixture_entropy(new.u),
+        "u_drift": lambda: tm.mixture_drift(state.u, new.u),
+        "consensus": lambda: tm.consensus_residual(tm.flatten_centers(new.centers)),
+        "degree": lambda: tm.effective_degree(tel.adj),
+        "spectral_gap": lambda: tm.spectral_gap_proxy(tel.adj, cfg.power_iters),
+        "stale_hist": lambda: tm.staleness_histogram(stale, cfg.staleness_bins),
+        "collector": lambda: tel.collect(state, new, tel.adj),
+        "round (snapshot, collector, tape writes)":
+            lambda: tel.after(ctr, tel.before(state), new, None, None, None),
+    }
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    with _profiler() as prof:
+        for _ in range(2):
+            for name, fn in fns.items():
+                with torch.profiler.record_function(f"telemetry.{name}"):
+                    fn()
+            torch.cuda.synchronize()
+    row = {}
+    for name, fn in fns.items():
+        kernels = _round_kernels(prof, f"telemetry.{name}")
+        check(len(kernels) == 2 and kernels[-1],
+              f"telemetry collector: {name} ran no kernel in its second span "
+              f"({[len(k) for k in kernels]} kernels in its spans)")
+        row[name] = {"kernels": len(kernels[-1]),
+                     "us": round(graph_ms(fn, reps=20) * 1e3, 2)}
+    print(f"telemetry collector ({card}) at N={n}, S={ctx.n_clusters}, "
+          f"X={ctx.pack_spec.size} (graph replay, kernels by torch.profiler): "
+          f"{json.dumps(row)}", flush=True)
+
+
+def phase_telemetry(torch, gm, card: str) -> dict:
+    """The telemetry path: FedSPD with ``RunConfig(telemetry=...)`` on the
+    main path's population for TELEMETRY_ROUNDS rounds, with telemetry off
+    and on, each on the loop and on the replay (``_telemetry_pair``): the
+    mlp DP off and on and the pytree engine (``param_plane=False``), their
+    replays traced over rounds ``profiled(TELEMETRY_ROUNDS)``; the fully
+    composed run (scenario B's dropout and ClientSystemModel, a cohort of
+    10, int8 + error feedback) and sparse d0.2 + int8 + error feedback
+    untraced. Then the collector alone (``_telemetry_breakdown``) and the
+    JSONL event log of the mlp's replay written, read back exactly and
+    rendered by ``summary_table``. Returns the loop runs' launches with
+    telemetry on."""
+    import numpy as np
+
+    from repro_torch.comm.codecs import CommConfig
+    from repro_torch.configs.paper_cnn import PaperExpConfig
+    from repro_torch.core.sparse import SparseConfig
+    from repro_torch.data.synthetic import make_mixture_classification
+    from repro_torch.experiments import RunConfig
+    from repro_torch.telemetry import (STREAMS, read_events, streams_from_events,
+                                       summary_table, write_run_jsonl)
+
+    data, exp = make_mixture_classification(), PaperExpConfig(rounds=TELEMETRY_ROUNDS)
+    n, s_clusters = data.n_clients, data.n_clusters
+    keep = {"keep_state": True}
+    int8 = CommConfig(codec="int8", error_feedback=True)
+    first, end = profiled(TELEMETRY_ROUNDS)
+    launches: dict = {}
+    jsonl_run = None
+    for label, cfg, traced, kernel, sparse in (
+            ("mlp", RunConfig(eval_every=10**9, options=keep), True,
+             gm.gossip_mix_flat, False),
+            ("mlp dp", RunConfig(eval_every=10**9, options=dict(DP_OPTIONS, **keep)), True,
+             gm.gossip_mix_fused_dp, False),
+            ("pytree mlp", RunConfig(eval_every=10**9, param_plane=False, options=keep),
+             True, gm.gossip_mix_flat, False),
+            ("composed B cohort 10/20 int8+ef", RunConfig(
+                eval_every=10**9, cohort_size=10, comm=int8, options=keep,
+                scenario=_scenario(TELEMETRY_ROUNDS, "B")), False, gm.gossip_mix_dequant, False),
+            ("sparse d0.2 int8+ef", RunConfig(eval_every=10**9, comm=int8, options=keep,
+                                              sparse=SparseConfig(**SPARSE)),
+             False, gm.gossip_mix_dequant_masked, True)):
+        pair = _telemetry_pair(torch, gm, label, "fedspd", data, exp, cfg, traced)
+        off, on = pair["off"], pair["on"]
+        for name, c in on["counts"].items():
+            launches[name] = launches.get(name, 0) + c
+        check(on["counts"][kernel.__name__] > 0,
+              f"telemetry {label}: {kernel.__name__} was not launched by the loop")
+        scan = on["scan"]
+        st = scan.telemetry["streams"]
+        check(scan.telemetry["rounds"] == TELEMETRY_ROUNDS
+              and sorted(st) == sorted(STREAMS),
+              f"telemetry {label}: streams {sorted(st)} over {scan.telemetry['rounds']} rounds")
+        shapes = {k: v.shape for k, v in st.items()}
+        check(all(shapes[k] == ((TELEMETRY_ROUNDS, s_clusters) if k == "consensus" else
+                                (TELEMETRY_ROUNDS, 5) if k == "stale_hist" else
+                                (TELEMETRY_ROUNDS,)) for k in STREAMS),
+              f"telemetry {label}: stream shapes {shapes}")
+        live = [k for k in STREAMS if k not in ("density", "mask_churn")] + (
+            ["density", "mask_churn"] if sparse else [])
+        check(all(np.isfinite(st[k]).all() for k in live),
+              f"telemetry {label}: a stream of {live} is not finite")
+        check(sparse or (np.isnan(st["density"]).all() and np.isnan(st["mask_churn"]).all()),
+              f"telemetry {label}: mask streams without masks")
+        check(bool((st["stale_hist"].sum(-1) == n).all()),
+              f"telemetry {label}: a stale_hist row does not sum to N = {n}")
+        logical = float(np.sum(st["logical_bytes"], dtype=np.float64))
+        check(abs(logical - scan.comm_bytes) <= 1e-6 * scan.comm_bytes,
+              f"telemetry {label}: the logical_bytes stream sums to {logical}, comm_bytes "
+              f"{scan.comm_bytes}")
+        moved = st["logical_bytes"] > 0
+        if "int8" in label:
+            check(bool(moved.any()) and bool((st["wire_bytes"][moved]
+                                              < st["logical_bytes"][moved]).all()),
+                  f"telemetry {label}: wire_bytes not below logical_bytes under int8")
+        if label.startswith("composed"):
+            check(float(st["n_inactive"].max()) > 0,
+                  f"telemetry {label}: no client inactive in any round")
+            check(np.array_equal(scan.extras["staleness"], on["loop"].extras["staleness"]),
+                  f"telemetry {label}: staleness differs between the engines")
+        if sparse:
+            upd = [r for r in range(TELEMETRY_ROUNDS) if st["mask_churn"][r] > 0]
+            check(upd and all(SparseConfig(**SPARSE).update_due(r) for r in upd),
+                  f"telemetry {label}: mask churn in rounds {upd}")
+        if traced:
+            ms = {key: pair[key]["busy"]["round_ms"] for key in pair}
+            k_off, k_on = (len(pair[key]["windows"][-1]) for key in ("off", "on"))
+            d_off, d_on = (pair[key]["busy"]["device_ms"] for key in ("off", "on"))
+            trace = (f"rounds {first + 1}-{end} traced: kernels_per_round off {k_off} on "
+                     f"{k_on} (+{k_on - k_off}) device_ms_per_round off {d_off:.4f} on "
+                     f"{d_on:.4f} (+{d_on - d_off:.4f}) device_busy_share off "
+                     f"{pair['off']['busy']['busy']:.4f} on {pair['on']['busy']['busy']:.4f}; ")
+            ms_what = f"median(rounds 2-{TELEMETRY_ROUNDS} less the profiled {first}-{end})"
+        else:
+            ms = {key: statistics.median(pair[key]["scan"].extras["round_ms"][1:])
+                  for key in pair}
+            trace, ms_what = "not traced; ", f"median(rounds 2-{TELEMETRY_ROUNDS})"
+        lm = {key: statistics.median(pair[key]["loop"].extras["round_ms"][1:]) for key in pair}
+        last = {k: (round(float(v[-1]), 6) if v.ndim == 1 else [round(float(x), 6) for x in v[-1]])
+                for k, v in st.items()}
+        print(f"telemetry {label} ({card}): replay round_ms {ms_what} off {ms['off']:.4f} on "
+              f"{ms['on']:.4f} (+{ms['on'] - ms['off']:.4f}); {trace}loop round_ms off "
+              f"{lm['off']:.4f} on {lm['on']:.4f}; n_captures {scan.extras['n_captures']} "
+              f"n_compiles {scan.extras['n_compiles']} (loop "
+              f"{on['loop'].extras['n_compiles']}) n_dispatches {scan.extras['n_dispatches']} "
+              f"(loop {on['loop'].extras['n_dispatches']}) as without telemetry; mean_acc "
+              f"{scan.mean_acc:.6f} comm_bytes {scan.comm_bytes:.0f} as without; loop launches "
+              f"{json.dumps({k: c for k, c in on['counts'].items() if c})} as without; streams "
+              f"replay vs loop: equal; last round {json.dumps(last)}", flush=True)
+        if label == "mlp":
+            jsonl_run = scan
+
+    _telemetry_breakdown(torch, card)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "telemetry.jsonl")
+        write_run_jsonl(path, jsonl_run, meta={"seed": 0, "n_clients": n})
+        events = read_events(path)
+        nbytes = os.path.getsize(path)
+    parsed = streams_from_events(events)
+    differ = [k for k, v in jsonl_run.telemetry["streams"].items()
+              if not np.array_equal(parsed[k], np.asarray(v, np.float64), equal_nan=True)]
+    check(not differ, f"telemetry jsonl: streams {differ} do not read back exactly")
+    summ = events[-1]
+    check(summ["event"] == "summary" and summ["n_compiles"] == 1
+          and summ["n_dispatches"] == TELEMETRY_ROUNDS and summ["mean_acc"] == jsonl_run.mean_acc,
+          f"telemetry jsonl: summary {summ}")
+    table = summary_table(events)
+    check(all(f"| {k} |" in table for k in STREAMS),
+          "telemetry jsonl: the summary table lacks a stream's row")
+    print(f"telemetry jsonl: {len(events)} events, {nbytes} bytes, read back exactly; "
+          "summary_table:", flush=True)
+    for line in table.strip().splitlines():
+        print(f"telemetry table {line}", flush=True)
+    return launches
 
 
 def phase_agreement(torch) -> None:
@@ -3025,17 +3340,36 @@ def _timed_call(torch, fn) -> float:
 
 
 def phase_lm_cli() -> None:
-    """``python -m repro_torch.launch.serve`` at full width, once."""
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "olmo-1b",
-           "--prompt-len", str(LM_PROMPT), "--gen", str(LM_GEN), "--codec", "int8",
-           "--mixture", "0.7,0.3"]
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    r = subprocess.run(cmd, capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
-    lines = r.stdout.strip().splitlines()
-    print("lm cli: " + " | ".join(lines[:2]), flush=True)
-    check(r.returncode == 0, f"launch.serve exited {r.returncode}: {r.stderr[-2000:]}")
-    check(any(line.startswith("generated 16 tokens") for line in lines),
-          "launch.serve printed no generation line")
+    """``python -m repro_torch.launch.serve`` at full width, once, with
+    ``--telemetry-out``: its serve events read back and rendered by the
+    port's ``summary_table`` (the telemetry path's serve log)."""
+    from repro_torch.telemetry import read_events, summary_table
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "serve.jsonl")
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "olmo-1b",
+               "--prompt-len", str(LM_PROMPT), "--gen", str(LM_GEN), "--codec", "int8",
+               "--mixture", "0.7,0.3", "--telemetry-out", out]
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+        lines = r.stdout.strip().splitlines()
+        print("lm cli: " + " | ".join(lines[:2]), flush=True)
+        check(r.returncode == 0, f"launch.serve exited {r.returncode}: {r.stderr[-2000:]}")
+        check(any(line.startswith("generated 16 tokens") for line in lines),
+              "launch.serve printed no generation line")
+        events = read_events(out)
+    kinds = [e["event"] for e in events]
+    check(kinds == ["serve_meta", "serve_batch", "serve_summary"],
+          f"launch.serve --telemetry-out wrote events {kinds}")
+    summ = events[-1]
+    check(summ["codec"] == "int8" and summ["n_compiles"] == 1 and summ["dequant_calls"] == 1
+          and summ["requests"] == LM_B and summ["p50_ms"] > 0,
+          f"launch.serve --telemetry-out: serve_summary {summ}")
+    table = summary_table(events)
+    check("| int8 |" in table, "the serve log's summary table has no int8 row")
+    print(f"telemetry serve (launch.serve --telemetry-out): {json.dumps(summ)}", flush=True)
+    for line in table.strip().splitlines():
+        print(f"telemetry serve table {line}", flush=True)
 
 
 def main() -> None:
@@ -3116,6 +3450,9 @@ def main() -> None:
         torch, gm, card, planes, conv_pair)
     print(f"pytree phase: {time.perf_counter() - t:.1f} s", flush=True)
     rows["gossip_mix_flat"].extend(pytree_rows)
+    t = time.perf_counter()
+    telemetry_launches = phase_telemetry(torch, gm, card)
+    print(f"telemetry phase: {time.perf_counter() - t:.1f} s", flush=True)
     phase_profile(torch, round_ms)
     phase_profile(torch, dp_round_ms, label="dp", options=DP_OPTIONS)
     phase_profile(torch, conv_round_ms, label="conv", model="conv")
@@ -3133,12 +3470,14 @@ def main() -> None:
 
     # every launch on the paths driven on the loop engine: the FedSPD main
     # path (DP off and on), serving, the baselines (uncompressed and
-    # compressed), the sparse/comm runs,
-    # the scenario runs, the variants' loop and stream runs, the pytree
-    # engine's loop runs and LM generation (the replays launch through the graph, not the wrappers:
-    # the engines, scenarios and variants phases count them in their traces)
+    # compressed), the sparse/comm runs, the scenario runs, the variants'
+    # loop and stream runs, the pytree engine's loop runs, the telemetry
+    # phase's loop runs with telemetry on and LM generation (the replays
+    # launch through the graph, not the wrappers: the engines, scenarios,
+    # variants, pytree and telemetry phases count them in their traces)
     for path in (serve_launches, baseline_launches, baseline_comm_launches, sparse_launches,
-                 scenario_launches, variant_launches, pytree_launches, lm_launches):
+                 scenario_launches, variant_launches, pytree_launches, telemetry_launches,
+                 lm_launches):
         for name, c in path.items():
             launches[name] = launches.get(name, 0) + c
     replaces = {"gossip_mix_flat": "src/repro/kernels/gossip_mix.py:63",
@@ -3210,6 +3549,8 @@ def main() -> None:
                                                      "hd", "chunk", "dtype")},
             card=card, shapes=rs))
     for k in kernels:
+        # the launches on the telemetry phase's loop runs with telemetry on
+        k["telemetry_launches"] = telemetry_launches.get(k["name"], 0)
         if k["name"] in scenario_errs:
             # the same kernel on scenario B's weighted W
             k["scenario_w_max_abs_err"] = scenario_errs[k["name"]]

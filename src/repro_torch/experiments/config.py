@@ -6,7 +6,8 @@ honours ``gossip_mode`` ("dense" or "permute"), ``gossip_backend``
 ("cuda" or "reference"), ``param_plane`` (the packed plane, the port's
 default, or the per-leaf pytree engine), ``comm`` (every method),
 ``sparse`` (FedSPD only), ``eval_every``, ``scan_rounds``,
-``cohort_size`` (FedSPD only), ``scenario`` (FedSPD only), ``options``
+``cohort_size`` (FedSPD only), ``scenario`` (FedSPD only), ``telemetry``
+(every method), ``options``
 (``mode``, ``param_plane``, ``dp_clip``,
 ``dp_noise_multiplier``, ``tau_final``, ``cos_align_threshold``,
 ``keep_state``, ``comm``, ``sparse``), ``device`` and ``on_round``.
@@ -23,6 +24,7 @@ from repro_torch.core.gossip import MIX_BACKENDS, MODES
 from repro_torch.core.sparse import SparseConfig
 from repro_torch.experiments.heterogeneity import ClientSystemModel
 from repro_torch.experiments.scenarios import Scenario
+from repro_torch.telemetry.config import TelemetryConfig
 
 # the options keys the port honours; any other key is refused
 _OPTIONS = ("mode", "gossip_backend", "param_plane", "dp_clip",
@@ -92,6 +94,9 @@ class RunConfig:
                     a stream of their own, train and exchange (FedSPD only)
     scenario        experiments/scenarios.Scenario: a graph schedule, link
                     dropout and a ClientSystemModel (FedSPD only)
+    telemetry       telemetry.TelemetryConfig: the in-round metric streams
+                    (RunResult.telemetry), on both engines and both
+                    parameter representations, every method
     options         per-method knobs: dp_clip, dp_noise_multiplier,
                     tau_final, cos_align_threshold (cosine alignment;
                     -1 disables it; not with sparse) (explicit entries
@@ -102,9 +107,7 @@ class RunConfig:
     on_round        called with each round's index after the round (outside
                     its timed span, before that round's evaluation): a
                     hook to watch a run from outside, such as a profiler
-                    started and stopped around chosen rounds
-
-    telemetry is not ported yet; setting it raises ``ValueError``."""
+                    started and stopped around chosen rounds"""
 
     gossip_mode: Optional[str] = None
     gossip_backend: Optional[str] = None
@@ -124,8 +127,10 @@ class RunConfig:
         """A fresh per-run options dict (explicit ``options`` entries win
         over the typed fields); raises ``ValueError`` for what the port
         does not run yet."""
-        if self.telemetry is not None:
-            raise ValueError("RunConfig.telemetry is not ported yet")
+        if self.telemetry is not None and not isinstance(self.telemetry, TelemetryConfig):
+            raise ValueError(
+                "telemetry must be a telemetry.TelemetryConfig, got "
+                f"{type(self.telemetry).__name__}")
         if self.scenario is not None:
             if not isinstance(self.scenario, Scenario):
                 raise ValueError(

@@ -22,7 +22,9 @@ result evaluates them on the test split. Two engines run the same round:
   method branches on the host (``Method.round_branch``: the sparse masks'
   update rounds) gets one graph per branch, picked by the host's round
   number. A failed capture raises, naming the method. The replayed run
-  equals the loop bit for bit; ``extras`` reports ``n_captures`` and
+  equals the loop bit for bit; ``extras`` reports ``n_captures`` (also as
+  ``n_compiles``: the graphs captured, through
+  ``telemetry.counters.compile_count``; 0 on the loop) and
   ``n_dispatches``.
 
 Each round of either engine (the step, or the replay, and the wait for
@@ -61,6 +63,23 @@ states hold nested dicts of leaves; the replay's static buffers, its
 throwaway copies and its write-back walk those leaves as they walk a
 state's fields.
 
+``RunConfig(telemetry=TelemetryConfig())`` computes the telemetry streams
+(telemetry/metrics.py) inside the round, after the step: the collector is
+built once a run from the method's first state (whether it carries ``u``,
+centers with an ``(S, N)`` lead, masks, tracked bytes), the old ``u``,
+``comm_bytes`` and masks are copied on the device before the step (which
+updates some in place), and each stream is written into a device tape
+``(rounds, ...)`` fp32 at the round: the host's ``r`` on the loop, the
+device round counter on the replay, whose captured graph holds the
+collector and the writes (no extra capture, no extra dispatch, no host
+read). The adjacency it reads is the one the step mixed over: the
+scenario's round after dropout, the per-seed or cohort graph, else the
+paper graph, folded with the round's activity weights under a
+``ClientSystemModel``, whose staleness carry after the round feeds the
+histogram. The tapes reach the host once, after the last round, as
+``RunResult.telemetry``; without a system model ``extras["staleness"]`` is
+then the all-zero counters, as in the JAX package.
+
 The run's generators: one seeded from ``seed`` initialises the state, and
 a stream forked from it after the init feeds the rounds (FedSPD forks its
 own into its state instead). Evaluation draws (pFedMe's personalization)
@@ -83,6 +102,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from types import SimpleNamespace
 from typing import Callable
 
 import numpy as np
@@ -102,6 +122,7 @@ from repro_torch.device import (
 )
 from repro_torch.experiments.config import RunConfig
 from repro_torch.experiments.heterogeneity import (
+    apply_client_weights,
     draw_het,
     het_round,
     masked_client_step,
@@ -114,6 +135,9 @@ from repro_torch.experiments.registry import (
 )
 from repro_torch.experiments.scenarios import Scenario, bernoulli_drop, draw_drop
 from repro_torch.graphs.topology import Graph, make_graph, union_graph
+from repro_torch.telemetry.config import TelemetryConfig
+from repro_torch.telemetry.counters import compile_count
+from repro_torch.telemetry.metrics import centers_lead, make_collector, stream_shapes
 
 # the profiler span around each round (see the module docstring)
 ROUND_SPAN = "repro_torch.round"
@@ -130,10 +154,12 @@ class RunResult:
     curve: list         # [(round, mean train acc)]
     wall_s: float
     extras: dict        # method diagnostics; "round_ms": per-round times;
-                        # "n_captures", "n_dispatches"; "state",
-                        # "pack_spec" (None on the pytree engine) with
-                        # options["keep_state"];
-                        # "staleness" under a ClientSystemModel
+                        # "n_captures" (= "n_compiles"), "n_dispatches";
+                        # "state", "pack_spec" (None on the pytree engine)
+                        # with options["keep_state"]; "staleness" under a
+                        # ClientSystemModel or with telemetry
+    telemetry: dict | None = None   # {"rounds": R, "streams": {name: (R, ...)
+                                    # fp32}} with RunConfig.telemetry on
 
 
 def _require_dynamic_graph(m: Method, what: str) -> None:
@@ -213,6 +239,66 @@ def _cohort_step(step: Callable, axes) -> Callable:
 
 
 # --------------------------------------------------------------------------
+# Telemetry (RunConfig.telemetry)
+# --------------------------------------------------------------------------
+
+
+class _Telemetry:
+    """One seed's telemetry: the collector, built once a run from the
+    method's first state as the JAX package builds it, the paper graph's
+    adjacency (what a step without an adjacency extra mixes over) and the
+    device tapes ``(rounds, ...)`` fp32 the rounds write their streams
+    into."""
+
+    def __init__(self, m: Method, ctx: ExperimentContext, state,
+                 cfg: TelemetryConfig, rounds: int):
+        s, n = ctx.n_clusters, ctx.n_clients
+        comm = m.comm_model(ctx)
+        self.tracked = comm.kind == "tracked" and hasattr(state, "comm_bytes")
+        u = getattr(state, "u", None)
+        self.has_u = isinstance(u, torch.Tensor) and tuple(u.shape[-2:]) == (n, s)
+        self.has_mask = getattr(state, "mask", None) is not None
+        has_plane = hasattr(state, "centers") and centers_lead(state.centers) == (s, n)
+        self.collect = make_collector(
+            cfg, n_clusters=s, n_clients=n, wire_ratio=_wire_bytes(ctx, 1.0),
+            per_round_bytes=None if self.tracked else comm.per_round_bytes,
+            has_u=self.has_u, has_plane=has_plane, has_mask=self.has_mask)
+        self.adj = torch.as_tensor(ctx.graph.adj, dtype=torch.float32, device=ctx.device)
+        self.rounds = rounds
+        self.tapes = {name: torch.zeros((rounds, *tail), dtype=torch.float32,
+                                        device=ctx.device)
+                      for name, tail in stream_shapes(cfg, s).items()}
+
+    def before(self, state) -> SimpleNamespace:
+        """Device copies of what the streams read of the old state (the
+        step updates the plane, and a cohort every client-axis field, in
+        place)."""
+        return SimpleNamespace(
+            u=state.u.clone() if self.has_u else None,
+            comm_bytes=state.comm_bytes.clone() if self.tracked else None,
+            mask=state.mask.clone() if self.has_mask else None)
+
+    def after(self, at, old, new, adj, weights, stale) -> None:
+        """The round's streams, written into the tapes at ``at``: the host's
+        round (the loop) or the device round counter (the replay)."""
+        adj = self.adj if adj is None else adj
+        if weights is not None:
+            adj = apply_client_weights(adj, weights)
+        streams = self.collect(old, new, adj, weights=weights, stale=stale)
+        for name, v in streams.items():
+            tape = self.tapes[name]
+            if isinstance(at, torch.Tensor):
+                tape.index_copy_(0, at, v.unsqueeze(0))
+            else:
+                tape[at].copy_(v)
+
+    def result(self) -> dict:
+        """The tapes on the host: one copy each, after the last round."""
+        return {"rounds": self.rounds,
+                "streams": {name: t.cpu().numpy() for name, t in self.tapes.items()}}
+
+
+# --------------------------------------------------------------------------
 # One seed's run, and what the captured round needs of a state
 # --------------------------------------------------------------------------
 
@@ -221,10 +307,12 @@ class _Seed:
     """One seed's context, state, generators and round step. ``adj`` is
     the round's adjacency extra (a per-seed graph, or the graph a cohort
     takes its minor of) unless a scenario gives it, ``cohort`` K or None;
-    with ``het`` the step runs under ``masked_client_step``."""
+    with ``het`` the step runs under ``masked_client_step``; with
+    ``telemetry`` (a TelemetryConfig) each round collects its streams."""
 
     def __init__(self, m: Method, ctx: ExperimentContext, seed: int,
-                 adj: torch.Tensor | None, cohort: int | None, het: bool = False):
+                 adj: torch.Tensor | None, cohort: int | None, het: bool = False,
+                 telemetry: TelemetryConfig | None = None):
         self.ctx, self.adj, self.cohort = ctx, adj, cohort
         gen = make_generator(ctx.device, seed)
         self.state = m.init(ctx, gen)
@@ -237,19 +325,29 @@ class _Seed:
         if het:
             # outside the cohort gather: the weights cover every client
             self.step = masked_client_step(self.step, m.cohort_axes(ctx, self.state))
+        self.telemetry = (None if telemetry is None else
+                          _Telemetry(m, ctx, self.state, telemetry, ctx.exp.rounds))
         self.aux, self.curve = None, []
 
-    def round(self, state, gen, cgen, lr, scen=None):
+    def round(self, state, gen, cgen, lr, scen=None, at=None):
         """One round of this seed's step from ``state`` with the given
         generators (the seed's own, or a warm-up's copies); ``scen`` is the
-        scenario's (adjacency, activity weights or None) for the round."""
+        scenario's (adjacency, activity weights, staleness counters; the
+        last two None without a system model) for the round. With
+        telemetry the round's streams go into the tapes at round ``at``."""
         adj = self.adj if scen is None else scen[0]
+        aw, stale = (None, None) if scen is None else scen[1:]
         extras = () if adj is None else (adj,)
         if self.cohort is not None:
             extras += (_cohort_indices(cgen, self.ctx.n_clients, self.cohort),)
-        if scen is not None and scen[1] is not None:
-            extras += (scen[1],)
-        return self.step(state, self.ctx.train, gen, lr, *extras)
+        if aw is not None:
+            extras += (aw,)
+        tel = self.telemetry
+        old = None if tel is None else tel.before(state)
+        new, aux = self.step(state, self.ctx.train, gen, lr, *extras)
+        if tel is not None:
+            tel.after(at, old, new, adj, aw, stale)
+        return new, aux
 
 
 class _ScenarioRun:
@@ -284,9 +382,10 @@ class _ScenarioRun:
                 None if carry is None else type(carry)(*(t.clone() for t in carry)))
 
     def round(self, r, bufs) -> tuple:
-        """Round ``r``'s (adjacency, activity weights or None), drawn from
-        ``bufs``; the carry is updated in place. ``r`` is the host's round
-        (the loop) or the device round counter (the replay)."""
+        """Round ``r``'s (adjacency, activity weights, staleness counters),
+        drawn from ``bufs`` (the last two None without a system model); the
+        carry is updated in place. ``r`` is the host's round (the loop) or
+        the device round counter (the replay)."""
         dgen, hgen, carry = bufs
         if isinstance(r, torch.Tensor):
             adj = self.tape.index_select(0, r).reshape(self.n, self.n)
@@ -294,12 +393,12 @@ class _ScenarioRun:
             adj = self.tape[r]
         if self.p > 0.0:
             adj = bernoulli_drop(adj, draw_drop(dgen, self.n), self.p)
-        aw = None
-        if self.het is not None:
-            new, aw = het_round(self.het, self.speeds, carry, *draw_het(hgen, self.n))
-            carry.stale.copy_(new.stale)
-            carry.avail.copy_(new.avail)
-        return adj, aw
+        if self.het is None:
+            return adj, None, None
+        new, aw = het_round(self.het, self.speeds, carry, *draw_het(hgen, self.n))
+        carry.stale.copy_(new.stale)
+        carry.avail.copy_(new.avail)
+        return adj, aw, carry.stale
 
 
 def _fields(state) -> tuple:
@@ -359,7 +458,7 @@ class _CapturedRound:
             scen = None if scenario is None else scenario.round(ctr, sbufs)
             auxs = []
             for sd, (state, gen, cgen) in zip(seeds, bufs):
-                new, aux = sd.round(_at_round(state, r), gen, cgen, lr, scen)
+                new, aux = sd.round(_at_round(state, r), gen, cgen, lr, scen, at=ctr)
                 _write_back(state, new)
                 auxs.append(aux)
             ctr.add_(1)
@@ -437,13 +536,13 @@ def _loop(m: Method, seeds: list, lrs: torch.Tensor, rounds: int,
     def one_round(r):
         scen = None if scenario is None else scenario.round(r, scenario.bufs)
         for sd in seeds:
-            sd.state, sd.aux = sd.round(sd.state, sd.gen, sd.cgen, lrs[r], scen)
+            sd.state, sd.aux = sd.round(sd.state, sd.gen, sd.cgen, lrs[r], scen, at=r)
 
     round_ms = []
     for r in range(rounds):
         round_ms.append(_timed(device, lambda: one_round(r)))
         _after_round(m, seeds, r, rounds, cfg)
-    return {"round_ms": round_ms, "n_captures": 0,
+    return {"round_ms": round_ms, "n_captures": 0, "n_compiles": 0,
             "n_dispatches": rounds * len(seeds)}
 
 
@@ -468,8 +567,9 @@ def _replay(m: Method, seeds: list, lrs: torch.Tensor, rounds: int,
         _after_round(m, seeds, r, rounds, cfg)
     for sd, aux in zip(seeds, auxs or [None] * len(seeds)):
         sd.aux = _detached(aux)
+    n = compile_count(by_branch)
     return {"round_ms": round_ms, "capture_ms": capture_ms,
-            "n_captures": len(by_branch), "n_dispatches": rounds}
+            "n_captures": n, "n_compiles": n, "n_dispatches": rounds}
 
 
 # --------------------------------------------------------------------------
@@ -498,6 +598,7 @@ def _result(m: Method, sd: _Seed, acc: torch.Tensor, t0: float,
         std_acc=float(acc.std()), comm_bytes=comm,
         wire_bytes=_wire_bytes(ctx, comm),
         curve=sd.curve, wall_s=time.time() - t0, extras=extras,
+        telemetry=None if sd.telemetry is None else sd.telemetry.result(),
     )
 
 
@@ -602,8 +703,10 @@ def _drive(entry: str, method: str, data, exp: PaperExpConfig, graph,
             adjs = np.stack([ctx0.graph.adj] * len(seeds)).astype(np.float32)
     scen = None if tape is None else _ScenarioRun(scenario, tape, device)
     het = scen is not None and scen.het is not None
+    telem = cfg.telemetry if cfg.telemetry is not None and cfg.telemetry.enabled else None
     runs = [_Seed(m, ctx, s, None if adjs is None else
-                  torch.as_tensor(a, dtype=torch.float32, device=device), cohort, het)
+                  torch.as_tensor(a, dtype=torch.float32, device=device), cohort, het,
+                  telem)
             for ctx, s, a in zip(ctxs, seeds, adjs if adjs is not None
                                  else [None] * len(seeds))]
     lrs = torch.as_tensor(m.lr_schedule(ctx0), device=device)
@@ -613,6 +716,10 @@ def _drive(entry: str, method: str, data, exp: PaperExpConfig, graph,
     if het:
         # shared by every seed, as the streams are
         stats["staleness"] = scen.bufs[2].stale.cpu().numpy()
+    elif telem is not None:
+        # with telemetry, a run without a system model reports its all-zero
+        # counters rather than no key, as the JAX package does
+        stats["staleness"] = np.zeros((ctx0.n_clients,), np.int32)
     results = []
     for sd in runs:
         acc = m.evaluate(sd.ctx, sd.state, sd.ctx.test, copy_generator(sd.gen))

@@ -26,9 +26,6 @@ the module-level ``generate``, raises here.
 from __future__ import annotations
 
 import argparse
-import contextlib
-import json
-import os
 import time
 
 import numpy as np
@@ -40,6 +37,8 @@ from repro_torch.core.packing import PackSpec, make_pack_spec, pack
 from repro_torch.device import make_generator, resolve_device, synchronize
 from repro_torch.models.registry import ModelBundle, build_model
 from repro_torch.serve import SERVE_CODECS, ClusterPlaneServer, ServeConfig, load_servable
+from repro_torch.telemetry.events import write_events
+from repro_torch.telemetry.profile import trace_session
 
 
 def generate(*args, **kwargs):
@@ -176,23 +175,6 @@ def build_server(cfg: ServeConfig, bundle: ModelBundle, spec: PackSpec, *,
     return server, cfg.request_mixture(2)
 
 
-@contextlib.contextmanager
-def _trace(profile_dir):
-    """A torch.profiler trace of the block into ``profile_dir`` (a Chrome
-    trace JSON; no-op when None)."""
-    if not profile_dir:
-        yield
-        return
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA]
-                                     if torch.cuda.is_available() else [])
-    with profile(activities=acts) as prof:
-        yield
-    os.makedirs(profile_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(profile_dir, "serve_trace.json"))
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=sorted(ARCH_ALIASES), default="olmo-1b")
@@ -233,7 +215,7 @@ def main(argv=None):
     prompts = torch.randint(0, arch_cfg.vocab, (cfg.batch, cfg.prompt_len),
                             generator=make_generator(dev, cfg.seed), device=dev)
     t0 = time.perf_counter()
-    with _trace(args.profile_dir):
+    with trace_session(args.profile_dir, filename="serve_trace.json"):
         toks = server.generate(u, prompts, gen=cfg.gen, temperature=cfg.temperature,
                                key=make_generator(dev, cfg.seed))
         synchronize(dev)
@@ -251,9 +233,7 @@ def main(argv=None):
              "latency_ms": server.latency.percentile(50) * 1e3},
             {"event": "serve_summary", **snap},
         ]
-        with open(args.telemetry_out, "w") as f:
-            for e in events:
-                f.write(json.dumps(e) + "\n")
+        write_events(args.telemetry_out, events)
         print(f"telemetry -> {args.telemetry_out}")
     return toks
 

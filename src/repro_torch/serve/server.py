@@ -43,7 +43,7 @@ from repro_torch.core.packing import PackSpec, unpack
 from repro_torch.device import capture, resolve_device, synchronize, warm_up
 from repro_torch.kernels.gossip_mix import gossip_mix_dequant, mixture_mix_dequant4
 from repro_torch.serve.artifact import ServableArtifact
-from repro_torch.telemetry.counters import LatencyStats
+from repro_torch.telemetry.counters import LatencyStats, compile_count
 
 # the profiler span around each decode token of ``generate`` (one replay
 # on the card), by which a trace's kernels are counted per token
@@ -270,7 +270,7 @@ class ClusterPlaneServer:
         ``(B, Lp, gen, temperature)``: a CUDA graph of the per-token step
         on the card, its closure on the CPU (the JAX server counts its jit
         cache here). The mix and the prefill run eagerly and build none."""
-        return len(self.engines)
+        return compile_count(self.engines)
 
     @property
     def plane_bytes(self) -> int:

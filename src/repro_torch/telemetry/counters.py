@@ -1,12 +1,27 @@
-"""Host-side counters: serve-path latency.
+"""Host-side counters: programs built and serve-path latency.
 
-``LatencyStats`` is the JAX package's serve-latency accumulator. The JAX
-module's ``compile_count`` has no counterpart: the port runs eagerly and
-compiles no program per call.
+``compile_count`` is the one count of programs built across the port: the
+experiment runner (``extras["n_captures"]`` and ``extras["n_compiles"]``:
+the CUDA graphs a replayed run captured, one per host-side branch) and the
+serve path (``ClusterPlaneServer.n_compiles``: one decode engine per shape
+key) report through it, so "one program" means the same thing
+everywhere. The port compiles nothing per call: its programs are captured
+rounds and decode steps (on the CPU, the closures that stand for them).
+The loop engine builds none and reports 0, where the JAX package's loop
+reports its one jitted step.
+
+``LatencyStats`` is the JAX package's serve-latency accumulator.
 """
 from __future__ import annotations
 
 import time
+
+
+def compile_count(programs) -> int:
+    """The number of programs built: the size of the mapping or sequence
+    that holds them (a replayed run's graphs by branch, a server's decode
+    engines by shape key)."""
+    return len(programs)
 
 
 class LatencyStats:

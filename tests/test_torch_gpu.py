@@ -1447,3 +1447,87 @@ def test_pytree_round_on_the_card_equals_the_cpu(cuda, dp):
     for a, b in zip(out["cuda"], out["cpu"]):
         assert _max_err(a, b) <= TOL
 
+
+
+# --------------------------------------------------------------------------
+# the telemetry streams on the card
+# --------------------------------------------------------------------------
+
+
+def test_telemetry_collector_on_the_card_equals_the_cpu_s(cuda):
+    """The collector at the main path's shape (N = 20, S = 2, X = 17,226),
+    with activity weights, staleness past the last bin and masks: the count
+    streams exactly, the others within 1e-5 (reductions in another order),
+    the spectral gap through its ρ within 1e-6."""
+    from types import SimpleNamespace
+
+    from repro_torch.telemetry import TelemetryConfig, make_collector
+
+    n, s, x = 20, 2, 17226
+    g = torch.Generator().manual_seed(0)
+    u0, u1 = (torch.softmax(torch.randn((n, s), generator=g), -1) for _ in range(2))
+    m0 = torch.rand((n, x), generator=g) < 0.2
+    m1 = m0 ^ (torch.rand((n, x), generator=g) < 0.05)
+    adj = (torch.rand((n, n), generator=g) < 0.3).float()
+    adj = ((adj + adj.T) > 0).float() + torch.eye(n)
+    w = torch.rand(n, generator=g)
+    w[w < 0.3] = 0.0
+    adj = adj * (w > 0)[:, None] * w[None, :]
+    stale = torch.randint(0, 9, (n,), generator=g, dtype=torch.int32)
+    bag = dict(old=dict(u=u0, comm_bytes=torch.tensor(1.0e6), mask=m0),
+               new=dict(u=u1, comm_bytes=torch.tensor(2.5e6), mask=m1,
+                        centers=torch.randn((s, n, x), generator=g)))
+    col = make_collector(TelemetryConfig(), n_clusters=s, n_clients=n, has_mask=True,
+                         wire_ratio=5655 / 68904)
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        st = {k: SimpleNamespace(**{f: t.to(dev) for f, t in v.items()}) for k, v in bag.items()}
+        got = col(st["old"], st["new"], adj.to(dev), weights=w.to(dev), stale=stale.to(dev))
+        out[dev.type] = {k: v.cpu() for k, v in got.items()}
+    for name, want in out["cpu"].items():
+        got = out["cuda"][name]
+        if name in ("logical_bytes", "wire_bytes", "degree", "stale_hist", "n_inactive"):
+            assert torch.equal(got, want), name
+        elif name == "spectral_gap":
+            torch.testing.assert_close(1.0 - got, 1.0 - want, rtol=1e-6, atol=0)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=0, msg=name)
+
+
+TELEMETRY_PATHS = {
+    "fedspd": ("fedspd", {}),
+    "fedspd dp": ("fedspd", dict(options=dict(ENGINE_DP))),
+    "fedspd pytree": ("fedspd", dict(param_plane=False)),
+    "fedspd sparse int8+ef": ("fedspd", dict(comm=CommConfig(codec="int8", error_feedback=True),
+                                              sparse=SparseConfig(density=0.3,
+                                                                  update_every=2))),
+    "dfl_fedem": ("dfl_fedem", {}),
+}
+
+
+@pytest.mark.parametrize("label", list(TELEMETRY_PATHS))
+def test_telemetry_replay_streams_equal_the_loop_s(cuda, label):
+    """The streams inside the captured round: the replay's equal the loop's
+    bit for bit, and telemetry changes nothing of the replayed run (its
+    accuracies, bytes, final state, captures and dispatches)."""
+    import numpy as np
+
+    from repro_torch.telemetry import TelemetryConfig
+
+    method, kw = TELEMETRY_PATHS[label]
+    kw = dict(kw, options=dict(kw.get("options", {}), keep_state=True))
+    data, exp = _engine_setup()
+    tel = TelemetryConfig()
+    loop = run_method(method, data, exp, cfg=RunConfig(eval_every=1, scan_rounds=False,
+                                                       telemetry=tel, **kw))
+    scan = run_method(method, data, exp, cfg=RunConfig(eval_every=1, telemetry=tel, **kw))
+    off = run_method(method, data, exp, cfg=RunConfig(eval_every=1, **kw))
+    _assert_same_run(loop, scan)
+    _assert_same_run(off, scan)
+    for k in ("n_captures", "n_compiles", "n_dispatches"):
+        assert scan.extras[k] == off.extras[k], k
+    assert scan.extras["n_compiles"] == (2 if "sparse" in label else 1)
+    assert loop.extras["n_compiles"] == 0
+    for name, v in loop.telemetry["streams"].items():
+        assert np.array_equal(v, scan.telemetry["streams"][name], equal_nan=True), name
+    assert np.isfinite(scan.telemetry["streams"]["consensus"]).all()
