@@ -256,7 +256,30 @@ Phases, in order; any failure exits non-zero before the result line:
    ``DECODE_SPAN``): device ms and kernels a token, and each engine's busy
    share (device ms a token over its unprofiled decode ms a token); then
    ``python -m repro_torch.launch.serve`` once, with ``--telemetry-out``:
-   its serve events read back and rendered by ``summary_table``.
+   its serve events read back and rendered by ``summary_table``;
+16. training, the eighth path (phase "train"): ``python -m
+   repro_torch.launch.train``'s ``main`` in this process, every launch
+   counter set to 0 just before each run and read just after. First
+   kernel 1 at the full-width exchange (N, X) = (4, 420,136,448) and
+   kernel 4 at its int8 form (M = N = 4, block 256), each against its
+   plain version (1e-5) and timed by CUDA events beside its bound, its
+   plain version and (kernel 1) ``torch.matmul``. T1: FedSPD over
+   mamba2-370m at full width (48 layers, d 1024; N = 4, S = 2, b = 4, L =
+   64, ER degree 2) for 4 rounds on the loop (kernel 1 four times, kernels
+   8 and 9 never: the training route), then ``--scan-rounds`` from the
+   same seed (one captured round replayed) equal to the loop bit for bit
+   (plane, u, bytes, final loss; the loop's copied to the host first),
+   its last round traced (device ms, kernels, the top kernels), the round
+   ms of both engines (median of rounds 2-4) and the peak memory. T2: the
+   same with int8 + error feedback, 2 loop rounds (kernel 4 twice;
+   wire = logical × (X + 4·X/256) / model bytes). T3: gemma3-1b (26
+   layers, per-layer windows) at N = 2, 2 loop rounds. T4, at smoke
+   size: olmo-1b, zamba2-1.2b, olmoe-1b-7b, sparse 0.2 + int8 + EF (two
+   graphs), the pytree engine (kernel 1 a leaf) and the heterogeneity
+   flags, each loop against its replay bit for bit; the first run's
+   ``--telemetry-out`` rendered by ``summary_table``, its ``--save``
+   manifest, and its int8 ``--export-servable`` answered by
+   ``launch.serve --artifact``.
 
 It then prints its seconds (``chip_smoke: … s``), one
 ``{"kernels": [...]}`` line and, last, the
@@ -382,6 +405,14 @@ LM_SERVE = {"olmo-1b": (LM_B, ("fp32", "int8", "int4")),
             "olmoe-1b-7b": (1, ("int8", "int4"))}
 LM_NEW = ("zamba2-1.2b", "olmoe-1b-7b")   # the MoE and hybrid slice's archs
 PLAIN_MIX_COLUMNS = 1 << 26   # the LM mixes' plain versions run in chunks this wide
+# phase "train": launch/train.py, FedSPD over an LM in the stream regime
+TRAIN_ARGS = ["--clients", "4", "--clusters", "2", "--tau", "1", "--batch", "4", "--seq",
+              "64", "--graph", "er", "--avg-degree", "2", "--eval-every", "100"]
+TRAIN_ARCH = "mamba2-370m"    # T1 / T2: full width, 48 layers, d 1024
+TRAIN_X = 420_136_448          # its packed plane's X
+TRAIN_ROUNDS = 4               # T1 on each engine (5 until the whole script
+#                                passed 1,050 s, PR 31); T2 and T3 2 on the loop
+TRAIN_SMOKE = ["--smoke", "--rounds", "4", "--mask-update-every", "2"]
 LM_MIXTURE = [[0.7, 0.3], [0.5, 0.5], [0.1, 0.9], [1.0, 0.0]]
 BF16_GAP = 5e-2   # a greedy flip between kernel and plain runs must be a near-tie:
 # a logit gap under this, or under two bf16 steps at the logits' magnitude;
@@ -971,13 +1002,17 @@ def _round_kernels(prof, span: str | None = None) -> list:
     from repro_torch.experiments.runner import ROUND_SPAN
 
     span = span or ROUND_SPAN
+
+    def is_span(name):   # the launcher's spans carry the round: "repro/round#3"
+        return name == span or name.startswith(span + "#")
+
     events = prof.events()
     by_id: dict = {}
     for e in events:
-        if e.device_type.name == "CUDA" and e.name != span:
+        if e.device_type.name == "CUDA" and not is_span(e.name):
             by_id.setdefault(e.id, []).append(e)
     spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.name == span and e.device_type.name == "CPU")
+                   if is_span(e.name) and e.device_type.name == "CPU")
     starts = [a for a, _ in spans]
     windows = [[] for _ in spans]
     for e in events:
@@ -3372,6 +3407,275 @@ def phase_lm_cli() -> None:
         print(f"telemetry serve table {line}", flush=True)
 
 
+def _train(torch, gm, argv, on_round=None) -> tuple[dict, dict]:
+    """``launch.train.main(argv)`` on the card with every launch counter
+    (kernels 1-7, 8, 9) set to 0 just before and read just after: (the
+    run's outcome, the launches)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch.train import main as train_main
+
+    _free(torch)
+    counted = gm.KERNELS + (flash_attention, ssd_scan)
+    gm.reset_launch_counts()
+    flash_attention.launches = ssd_scan.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    res = train_main(argv, on_round=on_round)
+    return res, {k.__name__: k.launches for k in counted}
+
+
+def _median_rounds(ms: list, rounds=None) -> float:
+    """The median round ms of rounds 2 on (indices in ``rounds`` only)."""
+    return statistics.median(v for i, v in enumerate(ms) if i and (rounds is None or i in rounds))
+
+
+def _train_kernel_rows(torch, gm) -> tuple[dict, dict]:
+    """Kernel 1 at T1's exchange, (N, X) = (4, TRAIN_X), and kernel 4 at
+    its int8 exchange (M = N = 4, Xp = TRAIN_X, block 256), each against
+    its plain version, timed by CUDA events beside its bound, its plain
+    version and (kernel 1) one ``torch.matmul``."""
+    from repro_torch.comm.codecs import Channel, CommConfig
+
+    _free(torch)
+    g = torch.Generator(device="cuda").manual_seed(31)
+    n, x = 4, TRAIN_X
+    w = torch.rand((n, n), generator=g, device="cuda")
+    w = w / w.sum(dim=1, keepdim=True)
+    c = 0.05 * torch.randn((n, x), generator=g, device="cuda")
+    out = gm.gossip_mix_flat(w, c)
+    err = float((out - gm.gossip_mix_flat_ref(w, c)).abs().max())
+    check(err <= TOL, f"gossip_mix_flat N={n} X={x}: max abs err {err} > {TOL}")
+    del out
+    b_ms, b_by = bound(n, x, "gossip_mix_flat")
+    flat = dict(n=n, x=x, max_abs_err=err, variant="train lm (mamba2-370m)",
+                ms=time_ms(lambda: gm.gossip_mix_flat(w, c), 20),
+                plain_ms=time_ms(lambda: gm.gossip_mix_flat_ref(w, c), 5),
+                library_ms=time_ms(lambda: torch.matmul(w, c), 20),
+                bound_ms=b_ms, bound_by=b_by)
+    enc = Channel(CommConfig(codec="int8", block=QBLOCK), x).encode(c, rounding="nearest")
+    q, sc = enc["q"].contiguous(), enc["scale"].contiguous()
+    del c, enc
+    _free(torch)
+    xp = sc.shape[1] * QBLOCK
+    out = gm.gossip_mix_dequant(w, q, sc, qblock=QBLOCK)
+    err = float((out - gm.gossip_mix_dequant_ref(w, q, sc, qblock=QBLOCK)).abs().max())
+    check(err <= TOL, f"gossip_mix_dequant M=N={n} Xp={xp}: max abs err {err} > {TOL}")
+    del out
+    _free(torch)
+    b_ms, b_by = bound(n, xp, "gossip_mix_dequant", m=n, qblock=QBLOCK)
+    dequant = dict(m=n, n=n, x=x, xp=xp, qblock=QBLOCK, max_abs_err=err,
+                   variant="train lm int8 (mamba2-370m)",
+                   ms=time_ms(lambda: gm.gossip_mix_dequant(w, q, sc, qblock=QBLOCK), 20),
+                   plain_ms=time_ms(lambda: gm.gossip_mix_dequant_ref(w, q, sc, qblock=QBLOCK),
+                                    3),
+                   library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    del w, q, sc
+    _free(torch)
+    for name, r in (("gossip_mix_flat", flat), ("gossip_mix_dequant", dequant)):
+        print(f"kernel {name} " + json.dumps(r), flush=True)
+    return {"gossip_mix_flat": [flat]}, {"gossip_mix_dequant": [dequant]}
+
+
+def _cpu_state(torch, res) -> dict:
+    """The final plane, u and bytes on the host, and the final loss."""
+    st = res["state"]
+    return {"plane": st.centers.cpu(), "u": st.u.cpu(), "comm": st.comm_bytes.cpu(),
+            "loss": res["final_loss"]}
+
+
+def _same_train(torch, a: dict, b: dict) -> bool:
+    return (bool(torch.equal(a["plane"], b["plane"])) and bool(torch.equal(a["u"], b["u"]))
+            and bool(torch.equal(a["comm"], b["comm"])) and a["loss"] == b["loss"])
+
+
+def _train_t1(torch, gm, card: str, launches: dict) -> None:
+    """T1: FedSPD on mamba2-370m at full width, TRAIN_ROUNDS on the loop,
+    then the same seed replayed (``--scan-rounds``): bit for bit the loop's
+    final plane, u, bytes and loss. The replay's last round is traced (the
+    ``_windowed`` pattern: the profiler starts a round early, that round
+    is dropped)."""
+    argv = ["--arch", TRAIN_ARCH, "--rounds", str(TRAIN_ROUNDS)] + TRAIN_ARGS
+    loop, counts = _train(torch, gm, argv)
+    check(counts["gossip_mix_flat"] == TRAIN_ROUNDS,
+          f"train T1 loop: gossip_mix_flat launched {counts['gossip_mix_flat']} times, "
+          f"expected {TRAIN_ROUNDS}")
+    check(counts["flash_attention"] == counts["ssd_scan"] == 0,
+          f"train T1: the training route launched kernel 8 or 9: {counts}")
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    spec = loop["pack_spec"]
+    check(spec.size == TRAIN_X, f"train T1: X {spec.size}, expected {TRAIN_X}")
+    peak_loop = (loop["max_memory_allocated"], loop["max_memory_reserved"])
+    want = _cpu_state(torch, loop)
+    check(math.isfinite(want["loss"]), f"train T1: final loss {want['loss']} not finite")
+    check(bool(torch.isfinite(want["plane"]).all()), "train T1: the final plane is not finite")
+    loop_ms = loop["round_ms"]
+    del loop
+
+    prof = _profiler()   # on over the last two rounds; the first of them dropped
+
+    def on_round(r):
+        if r == TRAIN_ROUNDS - 3:
+            prof.start()
+        elif r == TRAIN_ROUNDS - 1:
+            prof.stop()
+
+    rep, rcounts = _train(torch, gm, argv + ["--scan-rounds"], on_round)
+    windows = _round_kernels(prof, span="repro/round")
+    check(len(windows) == 2, f"train T1: the traced window holds {len(windows)} rounds, expected 2")
+    kern = windows[-1]
+    dev_ms = sum(k.time_range.elapsed_us() for k in kern) / 1e3
+    exch = sum(1 for k in kern if _is_exchange(k.name))
+    check(exch == 1, f"train T1 replay: {exch} exchange kernels in the traced round, expected 1")
+    got = _cpu_state(torch, rep)
+    same = _same_train(torch, want, got)
+    check(same, "train T1: the replay's final plane, u, bytes or loss differ from the loop's")
+    rep_ms = rep["round_ms"]
+    free = _median_rounds(rep_ms, range(1, TRAIN_ROUNDS - 2))
+    print(f"train T1 {TRAIN_ARCH} (X {spec.size:,}, N 4, S 2, b 4, L 64; {card}): round_ms "
+          f"loop median(rounds 2-{TRAIN_ROUNDS}) {_median_rounds(loop_ms):.2f} all "
+          f"{json.dumps([round(v, 2) for v in loop_ms])}; replay median(rounds 2-"
+          f"{TRAIN_ROUNDS}) {_median_rounds(rep_ms):.2f} (untraced rounds 2-{TRAIN_ROUNDS - 2}: "
+          f"{free:.2f}) all {json.dumps([round(v, 2) for v in rep_ms])} (round 1: warm-up "
+          f"on a copy, capture, replay); n_captures {rep['n_captures']}", flush=True)
+    print(f"train T1 replayed round {TRAIN_ROUNDS} traced: device_ms {dev_ms:.2f} kernels "
+          f"{len(kern)} busy {dev_ms / free:.4f} exchange kernels {exch}; peak GiB loop "
+          f"{peak_loop[0] / 2**30:.2f} / {peak_loop[1] / 2**30:.2f}, replay "
+          f"{rep['max_memory_allocated'] / 2**30:.2f} / "
+          f"{rep['max_memory_reserved'] / 2**30:.2f} (allocated / reserved); final loss "
+          f"{want['loss']:.6f}; launches loop {json.dumps(counts)} replay (warm-up and "
+          f"capture) {json.dumps(rcounts)}; replay = loop (plane, u, bytes, loss): "
+          f"{'equal' if same else 'DIFFER'}", flush=True)
+    top: dict = {}
+    for k in kern:
+        top[k.name] = top.get(k.name, 0.0) + k.time_range.elapsed_us() / 1e3
+    for name, ms in sorted(top.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"train T1 traced kernel {ms:.3f} ms {name[:100]}", flush=True)
+    del rep, want, got
+    _free(torch)
+
+
+def _train_full(torch, gm, card: str, launches: dict) -> None:
+    """T2: T1's arch with int8 + error feedback on the loop (kernel 4 a
+    round; wire = logical × the static ratio); T3: gemma3-1b (26 layers,
+    per-layer windows) at N = 2, S = 2 on the loop."""
+    x = TRAIN_X
+    wire_per_msg = x + 4 * (x // QBLOCK)      # int8 quanta and one fp32 scale a block
+    for label, argv, kernel, n_rounds in (
+            ("T2 int8+ef", ["--arch", TRAIN_ARCH, "--rounds", "2", "--codec", "int8",
+                            "--error-feedback"] + TRAIN_ARGS, "gossip_mix_dequant", 2),
+            ("T3 gemma3-1b", ["--arch", "gemma3-1b", "--rounds", "2"] + TRAIN_ARGS
+             + ["--clients", "2"], "gossip_mix_flat", 2)):
+        res, counts = _train(torch, gm, argv)
+        check(counts[kernel] == n_rounds,
+              f"train {label}: {kernel} launched {counts[kernel]} times, expected {n_rounds}")
+        check(counts["flash_attention"] == counts["ssd_scan"] == 0,
+              f"train {label}: the training route launched kernel 8 or 9: {counts}")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        spec, logical = res["pack_spec"], res["comm_bytes"]
+        check(math.isfinite(res["final_loss"]), f"train {label}: final loss not finite")
+        check(logical > 0 and logical % spec.model_bytes == 0,
+              f"train {label}: logical bytes {logical} not whole models of "
+              f"{spec.model_bytes}")
+        if label.startswith("T2"):
+            ratio = wire_per_msg / spec.model_bytes
+            check(res["wire_ratio"] == ratio and res["wire_bytes"] == logical * ratio,
+                  f"train {label}: wire {res['wire_bytes']} != logical {logical} x "
+                  f"{ratio} (int8 quanta + scales over the model's bytes)")
+        print(f"train {label} (X {spec.size:,}; {card}): round_ms (round 2) "
+              f"{_median_rounds(res['round_ms']):.2f} all "
+              f"{json.dumps([round(v, 2) for v in res['round_ms']])}; final loss "
+              f"{res['final_loss']:.6f}; logical bytes {logical:.0f} wire "
+              f"{res['wire_bytes']:.0f} (ratio {res['wire_ratio']:.6f}); peak GiB "
+              f"{res['max_memory_allocated'] / 2**30:.2f} / "
+              f"{res['max_memory_reserved'] / 2**30:.2f}; launches {json.dumps(counts)}",
+              flush=True)
+        del res
+        _free(torch)
+
+
+def _train_smoke(torch, gm, launches: dict) -> None:
+    """T4: every flag at smoke size on the card: olmo-1b, zamba2-1.2b and
+    olmoe-1b-7b, sparse 0.2 + int8 + EF (kernels 5 and 6), the pytree
+    engine (kernel 1 a leaf) and the heterogeneity flags, each on the loop
+    and replayed, bit for bit; the JSONL log rendered by the port's
+    ``summary_table``; ``--save``'s manifest; the int8 servable artifact
+    answered by ``launch.serve --artifact``."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.telemetry import read_events, summary_table
+    from repro_torch.utils.pytree import state_tensors, tree_leaves
+
+    het = ["--time-budget", "1.5", "--slow-fraction", "0.5", "--p-unavailable", "0.2",
+           "--staleness-gamma", "0.5"]
+    runs = (("olmo-1b", [], {"gossip_mix_flat": 4}),
+            ("zamba2-1.2b", [], {"gossip_mix_flat": 4}),
+            ("olmoe-1b-7b", [], {"gossip_mix_flat": 4}),
+            ("olmo-1b", ["--sparse-density", "0.2", "--codec", "int8", "--error-feedback"],
+             {"gossip_mix_sparse": 4, "gossip_mix_dequant_masked": 4}),
+            ("olmo-1b", ["--pytree"], None),
+            ("gemma3-1b", het, {"gossip_mix_flat": 4}))
+    flags = ("--telemetry-out", "--save", "--export-servable")
+    with tempfile.TemporaryDirectory() as tmp:
+        files = [os.path.join(tmp, n) for n in ("t.jsonl", "ckpt.npz", "art.npz")]
+        for i, (arch, extra, want) in enumerate(runs):
+            argv = ["--arch", arch] + TRAIN_SMOKE + TRAIN_ARGS + extra
+            # the first run also writes its log, checkpoint and int8 artifact
+            out = [v for f, p in zip(flags, files) for v in (f, p)] + [
+                "--export-codec", "int8"] if i == 0 else []
+            loop, counts = _train(torch, gm, argv + out)
+            if want is None:   # the pytree engine: kernel 1 once a leaf
+                want = {"gossip_mix_flat": 4 * len(tree_leaves(loop["state"].centers))}
+            for k, v in want.items():
+                check(counts[k] == v, f"train T4 {arch} {extra}: {k} launched {counts[k]} "
+                                      f"times, expected {v}")
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+            rep, _ = _train(torch, gm, argv + ["--scan-rounds"])
+            same = (all(bool(torch.equal(a, b)) for a, b in zip(
+                state_tensors(loop["state"]), state_tensors(rep["state"])))
+                and loop["final_loss"] == rep["final_loss"])
+            check(same, f"train T4 {arch} {extra}: the replay differs from the loop")
+            print(f"train T4 {arch} {' '.join(extra) or 'plane'}: final loss "
+                  f"{loop['final_loss']:.6f} launches "
+                  f"{json.dumps({k: v for k, v in counts.items() if v})} n_captures "
+                  f"{rep['n_captures']}; replay = loop: equal", flush=True)
+            if i == 0:
+                events = read_events(files[0])
+                kinds = [e["event"] for e in events]
+                check(kinds == ["run_meta"] + ["round"] * 4 + ["summary"],
+                      f"train T4: --telemetry-out wrote events {kinds}")
+                table = summary_table(events)
+                check("| consensus |" in table, "train T4: the summary table has no consensus row")
+                man = ckpt.read_manifest(files[1])
+                check((man.kind, man.arch, man.n_clients, man.n_clusters, man.pack_digest)
+                      == ("checkpoint", "olmo-1b", 4, 2, loop["pack_spec"].digest),
+                      f"train T4: --save manifest {man}")
+                toks = serve_main(["--arch", "olmo-1b", "--smoke", "--artifact", files[2],
+                                   "--codec", "int8", "--client", "0", "--gen", "4"])
+                check(tuple(toks.shape) == (4, 4), f"train T4: served tokens {tuple(toks.shape)}")
+                print(f"train T4 files: {len(events)} events rendered "
+                      f"({len(table.splitlines())} lines); manifest {man.to_json()}; "
+                      f"artifact served {tuple(toks.shape)} tokens", flush=True)
+            del loop, rep
+    _free(torch)
+
+
+def phase_train(torch, gm, card: str) -> tuple[dict, dict, dict]:
+    """Phase "train": ``python -m repro_torch.launch.train``'s ``main`` (T1
+    to T4) and kernels 1 and 4 at its full-width exchange. Returns (the
+    loop runs' launches, kernel 1's new rows, kernel 4's)."""
+    t = time.perf_counter()
+    launches: dict = {}
+    flat_rows, dequant_rows = _train_kernel_rows(torch, gm)
+    _train_t1(torch, gm, card, launches)
+    _train_full(torch, gm, card, launches)
+    _train_smoke(torch, gm, launches)
+    print(f"train phase: {time.perf_counter() - t:.1f} s", flush=True)
+    return launches, flat_rows, dequant_rows
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -3467,6 +3771,9 @@ def main() -> None:
     phase_lm_profile(torch)
     phase_lm_cli()
     print(f"lm phases: {time.perf_counter() - t:.1f} s", flush=True)
+    train_launches, train_flat, train_dequant = phase_train(torch, gm, card)
+    rows["gossip_mix_flat"].extend(train_flat["gossip_mix_flat"])
+    serve_rows["gossip_mix_dequant"].extend(train_dequant["gossip_mix_dequant"])
 
     # every launch on the paths driven on the loop engine: the FedSPD main
     # path (DP off and on), serving, the baselines (uncompressed and
@@ -3477,7 +3784,7 @@ def main() -> None:
     # variants, pytree and telemetry phases count them in their traces)
     for path in (serve_launches, baseline_launches, baseline_comm_launches, sparse_launches,
                  scenario_launches, variant_launches, pytree_launches, telemetry_launches,
-                 lm_launches):
+                 lm_launches, train_launches):
         for name, c in path.items():
             launches[name] = launches.get(name, 0) + c
     replaces = {"gossip_mix_flat": "src/repro/kernels/gossip_mix.py:63",
@@ -3549,8 +3856,10 @@ def main() -> None:
                                                      "hd", "chunk", "dtype")},
             card=card, shapes=rs))
     for k in kernels:
-        # the launches on the telemetry phase's loop runs with telemetry on
+        # the launches on the telemetry phase's loop runs with telemetry on,
+        # and on the train phase's loop runs (launch/train.py)
         k["telemetry_launches"] = telemetry_launches.get(k["name"], 0)
+        k["train_launches"] = train_launches.get(k["name"], 0)
         if k["name"] in scenario_errs:
             # the same kernel on scenario B's weighted W
             k["scenario_w_max_abs_err"] = scenario_errs[k["name"]]

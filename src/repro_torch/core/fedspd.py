@@ -58,6 +58,7 @@ so tests can feed both packages the same numbers.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -148,9 +149,18 @@ def round_lr(cfg: FedSPDConfig, r: int) -> float:
 def init_state(gen: torch.Generator, model_init: Callable, cfg: FedSPDConfig,
                data_m: int, spec: PackSpec | None = None) -> FedSPDState:
     """Independent random init per (cluster, client) pair: packed through
-    ``spec``, or (``spec=None``) a tree of ``(S, N, ...)`` leaves."""
-    models = [model_init(gen) for _ in range(cfg.n_clusters * cfg.n_clients)]
-    centers = stack_models(models, spec, (cfg.n_clusters, cfg.n_clients))
+    ``spec``, or (``spec=None``) a tree of ``(S, N, ...)`` leaves. Packed,
+    each model is written into the plane as it is drawn, so the init
+    holds the plane and one model (the plane of a full-width LM is most
+    of the card)."""
+    lead = (cfg.n_clusters, cfg.n_clients)
+    if spec is None:
+        models = [model_init(gen) for _ in range(math.prod(lead))]
+        centers = stack_models(models, None, lead)
+    else:
+        centers = torch.empty(lead + (spec.size,), dtype=torch.float32, device=gen.device)
+        for row in centers.view(-1, spec.size):
+            row.copy_(pack(model_init(gen), spec))
     return _state(centers, cfg, data_m, fork_generator(gen))
 
 
@@ -239,11 +249,12 @@ def _consensus_per_cluster(centers) -> torch.Tensor:
     """Theorem 5.10's E_t per cluster, every cluster at once, leaf by leaf
     over the ``(S, N, ...)`` leaves (the ``(S, N, X)`` plane is one leaf):
     JAX's per-cluster ``consensus_distance``, its per-leaf terms added in
-    leaf order."""
+    leaf order. The deviations are squared in place: one temporary of the
+    plane's size, not two (an LM's plane is most of the card)."""
     total = None
     for leaf in tree_leaves(centers):
         l32 = leaf.float()
-        d = (l32 - l32.mean(dim=1, keepdim=True)).square().flatten(1).sum(dim=1) \
+        d = (l32 - l32.mean(dim=1, keepdim=True)).square_().flatten(1).sum(dim=1) \
             / leaf.shape[1]
         total = d if total is None else total + d
     return total
@@ -265,9 +276,11 @@ def make_round_step(loss_fn: Callable, per_example_loss: Callable,
     ``{"inputs": (N, M, d), "targets": (N, M)}`` on the plane's device.
     For the "stream" regime, ``step(state, batch, adj=None, *, lr=None,
     s=None, noise=None, comm_u=None, regrow_scores=None)`` with ``batch``
-    the round's fresh ``{"x": (N, B, d), "y": (N, B)}``: no batch indices
-    are drawn, and RigL's dense gradient is the masked loss's on the
-    batch.
+    the round's fresh per-client batch, any keys with leaves ``(N, B,
+    ...)`` (``{"x": (N, B, d), "y": (N, B)}``, or an LM's ``{"tokens":
+    (N, B, L)}``), which the masked loss gets with ``"mask"`` added: no
+    batch indices are drawn, and RigL's dense gradient is the masked
+    loss's on the batch.
     ``adj`` ``(N, N)`` on the plane's device overrides the graph's
     adjacency for this round (a per-seed graph, a cohort's minor); ``lr``
     (a float or a 0-d fp32 tensor on the device, as a captured round
@@ -549,8 +562,7 @@ def make_round_step(loss_fn: Callable, per_example_loss: Callable,
         # current centers; τ steps of the cluster-masked loss on the batch
         adj, lr, s, c_old = begin(state, adj, lr, s)
         zb, _ = assign_clusters(per_example_loss, maybe_unpack(state.centers, pack_spec), batch)
-        sbatch = {"x": batch["x"], "y": batch["y"],
-                  "mask": (zb == s[:, None]).float()}
+        sbatch = {**batch, "mask": (zb == s[:, None]).float()}
         grad_mask = None
         if sparse_on:
             c_old, grad_mask = state.mask * c_old, state.mask
@@ -562,6 +574,9 @@ def make_round_step(loss_fn: Callable, per_example_loss: Callable,
         # (2)+(3), then u as the EMA of the batch's assignment fractions
         plane, ef, mask, comm = finish(state, c_old, c_new, s, adj, lr, noise,
                                        comm_u, dense_grad, regrow_scores)
+        # the rows are in the plane now: free them before the consensus
+        # reduction's temporaries (an LM's rows are most of the card)
+        del c_old, c_new, dense_grad
         u_batch = mixture_coefficients(zb, cfg.n_clusters)
         u = (1 - cfg.u_ema) * state.u + cfg.u_ema * u_batch
         return _result(state, plane, u, state.z, comm, ef, mask, lr, s)

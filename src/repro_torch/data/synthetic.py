@@ -6,7 +6,8 @@ are a U[0.1, 0.9] mixture of S clusters built from Gaussian class
 prototypes; cluster 2 rotates the inputs (``rotate``), permutes the labels
 (``label_split``), or both (S=4, ``both``) — paper Appendix B.1.
 ``make_unbalanced_quantity`` skews how much data each client holds
-(Appendix B.2.5).
+(Appendix B.2.5). ``make_mixture_tokens`` is the LM counterpart: documents
+drawn from cluster-specific Markov chains.
 """
 from __future__ import annotations
 
@@ -168,3 +169,50 @@ def make_unbalanced_quantity(
         rep = idx[rng.integers(keep_low, size=m)]
         x[i], y[i], z[i] = x[i][rep], y[i][rep], z[i][rep]
     return dataclasses.replace(base, x=x, y=y, z_true=z)
+
+
+def make_mixture_tokens(
+    n_clients: int = 16,
+    n_clusters: int = 2,
+    docs_per_client: int = 64,
+    seq_len: int = 256,
+    vocab: int = 512,
+    seed: int = 0,
+    concentration: float = 0.25,
+) -> dict:
+    """Cluster-specific Markov chains over a shared vocab: the LM analogue
+    of the rotated-image clusters, as the JAX package's generator makes it
+    from the same seed.
+
+    Returns tokens ``(N, D, L)`` int32, z_true ``(N, D)``, mix_true ``(N,
+    S)``. Each cluster's transition matrix is a Dirichlet draw per row, so
+    next-token statistics differ across clusters."""
+    rng = np.random.default_rng(seed)
+    trans = [rng.dirichlet(np.full(vocab, concentration), size=vocab).astype(np.float64)
+             for _ in range(n_clusters)]
+    counts = _mixture_counts(rng, n_clients, n_clusters, docs_per_client)
+
+    tokens = np.zeros((n_clients, docs_per_client, seq_len), dtype=np.int32)
+    z_true = np.zeros((n_clients, docs_per_client), dtype=np.int64)
+    for i in range(n_clients):
+        d = 0
+        for s, c in enumerate(counts[i]):
+            for _ in range(c):
+                seq = np.zeros(seq_len, dtype=np.int32)
+                seq[0] = rng.integers(vocab)
+                t = trans[s]
+                for k in range(1, seq_len):
+                    seq[k] = rng.choice(vocab, p=t[seq[k - 1]])
+                tokens[i, d] = seq
+                z_true[i, d] = s
+                d += 1
+        p = rng.permutation(docs_per_client)
+        tokens[i] = tokens[i][p]
+        z_true[i] = z_true[i][p]
+    return {
+        "tokens": tokens,
+        "z_true": z_true,
+        "mix_true": (counts / docs_per_client).astype(np.float32),
+        "vocab": vocab,
+        "n_clusters": n_clusters,
+    }

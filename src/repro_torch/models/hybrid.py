@@ -33,7 +33,7 @@ from repro_torch.models.layers import (
     embed_init,
     embed_lookup,
     init_device,
-    layer_slice,
+    unstack_layers,
     linear,
     rmsnorm_init,
     stack_init,
@@ -91,7 +91,7 @@ def _embed(params: dict, tokens: torch.Tensor, cfg: ArchConfig):
 
 
 def _run(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *, attn_mode: str,
-         cache: dict | None):
+         cache: dict | None, ssd: str = "cuda"):
     """Embed and the hybrid stack; with ``cache``, each Mamba layer's
     decode state and each invocation's k/v are copied into it. Returns
     (h after the stack, compute-cast params)."""
@@ -99,10 +99,11 @@ def _run(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *, attn_mode: str,
     l = tokens.shape[1]
     positions = torch.arange(l, device=tokens.device)
     after = _invocation_after(cfg)
+    layers = unstack_layers(params["mamba"], batched)
     for i in range(cfg.n_layers):
-        p = layer_slice(params["mamba"], i, batched)
+        p = layers[i]
         if cache is None:
-            h = apply_mamba_layer(p, h, cfg=cfg)
+            h = apply_mamba_layer(p, h, cfg=cfg, ssd=ssd)
         else:
             h, st = apply_mamba_layer(p, h, cfg=cfg, return_state=True)
             cache["ssm"][i].copy_(st["ssm"])
@@ -117,9 +118,10 @@ def _run(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *, attn_mode: str,
 
 
 def hybrid_forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
-                   attn_mode: str = "cuda"):
-    """Returns (logits, aux = 0, None), as the JAX package's."""
-    h, params = _run(params, tokens, cfg, attn_mode=attn_mode, cache=None)
+                   attn_mode: str = "cuda", ssd: str = "cuda"):
+    """Returns (logits, aux = 0, None), as the JAX package's; ``ssd`` the
+    Mamba layers' SSD route (``ssm.SSD_MODES``)."""
+    h, params = _run(params, tokens, cfg, attn_mode=attn_mode, cache=None, ssd=ssd)
     h = apply_norm("rmsnorm", params["ln_f"], h)
     logits = linear(h, params["head"])
     return logits, torch.zeros((), dtype=torch.float32, device=h.device), None
@@ -164,8 +166,9 @@ def hybrid_decode_step(params: dict, cache: dict, tokens: torch.Tensor, cfg: Arc
     h, params, batched = _embed(params, tokens, cfg)
     pos = cache["pos"]
     after = _invocation_after(cfg)
+    layers = unstack_layers(params["mamba"], batched)
     for i in range(cfg.n_layers):
-        h, new_c = decode_mamba_layer(layer_slice(params["mamba"], i, batched), h,
+        h, new_c = decode_mamba_layer(layers[i], h,
                                       {"ssm": cache["ssm"][i], "conv": cache["conv"][i]},
                                       cfg=cfg)
         cache["ssm"][i].copy_(new_c["ssm"])

@@ -81,19 +81,42 @@ def per_feature(p: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Rows of ``embed`` ``(V, D)`` (or ``(B, V, D)``, per request) at
-    tokens ``(B, L)`` -> ``(B, L, D)``."""
+    tokens ``(B, L)`` -> ``(B, L, D)``. A shared table is read through
+    ``F.embedding``, whose backward on the card sums a token's repeats in
+    a fixed order (an indexed read's backward adds them with atomics), so
+    a trained round gives the same bits on every run."""
     if embed.dim() == 2:
-        return embed[tokens]
+        return F.embedding(tokens, embed)
     rows = torch.arange(tokens.shape[0], device=tokens.device)[:, None]
     return embed[rows, tokens]
 
 
-def layer_slice(stacked, i: int, batched: bool):
-    """Layer ``i`` of a stacked ``(L, ...)`` params dict, or of a
-    per-request ``(B, L, ...)`` one (views, no copy)."""
-    if isinstance(stacked, dict):
-        return {k: layer_slice(v, i, batched) for k, v in stacked.items()}
-    return stacked[:, i] if batched else stacked[i]
+def unstack_layers(stacked: dict, batched: bool) -> list:
+    """The layers of a stacked ``(L, ...)`` params dict, or of a
+    per-request ``(B, L, ...)`` one, as a list of per-layer dicts of views
+    (no copy). The views come from one ``unbind`` a leaf, whose backward
+    stacks the L layers' gradients into one tensor; indexing layer by
+    layer would give each layer's gradient a zero-padded copy of the
+    whole stack, and add the L copies."""
+    dim = 1 if batched else 0
+
+    def split(node):
+        if isinstance(node, dict):
+            return {k: split(v) for k, v in node.items()}
+        return node.unbind(dim)
+
+    def pick(node, i):
+        if isinstance(node, dict):
+            return {k: pick(v, i) for k, v in node.items()}
+        return node[i]
+
+    def depth(node):
+        if isinstance(node, dict):
+            return next((d for d in map(depth, node.values()) if d is not None), None)
+        return node.shape[dim]
+
+    parts = split(stacked)
+    return [pick(parts, i) for i in range(depth(stacked))]
 
 
 # --------------------------------------------------------------------------

@@ -19,16 +19,37 @@ decode step (``serve/server.py``) reads what the last call wrote.
 
 batch: ``{"tokens": (B, L)}``. ``audio`` (whisper, ``models/encdec.py``)
 waits for a later slice and raises ``ValueError``.
+
+FedSPD's client axes. ``per_example_loss`` also takes the FL engine's
+form, what the JAX package gets with ``jax.vmap``: params whose leaves
+carry leading axes ``*B`` (``(N,)`` for the local steps, ``(S, N)`` for
+the clustering forward) against tokens ``(*B', b, L)`` broadcast to
+``*B``, returning ``(*B, b)``. Each model runs its own b sequences in a
+loop over the flattened axes (``_on_client_axes``), so each client's MoE
+routes its own b·L tokens with the capacity they give, as under
+``vmap``. Tokens of rank 2 keep the one-model and per-request forms.
+
+The training route. ``build_model(cfg, train=True)``, which only the
+train launcher (``launch/train.py``) asks for, runs attention through
+``ref_attention`` and the SSD through ``ssm.ssd_chunked``, both under
+autograd: the JAX package trains outside its Pallas kernels (``"ref"``
+at smoke size, its pure-JAX ``"blocked"`` at full width, its own
+``ssd_chunked``), and kernels 8 and 9 have no backward. Every other
+caller keeps kernels 8 and 9.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
+
+import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import hybrid, ssm
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import next_token_loss
+from repro_torch.utils.pytree import tree_map
 
 _LATER = {
     "audio": "the audio slice (models/encdec.py, whisper)",
@@ -51,8 +72,46 @@ def _masked_next_token_loss(logits, tokens, cfg):
     return next_token_loss(tfm._mask_pad_vocab(logits, cfg), tokens)
 
 
-def build_model(cfg: ArchConfig, *, attn_mode: str = "cuda") -> ModelBundle:
+def _split_models(params: dict, k: int, shape: tuple) -> list:
+    """The ``prod(shape)`` models of a tree whose leaves lead with ``k``
+    model axes, broadcast to ``shape``: views (``unbind``, whose backward
+    stacks the models' gradients into one tensor per leaf)."""
+    parts = tree_map(lambda leaf: leaf.expand(*shape, *leaf.shape[k:])
+                     .reshape(-1, *leaf.shape[k:]).unbind(0), params)
+
+    def pick(node, i):
+        return {key: pick(v, i) for key, v in node.items()} if isinstance(node, dict) \
+            else node[i]
+
+    return [pick(parts, i) for i in range(math.prod(shape))]
+
+
+def _on_client_axes(per_example_loss):
+    """``per_example_loss`` on the FL client axes (see the module's
+    docstring); tokens of rank 2 go straight through."""
+    def on_axes(params, batch):
+        tokens = batch["tokens"]
+        if tokens.dim() <= 2:
+            return per_example_loss(params, batch)
+        k = params["embed"].dim() - 2
+        shape = tuple(torch.broadcast_shapes(params["embed"].shape[:k], tokens.shape[:-2]))
+        seqs = tokens.expand(*shape, *tokens.shape[-2:]).reshape(-1, *tokens.shape[-2:])
+        out = [per_example_loss(p, {"tokens": seqs[i]})
+               for i, p in enumerate(_split_models(params, k, shape))]
+        return torch.stack(out).reshape(*shape, tokens.shape[-2])
+
+    return on_axes
+
+
+def build_model(cfg: ArchConfig, *, attn_mode: str = "cuda",
+                train: bool = False) -> ModelBundle:
+    """The family's bundle; ``train=True`` takes the training route (see
+    the module's docstring: attention ``"ref"`` whatever ``attn_mode``
+    says, the SSD ``"chunked"``)."""
     fam = cfg.family
+    ssd = "chunked" if train else "cuda"
+    if train:
+        attn_mode = "ref"
     if fam in _LATER:
         raise ValueError(
             f"{cfg.name} (family {fam!r}) is not in the port yet: it waits for "
@@ -84,7 +143,7 @@ def build_model(cfg: ArchConfig, *, attn_mode: str = "cuda") -> ModelBundle:
             return ssm.init_ssm_model(gen, cfg)
 
         def forward(params, batch):
-            logits, aux, _ = ssm.ssm_forward(params, batch["tokens"], cfg)
+            logits, aux, _ = ssm.ssm_forward(params, batch["tokens"], cfg, ssd=ssd)
             return logits, aux
 
         def loss(params, batch):
@@ -106,7 +165,7 @@ def build_model(cfg: ArchConfig, *, attn_mode: str = "cuda") -> ModelBundle:
 
         def forward(params, batch):
             logits, aux, _ = hybrid.hybrid_forward(params, batch["tokens"], cfg,
-                                                   attn_mode=attn_mode)
+                                                   attn_mode=attn_mode, ssd=ssd)
             return logits, aux
 
         def loss(params, batch):
@@ -126,6 +185,7 @@ def build_model(cfg: ArchConfig, *, attn_mode: str = "cuda") -> ModelBundle:
     else:
         raise ValueError(f"unknown family {fam!r}")
 
+    @_on_client_axes
     def per_example_loss(params, batch):
         logits, _ = forward(params, batch)
         return _masked_next_token_loss(logits, batch["tokens"], cfg)

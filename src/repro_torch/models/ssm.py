@@ -8,7 +8,14 @@ The full-sequence scan (the JAX package's ``ssm.py:203``) runs kernel 9,
 ``kernels/ssd_scan.ssd_scan``, with ``chunk = min(cfg.ssm_chunk, L)``; its
 plain version ``ssd_chunked`` (and ``_segsum``) live beside the kernel
 and are re-exported here under their JAX names. The D skip and the gating
-stay outside the kernel. Decode keeps a constant-size ``(H, P, N)`` state
+stay outside the kernel.
+
+Two SSD routes (``SSD_MODES``), picked by the callers' ``ssd`` argument:
+``"cuda"`` (every serving path) is kernel 9, which has no backward;
+``"chunked"`` (the training route of ``models/registry.build_model(...,
+train=True)``, which only the train launcher takes) is ``ssd_chunked``,
+the JAX package's ``models/ssm.py:44`` function, under autograd, as the
+JAX package trains through it and through no Pallas kernel. Decode keeps a constant-size ``(H, P, N)`` state
 per layer.
 
 Layer layout follows the Mamba2 reference: in_proj -> (z, x, B, C, dt);
@@ -38,13 +45,25 @@ from repro_torch.models.layers import (
     embed_init,
     embed_lookup,
     init_device,
-    layer_slice,
+    unstack_layers,
     linear,
     per_feature,
     rmsnorm_init,
     stack_init,
     uniform,
 )
+
+
+SSD_MODES = ("cuda", "chunked")
+
+
+def _ssd(mode: str):
+    """The SSD function of route ``mode`` (``SSD_MODES``)."""
+    if mode == "cuda":
+        return ssd_scan
+    if mode == "chunked":
+        return ssd_chunked
+    raise ValueError(f"unknown SSD route {mode!r}; have {SSD_MODES}")
 
 
 def ssd_decode_step(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
@@ -117,8 +136,9 @@ def _heads_last(p: torch.Tensor) -> torch.Tensor:
 
 
 def apply_mamba_layer(p: dict, hidden: torch.Tensor, *, cfg: ArchConfig,
-                      return_state: bool = False):
-    """Full-sequence Mamba2 block with residual. hidden: ``(B, L, D)``.
+                      return_state: bool = False, ssd: str = "cuda"):
+    """Full-sequence Mamba2 block with residual. hidden: ``(B, L, D)``;
+    ``ssd`` the SSD route (``SSD_MODES``).
 
     ``return_state=True`` also returns this layer's decode cache entry: the
     final SSD state (fp32) and the last (K-1) pre-conv tokens."""
@@ -133,8 +153,8 @@ def apply_mamba_layer(p: dict, hidden: torch.Tensor, *, cfg: ArchConfig,
     Cm = xbc[..., di + g * n:].reshape(b, l, g, n)
     dt = F.softplus(dt_raw.float() + per_feature(p["dt_bias"], dt_raw))   # (B, L, H)
     A = -torch.exp(p["A_log"])
-    y, final_state = ssd_scan(x.contiguous(), dt, A, Bm.contiguous(), Cm.contiguous(),
-                              chunk=min(cfg.ssm_chunk, l))
+    y, final_state = _ssd(ssd)(x.contiguous(), dt, A, Bm.contiguous(), Cm.contiguous(),
+                               chunk=min(cfg.ssm_chunk, l))
     y = y + x * _heads_last(p["D"]).to(x.dtype)
     y = apply_norm("rmsnorm", p["gate_ln"], y.reshape(b, l, di) * F.silu(z))
     out = hidden + linear(y, p["out_proj"])
@@ -200,10 +220,13 @@ def _embed(params: dict, tokens: torch.Tensor, cfg: ArchConfig):
     return h, cast_params_for_compute(params, compute), params["embed"].dim() == 3
 
 
-def ssm_forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig):
+def ssm_forward(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *,
+                ssd: str = "cuda"):
     h, params, batched = _embed(params, tokens, cfg)
+    layers = unstack_layers(params["layers"], batched)
     for i in range(cfg.n_layers):
-        h = apply_mamba_layer(layer_slice(params["layers"], i, batched), h, cfg=cfg)
+        h = apply_mamba_layer(layers[i], h, cfg=cfg,
+                              ssd=ssd)
     h = apply_norm("rmsnorm", params["ln_f"], h)
     logits = linear(h, params["head"])
     return logits, torch.zeros((), dtype=torch.float32, device=h.device), None
@@ -222,8 +245,9 @@ def ssm_prefill(params: dict, tokens: torch.Tensor, cfg: ArchConfig, cache: dict
     state (SSD state + conv tail) into ``cache``, and the prompt's length
     into its ``pos``, all in place; returns ``cache``."""
     h, params, batched = _embed(params, tokens, cfg)
+    layers = unstack_layers(params["layers"], batched)
     for i in range(cfg.n_layers):
-        h, st = apply_mamba_layer(layer_slice(params["layers"], i, batched), h, cfg=cfg,
+        h, st = apply_mamba_layer(layers[i], h, cfg=cfg,
                                   return_state=True)
         cache["ssm"][i].copy_(st["ssm"])
         cache["conv"][i].copy_(st["conv"])
@@ -236,8 +260,9 @@ def ssm_decode_step(params: dict, cache: dict, tokens: torch.Tensor, cfg: ArchCo
     and tensors, each layer's state written and ``pos`` advanced by one in
     place."""
     h, params, batched = _embed(params, tokens, cfg)
+    layers = unstack_layers(params["layers"], batched)
     for i in range(cfg.n_layers):
-        h, new_c = decode_mamba_layer(layer_slice(params["layers"], i, batched), h,
+        h, new_c = decode_mamba_layer(layers[i], h,
                                       {"ssm": cache["ssm"][i], "conv": cache["conv"][i]},
                                       cfg=cfg)
         cache["ssm"][i].copy_(new_c["ssm"])

@@ -45,7 +45,7 @@ from repro_torch.models.layers import (
     embed_lookup,
     init_device,
     init_mlp,
-    layer_slice,
+    unstack_layers,
     linear,
     next_token_loss,
     rmsnorm_init,
@@ -178,8 +178,9 @@ def _run_layers(params: dict, tokens: torch.Tensor, cfg: ArchConfig, *, attn_mod
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     kvs = [] if keep_kv else None
     aux_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    layers = unstack_layers(params["layers"], batched)
     for i in range(cfg.n_layers):
-        h, kv, aux = apply_layer(layer_slice(params["layers"], i, batched), h, cfg=cfg,
+        h, kv, aux = apply_layer(layers[i], h, cfg=cfg,
                                  positions=positions, mode=attn_mode, window=_window(cfg, i))
         if cfg.n_experts > 0:
             aux_sum = aux_sum + aux
@@ -267,8 +268,9 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor, cfg: ArchConfig
     h = embed_lookup(params["embed"], tokens).to(compute)
     params = cast_params_for_compute(params, compute)
     pos = cache["pos"]
+    layers = unstack_layers(params["layers"], batched)
     for i in range(cfg.n_layers):
-        h, _ = decode_layer(layer_slice(params["layers"], i, batched), h,
+        h, _ = decode_layer(layers[i], h,
                             {"k": cache["k"][i], "v": cache["v"][i]}, cfg=cfg,
                             pos=pos, window=_window(cfg, i))
     h = apply_norm(cfg.norm, params.get("ln_f"), h)

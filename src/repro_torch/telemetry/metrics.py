@@ -85,14 +85,17 @@ def spectral_gap_proxy(adj: torch.Tensor, iters: int = 8) -> torch.Tensor:
     w = w + eye * (1.0 - w.sum(-1, keepdim=True))
     v = torch.linspace(-1.0, 1.0, n, dtype=torch.float32,
                        device=adj.device).expand(adj.shape[:-1])
+    # ρ starts at 0, as JAX's does (``iters=0`` reports a gap of 1), and is
+    # then the last step's (JAX's loop computes it every step; XLA drops
+    # all but the last)
+    rho = torch.zeros(adj.shape[:-2], dtype=torch.float32, device=adj.device)
     for _ in range(int(iters)):
         v = v - v.mean(-1, keepdim=True)   # deflate the ones vector
         norm = torch.sqrt((v * v).sum(-1, keepdim=True))
         v = v / torch.clamp_min(norm, 1e-12)
         v = torch.matmul(w, v[..., None])[..., 0]
-    # ρ of the last step only (JAX's loop computes it every step; XLA
-    # drops all but the last)
-    rho = torch.sqrt((v * v).sum(-1))
+    if iters > 0:
+        rho = torch.sqrt((v * v).sum(-1))
     return torch.clamp_min(1.0 - rho, 0.0)
 
 

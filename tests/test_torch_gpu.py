@@ -1531,3 +1531,74 @@ def test_telemetry_replay_streams_equal_the_loop_s(cuda, label):
     for name, v in loop.telemetry["streams"].items():
         assert np.array_equal(v, scan.telemetry["streams"][name], equal_nan=True), name
     assert np.isfinite(scan.telemetry["streams"]["consensus"]).all()
+
+
+# --------------------------------------------------------------------------
+# launch/train.py on the card (the train launcher slice)
+# --------------------------------------------------------------------------
+
+TRAIN_SMOKE = ["--smoke", "--rounds", "4", "--clients", "4", "--clusters", "2", "--batch",
+               "4", "--seq", "64", "--graph", "er", "--avg-degree", "2", "--eval-every",
+               "100", "--mask-update-every", "2"]
+TRAIN_HET = ["--time-budget", "1.5", "--slow-fraction", "0.5", "--p-unavailable", "0.2",
+             "--staleness-gamma", "0.5"]
+TRAIN_CASES = {
+    # label: (arch, flags, launches of the 4 loop rounds; None: kernel 1 a leaf)
+    "olmo": ("olmo-1b", [], {"gossip_mix_flat": 4}),
+    "zamba2": ("zamba2-1.2b", [], {"gossip_mix_flat": 4}),
+    "olmoe": ("olmoe-1b-7b", [], {"gossip_mix_flat": 4}),
+    "mamba2 int8+ef": ("mamba2-370m", ["--codec", "int8", "--error-feedback"],
+                       {"gossip_mix_dequant": 4}),
+    "sparse int8+ef": ("olmo-1b", ["--sparse-density", "0.2", "--codec", "int8",
+                                   "--error-feedback"],
+                       {"gossip_mix_sparse": 4, "gossip_mix_dequant_masked": 4}),
+    "pytree": ("olmo-1b", ["--pytree"], None),
+    "het": ("gemma3-1b", TRAIN_HET, {"gossip_mix_flat": 4}),
+}
+
+
+@pytest.mark.parametrize("label", list(TRAIN_CASES))
+def test_train_launcher_replay_equals_the_loop(cuda, label):
+    """``python -m repro_torch.launch.train`` at smoke size on the card: the
+    loop's exchange kernels counted (none of kernels 8 and 9: the training
+    route), and ``--scan-rounds`` (one captured round replayed; two graphs
+    where the sparse masks update) equal to the loop bit for bit."""
+    from repro_torch.kernels import gossip_mix
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch.train import main
+    from repro_torch.utils.pytree import tree_leaves
+
+    arch, flags, want = TRAIN_CASES[label]
+    argv = ["--arch", arch] + TRAIN_SMOKE + flags
+    gossip_mix.reset_launch_counts()
+    flash_attention.launches = ssd_scan.launches = 0
+    loop = main(argv)
+    if want is None:
+        want = {"gossip_mix_flat": 4 * len(tree_leaves(loop["state"].centers))}
+    for k in gossip_mix.KERNELS:
+        assert k.launches == want.get(k.__name__, 0), k.__name__
+    assert flash_attention.launches == ssd_scan.launches == 0
+    scan = main(argv + ["--scan-rounds"])
+    assert scan["n_captures"] == (2 if "sparse" in label else 1)
+    for a, b in zip(state_tensors(loop["state"]), state_tensors(scan["state"])):
+        assert torch.equal(a, b)
+    assert loop["final_loss"] == scan["final_loss"]
+    assert scan["round_ms"] and all(v > 0 for v in scan["round_ms"])
+
+
+def test_flat_kernel_at_the_lm_exchange_matches_plain(cuda):
+    """Kernel 1 at the full-width mamba2-370m exchange, (N, X) = (4,
+    420,136,448): 13.44 GB of operands, byte offsets past 2^32."""
+    n, x = 4, 420_136_448
+    g = torch.Generator(device=cuda).manual_seed(0)
+    w = torch.rand((n, n), generator=g, device=cuda)
+    w = w / w.sum(dim=1, keepdim=True)
+    c = torch.randn((n, x), generator=g, device=cuda)
+    out = gossip_mix_flat(w, c)
+    assert _max_err(out, gossip_mix_flat_ref(w, c)) <= TOL
+    # the last columns, past 2^32 bytes of the plane, against their own mix
+    tail = slice(x - 4096, x)
+    assert _max_err(out[:, tail], w @ c[:, tail]) <= TOL
+    del out, c
+    torch.cuda.empty_cache()

@@ -165,6 +165,18 @@ def test_spectral_gap_iters_and_batch_match_jax():
                           np.asarray(jm.effective_degree(_j(adj))))
 
 
+@pytest.mark.parametrize("graph", ["er", "empty"])
+def test_spectral_gap_zero_iters_matches_jax(graph):
+    """No power step: ρ keeps its start, 0, so the gap is 1 as JAX's."""
+    rng = np.random.default_rng(6)
+    adj = (np.stack([_er(rng, 10, 0.4) for _ in range(3)]) if graph == "er"
+           else np.zeros((3, 10, 10), np.float32))
+    got = tm.spectral_gap_proxy(_t(adj), 0)
+    want = np.asarray(jm.spectral_gap_proxy(_j(adj), 0))
+    assert got.shape == want.shape == (3,)
+    assert np.array_equal(got.numpy(), want) and (want == 1.0).all()
+
+
 def test_count_streams_match_jax_exactly():
     rng = np.random.default_rng(5)
     stale = rng.integers(0, 9, size=(3, N)).astype(np.int32)   # ages past the last bin
