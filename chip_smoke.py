@@ -280,6 +280,19 @@ Phases, in order; any failure exits non-zero before the result line:
    ``--telemetry-out`` rendered by ``summary_table``, its ``--save``
    manifest, and its int8 ``--export-servable`` answered by
    ``launch.serve --artifact``.
+17. the mesh (phase "mesh"): a process group of one rank over NCCL on the
+   card (a file store in a temporary directory; a missing NCCL fails),
+   the (1, 1) ("data", "model") mesh. M1: the mlp plane at N = 1, S = 2,
+   3 rounds of ``make_fedspd_train_step(mesh=...)`` on
+   ``shard_plane_state`` equal to the one-device round bit for bit (plane,
+   u, comm_bytes, the selections and consensus; the bytes' all-gather and
+   the consensus's all-reduces run over NCCL); ``decode_attention`` over
+   the mesh's "data" dim equal to ``axis_name=None`` on olmo-1b's smoke
+   shapes; ``HBM_BYTES`` as read. M2: ``launch.train --mesh`` on
+   mamba2-370m at full width (N = 1, S = 2, b = 4, L = 64, 2 loop rounds)
+   equal to the same run on one device bit for bit, with each run's round
+   ms and peak memory. The group is destroyed after, and a line says that
+   the multi-rank NCCL exchange has not run on this card.
 
 It then prints its seconds (``chip_smoke: … s``), one
 ``{"kernels": [...]}`` line and, last, the
@@ -3676,6 +3689,172 @@ def phase_train(torch, gm, card: str) -> tuple[dict, dict, dict]:
     return launches, flat_rows, dequant_rows
 
 
+MESH_M1_ROUNDS = 3
+MESH_M2_ARGS = ["--arch", "mamba2-370m", "--clients", "1", "--clusters", "2", "--batch", "4",
+                "--seq", "64", "--rounds", "2"]
+
+
+def _mesh_m1(torch, mesh, card: str) -> None:
+    """M1: the mlp plane at N = 1, S = 2 (dim 64, 10 classes, 256 points),
+    MESH_M1_ROUNDS full-regime rounds of ``make_fedspd_train_step(mesh=...)``
+    on ``shard_plane_state`` against the one-device round on a copy of the
+    same state (batch indices injected; each draws its own selections):
+    plane, u and comm_bytes bit for bit. Then ``decode_attention`` over
+    the mesh's "data" dim against ``axis_name=None`` on olmo-1b's smoke
+    shapes, bit for bit."""
+    import types
+
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.core.fedspd import FedSPDConfig, init_state, make_round_step
+    from repro_torch.core.gossip import GossipSpec
+    from repro_torch.core.packing import make_pack_spec
+    from repro_torch.data.synthetic import make_mixture_classification
+    from repro_torch.experiments.runner import _copy_state
+    from repro_torch.graphs.topology import make_graph
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import HBM_BYTES, use_mesh
+    from repro_torch.launch.steps import make_fedspd_train_step
+    from repro_torch.models.attention import decode_attention
+    from repro_torch.models.smallnets import make_classifier
+
+    dev = torch.device("cuda")
+    data = make_mixture_classification(n_clients=1, n_per_client=256)
+    train = {"inputs": torch.as_tensor(data.x, device=dev),
+             "targets": torch.as_tensor(data.y, device=dev)}
+    _, _, loss, pel, _ = make_classifier("mlp", torch.Generator(device=dev), 64, 10)
+    spec = make_pack_spec(make_classifier("mlp", torch.Generator(device=dev), 64, 10)[0])
+    fcfg = FedSPDConfig(n_clients=1, n_clusters=2)
+    gossip = GossipSpec.from_graph(make_graph("er", 1, 5.0, seed=0))
+    state = init_state(torch.Generator(device=dev).manual_seed(0),
+                       lambda g: make_classifier("mlp", g, 64, 10)[0], fcfg, data_m=256,
+                       spec=spec)
+    one = _copy_state(state)
+    placed = shd.shard_plane_state(state, mesh)
+    del state
+    single = make_round_step(loss, pel, gossip, fcfg, pack_spec=spec)
+    step = make_fedspd_train_step(types.SimpleNamespace(loss=loss, per_example_loss=pel),
+                                  gossip, fcfg, pack_spec=spec, mesh=mesh)
+    g_idx = torch.Generator(device=dev).manual_seed(1)
+    ms = {"mesh": [], "one": []}
+    for _ in range(MESH_M1_ROUNDS):
+        idx = torch.randint(0, 256, (fcfg.tau, 1, fcfg.batch), generator=g_idx, device=dev)
+        t = time.perf_counter()
+        one, m_one = single(one, train, idx=idx)
+        torch.cuda.synchronize()
+        ms["one"].append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        placed, m_mesh = step(placed, train, idx=idx)
+        torch.cuda.synchronize()
+        ms["mesh"].append((time.perf_counter() - t) * 1e3)
+        check(torch.equal(m_one["selected"], m_mesh["selected"]),
+              "mesh M1: the mesh round drew other selections than the one-device round")
+        check(torch.equal(m_one["consensus"], m_mesh["consensus"]),
+              "mesh M1: the consensus differs from the one-device round's")
+    loc = shd.local_state(placed)
+    check(loc.centers.shape == one.centers.shape and loc.centers.is_cuda,
+          f"mesh M1: local plane {tuple(loc.centers.shape)}")
+    for f in ("centers", "u", "comm_bytes"):
+        check(torch.equal(getattr(loc, f), getattr(one, f)),
+              f"mesh M1: {f} differs from the one-device round's after {MESH_M1_ROUNDS} rounds")
+    print(f"mesh M1 mlp N=1 S=2 X={spec.size} ({card}): {MESH_M1_ROUNDS} rounds on the (1, 1) "
+          f"NCCL mesh equal the one-device rounds bit for bit (plane, u, comm_bytes "
+          f"{float(loc.comm_bytes)}, selections, consensus); round ms mesh "
+          f"{[round(v, 3) for v in ms['mesh']]} one-device {[round(v, 3) for v in ms['one']]}",
+          flush=True)
+
+    cfg = get_smoke_config("olmo-1b")
+    g = torch.Generator(device=dev).manual_seed(2)
+    q = torch.randn((4, 1, cfg.n_heads, cfg.head_dim), generator=g, device=dev)
+    kc, vc = (torch.randn((4, 64, cfg.n_kv_heads, cfg.head_dim), generator=g, device=dev)
+              for _ in range(2))
+    for dtype in (torch.float32, torch.bfloat16):
+        for w in (None, 16):
+            args = (q.to(dtype), kc.to(dtype), vc.to(dtype), torch.tensor(40, device=dev))
+            want = decode_attention(*args, window=w)
+            with use_mesh(mesh):
+                got = decode_attention(*args, window=w, axis_name="data")
+            check(torch.equal(got, want),
+                  f"mesh M1: decode_attention(axis_name='data') {dtype} window {w} differs")
+    total = torch.cuda.get_device_properties(0).total_memory
+    print("mesh M1 decode_attention(axis_name='data') on olmo-1b smoke shapes (B 4, Lc 64, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.head_dim}; fp32, bf16; window None, "
+          "16) equals axis_name=None bit for bit", flush=True)
+    print(f"mesh HBM_BYTES read: torch.cuda.get_device_properties(0).total_memory {total} "
+          f"({card}); launch/mesh.py HBM_BYTES {HBM_BYTES}", flush=True)
+
+
+def _mesh_m2(torch, mesh, card: str) -> None:
+    """M2: ``launch/train.py`` on mamba2-370m at full width (X =
+    420,136,448), N = 1, S = 2, b = 4, L = 64, 2 loop rounds, with
+    ``--mesh`` on the (1, 1) NCCL mesh against the same run on one
+    device: final plane, u, bytes and loss bit for bit; round ms (the
+    second round) and peak memory of both."""
+    from repro_torch.launch.sharding import local_state
+    from repro_torch.launch.train import main as train_main
+
+    _free(torch)
+    one = train_main(MESH_M2_ARGS)
+    keep = {"plane": one["state"].centers, "u": one["state"].u,
+            "comm": one["state"].comm_bytes, "loss": one["final_loss"],
+            "ms": one["round_ms"], "alloc": one["max_memory_allocated"],
+            "reserved": one["max_memory_reserved"]}
+    del one
+    _free(torch)
+    res = train_main(MESH_M2_ARGS + ["--mesh", "pod"], mesh=mesh)
+    loc = local_state(res["state"])
+    check(loc.centers.shape == keep["plane"].shape == (2, 1, TRAIN_X),
+          f"mesh M2: plane {tuple(loc.centers.shape)}")
+    same = (bool(torch.equal(loc.centers, keep["plane"])) and bool(torch.equal(loc.u, keep["u"]))
+            and bool(torch.equal(loc.comm_bytes, keep["comm"]))
+            and res["final_loss"] == keep["loss"])
+    check(same, "mesh M2: the mesh run differs from the one-device run")
+    check(all(v > 0 for v in res["round_ms"]), f"mesh M2: round ms {res['round_ms']}")
+    gib = 2 ** 30
+    print(f"mesh M2 mamba2-370m X={TRAIN_X} N=1 S=2 b=4 L=64 ({card}): 2 loop rounds with "
+          f"--mesh on the (1, 1) NCCL mesh equal the one-device run bit for bit (plane, u, "
+          f"comm_bytes, final loss {res['final_loss']:.6f}); round ms (round 2) mesh "
+          f"{res['round_ms'][1]:.2f} one-device {keep['ms'][1]:.2f} (round 1: "
+          f"{res['round_ms'][0]:.2f} / {keep['ms'][0]:.2f}); max_memory_allocated GiB mesh "
+          f"{res['max_memory_allocated'] / gib:.2f} one-device {keep['alloc'] / gib:.2f}; "
+          f"max_memory_reserved GiB mesh {res['max_memory_reserved'] / gib:.2f} one-device "
+          f"{keep['reserved'] / gib:.2f}", flush=True)
+    del res, loc, keep
+    _free(torch)
+
+
+def phase_mesh(torch, card: str) -> None:
+    """Phase "mesh": a process group of one rank over NCCL on the card (a
+    ``FileStore`` in a temporary directory), the (1, 1) ("data", "model")
+    mesh, M1 and M2, then the group is destroyed so later phases run as
+    before. A missing NCCL fails the phase."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+
+    t = time.perf_counter()
+    check(dist.is_available() and dist.is_nccl_available(),
+          "mesh phase: torch.distributed with NCCL is not available")
+    store = tempfile.mkdtemp(prefix="mesh_store_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        check(dist.get_backend() == "nccl", f"mesh phase: backend {dist.get_backend()}")
+        mesh = make_test_mesh((1, 1), device_type="cuda")
+        _mesh_m1(torch, mesh, card)
+        _mesh_m2(torch, mesh, card)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    print("mesh notice: the multi-rank NCCL exchange (send/recv between cards) has not run "
+          "on this card (one device, a world of one rank); tests/test_torch_mesh.py holds "
+          "it on the CPU over gloo (6 ranks)", flush=True)
+    print(f"mesh phase: {time.perf_counter() - t:.1f} s", flush=True)
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -3772,6 +3951,7 @@ def main() -> None:
     phase_lm_cli()
     print(f"lm phases: {time.perf_counter() - t:.1f} s", flush=True)
     train_launches, train_flat, train_dequant = phase_train(torch, gm, card)
+    phase_mesh(torch, card)
     rows["gossip_mix_flat"].extend(train_flat["gossip_mix_flat"])
     serve_rows["gossip_mix_dequant"].extend(train_dequant["gossip_mix_dequant"])
 

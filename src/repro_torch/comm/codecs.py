@@ -262,6 +262,36 @@ class Channel:
         sc = np.frombuffer(data[split:], dtype=wire).reshape(batch + (nq,))
         return {"q": q, "scale": torch.from_numpy(sc.astype(np.float32))}
 
+    def to_wire(self, enc: dict) -> list:
+        """One encoded row as the tensors that cross a link: int8 quanta
+        and fp32 scales; int4 quanta as packed nibbles (uint8) and the
+        scales in fp16 (exact: encode rounded them through it); top-k
+        values and int32 indices."""
+        if self.cfg.codec == "topk":
+            return [enc["v"].contiguous(), enc["i"].contiguous()]
+        q = int4_pack(enc["q"]) if self.cfg.codec == "int4" else enc["q"]
+        return [q.contiguous(), enc["scale"].to(self.scale_wire_dtype).contiguous()]
+
+    def wire_buffers(self, device) -> list:
+        """Empty receive buffers for one row's ``to_wire`` tensors."""
+        if self.cfg.codec == "topk":
+            k = min(self.k, self.x)
+            return [torch.empty((1, k), dtype=torch.float32, device=device),
+                    torch.empty((1, k), dtype=torch.int32, device=device)]
+        nq, xp = _pad_width(self.x, self.cfg.block)
+        q = ((-(-xp // 2), torch.uint8) if self.cfg.codec == "int4"
+             else (xp, torch.int8))
+        return [torch.empty((1, q[0]), dtype=q[1], device=device),
+                torch.empty((1, nq), dtype=self.scale_wire_dtype, device=device)]
+
+    def from_wire(self, parts: list) -> dict:
+        """Inverse of ``to_wire``: the encoded row ``decode`` takes."""
+        if self.cfg.codec == "topk":
+            return {"v": parts[0], "i": parts[1]}
+        _, xp = _pad_width(self.x, self.cfg.block)
+        q = int4_unpack(parts[0], xp) if self.cfg.codec == "int4" else parts[0]
+        return {"q": q, "scale": parts[1].float()}
+
     def init_residual(self, batch_prefix: tuple, *,
                       device: str | torch.device) -> Optional[torch.Tensor]:
         """The error-feedback residual carried in the round loop: fp32 zeros

@@ -245,17 +245,24 @@ def select_clusters(gen: torch.Generator, u: torch.Tensor) -> torch.Tensor:
     return torch.multinomial(u, 1, generator=gen).squeeze(1)
 
 
-def _consensus_per_cluster(centers) -> torch.Tensor:
+def _consensus_per_cluster(centers, clients=None) -> torch.Tensor:
     """Theorem 5.10's E_t per cluster, every cluster at once, leaf by leaf
     over the ``(S, N, ...)`` leaves (the ``(S, N, X)`` plane is one leaf):
     JAX's per-cluster ``consensus_distance``, its per-leaf terms added in
     leaf order. The deviations are squared in place: one temporary of the
-    plane's size, not two (an LM's plane is most of the card)."""
+    plane's size, not two (an LM's plane is most of the card). With
+    ``clients`` (the plane's client axis sharded over ranks) the client
+    mean and the squared deviations are summed over the ranks."""
     total = None
     for leaf in tree_leaves(centers):
         l32 = leaf.float()
-        d = (l32 - l32.mean(dim=1, keepdim=True)).square_().flatten(1).sum(dim=1) \
-            / leaf.shape[1]
+        if clients is None:
+            d = (l32 - l32.mean(dim=1, keepdim=True)).square_().flatten(1).sum(dim=1) \
+                / leaf.shape[1]
+        else:
+            mean = clients.all_reduce_(l32.sum(dim=1, keepdim=True)).div_(clients.n_clients)
+            d = clients.all_reduce_((l32 - mean).square_().flatten(1).sum(dim=1)) \
+                / clients.n_clients
         total = d if total is None else total + d
     return total
 
@@ -267,7 +274,8 @@ def make_round_step(loss_fn: Callable, per_example_loss: Callable,
                     comm: CommConfig | None = None,
                     sparse: SparseConfig | None = None,
                     optimizer: Optimizer | None = None,
-                    lr_schedule: Callable | None = None):
+                    lr_schedule: Callable | None = None,
+                    clients=None):
     """Returns ``step(state, data, adj=None, *, lr=None, s=None, idx=None,
     noise=None, comm_u=None, rigl_idx=None, regrow_scores=None) -> (state,
     metrics)`` for the "full" regime, on the packed plane through
@@ -326,6 +334,14 @@ def make_round_step(loss_fn: Callable, per_example_loss: Callable,
     ``make_mix_fn(plane=False)``: one flat-kernel launch per leaf) without
     ever taking ``fused_dp``; it counts ``tree_bytes`` of a client's
     selected model a link, which is ``PackSpec.model_bytes``.
+
+    ``clients`` (``launch/sharding.ClientGroup``) runs the round on one
+    rank's shard of a client axis sharded over ranks (the mesh round of
+    ``launch/steps.make_fedspd_train_step``): the state, data and draws
+    are this rank's rows, and the two reads of other clients' values are
+    collectives over the ranks: the byte count gathers every client's
+    selection (``metrics["selected"]`` is the gathered ``(N,)``), and the
+    consensus sums over the ranks.
 
     The mixed rows are scattered into ``state.centers`` in place."""
     if cfg.regime not in ("full", "stream"):
@@ -519,9 +535,10 @@ def make_round_step(loss_fn: Callable, per_example_loss: Callable,
                                         key, state.ef, adj)
         # one model's wire bytes in its own dtypes (a host int from shapes)
         model_b = tree_bytes(c_new) // cfg.n_clients if tree else pack_spec.model_bytes
+        s_all = s if clients is None else clients.gather(s)
         comm = state.comm_bytes + round_comm_bytes(
-            gossip, s, model_b, point_to_point=cfg.point_to_point, adj=adj)
-        return plane, ef, mask, comm
+            gossip, s_all, model_b, point_to_point=cfg.point_to_point, adj=adj)
+        return plane, ef, mask, comm, s_all
 
     def step_full_packed(state: FedSPDState, data: dict, adj=None, *, lr=None,
                          s=None, idx=None, noise=None, comm_u=None,
@@ -547,13 +564,13 @@ def make_round_step(loss_fn: Callable, per_example_loss: Callable,
             return flat_grad(loss_fn, c_new, gather_batches(x, y, it), pack_spec)
 
         # (2)+(3) sanitize + codec + mix + scatter
-        plane, ef, mask, comm = finish(state, c_old, c_new, s, adj, lr, noise,
-                                       comm_u, dense_grad, regrow_scores)
+        plane, ef, mask, comm, s_all = finish(state, c_old, c_new, s, adj, lr, noise,
+                                              comm_u, dense_grad, regrow_scores)
 
         # (4) re-cluster every local point under the new centers
         z, u = cluster_all_clients(per_example_loss, maybe_unpack(plane, pack_spec),
                                    {"x": x, "y": y}, cfg.n_clusters)
-        return _result(state, plane, u, z, comm, ef, mask, lr, s)
+        return _result(state, plane, u, z, comm, ef, mask, lr, s_all, clients)
 
     def step_stream_packed(state: FedSPDState, batch: dict, adj=None, *,
                            lr=None, s=None, noise=None, comm_u=None,
@@ -572,24 +589,24 @@ def make_round_step(loss_fn: Callable, per_example_loss: Callable,
             return flat_grad(masked_loss, c_new, sbatch, pack_spec)
 
         # (2)+(3), then u as the EMA of the batch's assignment fractions
-        plane, ef, mask, comm = finish(state, c_old, c_new, s, adj, lr, noise,
-                                       comm_u, dense_grad, regrow_scores)
+        plane, ef, mask, comm, s_all = finish(state, c_old, c_new, s, adj, lr, noise,
+                                              comm_u, dense_grad, regrow_scores)
         # the rows are in the plane now: free them before the consensus
         # reduction's temporaries (an LM's rows are most of the card)
         del c_old, c_new, dense_grad
         u_batch = mixture_coefficients(zb, cfg.n_clusters)
         u = (1 - cfg.u_ema) * state.u + cfg.u_ema * u_batch
-        return _result(state, plane, u, state.z, comm, ef, mask, lr, s)
+        return _result(state, plane, u, state.z, comm, ef, mask, lr, s_all, clients)
 
     return step_full_packed if cfg.regime == "full" else step_stream_packed
 
 
-def _result(state, plane, u, z, comm, ef, mask, lr, s):
+def _result(state, plane, u, z, comm, ef, mask, lr, s, clients=None):
     """The round's new state and its metrics."""
     new_state = FedSPDState(centers=plane, u=u, z=z, round=state.round + 1,
                             gen=state.gen, comm_bytes=comm, ef=ef, mask=mask)
     metrics = {"lr": lr, "selected": s,
-               "consensus": _consensus_per_cluster(plane),
+               "consensus": _consensus_per_cluster(plane, clients),
                "comm_bytes": comm}
     return new_state, metrics
 

@@ -48,8 +48,10 @@ from repro_torch.kernels.gossip_mix import (
 from repro_torch.utils.pytree import tree_leaves, tree_map
 
 # "cuda" is the JAX package's "pallas": the dense W through the kernels.
-# "reference" is the JAX package's default: the spec's wiring (``mix``)
-MIX_BACKENDS = ("cuda", "reference")
+# "reference" is the JAX package's default: the spec's wiring (``mix``).
+# "ppermute": the edge-coloured send/recv schedule over one rank a client
+# (launch/steps.make_ppermute_gossip_mix)
+MIX_BACKENDS = ("cuda", "reference", "ppermute")
 MODES = ("dense", "permute")
 
 
@@ -172,7 +174,7 @@ def mix(spec: GossipSpec, c_sel, s: torch.Tensor, adj=None):
 
 
 def make_mix_fn(spec: GossipSpec, backend: str = "cuda",
-                comm: CommConfig | None = None, *, plane: bool = True):
+                comm: CommConfig | None = None, *, plane: bool = True, mesh=None):
     """The exchange for ``core/fedspd.make_round_step``: over the packed
     ``(N, X)`` plane (the JAX ``plane=True`` form), or with
     ``plane=False`` over the pytree engine's tree of ``(N, ...)`` leaves.
@@ -210,7 +212,15 @@ def make_mix_fn(spec: GossipSpec, backend: str = "cuda",
     one ``gossip_mix_flat`` launch per leaf (``gossip_mix_tree``, the JAX
     ``pallas`` backend's pytree branch). It carries no ``fused_dp`` (a
     pytree DP round sanitizes leaf by leaf, then mixes) and no sparse
-    products; a compressing codec raises, as in JAX."""
+    products; a compressing codec raises, as in JAX.
+
+    ``"ppermute"`` (JAX's ``ppermute``) runs ``launch/steps.
+    make_ppermute_gossip_mix`` over ``mesh``, one rank a client; without
+    one it makes an ``(N, 1)`` ("data", "model") mesh of the process
+    group's first N ranks (CUDA under NCCL, else the CPU), and every rank
+    returns the whole mixed input. It needs an initialized process group
+    of at least N ranks, and refuses cosine alignment, as JAX does. It
+    carries no ``fused_dp`` and no sparse products."""
     if backend not in MIX_BACKENDS:
         raise ValueError(
             f"unknown gossip backend {backend!r}; the port has {MIX_BACKENDS}")
@@ -221,6 +231,8 @@ def make_mix_fn(spec: GossipSpec, backend: str = "cuda",
             f"comm codec {comm.codec!r} operates on packed (N, X) plane "
             "slices; build the mix with plane=True (run_method enables "
             "param_plane automatically when comm is set)")
+    if backend == "ppermute":
+        return _ppermute_mix(spec, comm, mesh)
     if not plane:
         def tree_mix(c_sel, s, adj=None):
             return (mix if by_mode else mix_dense)(spec, c_sel, s, adj=adj)
@@ -268,6 +280,31 @@ def make_mix_fn(spec: GossipSpec, backend: str = "cuda",
     mix_comm.sparse_matmul = gossip_mix_sparse
     mix_comm.sparse_dequant = sparse_dequant
     return mix_comm
+
+
+def _ppermute_mix(spec: GossipSpec, comm, mesh):
+    """The ``"ppermute"`` backend (see ``make_mix_fn``)."""
+    if spec.aligned:
+        raise ValueError(
+            "ppermute backend does not implement cosine-alignment "
+            "filtering; use the reference or cuda backend")
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import make_ppermute_gossip_mix
+
+    n = spec.adj.shape[0]
+    if mesh is None:
+        world = dist.get_world_size() if dist.is_available() and dist.is_initialized() else 0
+        if world < n:
+            raise RuntimeError(
+                "ppermute backend needs one device per client "
+                f"({n} clients, {world} ranks in the process group) — run each "
+                "rank under torch.distributed (e.g. torchrun --nproc-per-node "
+                f"{n}), one rank a client")
+        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+        mesh = make_test_mesh((n, 1), ("data", "model"), device_type=device_type)
+    return make_ppermute_gossip_mix(spec, mesh, replicate_model_dims=True, comm=comm)
 
 
 def round_comm_bytes(spec: GossipSpec, s: torch.Tensor, model_bytes: int, *,

@@ -21,14 +21,15 @@ import torch
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     """``device`` as a ``torch.device``; raises ``RuntimeError`` when CUDA
-    is asked for and no card is visible."""
+    is asked for and no card is visible. ``"meta"`` (shapes and dtypes,
+    no storage) serves the sharding rules' callers."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(device)!r} needs CUDA, but torch.cuda.is_available() "
             "is False on this host; pass device='cpu' to run on the CPU"
         )
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {str(device)!r}; use 'cuda' or 'cpu'")
     return dev
 

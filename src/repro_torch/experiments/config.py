@@ -3,7 +3,7 @@
 The JAX package's ``RunConfig`` fields, less ``donate`` (the port always
 updates the plane in place), plus ``device`` and ``on_round``. The port
 honours ``gossip_mode`` ("dense" or "permute"), ``gossip_backend``
-("cuda" or "reference"), ``param_plane`` (the packed plane, the port's
+("cuda", "reference" or "ppermute"), ``param_plane`` (the packed plane, the port's
 default, or the per-leaf pytree engine), ``comm`` (every method),
 ``sparse`` (FedSPD only), ``eval_every``, ``scan_rounds``,
 ``cohort_size`` (FedSPD only), ``scenario`` (FedSPD only), ``telemetry``
@@ -74,7 +74,11 @@ class RunConfig:
                     counterpart of the JAX package's "pallas", whatever
                     the wiring; their plain versions on CPU tensors) or
                     "reference" (the wiring itself: with "permute",
-                    mix_permute; with "dense", the "cuda" path)
+                    mix_permute; with "dense", the "cuda" path) or
+                    "ppermute" (FedSPD only: the edge-coloured send/recv
+                    schedule over one torch.distributed rank a client,
+                    launch/steps.make_ppermute_gossip_mix; every rank runs
+                    the whole run and mixes its own client's row)
     param_plane     the parameter representation: the packed (S, N, X)
                     plane (True, and the port's default when unset) or the
                     per-leaf pytree engine (False: nested dicts of leaves,

@@ -298,6 +298,11 @@ class FedSPDMethod(Method):
                 f"sparse training (density={sp.density}) runs on the "
                 "packed parameter plane; set RunConfig(param_plane=True) "
                 "(run_method enables it automatically when sparse is set)")
+        if sp is not None and sp.enabled and ctx.opt("gossip_backend") == "ppermute":
+            raise ValueError(
+                "sparse training is not available on the ppermute backend "
+                "— the collective schedule ships raw plane rows, not "
+                "masked payloads")
         return sp
 
     def init(self, ctx, gen):
@@ -362,6 +367,10 @@ class FedSPDMethod(Method):
             raise ValueError(
                 "cohort subsampling needs the dense gossip wiring — the "
                 "permute edge coloring is sized to the full client axis")
+        if ctx.opt("gossip_backend") == "ppermute":
+            raise ValueError(
+                "cohort subsampling is not available on the ppermute "
+                "backend (one device per client row)")
         return FedSPDState(
             centers=1, u=0, z=0, round=None, gen=None, comm_bytes=None,
             ef=None if state.ef is None else 0,

@@ -21,7 +21,10 @@ result evaluates them on the test split. Two engines run the same round:
   replays; on the CPU the same closure is called directly. A round whose
   method branches on the host (``Method.round_branch``: the sparse masks'
   update rounds) gets one graph per branch, picked by the host's round
-  number. A failed capture raises, naming the method. The replayed run
+  number. A failed capture raises, naming the method. A run on
+  ``gossip_backend="ppermute"`` (send/recv between ranks) takes the loop
+  on the card, and refuses ``scan_rounds=True`` there: capturing NCCL's
+  send/recv in a CUDA graph waits for a multi-card run. The replayed run
   equals the loop bit for bit; ``extras`` reports ``n_captures`` (also as
   ``n_compiles``: the graphs captured, through
   ``telemetry.counters.compile_count``; 0 on the loop) and
@@ -129,6 +132,7 @@ from repro_torch.experiments.heterogeneity import (
 )
 from repro_torch.experiments.registry import (
     ExperimentContext,
+    FedSPDMethod,
     Method,
     build_context,
     get_method,
@@ -677,7 +681,17 @@ def _drive(entry: str, method: str, data, exp: PaperExpConfig, graph,
             f"RunConfig.sparse on {method!r}: the port runs sparse masks in "
             "FedSPD only (a JAX baseline ignores them but charges their wire "
             "bytes)")
+    ppermute = options["gossip_backend"] == "ppermute"
+    if ppermute and not isinstance(m, FedSPDMethod):
+        raise ValueError(
+            "unknown baseline gossip backend 'ppermute'; expected one of "
+            "('reference', 'cuda')")
     device = resolve_device(cfg.device)
+    if ppermute and cfg.scan_rounds and device.type == "cuda":
+        raise ValueError(
+            "scan_rounds=True with gossip_backend='ppermute' on CUDA: capturing "
+            "NCCL send/recv in a CUDA graph waits for a multi-card run; leave "
+            "scan_rounds unset (the loop)")
     scenario = cfg.scenario
     if (entry == "run_method_batch" and scenario is not None and scenario.data_stack
             and isinstance(data, ClientDataset)):
@@ -710,7 +724,8 @@ def _drive(entry: str, method: str, data, exp: PaperExpConfig, graph,
             for ctx, s, a in zip(ctxs, seeds, adjs if adjs is not None
                                  else [None] * len(seeds))]
     lrs = torch.as_tensor(m.lr_schedule(ctx0), device=device)
-    replay = cfg.scan_rounds if cfg.scan_rounds is not None else device.type == "cuda"
+    replay = (cfg.scan_rounds if cfg.scan_rounds is not None
+              else device.type == "cuda" and not ppermute)
     engine = _replay if replay else _loop
     stats = engine(m, runs, lrs, exp.rounds, cfg, device, scen)
     if het:

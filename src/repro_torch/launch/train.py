@@ -29,17 +29,37 @@ The model takes the training route (``build_model(..., train=True)``:
 attention ``ref_attention`` and the SSD ``ssm.ssd_chunked`` under
 autograd), as JAX trains outside its Pallas kernels.
 
+Two placements, as in JAX:
+
+- ``--mesh none`` (the default): one device;
+- ``--mesh pod|2pod``: the production mesh (``launch/mesh.py``), one
+  rank a GPU under ``torchrun`` (256 or 512 ranks), one client a data row
+  (``--clients`` must be the mesh's row count): the plane's client axis
+  sharded over the rows (``launch/sharding.shard_plane_state``) and
+  Eq. (1) the edge-coloured send/recv schedule
+  (``launch/steps.make_ppermute_gossip_mix``). The 16 (or 32) ranks of a
+  row compute the same client: the model axis is replicated, where JAX's
+  GSPMD splits a client's forward over it. The mesh round runs on the
+  loop; ``--scan-rounds`` is refused on the card (capturing NCCL's
+  send/recv in a CUDA graph waits for a multi-card run) and on the CPU
+  calls the same closure. The personalized models, the final loss and
+  ``u`` come from each rank's rows (the loss and ``u`` gathered); ``--save``
+  and ``--export-servable`` gather the whole plane first.
+
 The flags are JAX's, by name and default, with these differences:
-``--gossip-backend`` offers ``reference|cuda`` (``cuda`` is the
+``--gossip-backend`` offers ``reference|cuda|ppermute`` (``cuda`` is the
 counterpart of ``pallas``, which is refused by name); ``--device``
 (default the card; raises without one; ``cpu`` runs on the CPU);
-``--mesh pod|2pod`` is refused (ROADMAP queue 1 item 2); ``--no-donate``
-is accepted and does nothing, since the port always updates the plane in
-place. ``main`` returns the run's outcome as a dict; ``draws`` (the loop
-only) injects each round's selections and batch indices.
+``--no-donate`` is accepted and does nothing, since the port always
+updates the plane in place. ``main`` returns the run's outcome as a dict;
+``draws`` (the loop only) injects each round's selections and batch
+indices; ``mesh`` runs ``--mesh`` on the given ``DeviceMesh`` instead of
+the production one (a test mesh, or one card).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo-1b --smoke \\
       --rounds 20 --clients 8 --device cpu
+  torchrun --nnodes 32 --nproc-per-node 8 --rdzv-endpoint <host>:<port> \\
+      -m repro_torch.launch.train --arch olmo-1b --mesh pod --clients 16
 """
 from __future__ import annotations
 
@@ -73,7 +93,14 @@ from repro_torch.experiments.heterogeneity import (
 )
 from repro_torch.experiments.runner import _copy_state, _write_back
 from repro_torch.graphs.topology import make_graph
-from repro_torch.launch.steps import MESH_LATER, make_fedspd_train_step
+from repro_torch.launch.mesh import dp_size, make_production_mesh
+from repro_torch.launch.sharding import (
+    ClientGroup,
+    gather_plane_state,
+    local_state,
+    shard_plane_state,
+)
+from repro_torch.launch.steps import make_fedspd_train_step
 from repro_torch.models.registry import build_model
 from repro_torch.telemetry import step_annotation, trace_session, write_events
 
@@ -105,8 +132,9 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--avg-degree", type=float, default=4)
     ap.add_argument("--gossip-mode", default="dense", choices=["dense", "permute"])
     ap.add_argument("--gossip-backend", default="reference",
-                    help="Eq. (1) execution path: reference | cuda (cuda is the "
-                         "counterpart of the JAX package's pallas)")
+                    help="Eq. (1) execution path: reference | cuda | ppermute (cuda "
+                         "is the counterpart of the JAX package's pallas; mesh mode "
+                         "uses the ppermute schedule regardless)")
     ap.add_argument("--pytree", dest="param_plane", action="store_false", default=True,
                     help="per-leaf pytree state; default carries the packed "
                          "(S, N, X) plane")
@@ -117,7 +145,8 @@ def _parser() -> argparse.ArgumentParser:
                     help="capture one round into a CUDA graph and replay it every "
                          "round (on the CPU: the same round closure, called)")
     ap.add_argument("--mesh", default="none", choices=["none", "pod", "2pod"],
-                    help="shard the client axis over a mesh (not in the port yet)")
+                    help="shard the plane's client axis over the production mesh rows "
+                         "(requires the packed plane and one client per mesh row)")
     ap.add_argument("--codec", default="fp32", choices=["fp32", "int8", "int4", "topk"],
                     help="wire codec for the exchange (needs the packed plane)")
     ap.add_argument("--error-feedback", action="store_true",
@@ -172,8 +201,10 @@ def _refusals(args) -> None:
     if args.gossip_backend not in MIX_BACKENDS:
         raise SystemExit(f"--gossip-backend {args.gossip_backend!r}: choose from "
                          f"{MIX_BACKENDS}")
-    if args.mesh != "none":
-        raise SystemExit(f"--mesh {args.mesh}: {MESH_LATER}")
+    if args.mesh != "none" and args.scan_rounds and args.device.startswith("cuda"):
+        raise SystemExit(
+            "--scan-rounds with --mesh on the card: capturing NCCL send/recv in a "
+            "CUDA graph waits for a multi-card run; drop --scan-rounds (the loop)")
     if not args.donate:
         print("--no-donate: a no-op in the port (the round always updates the "
               "plane in place)")
@@ -266,13 +297,15 @@ class _Round:
 
 
 def main(argv=None, *, draws: Callable[[int], dict] | None = None,
-         on_round: Callable[[int], None] | None = None) -> dict:
+         on_round: Callable[[int], None] | None = None, mesh=None) -> dict:
     """The launcher; returns the run's outcome (``state``, ``final_loss``,
     ``round_ms``, ``comm_bytes``, ``wire_bytes``, ``wire_ratio``,
     ``n_captures``, the peak memory, ``personalized``, ``eval_batch``,
     ``bundle``, ``pack_spec``). ``draws(r)`` gives round r's ``{"s": (N,),
     "idx": (N, b)}`` (loop only); ``on_round(r)`` is called after each
-    round, outside its timing."""
+    round, outside its timing. Under ``--mesh`` (on ``mesh`` when given)
+    ``state`` is placed on the mesh and ``personalized`` holds this
+    rank's client."""
     args = _parser().parse_args(argv)
     _refusals(args)
     dev = resolve_device(args.device)
@@ -292,6 +325,10 @@ def main(argv=None, *, draws: Callable[[int], dict] | None = None,
                                   regrow=args.regrow, update_every=args.mask_update_every)
         except ValueError as e:
             raise SystemExit(str(e)) from None
+        if args.mesh != "none":
+            raise SystemExit(
+                "--sparse-density < 1 is not available with --mesh (the "
+                "ppermute schedule ships raw plane rows)")
     run_cfg = RunConfig(gossip_mode=args.gossip_mode, gossip_backend=args.gossip_backend,
                         param_plane=args.param_plane, comm=comm, eval_every=args.eval_every,
                         scan_rounds=args.scan_rounds, sparse=sparse, device=args.device)
@@ -336,15 +373,31 @@ def main(argv=None, *, draws: Callable[[int], dict] | None = None,
         wire_ratio = (sparse_wire_model_bytes(comm, x, sparse.k_active(x))
                       / float(pack_spec.model_bytes))
 
-    mix_fn = make_mix_fn(gossip, opts["gossip_backend"], comm=comm,
-                         plane=pack_spec is not None)
+    if args.mesh != "none":
+        if pack_spec is None:
+            raise SystemExit("--mesh requires the packed plane (drop --pytree)")
+        if mesh is None:
+            mesh = make_production_mesh(multi_pod=args.mesh == "2pod", device_type=dev.type)
+        if dp_size(mesh) != n:
+            raise SystemExit(f"--mesh {args.mesh} has {dp_size(mesh)} client rows; "
+                             f"run with --clients {dp_size(mesh)}")
+        state = shard_plane_state(state, mesh)
+        mix_fn = None
+    else:
+        mesh = None
+        mix_fn = make_mix_fn(gossip, opts["gossip_backend"], comm=comm,
+                             plane=pack_spec is not None)
     step = make_fedspd_train_step(bundle, gossip, fcfg, mix_fn=mix_fn,
-                                  pack_spec=pack_spec, comm=comm, sparse=sparse)
+                                  pack_spec=pack_spec, mesh=mesh, comm=comm,
+                                  sparse=sparse)
 
     het_parts = het_carry = None
     if het is not None:
         if pack_spec is None:
             raise SystemExit("client heterogeneity requires the packed plane (drop --pytree)")
+        if mesh is not None:
+            raise SystemExit("client heterogeneity is not available with --mesh "
+                             "(the ppermute schedule reads a binary adjacency)")
         if opts["mode"] != "dense":
             raise SystemExit("client heterogeneity needs --gossip-mode dense "
                              "(stale-gossip weights are real-valued)")
@@ -413,11 +466,20 @@ def main(argv=None, *, draws: Callable[[int], dict] | None = None,
         print(f"max_memory_allocated {peak['max_memory_allocated'] / 2**30:.2f} GiB  "
               f"max_memory_reserved {peak['max_memory_reserved'] / 2**30:.2f} GiB")
 
-    personalized = personalize(state, pack_spec)
+    group = None if mesh is None else ClientGroup(mesh)
+    personalized = personalize(state if group is None else local_state(state), pack_spec)
     idx = torch.randint(0, docs.shape[1], (n, args.batch), generator=rnd.bufs[2],
                         device=dev)
     eval_batch = sample(idx)
-    final_loss = fl_perplexity(bundle, personalized, eval_batch)
+    if group is None:
+        final_loss = fl_perplexity(bundle, personalized, eval_batch)
+    else:
+        # each rank's client on its own row of the batch; the clients' mean
+        i = group.index
+        eval_batch = {k: v[i:i + 1] for k, v in eval_batch.items()}
+        loss = torch.tensor([fl_perplexity(bundle, personalized, eval_batch)],
+                            dtype=torch.float64, device=dev)
+        final_loss = float(group.all_reduce_(loss)) / n
     print(f"final mean per-client loss (personalized Eq.2): {final_loss:.4f}")
 
     logical = [float(v) for v in tapes["comm_bytes"][:args.rounds].cpu()]
@@ -442,20 +504,28 @@ def main(argv=None, *, draws: Callable[[int], dict] | None = None,
         events.append(summary)
         write_events(args.telemetry_out, events)
         print(f"telemetry -> {args.telemetry_out} ({args.rounds} round events)")
-    print(f"mixture coefficients u:\n{state.u.cpu().numpy().round(3)}")
+    u = state.u if group is None else group.gather(local_state(state).u)
+    print(f"mixture coefficients u:\n{u.cpu().numpy().round(3)}")
     if het is not None:
         print(f"final staleness (rounds since last exchange): "
               f"{het_carry.stale.cpu().numpy()}")
-    if args.save:
-        ckpt.save(args.save, {"personalized": personalized, "u": state.u},
+    saved, writer = (state, personalized), True
+    if group is not None and (args.save or args.export_servable):
+        # the whole plane, gathered on every rank; rank 0 writes
+        import torch.distributed as dist
+
+        full = gather_plane_state(state)
+        saved, writer = (full, personalize(full, pack_spec)), dist.get_rank() == 0
+    if args.save and writer:
+        ckpt.save(args.save, {"personalized": saved[1], "u": saved[0].u},
                   manifest=ckpt.CkptManifest(
                       kind="checkpoint", arch=cfg.name, n_clients=n, n_clusters=s,
                       pack_digest=pack_spec.digest if pack_spec else None))
         print(f"saved -> {args.save}")
-    if args.export_servable:
+    if args.export_servable and writer:
         from repro_torch.experiments.export import export_servable
 
-        export_servable(state, pack_spec or make_pack_spec(bundle.init(None)),
+        export_servable(saved[0], pack_spec or make_pack_spec(bundle.init(None)),
                         args.export_servable, arch=cfg.name, codec=args.export_codec,
                         qblock=max(2, args.codec_block // 2 * 2))
         print(f"servable plane -> {args.export_servable} ({args.export_codec})")

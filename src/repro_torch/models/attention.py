@@ -10,7 +10,10 @@
   (the JAX package runs it outside Pallas too), through the stable
   softmax partials (m, l, o). The token's position is a 0-dim device
   tensor (or a Python int) and is never read on the host, so the step can
-  be captured into a CUDA graph.
+  be captured into a CUDA graph. With ``axis_name`` the cache is split
+  along its length over that dim of the current mesh (each rank holds
+  the rows at ``coordinate × local length`` on), and the partials combine
+  by all-reduces over the dim's ranks (flash decoding).
 
 All take GQA-layout tensors: q ``(B, Lq, Hq, hd)``, k/v ``(B, Lkv, Hkv,
 hd)`` with Hq = G·Hkv. Windows are static Python ints here: the port runs
@@ -70,11 +73,13 @@ def attention(q, k, v, *, mode: str = "cuda", causal: bool = True,
 # --------------------------------------------------------------------------
 
 
-def _refuse_axis(axis_name) -> None:
-    if axis_name is not None:
-        raise ValueError(
-            f"axis_name={axis_name!r}: combining sequence-sharded caches needs the "
-            "launch layer's mesh, which is not ported yet")
+def _axis(axis_name):
+    """The process group and this rank's index along ``axis_name``, a dim
+    of the current mesh (``launch/mesh.use_mesh``)."""
+    from repro_torch.launch.mesh import current_mesh
+
+    mesh = current_mesh()
+    return mesh.get_group(axis_name), mesh.get_local_rank(axis_name)
 
 
 def decode_attention_parts(q, k_cache, v_cache, positions, cur_pos,
@@ -101,9 +106,21 @@ def decode_attention_parts(q, k_cache, v_cache, positions, cur_pos,
 
 
 def combine_decode_parts(m, l, o, axis_name=None) -> torch.Tensor:
-    """Finish decode attention from (m, l, o). Combining shards across a
-    mesh axis (``axis_name``) waits for the launch layer's port."""
-    _refuse_axis(axis_name)
+    """Finish decode attention from (m, l, o); with ``axis_name`` (a dim
+    of the current mesh) the shards' partials first combine over its
+    ranks: M = max m (all-reduce MAX), then the sums of l·e^{m−M} and
+    o·e^{m−M}."""
+    if axis_name is not None:
+        import torch.distributed as dist
+
+        group, _ = _axis(axis_name)
+        big = m.clone()
+        dist.all_reduce(big, op=dist.ReduceOp.MAX, group=group)
+        alpha = torch.exp(m - big)
+        l = l * alpha
+        o = o * alpha[..., None]
+        dist.all_reduce(l, group=group)
+        dist.all_reduce(o, group=group)
     out = o / l.clamp_min(1e-30)[..., None]
     b, n_kv, g, hd = out.shape
     return out.reshape(b, 1, n_kv * g, hd)
@@ -111,8 +128,10 @@ def combine_decode_parts(m, l, o, axis_name=None) -> torch.Tensor:
 
 def decode_attention(q, k_cache, v_cache, cur_pos, *, window: int | None = None,
                      axis_name=None) -> torch.Tensor:
-    _refuse_axis(axis_name)
-    positions = torch.arange(k_cache.shape[1], device=k_cache.device)
+    lc = k_cache.shape[1]
+    positions = torch.arange(lc, device=k_cache.device)
+    if axis_name is not None:
+        positions = positions + _axis(axis_name)[1] * lc
     m, l, o = decode_attention_parts(q, k_cache, v_cache, positions, cur_pos,
                                      window=window)
-    return combine_decode_parts(m, l, o).to(q.dtype)
+    return combine_decode_parts(m, l, o, axis_name=axis_name).to(q.dtype)

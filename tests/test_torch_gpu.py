@@ -1602,3 +1602,80 @@ def test_flat_kernel_at_the_lm_exchange_matches_plain(cuda):
     assert _max_err(out[:, tail], w @ c[:, tail]) <= TOL
     del out, c
     torch.cuda.empty_cache()
+
+
+@pytest.fixture
+def nccl_world(cuda, tmp_path):
+    """A process group of one rank over NCCL on the card (a file store in
+    ``tmp_path``), destroyed after the test."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        yield dist
+    finally:
+        dist.destroy_process_group()
+
+
+def test_mesh_round_at_world_one_equals_the_one_device_round(nccl_world):
+    """The mesh round (``make_fedspd_train_step(mesh=...)`` on
+    ``shard_plane_state``) over a (1, 1) NCCL mesh, 3 full-regime rounds of
+    the mlp plane at N = 1, S = 2: plane, u and comm_bytes bit for bit the
+    one-device round's on a copy of the state, the selections drawn alike;
+    the registry's ppermute backend runs the loop there."""
+    import types
+
+    from repro_torch.core.fedspd import FedSPDConfig, init_state, make_round_step
+    from repro_torch.core.gossip import GossipSpec
+    from repro_torch.experiments.runner import _copy_state
+    from repro_torch.graphs.topology import make_graph
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import make_fedspd_train_step
+
+    assert nccl_world.get_backend() == "nccl"
+    mesh = make_test_mesh((1, 1), device_type="cuda")
+    dev = torch.device("cuda")
+    data = make_mixture_classification(n_clients=1, n_per_client=64, dim=16, n_classes=4)
+    train = {"inputs": torch.as_tensor(data.x, device=dev),
+             "targets": torch.as_tensor(data.y, device=dev)}
+    params, _, loss, pel, _ = make_classifier("mlp", torch.Generator(device=dev), 16, 4)
+    spec = make_pack_spec(params)
+    fcfg = FedSPDConfig(n_clients=1, n_clusters=2, batch=16)
+    gossip = GossipSpec.from_graph(make_graph("er", 1, 3.0, seed=0))
+    state = init_state(torch.Generator(device=dev).manual_seed(0),
+                       lambda g: make_classifier("mlp", g, 16, 4)[0], fcfg, data_m=64, spec=spec)
+    one, placed = _copy_state(state), shd.shard_plane_state(state, mesh)
+    single = make_round_step(loss, pel, gossip, fcfg, pack_spec=spec)
+    step = make_fedspd_train_step(types.SimpleNamespace(loss=loss, per_example_loss=pel),
+                                  gossip, fcfg, pack_spec=spec, mesh=mesh)
+    g = torch.Generator(device=dev).manual_seed(1)
+    for _ in range(3):
+        idx = torch.randint(0, 64, (fcfg.tau, 1, fcfg.batch), generator=g, device=dev)
+        one, a = single(one, train, idx=idx)
+        placed, b = step(placed, train, idx=idx)
+        assert torch.equal(a["selected"], b["selected"])
+        assert torch.equal(a["consensus"], b["consensus"])
+    loc = shd.local_state(placed)
+    assert loc.centers.is_cuda and loc.centers.shape == one.centers.shape
+    for f in ("centers", "u", "comm_bytes"):
+        assert torch.equal(getattr(loc, f), getattr(one, f)), f
+    full = shd.gather_plane_state(placed)
+    assert torch.equal(full.centers, one.centers)
+    exp = PaperExpConfig(n_clients=1, n_per_client=64, dim=16, n_classes=4, rounds=2)
+    r = run_method("fedspd", data, exp, cfg=RunConfig(gossip_backend="ppermute"))
+    ref = run_method("fedspd", data, exp, cfg=RunConfig(gossip_backend="reference",
+                                                        scan_rounds=False))
+    assert r.extras["n_captures"] == 0 and r.acc_per_client.tolist() == \
+        ref.acc_per_client.tolist()
+
+
+def test_ppermute_registry_refuses_a_replay_on_the_card(cuda):
+    """scan_rounds=True with the ppermute backend on CUDA raises by name:
+    capturing NCCL send/recv in a CUDA graph waits for a multi-card run."""
+    data = make_mixture_classification(n_clients=4, n_per_client=16)
+    with pytest.raises(ValueError, match="capturing NCCL send/recv in a CUDA graph"):
+        run_method("fedspd", data, PaperExpConfig(rounds=1, n_clients=4),
+                   cfg=RunConfig(gossip_backend="ppermute", scan_rounds=True))

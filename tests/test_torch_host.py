@@ -131,7 +131,8 @@ def test_run_method_without_device_raises_on_a_host_without_cuda():
 
 # what = "comm" / "sparse" / "cohort_size" / "scan_rounds" / "permute" /
 # "cos_align", and "param_plane" alone (the pytree engine): a feature
-# once refused, which now runs; any other (param_plane=False beside a
+# once refused, which now runs; "ppermute": accepted, and without a
+# process group refused as JAX refuses it without its devices; any other (param_plane=False beside a
 # codec or sparse masks among them): the refusal's message names it
 @pytest.mark.parametrize("cfg,what", [
     (RunConfig(param_plane=False), "param_plane"),
@@ -162,6 +163,12 @@ def test_unported_features_are_refused(cfg, what):
         r = run_method("fedspd", data, PaperExpConfig(rounds=2), cfg=cfg)
         assert np.isfinite(r.mean_acc) and r.comm_bytes > 0
         assert r.extras["n_captures"] == (what == "scan_rounds")
+        return
+    if what == "ppermute":
+        # accepted since the mesh slice: without a process group it needs
+        # one rank a client (tests/test_torch_mesh.py runs it over gloo)
+        with pytest.raises(RuntimeError, match="one device per client"):
+            run_method("fedspd", data, PaperExpConfig(rounds=1), cfg=cfg)
         return
     pytree = what == "param_plane" and cfg.comm is None and cfg.sparse is None
     if what in ("permute", "cos_align") or pytree:

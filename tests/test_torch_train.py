@@ -68,6 +68,7 @@ from repro_torch.experiments.heterogeneity import masked_client_step
 from repro_torch.graphs.topology import make_graph
 from repro_torch.interop import params_from_numpy, state_from_numpy
 from repro_torch.launch import steps as tsteps
+from repro_torch.launch.mesh import MeshShape
 from repro_torch.launch import train as ttrain
 from repro_torch.models import registry as tregistry
 from repro_torch.utils.pytree import tree_leaves
@@ -417,8 +418,8 @@ def test_main_replay_closure_equals_the_loop():
 
 
 @pytest.mark.parametrize("argv, needle", [
-    (["--mesh", "pod"], "--mesh pod"),
-    (["--mesh", "2pod"], "ROADMAP queue 1 item 2"),
+    (["--mesh", "pod", "--pytree"], "--mesh requires the packed plane"),
+    (["--mesh", "2pod", "--sparse-density", "0.5"], "not available with --mesh"),
     (["--gossip-backend", "pallas"], "pallas"),
     (["--codec", "int8", "--pytree"], "'int8'"),
 ])
@@ -428,9 +429,12 @@ def test_main_refuses_by_name(argv, needle):
 
 
 def test_mesh_forms_and_the_card_are_refused_by_name(capsys):
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        tsteps.make_ppermute_gossip_mix(None, None)
-    with pytest.raises(ValueError, match="queue 1 item 2"):
+    # the mesh forms run since the mesh slice (tests/test_torch_mesh.py);
+    # what they still refuse, they refuse by name
+    spec = GossipSpec.from_graph(make_graph("er", N, 4, seed=0))
+    with pytest.raises(ValueError, match="one client per data row"):
+        tsteps.make_ppermute_gossip_mix(spec, MeshShape.of((2, 1), ("data", "model")))
+    with pytest.raises(ValueError, match="requires the packed parameter plane"):
         tsteps.make_fedspd_train_step(None, None, None, mesh=object())
     ttrain.main(MAIN + ["--rounds", "1", "--no-donate"])
     assert "--no-donate: a no-op" in capsys.readouterr().out
