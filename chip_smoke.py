@@ -102,9 +102,9 @@ Phases, in order; any failure exits non-zero before the result line:
    counter set to 0 just before each run and read just after, launches
    and ``wire_bytes`` checked exactly;
 8. the round engines, the sixth path: ``run_method("fedspd", ...)`` for
-   the paper's 60 rounds, DP off and on, on the loop engine
+   30 rounds (``ENGINE_ROUNDS``, half the paper's 60), DP off and on, on the loop engine
    (``scan_rounds=False``) and on the card's default engine, the replay
-   (one round captured into a CUDA graph, replayed 60 times); then a
+   (one round captured into a CUDA graph, replayed 30 times); then a
    cohort of 10 of the 20 clients, ``run_method_batch`` over seeds 0, 1,
    2 (one graph for all three; 12 rounds, phase 11's depth), sparse d0.2
    + int8 + error feedback (two graphs) and the 11 baseline ids, 5 rounds
@@ -116,8 +116,8 @@ Phases, in order; any failure exits non-zero before the result line:
    and the capture's launches) name the kernels the loop's name; its
    trace, cut into the runner's round spans, shows device work in every
    replayed round and as many exchange kernels as the loop's counters
-   (one a round at 60 rounds). At 60 rounds the loop run and a second
-   replayed run have rounds 31-33 profiled (``RunConfig.on_round``
+   (one a round at 30 rounds). At 30 rounds the loop run and a second
+   replayed run have rounds 16-18 profiled (``RunConfig.on_round``
    starts and stops the profiler): each engine's busy share is their
    device ms a round over the median ms of the same run's other rounds
    (``profile replay``). Printed: round ms medians of both engines, the busy shares,
@@ -127,8 +127,8 @@ Phases, in order; any failure exits non-zero before the result line:
    stragglers and stale-gossip decay) on the card against the CPU, DP off
    and on, with the same injected draws (plane within 1e-5, bytes equal),
    and kernels 1, 2, 4, 5 and 6 on that round's weighted W against their
-   plain versions; then ``run_method("fedspd", ...)`` for 30 rounds
-   (``SCENARIO_ROUNDS``: half the paper's 60, to pay for phase 10) under
+   plain versions; then ``run_method("fedspd", ...)`` for 16 rounds
+   (``SCENARIO_ROUNDS``, cut to pay for phases 10 and 18) under
    scenario A (a rewired ER schedule with dropout 0.2) and B, DP off and
    on, and B with a cohort of 10, with dense int8 + error feedback and
    with sparse d0.2 + int8 + error feedback, each on the loop and on the
@@ -136,7 +136,7 @@ Phases, in order; any failure exits non-zero before the result line:
    kernel in every replayed round, two with sparse), beside the same
    run's replay without the scenario; one run of each kind (A and B, DP
    off: ``SCENARIO_TRACED``) has its replay traced (its kernels round by
-   round, busy shares from rounds 16-18), every other run's exchange
+   round, busy shares from rounds 9-11), every other run's exchange
    kernels a replay come from its loop's counters;
 10. the main-path variants, the slice's path, on the main path's
    population for 12 rounds a run (``VARIANT_ROUNDS``), each loop against
@@ -148,7 +148,7 @@ Phases, in order; any failure exits non-zero before the result line:
    against the dense wiring with the same injected draws (1e-5);
    cosine alignment DP off and on at a threshold between two of round
    1's same-cluster neighbour cosines that drops a quarter of those
-   links (printed), where kernel 2 must never launch; 20 rounds of the
+   links (printed), where kernel 2 must never launch; 12 rounds of the
    stream regime (``FedSPDConfig(regime="stream")``, mlp and conv, a
    fresh batch of 32 points a client a round) and one stream DP round on
    the card against the CPU with injected draws (1e-5); then kernels 1, 2
@@ -178,10 +178,10 @@ Phases, in order; any failure exits non-zero before the result line:
    beside its bound and ``torch.matmul``, and the six launches of a
    pytree round against the plane's one launch;
 12. the telemetry layer (``RunConfig(telemetry=TelemetryConfig())``):
-   FedSPD for 12 rounds (``TELEMETRY_ROUNDS``) on the main path's
+   FedSPD for 8 rounds (``TELEMETRY_ROUNDS``) on the main path's
    population with telemetry off and on, each on the loop and on the
    replay: the mlp DP off and on and the pytree engine, their replays
-   traced over rounds 7-9 (round ms, kernels, device ms and busy share a
+   traced over rounds 5-7 (round ms, kernels, device ms and busy share a
    round, with and without the collector), the fully composed run
    (scenario B's dropout and ClientSystemModel, a cohort of 10, int8 +
    error feedback) and sparse d0.2 + int8 + error feedback; every stream
@@ -293,6 +293,25 @@ Phases, in order; any failure exits non-zero before the result line:
    equal to the same run on one device bit for bit, with each run's round
    ms and peak memory. The group is destroyed after, and a line says that
    the multi-rank NCCL exchange has not run on this card.
+18. whisper (phase "whisper"), the audio family at published width and
+   depth (whisper-base: 6 + 6 layers, d 512, 8 heads, 1,500 frames). First
+   kernel 8 at ragged lengths (``RAGGED_FLASH``: the encoder layer
+   ``(4, 1500, 8, 8, 64)`` not causal in bf16 and fp32, the cross
+   attention at Lq = 64 over 1,500 frames, a causal 1,500, an odd length
+   77 at hd 80 and 256), each against its plain version (2e-5 fp32, 2e-2
+   bf16) and timed beside its bound and ``scaled_dot_product_attention``.
+   W1: ``launch/steps.make_prefill_step`` then ``make_decode_step`` on
+   ``build_model(cfg)``, B = 4, frames ``(4, 1500, 512)`` from a seed, 16
+   greedy tokens, kernel 8's launches counted (6 a prefill, 18 an
+   ``encdec_forward``), against the same steps with ``attn_mode="ref"``
+   (log-softmax within 2e-2 up to the first flip, the tokens equal or the
+   flip a bf16 near-tie or the fp32 reference's pick), 8 tokens
+   teacher-forced through the cross prefill and the decode against
+   ``encdec_forward``'s logits (2e-2); prefill ms and decode ms a token
+   (CUDA events, medians of 3), peak memory, and beside them the
+   dry-run's roofline terms of the same prefill (printed, not checked).
+   W2: ``launch.train --arch whisper-base`` (N = 4, S = 2, b = 4, L = 64,
+   ER degree 2), 2 loop rounds and the replay, bit for bit.
 
 It then prints its seconds (``chip_smoke: … s``), one
 ``{"kernels": [...]}`` line and, last, the
@@ -314,24 +333,24 @@ import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
-FP32_FLOPS = 67e12          # H100 SXM, fp32 outside the tensor cores
-BF16_FLOPS = 989e12         # H100 SXM, bf16 dense tensor cores
 TOL = 1e-5
 SHAPES = [(20, 17226), (20, 4194304)]  # (N, X): the main path's, past L2
 ROUNDS = 5
-ENGINE_ROUNDS = 60   # the paper's rounds (configs/paper_cnn.py), for the engines phase
-SCENARIO_ROUNDS = 30   # the scenarios phase's depth (half the paper's rounds)
-VARIANT_ROUNDS = 12    # the variants phase's runs
-PYTREE_ROUNDS = 12     # the pytree phase's FedSPD runs
-TELEMETRY_ROUNDS = 12  # the telemetry phase's runs
+# the phases' depths, cut to pay for phase "whisper" (until then: engines 60,
+# the paper's rounds; scenarios 30; telemetry 12; stream 20)
+ENGINE_ROUNDS = 30     # the engines phase (half the paper's 60, configs/paper_cnn.py)
+SCENARIO_ROUNDS = 16   # the scenarios phase
+VARIANT_ROUNDS = 12    # the variants phase's runs (= PYTREE_ROUNDS: the pytree phase's conv
+#                        runs are held to this phase's)
+PYTREE_ROUNDS = 12     # the pytree phase's FedSPD runs (its accuracy check needs 12)
+TELEMETRY_ROUNDS = 8   # the telemetry phase's runs
 # the pytree phase's baselines, one id per class, and the mlp's leaf widths
 PYTREE_BASELINES = {"local": None, "dfl_fedavg": "gossip_mix_flat",
                     "dfl_fedem": "gossip_mix_stack", "dfl_ifca": "gossip_mix_flat",
                     "dfl_fedsoft": None, "dfl_pfedme": "gossip_mix_flat"}
 PYTREE_WIDTHS = (8192, 640, 128, 64, 10)
 PYTREE_LEAVES = 6      # the mlp's and the conv's leaves: three layers' w and b
-STREAM_ROUNDS, STREAM_B = 20, 32   # the stream regime's rounds and fresh batch a client
+STREAM_ROUNDS, STREAM_B = 12, 32   # the stream regime's rounds and fresh batch a client
 CONV_X = 14720   # the conv1d classifier's plane at the main path's dim 64 and 10 classes
 DP_OPTIONS = {"dp_clip": 1.0, "dp_noise_multiplier": 0.5}   # the DP main path: sigma 0.5
 DP_OPS = ("aten::square", "aten::sqrt", "aten::clamp", "aten::randn", "aten::normal_")
@@ -427,6 +446,17 @@ TRAIN_ROUNDS = 4               # T1 on each engine (5 until the whole script
 #                                passed 1,050 s, PR 31); T2 and T3 2 on the loop
 TRAIN_SMOKE = ["--smoke", "--rounds", "4", "--mask-update-every", "2"]
 LM_MIXTURE = [[0.7, 0.3], [0.5, 0.5], [0.1, 0.9], [1.0, 0.0]]
+# phase "whisper": whisper-base at published width and depth
+WHISPER_ARCH = "whisper-base"
+WHISPER_B, WHISPER_GEN, WHISPER_FORCED = 4, 16, 8   # W1: requests, greedy, teacher-forced
+WHISPER_ROUNDS = 2                                   # W2: loop rounds, then the replay
+# kernel 8 at ragged lengths, (B, Lq, Lkv, Hq, Hkv, hd, causal, dtype, label)
+RAGGED_FLASH = [(4, 1500, 1500, 8, 8, 64, False, "bfloat16", "encoder layer"),
+                (4, 1500, 1500, 8, 8, 64, False, "float32", "encoder layer"),
+                (4, 64, 1500, 8, 8, 64, False, "bfloat16", "cross attention, Lq 64"),
+                (4, 1500, 1500, 8, 8, 64, True, "bfloat16", "causal 1500"),
+                (4, 77, 77, 8, 8, 80, True, "bfloat16", "odd length 77, hd 80"),
+                (4, 77, 77, 4, 4, 256, True, "bfloat16", "odd length 77, hd 256")]
 BF16_GAP = 5e-2   # a greedy flip between kernel and plain runs must be a near-tie:
 # a logit gap under this, or under two bf16 steps at the logits' magnitude;
 # past it, the fp32 reference must pick the kernel run's token
@@ -485,36 +515,26 @@ def graph_ms(fn, reps: int = 100, iters: int = 20) -> float:
 
 def bound(n: int, x: int, kernel: str, noise: bool = False, m: int = 0,
           qblock: int = 1, s: int = 1, live: int = 0, width: int = 0) -> tuple[float, str]:
-    """(least ms, "bytes" | "operations"): each input read once, each
-    output written once; fp32 arithmetic. For the dequant kernels ``x`` is
-    the padded width Xp and ``m`` the output rows; ``s`` is the stack's
-    slab count; ``live`` the sparse kernels' live columns (the work this
-    run's masks need), ``width`` the masked dequant's logical width X."""
+    """(least ms, "bytes" | "operations") of a mix kernel, by the one
+    reckoning of kernel work (``roofline/analysis.kernel_bound``): each
+    input read once, each output written once, fp32 arithmetic. For the
+    dequant kernels ``x`` is the padded width Xp and ``m`` the output
+    rows; ``s`` is the stack's slab count; ``live`` the sparse kernels'
+    live columns (the work this run's masks need), ``width`` the masked
+    dequant's logical width X."""
+    from repro_torch.roofline.analysis import kernel_bound
+
     if kernel == "gossip_mix_stack":
-        nbytes = 4 * (n * n + 2 * s * n * x)
-        flops = 2 * s * n * n * x
-    elif kernel in ("gossip_mix_dequant", "mixture_mix_dequant4"):
-        plane = n * x if kernel == "gossip_mix_dequant" else n * x // 2
-        nbytes = 4 * m * n + plane + 4 * n * x // qblock + 4 * m * x
-        flops = 2 * m * n * x
-    elif kernel == "gossip_mix_flat":
-        nbytes = 4 * (n * n + 2 * n * x)
-        flops = 2 * n * n * x
-    elif kernel == "gossip_mix_sparse":
-        # W, the activity vector, the live columns of C, the whole output
-        nbytes = 4 * (n * n + x + n * live + n * x)
-        flops = 2 * n * n * live
-    elif kernel == "gossip_mix_dequant_masked":
-        # the payload, scales and fp32 mask on the live columns, an
-        # activity vector over the width, the whole (M, Xp) output
-        nbytes = (4 * m * n + n * live + 4 * n * live // qblock + 4 * n * live
-                  + 4 * width + 4 * m * x)
-        flops = 2 * m * n * live
-    else:
-        nbytes = 4 * (n * n + n + 3 * n * x + (n * x if noise else 0))
-        flops = 2 * n * n * x + n * x * (5 if noise else 3)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+        return kernel_bound(kernel, s=s, n=n, x=x)
+    if kernel in ("gossip_mix_dequant", "mixture_mix_dequant4"):
+        return kernel_bound(kernel, m=m, n=n, xp=x, qblock=qblock)
+    if kernel == "gossip_mix_sparse":
+        return kernel_bound(kernel, n=n, x=x, live=live)
+    if kernel == "gossip_mix_dequant_masked":
+        return kernel_bound(kernel, m=m, n=n, xp=x, qblock=qblock, live=live, width=width)
+    if kernel == "gossip_mix_fused_dp":
+        return kernel_bound(kernel, n=n, x=x, noise=noise)
+    return kernel_bound(kernel, n=n, x=x)
 
 
 def launch_floor(torch):
@@ -1003,13 +1023,27 @@ def _same_run(torch, a, b) -> list:
     return diff
 
 
+class _Kernel:
+    """A device event of a trace: its name and its time range (µs)."""
+
+    __slots__ = ("name", "time_range")
+
+    def __init__(self, event):
+        from torch.autograd.profiler_util import Interval
+
+        self.name = event.name()
+        self.time_range = Interval(event.start_ns() / 1e3, event.end_ns() / 1e3)
+
+
 def _round_kernels(prof, span: str | None = None) -> list:
     """Each round's device work in a profiled run, in round order: the
     device events whose launch (a CUDA runtime call on the host: a replay's
     ``cudaGraphLaunch``, a step's kernel launches and copies) falls inside
     one of the runner's ROUND_SPAN spans (or ``span``'s: the server's
     decode tokens), matched by the runtime's correlation id (both sides on
-    their own clock)."""
+    their own clock). It reads the trace's raw events
+    (``kineto_results``): ``prof.events()`` would build the whole event
+    tree first, seconds for every 10^4 host ops of the run's eager parts."""
     import bisect
 
     from repro_torch.experiments.runner import ROUND_SPAN
@@ -1019,22 +1053,29 @@ def _round_kernels(prof, span: str | None = None) -> list:
     def is_span(name):   # the launcher's spans carry the round: "repro/round#3"
         return name == span or name.startswith(span + "#")
 
-    events = prof.events()
     by_id: dict = {}
-    for e in events:
-        if e.device_type.name == "CUDA" and not is_span(e.name):
-            by_id.setdefault(e.id, []).append(e)
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if is_span(e.name) and e.device_type.name == "CPU")
+    spans, launches = [], []
+    for e in prof.profiler.kineto_results.events():
+        # torch's own parse skips hidden events, and reads the flag the same
+        # way (torch builds without it have none)
+        if getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        name, device = e.name(), e.device_type().name
+        if is_span(name):
+            if device == "CPU":
+                spans.append((e.start_ns(), e.end_ns()))
+        elif device == "CUDA":
+            by_id.setdefault(e.correlation_id(), []).append(e)
+        elif device == "CPU" and name.startswith("cu"):
+            launches.append(e)
+    spans.sort()
     starts = [a for a, _ in spans]
     windows = [[] for _ in spans]
-    for e in events:
-        if (e.device_type.name != "CPU" or not e.name.startswith("cu")
-                or e.id not in by_id):
-            continue
-        i = bisect.bisect_right(starts, e.time_range.start) - 1
-        if i >= 0 and e.time_range.start <= spans[i][1]:
-            windows[i].extend(by_id[e.id])
+    for e in sorted(launches, key=lambda e: e.start_ns()):
+        kern = by_id.get(e.correlation_id())
+        i = bisect.bisect_right(starts, e.start_ns()) - 1
+        if kern and i >= 0 and e.start_ns() <= spans[i][1]:
+            windows[i].extend(_Kernel(k) for k in kern)
     return windows
 
 
@@ -1052,7 +1093,7 @@ def _profiler():
 
 def profiled(rounds: int) -> tuple[int, int]:
     """The rounds [first, end) of a run profiled for its busy share: three
-    from its middle ([30, 33) of the engines phase's 60)."""
+    from its middle ([15, 18) of the engines phase's 30)."""
     return rounds // 2, rounds // 2 + 3
 
 
@@ -1189,7 +1230,7 @@ def _engine_line(label, pair) -> None:
 
 def phase_engines(torch, gm) -> dict:
     """The sixth path, the round engines: FedSPD for ENGINE_ROUNDS (the
-    paper's 60) rounds, DP off and on, on the loop engine and on the
+    paper's 60: half of them) rounds, DP off and on, on the loop engine and on the
     card's default engine, replayed from one captured round, each engine's
     busy share from one run of it; then a cohort of 10 of the 20 clients,
     ``run_method_batch`` over seeds 0, 1, 2 (one graph for the three),
@@ -2699,30 +2740,25 @@ def phase_baselines_comm(torch, gm) -> dict:
 
 
 def _flash_bound(b, l, hq, hkv, hd, window, dtype) -> tuple[float, str, int]:
-    """(least ms, bound_by, live (q, k) pairs): q, k, v read once and out
-    written once; 4·B·Hq·hd FLOPs per live pair (q·k and p·v), at the bf16
-    tensor-core peak for bf16 inputs, the fp32 peak for fp32."""
-    pos = list(range(l))
-    live = sum(min(q + 1, window if window else q + 1) for q in pos)
-    size = 2 if dtype == "bfloat16" else 4
-    nbytes = size * (2 * b * l * hq * hd + 2 * b * l * hkv * hd)
-    flops = 4 * b * hq * hd * live
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / (BF16_FLOPS if size == 2 else FP32_FLOPS)
-    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations"), live
+    """(least ms, bound_by, live (q, k) pairs) of a causal kernel-8 call,
+    by ``roofline/analysis.kernel_bound``: q, k, v read once and out
+    written once; 4·B·Hq·hd FLOPs per live pair, at the bf16 tensor-core
+    peak for bf16 inputs, the fp32 peak for fp32."""
+    from repro_torch.roofline.analysis import kernel_bound, live_pairs
+
+    ms, by = kernel_bound("flash_attention", b=b, lq=l, lkv=l, hq=hq, hkv=hkv, hd=hd,
+                          causal=True, window=window, dtype=dtype)
+    return ms, by, live_pairs(l, l, True, window)
 
 
 def _ssd_bound(b, l, h, g, p, n, q, dtype, state) -> tuple[float, str]:
-    """(least ms, bound_by): x, B, C, dt, A (and s0) read once, y and the
-    final state written once; per (batch, chunk, head) the chunked dual
-    form's four products, C·Bᵀ and (C·Bᵀ ⊙ L)·(x·dt) over the Q(Q+1)/2
-    causal pairs, C·S_in and the chunk state over Q·P·N each."""
-    size = 2 if dtype == "bfloat16" else 4
-    nbytes = (size * (2 * b * l * h * p + 2 * b * l * g * n) + 4 * (b * l * h + h)
-              + 4 * b * h * p * n * (2 if state else 1))
-    pairs = q * (q + 1) // 2
-    flops = b * (l // q) * h * (2 * pairs * (n + p) + 4 * q * p * n)
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / (BF16_FLOPS if size == 2 else FP32_FLOPS)
-    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
+    """(least ms, bound_by) of a kernel-9 call, by
+    ``roofline/analysis.kernel_bound``: x, B, C, dt, A (and s0) read once,
+    y and the final state written once; the chunked dual form's products."""
+    from repro_torch.roofline.analysis import kernel_bound
+
+    return kernel_bound("ssd_scan", b=b, l=l, h=h, g=g, p=p, n=n, chunk=q, dtype=dtype,
+                        state=state)
 
 
 def tensor_core_counts(build, lib_path) -> dict:
@@ -3855,6 +3891,292 @@ def phase_mesh(torch, card: str) -> None:
     print(f"mesh phase: {time.perf_counter() - t:.1f} s", flush=True)
 
 
+def _cuda_ms(torch, fn) -> float:
+    """Device ms of one call by CUDA events (after a synchronize)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def _ragged_flash_rows(torch) -> list:
+    """Kernel 8 at whisper's ragged lengths (RAGGED_FLASH) against its plain
+    version, timed by CUDA-graph replay beside its bound (the one
+    reckoning, ``roofline/analysis.kernel_bound``), the plain version and
+    one ``scaled_dot_product_attention`` (not causal: no mask)."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    from repro_torch.roofline.analysis import kernel_bound, live_pairs
+
+    dev = torch.device("cuda")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for b, lq, lkv, hq, hkv, hd, causal, dt, label in RAGGED_FLASH:
+        dtype = getattr(torch, dt)
+        g = torch.Generator(device=dev).manual_seed(lq + lkv + hd)
+        q = torch.randn((b, lq, hq, hd), generator=g, device=dev).to(dtype)
+        k, v = (torch.randn((b, lkv, hkv, hd), generator=g, device=dev).to(dtype)
+                for _ in range(2))
+        out = flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        want = flash_attention_ref(q, k, v, causal=causal)
+        err = float((out.float() - want.float()).abs().max())
+        tol = 2e-5 if dt == "float32" else 2e-2
+        check(bool(torch.isfinite(out).all()), f"flash_attention ragged {label}: not finite")
+        check(err <= tol, f"flash_attention ragged {label} ({dt}): max abs err {err} > {tol}")
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (x.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).contiguous()
+                  for x in (k, v))
+        b_ms, b_by = kernel_bound("flash_attention", b=b, lq=lq, lkv=lkv, hq=hq, hkv=hkv,
+                                  hd=hd, causal=causal, dtype=dt)
+        rows.append(dict(
+            b=b, l=lq, lkv=lkv, hq=hq, hkv=hkv, hd=hd, window=None, causal=causal, dtype=dt,
+            variant=f"whisper ragged: {label}",
+            live_pairs=live_pairs(lq, lkv, causal), max_abs_err=err,
+            ms=graph_ms(lambda: flash_attention(q, k, v, causal=causal), 20, 10),
+            plain_ms=graph_ms(lambda: flash_attention_ref(q, k, v, causal=causal), 3, 3),
+            library_ms=graph_ms(lambda: sdpa(qt, kt, vt, is_causal=causal), 20, 10),
+            bound_ms=b_ms, bound_by=b_by))
+        print("kernel flash_attention " + json.dumps(rows[-1]), flush=True)
+        del q, k, v, out, want, qt, kt, vt
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _greedy(torch, bundle, params, frames, start, gen: int):
+    """Prefill (the cross k/v) and ``gen`` greedy decode tokens through the
+    launcher's steps: (tokens (B, gen), per-step log-softmax (B, V) list,
+    per-step logits list)."""
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+
+    cfg = bundle.cfg
+    cache = make_prefill_step(bundle)(params, {"frames": frames},
+                                      bundle.init_cache(frames.shape[0], gen, device="cuda"))
+    decode = make_decode_step(bundle)
+    tok, toks, logps, logits = start, [], [], []
+    for _ in range(gen):
+        out, cache = decode(params, cache, tok)
+        lg = out[:, 0, :cfg.vocab].float()
+        logits.append(lg)
+        logps.append(torch.log_softmax(lg, dim=-1))
+        tok = lg.argmax(dim=-1, keepdim=True)
+        toks.append(tok)
+    return torch.cat(toks, dim=1), logps, logits
+
+
+def _bf16_steps(torch, a, b) -> float:
+    """The largest |a - b| of logit rows as a multiple of one bf16 step (8
+    significant bits) at each row's largest magnitude: the resolution the
+    bf16 logits are computed to."""
+    mag = torch.maximum(a.abs().amax(dim=-1), b.abs().amax(dim=-1)).clamp_min(1e-30)
+    step = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((a - b).abs().amax(dim=-1) / step).max())
+
+
+def _w1_compare(torch, cfg, params, frames, start, forced):
+    """W1's checks at ``cfg``'s compute dtype: the kernel route's greedy
+    tokens and logits against ``attn_mode="ref"``'s up to the first flip,
+    and the teacher-forced decode against ``encdec_forward``'s logits.
+    Returns (kernel route tokens, flip verdict, log-softmax errors (route,
+    forced), bf16 steps (route, forced), kernel 8 launches (prefill and
+    decode tokens, forward))."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.registry import build_model
+
+    bundle, ref_bundle = build_model(cfg), build_model(cfg, attn_mode="ref")
+    b = frames.shape[0]
+    # the driven run: counters at 0 just before, read just after
+    flash_attention.launches = 0
+    toks, logps, logits = _greedy(torch, bundle, params, frames, start, WHISPER_GEN)
+    prefill_launches = flash_attention.launches
+    flash_attention.launches = 0
+    full, _ = bundle.forward(params, {"tokens": forced, "frames": frames})
+    fwd_launches = flash_attention.launches
+    check(all(bool(torch.isfinite(x).all()) for x in logits), "whisper W1: logits not finite")
+    ref_toks, ref_logps, ref_logits = _greedy(torch, ref_bundle, params, frames, start,
+                                              WHISPER_GEN)
+    same = bool(torch.equal(toks, ref_toks))
+    upto = WHISPER_GEN if same else int((toks != ref_toks).any(dim=0).nonzero()[0]) + 1
+    route_err = max(float((x - y).abs().max()) for x, y in zip(logps[:upto], ref_logps[:upto]))
+    route_steps = max(_bf16_steps(torch, x, y) for x, y in zip(logits[:upto], ref_logits[:upto]))
+    verdict = "equal"
+    if not same:
+        step = upto - 1
+        row = int((toks[:, step] != ref_toks[:, step]).nonzero()[0])
+        tk, tp = int(toks[row, step]), int(ref_toks[row, step])
+        a, c = float(logits[step][row, tk]), float(logits[step][row, tp])
+        steps = 2.0 ** (math.floor(math.log2(max(abs(a), abs(c), 1e-30))) - 6)
+        verdict = (f"first flip at step {step} (request {row}), logit gap {abs(a - c):.4g} "
+                   f"(logits {a:.4g}, {c:.4g}; two bf16 steps {steps:.4g})")
+        if abs(a - c) > max(BF16_GAP, steps):
+            f32 = build_model(cfg.with_overrides(compute_dtype="float32"), attn_mode="ref")
+            _, _, f_logits = _greedy(torch, f32, params, frames, start, step + 1)
+            top = int(f_logits[step][row].argmax())
+            verdict += f"; the fp32 reference picks {top} (kernel run {tk}, ref run {tp})"
+            check(top == tk, f"whisper W1 ({cfg.compute_dtype}): kernel and ref tokens "
+                             f"differ, {verdict}")
+    cache = make_prefill_step(bundle)(params, {"frames": frames},
+                                      bundle.init_cache(b, WHISPER_FORCED, device="cuda"))
+    decode = make_decode_step(bundle)
+    forced_err = forced_steps = 0.0
+    for i in range(WHISPER_FORCED):
+        out, cache = decode(params, cache, forced[:, i:i + 1])
+        got, want = out[:, 0, :cfg.vocab].float(), full[:, i, :cfg.vocab].float()
+        forced_err = max(forced_err, float((torch.log_softmax(got, dim=-1)
+                                            - torch.log_softmax(want, dim=-1)).abs().max()))
+        forced_steps = max(forced_steps, _bf16_steps(torch, got, want))
+    return (toks, verdict, (route_err, forced_err), (route_steps, forced_steps),
+            (prefill_launches, fwd_launches))
+
+
+def _whisper_w1(torch, card: str, launches: dict) -> float:
+    """W1: whisper-base's prefill and decode steps (``launch/steps``) at
+    published width and depth on the card: B = WHISPER_B requests, frames
+    ``(B, 1500, 512)`` from a seed, WHISPER_GEN greedy tokens, the kernel
+    route against the same steps with ``attn_mode="ref"``; WHISPER_FORCED
+    tokens teacher-forced through prefill_cross + decode_step against
+    ``encdec_forward``'s logits (kernel 8 in the decoder, causal and
+    cross). Both at the configured bf16 compute, where the logits carry 8
+    significant bits (held to two bf16 steps at each row's magnitude, the
+    tokens to equal or a near-tie flip), and at fp32 compute (kernel 8's
+    fp32 kernel), held to 2e-2 in log-softmax. Returns the prefill ms."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.registry import build_model
+    from repro_torch.roofline import analysis as rl
+
+    cfg = get_config(WHISPER_ARCH)
+    g = torch.Generator(device="cuda").manual_seed(41)
+    params = build_model(cfg).init(g)
+    b, t, d = WHISPER_B, cfg.encoder_frames, cfg.encoder_d_model
+    frames = torch.randn((b, t, d), generator=g, device="cuda")
+    start = torch.randint(0, cfg.vocab, (b, 1), generator=g, device="cuda")
+    forced = torch.randint(0, cfg.vocab, (b, WHISPER_FORCED), generator=g, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    toks, verdict, errs, steps, (prefill_launches, fwd_launches) = _w1_compare(
+        torch, cfg, params, frames, start, forced)
+    peak = torch.cuda.max_memory_allocated()
+    check(prefill_launches == cfg.encoder_layers,
+          f"whisper W1: kernel 8 launched {prefill_launches} times in a prefill and "
+          f"{WHISPER_GEN} decode tokens, expected {cfg.encoder_layers} (the encoder)")
+    check(fwd_launches == cfg.encoder_layers + 2 * cfg.n_layers,
+          f"whisper W1: kernel 8 launched {fwd_launches} times in encdec_forward, expected "
+          f"{cfg.encoder_layers + 2 * cfg.n_layers}")
+    launches["flash_attention"] = launches.get("flash_attention", 0) + prefill_launches \
+        + fwd_launches
+    check(tuple(toks.shape) == (b, WHISPER_GEN) and int(toks.min()) >= 0
+          and int(toks.max()) < cfg.vocab, f"whisper W1: tokens {tuple(toks.shape)}")
+    check(max(steps) <= 2.0, f"whisper W1 (bf16): kernel vs ref / decode vs forward logits "
+                             f"{steps[0]:.3g} / {steps[1]:.3g} bf16 steps apart, over 2")
+    f32 = cfg.with_overrides(compute_dtype="float32")
+    _, f_verdict, f_errs, _, f_launches = _w1_compare(torch, f32, params, frames, start, forced)
+    check(max(f_errs) <= 2e-2, f"whisper W1 (fp32): kernel vs ref / decode vs forward "
+                               f"log-softmax max abs err {f_errs[0]:.3g} / {f_errs[1]:.3g} "
+                               "> 2e-2")
+    launches["flash_attention"] += sum(f_launches)
+
+    # prefill ms and decode ms a token of the configured (bf16) model, CUDA
+    # events, medians of 3
+    bundle = build_model(cfg)
+    prefill_step, decode = make_prefill_step(bundle), make_decode_step(bundle)
+    cache = bundle.init_cache(b, WHISPER_GEN, device="cuda")
+    prefill_ms = statistics.median(
+        _cuda_ms(torch, lambda: prefill_step(params, {"frames": frames}, cache))
+        for _ in range(3))
+
+    def tokens():
+        cache["pos"].zero_()
+        tok = start
+        for _ in range(WHISPER_GEN):
+            out, _ = decode(params, cache, tok)
+            tok = out[:, 0, :cfg.vocab].argmax(dim=-1, keepdim=True)
+
+    decode_ms = statistics.median(_cuda_ms(torch, tokens) for _ in range(3)) / WHISPER_GEN
+    x = sum(p.numel() for p in torch.utils._pytree.tree_leaves(params))
+    print(f"whisper W1 {WHISPER_ARCH} (X {x:,}; {card}): B={b}, frames ({b}, {t}, {d}), "
+          f"{WHISPER_GEN} greedy tokens: prefill_ms {prefill_ms:.3f} decode_ms_per_token "
+          f"{decode_ms:.4f} (CUDA events, medians of 3) max_memory_allocated {peak} "
+          f"flash_attention launches: prefill {prefill_launches}, encdec_forward "
+          f"{fwd_launches}; bf16: tokens vs attn_mode=ref {verdict}, logits "
+          f"{steps[0]:.3g} bf16 steps apart (log-softmax max abs err {errs[0]:.4g}); "
+          f"teacher-forced {WHISPER_FORCED} tokens vs encdec_forward {steps[1]:.3g} bf16 "
+          f"steps (log-softmax {errs[1]:.4g}); fp32 compute: tokens vs ref {f_verdict}, "
+          f"log-softmax max abs err {f_errs[0]:.4g}, teacher-forced {f_errs[1]:.4g}; "
+          f"tokens[0] {json.dumps(toks[0].tolist())}", flush=True)
+    del params, cache
+    _free(torch)
+
+    # the dry-run's roofline of the same prefill (meta device, the H100 constants)
+    with rl.count_work() as w:
+        prefill_step(bundle.init(None), {"frames": torch.empty((b, t, d), device="meta")},
+                     bundle.init_cache(b, WHISPER_GEN, device="meta"))
+    roof = rl.analyze(arch=WHISPER_ARCH, shape=f"W1 prefill B={b}", step_kind="prefill",
+                      mesh_name="one card", chips=1, counts=w)
+    print(f"whisper roofline W1 prefill (launch/dryrun's count on the meta device; not "
+          f"checked): compute_ms {roof.compute_s * 1e3:.4f} memory_ms "
+          f"{roof.memory_s * 1e3:.4f} collective_ms {roof.collective_s * 1e3:.4f} "
+          f"({roof.bottleneck}; {roof.flops_per_chip:.4g} FLOPs, {roof.bytes_per_chip:.4g} "
+          f"bytes, kernels {json.dumps(w.kernels)}) beside the measured prefill_ms "
+          f"{prefill_ms:.3f}", flush=True)
+    return prefill_ms
+
+
+def _whisper_w2(torch, gm, card: str, launches: dict) -> None:
+    """W2: ``launch/train.py --arch whisper-base`` (N = 4, S = 2, b = 4, L =
+    64, ER degree 2) for WHISPER_ROUNDS loop rounds, then the same seed
+    replayed: bit for bit the loop's plane, u, bytes and loss."""
+    argv = ["--arch", WHISPER_ARCH, "--rounds", str(WHISPER_ROUNDS)] + TRAIN_ARGS
+    loop, counts = _train(torch, gm, argv)
+    check(counts["gossip_mix_flat"] == WHISPER_ROUNDS and counts["flash_attention"] == 0,
+          f"whisper W2 loop: launches {counts}, expected kernel 1 {WHISPER_ROUNDS} times and "
+          "kernel 8 never (the training route)")
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    want = _cpu_state(torch, loop)
+    check(math.isfinite(want["loss"]), f"whisper W2: final loss {want['loss']} not finite")
+    peak = (loop["max_memory_allocated"], loop["max_memory_reserved"])
+    loop_ms, x = loop["round_ms"], loop["pack_spec"].size
+    del loop
+    rep, rcounts = _train(torch, gm, argv + ["--scan-rounds"])
+    got = _cpu_state(torch, rep)
+    same = _same_train(torch, want, got)
+    check(same, "whisper W2: the replay's final plane, u, bytes or loss differ from the loop's")
+    print(f"whisper W2 {WHISPER_ARCH} train (X {x:,}, N 4, S 2, b 4, L 64; {card}): round_ms "
+          f"loop {json.dumps([round(v, 2) for v in loop_ms])} replay "
+          f"{json.dumps([round(v, 2) for v in rep['round_ms']])} (round 1: warm-up, capture, "
+          f"replay); peak GiB loop {peak[0] / 2**30:.2f} / {peak[1] / 2**30:.2f}, replay "
+          f"{rep['max_memory_allocated'] / 2**30:.2f} / {rep['max_memory_reserved'] / 2**30:.2f}"
+          f" (allocated / reserved); final loss {want['loss']:.6f}; launches loop "
+          f"{json.dumps(counts)} replay (warm-up and capture) {json.dumps(rcounts)}; replay = "
+          f"loop (plane, u, bytes, loss): equal", flush=True)
+    del rep, want, got
+    _free(torch)
+
+
+def phase_whisper(torch, gm, card: str) -> tuple[dict, list]:
+    """Phase "whisper": kernel 8 at whisper's ragged lengths, W1 (serving
+    steps) and W2 (training). Returns (the launches of W1's driven run and
+    W2's loop, kernel 8's ragged rows)."""
+    t = time.perf_counter()
+    rows = _ragged_flash_rows(torch)
+    launches: dict = {}
+    _whisper_w1(torch, card, launches)
+    _whisper_w2(torch, gm, card, launches)
+    print(f"whisper phase: {time.perf_counter() - t:.1f} s", flush=True)
+    return launches, rows
+
+
+def timed(name: str, phase, *args):
+    """``phase(*args)``, its seconds printed as ``<name> phase: … s``."""
+    t = time.perf_counter()
+    out = phase(*args)
+    print(f"{name} phase: {time.perf_counter() - t:.1f} s", flush=True)
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -3905,20 +4227,18 @@ def main() -> None:
     for k in SSD_MMA_KERNELS:
         check(mma_counts.get(k, 0) > 0, f"kernel 9's {k} holds no tensor-core instruction")
 
-    rows = phase_kernels(torch, gm)
-    stack_rows = phase_stack_kernel(torch, gm)
-    serve_rows = phase_dequant_kernels(torch, gm)
-    sparse_rows = phase_sparse_kernels(torch, gm)
-    phase_agreement(torch)
-    phase_sparse_agreement(torch)
-    launches, (round_ms, dp_round_ms), kept = phase_main_path(torch, gm)
-    serve_launches = phase_serve(torch, gm, kept)
-    baseline_launches = phase_baselines(torch, gm)
-    t = time.perf_counter()
-    baseline_comm_launches = phase_baselines_comm(torch, gm)
-    print(f"baselines comm phase: {time.perf_counter() - t:.1f} s", flush=True)
-    sparse_launches, sparse_round_ms = phase_sparse_comm_path(torch, gm)
-    planes = phase_engines(torch, gm)
+    rows = timed("kernels", phase_kernels, torch, gm)
+    stack_rows = timed("stack kernel", phase_stack_kernel, torch, gm)
+    serve_rows = timed("dequant kernels", phase_dequant_kernels, torch, gm)
+    sparse_rows = timed("sparse kernels", phase_sparse_kernels, torch, gm)
+    timed("agreement", phase_agreement, torch)
+    timed("sparse agreement", phase_sparse_agreement, torch)
+    launches, (round_ms, dp_round_ms), kept = timed("main path", phase_main_path, torch, gm)
+    serve_launches = timed("serve", phase_serve, torch, gm, kept)
+    baseline_launches = timed("baselines", phase_baselines, torch, gm)
+    baseline_comm_launches = timed("baselines comm", phase_baselines_comm, torch, gm)
+    sparse_launches, sparse_round_ms = timed("sparse/comm", phase_sparse_comm_path, torch, gm)
+    planes = timed("engines", phase_engines, torch, gm)
     t = time.perf_counter()
     scenario_errs = phase_scenario_agreement(torch, gm)
     scenario_launches = phase_scenarios(torch, gm, card)
@@ -3936,13 +4256,15 @@ def main() -> None:
     t = time.perf_counter()
     telemetry_launches = phase_telemetry(torch, gm, card)
     print(f"telemetry phase: {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
     phase_profile(torch, round_ms)
     phase_profile(torch, dp_round_ms, label="dp", options=DP_OPTIONS)
     phase_profile(torch, conv_round_ms, label="conv", model="conv")
     phase_profile(torch, pytree_ms, label="pytree", param_plane=False)
     phase_profile(torch, sparse_round_ms, label="sparse+int8", sparse=SparseConfig(**SPARSE),
                   comm=CommConfig(codec="int8", error_feedback=True))
-    lm_rows = phase_lm_kernels(torch, mma_counts)
+    print(f"profile phase: {time.perf_counter() - t:.1f} s", flush=True)
+    lm_rows = timed("lm kernels", phase_lm_kernels, torch, mma_counts)
     t = time.perf_counter()
     lm_launches, lm_mix_rows = phase_lm_serve(torch, gm)
     for name, rs in lm_mix_rows.items():
@@ -3952,6 +4274,8 @@ def main() -> None:
     print(f"lm phases: {time.perf_counter() - t:.1f} s", flush=True)
     train_launches, train_flat, train_dequant = phase_train(torch, gm, card)
     phase_mesh(torch, card)
+    whisper_launches, whisper_rows = phase_whisper(torch, gm, card)
+    lm_rows["flash_attention"].extend(whisper_rows)
     rows["gossip_mix_flat"].extend(train_flat["gossip_mix_flat"])
     serve_rows["gossip_mix_dequant"].extend(train_dequant["gossip_mix_dequant"])
 
@@ -3964,7 +4288,7 @@ def main() -> None:
     # variants, pytree and telemetry phases count them in their traces)
     for path in (serve_launches, baseline_launches, baseline_comm_launches, sparse_launches,
                  scenario_launches, variant_launches, pytree_launches, telemetry_launches,
-                 lm_launches, train_launches):
+                 lm_launches, train_launches, whisper_launches):
         for name, c in path.items():
             launches[name] = launches.get(name, 0) + c
     replaces = {"gossip_mix_flat": "src/repro/kernels/gossip_mix.py:63",
@@ -4040,6 +4364,7 @@ def main() -> None:
         # and on the train phase's loop runs (launch/train.py)
         k["telemetry_launches"] = telemetry_launches.get(k["name"], 0)
         k["train_launches"] = train_launches.get(k["name"], 0)
+        k["whisper_launches"] = whisper_launches.get(k["name"], 0)
         if k["name"] in scenario_errs:
             # the same kernel on scenario B's weighted W
             k["scenario_w_max_abs_err"] = scenario_errs[k["name"]]

@@ -22,9 +22,16 @@ the kernel; the counterpart of ``kernels/ref.flash_attention_ref``; for
 bf16 inputs it rounds p to bf16 before p·v and sums the rounded p, as the
 kernel does) and the launch counter ``flash_attention.launches``. The
 wrapper takes the plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises. It accepts exactly the shapes
-``ops.flash_attention`` accepts (``Lq % min(128, Lq) == 0``, the same for
-``Lkv``) and raises on the rest; the kernel picks its own tiles.
+tensors it launches the kernel or raises; for meta tensors (the dry-run)
+it returns a meta output and counts the kernel's reckoned work
+(``kernels/common.py``).
+
+Lengths are ragged: any ``Lq, Lkv >= 1``, as the JAX package's pure-JAX
+``"blocked"`` mode takes them (its Pallas kernel asserts on a length that
+``min(128, L)`` does not divide; whisper's 1,500 encoder frames are one).
+The kernel computes the tails in place: rows past ``Lq`` and keys past
+``Lkv`` of a tile are zero-filled by its copies and masked, with no
+padded copy of q, k or v. It picks its own tiles.
 """
 from __future__ import annotations
 
@@ -33,7 +40,7 @@ import math
 import torch
 
 from repro_torch.kernels.build import load_library
-from repro_torch.kernels.common import on_cpu, raise_on
+from repro_torch.kernels.common import count_kernel, on_cpu, on_meta, raise_on
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)   # the kernel's instantiations
@@ -83,11 +90,8 @@ def _check_shapes(q, k, v, window) -> None:
         raise ValueError(
             f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree in batch or head "
             "dim, or Hq is not a multiple of Hkv")
-    for name, n in (("Lq", lq), ("Lkv", k.shape[1])):
-        if n % min(128, n):
-            raise ValueError(
-                f"{name} = {n} is not a multiple of min(128, {name}) (the tiling "
-                "ops.flash_attention accepts)")
+    if lq < 1 or k.shape[1] < 1:
+        raise ValueError(f"Lq = {lq}, Lkv = {k.shape[1]}: both must be >= 1")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
 
@@ -98,6 +102,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     hd)``, one dtype (fp32 or bf16 on the card); returns a new ``(B, Lq,
     Hq, hd)`` in q's dtype."""
     _check_shapes(q, k, v, window)
+    if on_meta(q, k, v):
+        count_kernel("flash_attention", b=q.shape[0], lq=q.shape[1], lkv=k.shape[1],
+                     hq=q.shape[2], hkv=k.shape[2], hd=q.shape[3], causal=causal,
+                     window=window, dtype=str(q.dtype).removeprefix("torch."))
+        return torch.empty_like(q)
     if on_cpu(q, k, v):
         return flash_attention_ref(q, k, v, causal=causal, window=window)
     b, lq, hq, hd = q.shape

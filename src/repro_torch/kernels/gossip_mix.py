@@ -98,7 +98,8 @@ Beside each kernel: its plain PyTorch version (``*_ref``, an fp32 einsum
 with the prologue written out) and a launch counter (``.launches`` on the
 wrapper, raised by one per kernel launch and nowhere else). A wrapper
 takes the plain version only for tensors on the CPU; for CUDA tensors it
-launches the kernel or raises.
+launches the kernel or raises; for meta tensors (the dry-run) it returns a
+meta output and counts the kernel's reckoned work (``kernels/common.py``).
 """
 from __future__ import annotations
 
@@ -108,7 +109,9 @@ import torch.nn.functional as F
 from repro_torch.comm.codecs import int4_unpack
 from repro_torch.kernels.build import load_library
 from repro_torch.kernels.common import check as _check
+from repro_torch.kernels.common import count_kernel as _count
 from repro_torch.kernels.common import on_cpu as _on_cpu
+from repro_torch.kernels.common import on_meta as _on_meta
 from repro_torch.kernels.common import raise_on as _raise_on
 from repro_torch.utils.pytree import tree_map
 
@@ -171,9 +174,12 @@ def gossip_mix_dequant_masked_ref(w: torch.Tensor, q: torch.Tensor,
 
 def gossip_mix_flat(w: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """C' = W·C. w ``(N, N)``, c ``(N, X)``, fp32; returns a new ``(N, X)``."""
+    n, x = c.shape
+    if _on_meta(w, c):
+        _count("gossip_mix_flat", n=n, x=x)
+        return torch.empty((n, x), dtype=torch.float32, device="meta")
     if _on_cpu(w, c):
         return gossip_mix_flat_ref(w, c)
-    n, x = c.shape
     _check("w", w, (n, n))
     _check("c", c, (n, x))
     out = torch.empty_like(c)
@@ -218,6 +224,9 @@ def gossip_mix_stack(w: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     s, n, x = c.shape
     if tuple(w.shape) != (n, n):
         raise ValueError(f"w: shape {tuple(w.shape)}, expected {(n, n)}")
+    if _on_meta(w, c):
+        _count("gossip_mix_stack", s=s, n=n, x=x)
+        return torch.empty((s, n, x), dtype=torch.float32, device="meta")
     if _on_cpu(w, c):
         return gossip_mix_stack_ref(w, c)
     _check("w", w, (n, n))
@@ -246,9 +255,12 @@ def gossip_mix_fused_dp(w: torch.Tensor, c_old: torch.Tensor,
     if (noise is None) != (sigma <= 0.0):
         raise ValueError("noise must be given exactly when sigma > 0")
     ops = (w, c_old, c_new, scale) + ((noise,) if noise is not None else ())
+    n, x = c_old.shape
+    if _on_meta(*ops):
+        _count("gossip_mix_fused_dp", n=n, x=x, noise=sigma > 0.0)
+        return torch.empty((n, x), dtype=torch.float32, device="meta")
     if _on_cpu(*ops):
         return gossip_mix_fused_dp_ref(w, c_old, c_new, scale, noise, sigma)
-    n, x = c_old.shape
     scale = scale.reshape(n)
     _check("w", w, (n, n))
     _check("c_old", c_old, (n, x))
@@ -283,9 +295,12 @@ def gossip_mix_dequant(w: torch.Tensor, q: torch.Tensor, scales: torch.Tensor,
         raise ValueError(
             f"quantized plane {tuple(q.shape)} / scales {tuple(scales.shape)} "
             f"do not tile with qblock={qblock}")
+    m = w.shape[0]
+    if _on_meta(w, q, scales):
+        _count("gossip_mix_dequant", m=m, n=n, xp=xp, qblock=qblock)
+        return torch.empty((m, xp), dtype=torch.float32, device="meta")
     if _on_cpu(w, q, scales):
         return gossip_mix_dequant_ref(w, q, scales, qblock=qblock)
-    m = w.shape[0]
     _check("w", w, (m, n))
     _check("q", q, (n, xp), torch.int8)
     _check("scales", scales, (n, xp // qblock))
@@ -317,9 +332,12 @@ def mixture_mix_dequant4(u: torch.Tensor, packed: torch.Tensor,
             f"do not tile with an even qblock={qblock}")
     if u.dim() != 2 or u.shape[1] != s:
         raise ValueError(f"mixture weights {tuple(u.shape)} != (B, {s})")
+    b = u.shape[0]
+    if _on_meta(u, packed, scales):
+        _count("mixture_mix_dequant4", m=b, n=s, xp=xp, qblock=qblock)
+        return torch.empty((b, xp), dtype=torch.float32, device="meta")
     if _on_cpu(u, packed, scales):
         return mixture_mix_dequant4_ref(u, packed, scales, qblock=qblock)
-    b = u.shape[0]
     _check("u", u, (b, s))
     _check("packed", packed, (s, xh), torch.uint8)
     _check("scales", scales, (s, xp // qblock))
@@ -351,6 +369,10 @@ def gossip_mix_sparse(w: torch.Tensor, c: torch.Tensor,
         raise ValueError(
             f"column activity {tuple(col_active.shape)} does not match plane "
             f"width {x}")
+    if _on_meta(w, c, col_active):
+        # no data on meta: every column counts as live (the most the mix needs)
+        _count("gossip_mix_sparse", n=n, x=x, live=x)
+        return torch.empty((n, x), dtype=torch.float32, device="meta")
     if _on_cpu(w, c, col_active):
         return gossip_mix_sparse_ref(w, c, col_active)
     _check("w", w, (n, n))
@@ -394,9 +416,12 @@ def gossip_mix_dequant_masked(w: torch.Tensor, q: torch.Tensor,
     if tuple(col_active.shape) != (x,):
         raise ValueError(
             f"column activity {tuple(col_active.shape)} does not match mask width {x}")
+    m = w.shape[0]
+    if _on_meta(w, q, scales, mask, col_active):
+        _count("gossip_mix_dequant_masked", m=m, n=n, xp=xp, qblock=qblock, live=x, width=x)
+        return torch.empty((m, xp), dtype=torch.float32, device="meta")
     if _on_cpu(w, q, scales, mask, col_active):
         return gossip_mix_dequant_masked_ref(w, q, scales, mask, col_active, qblock=qblock)
-    m = w.shape[0]
     _check("w", w, (m, n))
     _check("q", q, (n, xp), torch.int8)
     _check("scales", scales, (n, xp // qblock))

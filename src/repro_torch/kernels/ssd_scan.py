@@ -23,14 +23,16 @@ Beside it: its plain version ``ssd_chunked`` (the JAX package's
 form, the chunk states, the inter-chunk recurrence as a loop over chunks,
 and the carried state's contribution), which ``models/ssm.py`` re-exports
 under its JAX name. The wrapper takes the plain version only for tensors
-on the CPU; for CUDA tensors it launches the kernel or raises.
+on the CPU; for CUDA tensors it launches the kernel or raises; for meta
+tensors (the dry-run) it returns meta outputs and counts the kernel's
+reckoned work (``kernels/common.py``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.build import load_library
-from repro_torch.kernels.common import on_cpu, raise_on
+from repro_torch.kernels.common import count_kernel, on_cpu, on_meta, raise_on
 
 NEG_INF = -1e30
 MAX_SMEM = 232448   # the most shared memory one block can opt in to (H100)
@@ -147,6 +149,12 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if l % chunk:
         raise ValueError(f"seq {l} not divisible by chunk {chunk}")
     ops = (x, dt, A, Bm, Cm) + (() if initial_state is None else (initial_state,))
+    if on_meta(*ops):
+        count_kernel("ssd_scan", b=b, l=l, h=h, g=g, p=p, n=n, chunk=chunk,
+                     dtype=str(x.dtype).removeprefix("torch."),
+                     state=initial_state is not None)
+        return (torch.empty_like(x),
+                torch.empty((b, h, p, n), dtype=torch.float32, device="meta"))
     if on_cpu(*ops):
         return ssd_chunked(x, dt, A, Bm, Cm, chunk, initial_state)
     if x.dtype not in (torch.float32, torch.bfloat16) or Bm.dtype != x.dtype \

@@ -32,6 +32,7 @@ import torch
 # --- NVIDIA H100 80GB HBM3 (SXM5) constants, one GPU; nvidia-smi reads the
 # card as "NVIDIA H100 80GB HBM3, 700.00 W". The datasheet's figures: ---
 PEAK_FLOPS_BF16 = 989e12     # FLOP/s, dense bf16 tensor-core peak
+PEAK_FLOPS_FP32 = 67e12      # FLOP/s, fp32 outside the tensor cores
 HBM_BW = 3.35e12             # bytes/s
 NVLINK_BW = 450e9            # bytes/s a direction (NVLink 4: 900 GB/s both ways)
 ICI_BW = NVLINK_BW           # the JAX package's name for the link rate

@@ -412,10 +412,19 @@ def main(argv=None, *, draws: Callable[[int], dict] | None = None,
                                docs_per_client=max(32, 4 * args.batch), seq_len=args.seq,
                                vocab=min(cfg.vocab, 512), seed=args.seed)
     docs = torch.as_tensor(pool["tokens"], dtype=torch.int64, device=dev)   # (N, D, L)
+    frames = None
+    if cfg.family == "audio":
+        # the stub frontend's frame embeddings: zeros, as JAX's launcher feeds
+        frames = torch.zeros((n, args.batch, cfg.encoder_frames or 16,
+                              cfg.encoder_d_model or cfg.d_model), device=dev)
 
     def sample(idx):
-        """The clients' documents at ``idx`` ``(N, b)``: ``{"tokens": (N, b, L)}``."""
-        return {"tokens": torch.gather(docs, 1, idx[:, :, None].expand(-1, -1, docs.shape[2]))}
+        """The clients' documents at ``idx`` ``(N, b)``: ``{"tokens": (N, b, L)}``
+        (and audio's ``"frames"`` ``(N, b, T, D)``)."""
+        batch = {"tokens": torch.gather(docs, 1, idx[:, :, None].expand(-1, -1, docs.shape[2]))}
+        if frames is not None:
+            batch["frames"] = frames
+        return batch
 
     lr_tape = torch.tensor([round_lr(fcfg, r) for r in range(max(args.rounds, 1))],
                            dtype=torch.float32, device=dev)

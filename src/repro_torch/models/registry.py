@@ -1,24 +1,27 @@
 """Uniform model bundle: one construction point for the LM model zoo.
 
-The JAX package's ``models/registry.py`` for the families the port has:
-``dense``, ``moe`` and ``vlm`` (``models/transformer.py``, MoE layers from
-``models/moe.py``), ``ssm`` (``models/ssm.py``) and ``hybrid``
-(``models/hybrid.py``). Every bundle offers
+The JAX package's ``models/registry.py`` for every family: ``dense``,
+``moe`` and ``vlm`` (``models/transformer.py``, MoE layers from
+``models/moe.py``), ``ssm`` (``models/ssm.py``), ``hybrid``
+(``models/hybrid.py``) and ``audio`` (whisper, ``models/encdec.py``).
+Every bundle offers
 
     init(gen) -> params                          (drawn on gen's device)
     loss(params, batch) -> scalar                (training objective)
     per_example_loss(params, batch) -> (B,)      (FedSPD clustering step)
     forward(params, batch) -> (logits, aux)      (prefill/eval)
     init_cache(batch, max_len, *, device) -> cache
-    prefill(params, batch, cache) -> cache       (fills KV / SSM state in place)
+    prefill(params, batch, cache) -> cache       (fills KV / SSM state / cross-KV in place)
     decode_step(params, cache, tokens) -> (logits, cache)   (in place, pos + 1)
 
 The cache's ``pos`` is a 0-dim int64 tensor on its device, and prefill and
 decode write into the tensors of the cache they are given, so a captured
 decode step (``serve/server.py``) reads what the last call wrote.
 
-batch: ``{"tokens": (B, L)}``. ``audio`` (whisper, ``models/encdec.py``)
-waits for a later slice and raises ``ValueError``.
+batch: ``{"tokens": (B, L)}`` (+ ``{"frames": (B, T, D)}`` for audio).
+An audio prefill fills the cross-attention cache only, as JAX's does:
+``pos`` stays 0 and the decoder is teacher-forced token by token through
+``decode_step``.
 
 FedSPD's client axes. ``per_example_loss`` also takes the FL engine's
 form, what the JAX package gets with ``jax.vmap``: params whose leaves
@@ -27,7 +30,9 @@ the clustering forward) against tokens ``(*B', b, L)`` broadcast to
 ``*B``, returning ``(*B, b)``. Each model runs its own b sequences in a
 loop over the flattened axes (``_on_client_axes``), so each client's MoE
 routes its own b·L tokens with the capacity they give, as under
-``vmap``. Tokens of rank 2 keep the one-model and per-request forms.
+``vmap``. Every leaf of the batch (``frames`` too) carries the same
+leading axes as the tokens. Tokens of rank 2 keep the one-model and
+per-request forms.
 
 The training route. ``build_model(cfg, train=True)``, which only the
 train launcher (``launch/train.py``) asks for, runs attention through
@@ -46,14 +51,10 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import hybrid, ssm
+from repro_torch.models import encdec, hybrid, ssm
 from repro_torch.models import transformer as tfm
 from repro_torch.models.layers import next_token_loss
 from repro_torch.utils.pytree import tree_map
-
-_LATER = {
-    "audio": "the audio slice (models/encdec.py, whisper)",
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,9 +95,11 @@ def _on_client_axes(per_example_loss):
         if tokens.dim() <= 2:
             return per_example_loss(params, batch)
         k = params["embed"].dim() - 2
+        lead = tokens.dim() - 2
         shape = tuple(torch.broadcast_shapes(params["embed"].shape[:k], tokens.shape[:-2]))
-        seqs = tokens.expand(*shape, *tokens.shape[-2:]).reshape(-1, *tokens.shape[-2:])
-        out = [per_example_loss(p, {"tokens": seqs[i]})
+        flat = {key: v.expand(*shape, *v.shape[lead:]).reshape(-1, *v.shape[lead:])
+                for key, v in batch.items()}
+        out = [per_example_loss(p, {key: v[i] for key, v in flat.items()})
                for i, p in enumerate(_split_models(params, k, shape))]
         return torch.stack(out).reshape(*shape, tokens.shape[-2])
 
@@ -112,11 +115,6 @@ def build_model(cfg: ArchConfig, *, attn_mode: str = "cuda",
     ssd = "chunked" if train else "cuda"
     if train:
         attn_mode = "ref"
-    if fam in _LATER:
-        raise ValueError(
-            f"{cfg.name} (family {fam!r}) is not in the port yet: it waits for "
-            f"{_LATER[fam]}; the port has the dense, moe, vlm, ssm and hybrid families")
-
     if fam in ("dense", "moe", "vlm"):
         def init(gen):
             return tfm.init_transformer(gen, cfg)
@@ -182,6 +180,30 @@ def build_model(cfg: ArchConfig, *, attn_mode: str = "cuda",
         def decode_step(params, cache, tokens):
             return hybrid.hybrid_decode_step(params, cache, tokens, cfg)
 
+    elif fam == "audio":
+        def init(gen):
+            return encdec.init_encdec(gen, cfg)
+
+        def forward(params, batch):
+            logits, aux, _ = encdec.encdec_forward(params, batch["tokens"], cfg,
+                                                   frames=batch["frames"],
+                                                   attn_mode=attn_mode)
+            return logits, aux
+
+        def loss(params, batch):
+            logits, _ = forward(params, batch)
+            return _masked_next_token_loss(logits, batch["tokens"], cfg).mean()
+
+        def init_cache(batch, max_len, *, device="cuda"):
+            return encdec.encdec_init_cache(cfg, batch, max_len, device=device)
+
+        def prefill(params, batch, cache):
+            return encdec.encdec_prefill_cross(params, batch["frames"], cfg, cache,
+                                               attn_mode=attn_mode)
+
+        def decode_step(params, cache, tokens):
+            return encdec.encdec_decode_step(params, cache, tokens, cfg)
+
     else:
         raise ValueError(f"unknown family {fam!r}")
 
@@ -231,3 +253,12 @@ def _mamba_layer_params(cfg: ArchConfig) -> int:
     conv_dim = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
     d_in_proj = 2 * cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state + cfg.ssm_heads
     return d * d_in_proj + cfg.ssm_conv * conv_dim + cfg.d_inner * d
+
+
+def active_params(cfg: ArchConfig) -> int:
+    """Active (per-token) parameter count — MoE counts only top_k experts."""
+    total = count_params(cfg)
+    if cfg.n_experts == 0:
+        return total
+    n_mats = 3 if cfg.act == "silu" else 2
+    return total - cfg.n_layers * (cfg.n_experts - cfg.top_k) * n_mats * cfg.d_model * cfg.d_ff

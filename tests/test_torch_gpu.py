@@ -689,8 +689,11 @@ def test_flash_kernel_without_causal_mask(cuda, dtype):
 
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     q, k, v = _qkv(cuda, 1, 256, 256, 4, 2, 64, torch.float32)
-    with pytest.raises(ValueError, match="multiple of min"):
-        flash_attention(q[:, :200].contiguous(), k, v)
+    # a ragged length is taken since whisper's slice (its kernel row: the
+    # ragged cases below)
+    assert flash_attention(q[:, :200].contiguous(), k, v).shape == (1, 200, 4, 64)
+    with pytest.raises(ValueError, match=">= 1"):
+        flash_attention(q[:, :0], k, v)
     with pytest.raises(ValueError, match="head dim"):
         flash_attention(*_qkv(cuda, 1, 64, 64, 2, 1, 48, torch.float32))
     with pytest.raises(ValueError, match="contiguous"):
@@ -702,6 +705,67 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     flat = torch.zeros(q.numel() + 8, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="aligned"):   # 2 bytes past a 16-byte line
         flash_attention(flat[1:1 + q.numel()].view(q.shape), k.bfloat16(), v.bfloat16())
+
+
+# kernel 8 at ragged lengths, (B, Lq, Lkv, Hq, Hkv, hd, causal): whisper's
+# encoder layer (1,500 frames, 8/8 heads, hd 64, bidirectional), its cross
+# attention (64 decoder tokens over 1,500 frames), a causal 1,500, an odd
+# length at hd 80 and 256 both ways, GQA over a ragged tail, and lengths
+# under one 64-row tile with Lq != Lkv
+RAGGED_SHAPES = [
+    (4, 1500, 1500, 8, 8, 64, False), (4, 64, 1500, 8, 8, 64, False),
+    (2, 1500, 1500, 8, 8, 64, True), (2, 77, 77, 4, 4, 80, True), (2, 77, 77, 4, 4, 80, False),
+    (1, 77, 77, 2, 2, 256, True), (1, 77, 77, 2, 2, 256, False), (2, 200, 200, 8, 2, 64, True),
+    (1, 13, 1500, 4, 1, 128, False), (1, 1500, 13, 2, 1, 32, True),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,lq,lkv,hq,hkv,hd,causal", RAGGED_SHAPES)
+def test_flash_kernel_at_ragged_lengths_matches_plain(cuda, b, lq, lkv, hq, hkv, hd, causal,
+                                                      dtype):
+    q, k, v = _qkv(cuda, b, lq, lkv, hq, hkv, hd, dtype, seed=lq + lkv)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == before + 1
+    want = flash_attention_ref(q, k, v, causal=causal)
+    assert bool(torch.isfinite(out).all())
+    assert _max_err(out.float(), want.float()) <= FLASH_TOL[dtype]
+
+
+def test_whisper_on_the_card_matches_the_cpu(cuda):
+    """Whisper at smoke width (fp32): the forward (kernel 8 in the encoder,
+    the decoder's causal self and cross attention), the cross prefill and
+    teacher-forced decode on the card against the same steps on the CPU
+    (plain versions), kernel 8's launches counted."""
+    cfg = get_smoke_config("whisper-base")
+    bundle = build_model(cfg)
+    params = bundle.init(torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 10), generator=g),
+             "frames": torch.randn((2, cfg.encoder_frames, cfg.encoder_d_model), generator=g)}
+    on = {dev: (_to(params, dev), {k: v.to(dev) for k, v in batch.items()})
+          for dev in ("cpu", cuda)}
+    flash_attention.launches = 0
+    logits = {dev: bundle.forward(p, bt)[0] for dev, (p, bt) in on.items()}
+    assert flash_attention.launches == cfg.encoder_layers + 2 * cfg.n_layers
+    assert _max_err(logits[cuda].cpu(), logits["cpu"]) <= 1e-4
+    flash_attention.launches = 0
+    steps = {}
+    for dev, (p, bt) in on.items():
+        cache = bundle.prefill(p, bt, bundle.init_cache(2, 12, device=dev))
+        steps[dev] = [bundle.decode_step(p, cache, bt["tokens"][:, t:t + 1])[0].cpu()
+                      for t in range(10)]
+    assert flash_attention.launches == cfg.encoder_layers
+    for t in range(10):
+        assert _max_err(steps[cuda][t], steps["cpu"][t]) <= 1e-4
+        assert _max_err(steps[cuda][t][:, 0], logits[cuda][:, t].cpu()) <= 1e-4
+
+
+def _to(node, dev):
+    if isinstance(node, dict):
+        return {k: _to(v, dev) for k, v in node.items()}
+    return node.to(dev)
 
 
 # kernel 9: the CPU sweep's shapes, then mamba2-370m's prefill layer (H =
@@ -1554,6 +1618,7 @@ TRAIN_CASES = {
                        {"gossip_mix_sparse": 4, "gossip_mix_dequant_masked": 4}),
     "pytree": ("olmo-1b", ["--pytree"], None),
     "het": ("gemma3-1b", TRAIN_HET, {"gossip_mix_flat": 4}),
+    "whisper": ("whisper-base", [], {"gossip_mix_flat": 4}),
 }
 
 

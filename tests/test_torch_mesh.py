@@ -592,7 +592,7 @@ def test_train_main_on_a_mesh_matches_the_one_device_run(world, engine):
 # --------------------------------------------------------------------------
 
 PORTED = ["olmo-1b", "gemma3-1b", "granite-3-8b", "h2o-danube-1.8b", "chameleon-34b",
-          "mamba2-370m", "olmoe-1b-7b", "phi3.5-moe-42b-a6.6b", "zamba2-1.2b"]
+          "mamba2-370m", "olmoe-1b-7b", "phi3.5-moe-42b-a6.6b", "zamba2-1.2b", "whisper-base"]
 MESH_SHAPES = [((16, 16), ("data", "model")), ((2, 16, 16), ("pod", "data", "model"))]
 
 
