@@ -204,10 +204,17 @@ Phases, in order; any failure exits non-zero before the result line:
    (B = 4 requests, L = 512, 16 heads, hd 128, bf16; also fp32), a
    danube-like GQA 32/8 hd-80 layer with a 256 window and a gemma3-like
    hd-256 layer over one kv head, zamba2-1.2b's shared block (MHA 32/32,
-   hd 64) and olmoe-1b-7b's prefill (B = 1), each bf16 row beside the count of
-   tensor-core instructions (``HMMA``/``HGMMA``, by ``cuobjdump -sass`` of
-   the built library) in the bf16 kernel it runs, which must not be 0
-   (checked for every head dim right after the build), and ``ssd_scan``
+   hd 64) and olmoe-1b-7b's prefill (B = 1), then short query ranges whose
+   keys split (``SPLIT_FLASH``: whisper's cross attention in fp32, 16 and
+   1 queries over a 4,096 cache, windowed calls, one of them with rows
+   that see no key of a chunk), each row naming its
+   route (``flash_wgmma_kernel``, ``flash_mma_kernel`` or
+   ``flash_tf32_kernel``, by ``route``) and split, held also against the
+   plain split-and-merge where it splits, beside the counts of
+   tensor-core instructions (``HMMA`` and ``HGMMA`` apart, by
+   ``cuobjdump -sass`` of the built library) in the kernel it runs
+   (checked right after the build: HGMMA in every wgmma-route
+   instantiation, HMMA in every mma.sync and 3xTF32 one), and ``ssd_scan``
    (kernel 9) at mamba2-370m's prefill layer (B = 4, L = 512, H = 32, P =
    64, N = 128, chunk 128, bf16; also fp32 and with an initial state) and
    zamba2-1.2b's Mamba2 layer (H = 64, N = 64, bf16),
@@ -216,7 +223,8 @@ Phases, in order; any failure exits non-zero before the result line:
    ``ssd_chunk_out_mma`` in bf16, the CUDA-core ones in fp32) and, in
    bf16, their tensor-core instruction counts (checked non-zero right
    after the build),
-   each against its plain version (attention 2e-5 fp32 / 2e-2 bf16, SSD
+   each against its plain version (attention 2e-5 fp32 / 2e-2 of the
+   largest |output|, at most 2e-2, bf16 (``flash_tol``), SSD
    2e-3 and one bf16 step, 2^-7 of the value, on a bf16 y) and timed by
    CUDA-graph replay beside its bound (bytes over 3.35 TB/s or FLOPs over
    989 TFLOP/s bf16 / 67 TFLOP/s fp32), its plain version and, for
@@ -298,8 +306,8 @@ Phases, in order; any failure exits non-zero before the result line:
    kernel 8 at ragged lengths (``RAGGED_FLASH``: the encoder layer
    ``(4, 1500, 8, 8, 64)`` not causal in bf16 and fp32, the cross
    attention at Lq = 64 over 1,500 frames, a causal 1,500, an odd length
-   77 at hd 80 and 256), each against its plain version (2e-5 fp32, 2e-2
-   bf16) and timed beside its bound and ``scaled_dot_product_attention``.
+   77 at hd 80 and 256), each against its plain version (``flash_tol``)
+   and timed beside its bound and ``scaled_dot_product_attention``.
    W1: ``launch/steps.make_prefill_step`` then ``make_decode_step`` on
    ``build_model(cfg)``, B = 4, frames ``(4, 1500, 512)`` from a seed, 16
    greedy tokens, kernel 8's launches counted (6 a prefill, 18 an
@@ -457,6 +465,22 @@ RAGGED_FLASH = [(4, 1500, 1500, 8, 8, 64, False, "bfloat16", "encoder layer"),
                 (4, 1500, 1500, 8, 8, 64, True, "bfloat16", "causal 1500"),
                 (4, 77, 77, 8, 8, 80, True, "bfloat16", "odd length 77, hd 80"),
                 (4, 77, 77, 4, 4, 256, True, "bfloat16", "odd length 77, hd 256")]
+# kernel 8 where a short query range splits its keys (split_plan), (B,
+# Lq, Lkv, Hq, Hkv, hd, causal, window, dtype, label): whisper's cross
+# attention in fp32 (its bf16 row is RAGGED_FLASH's), 16 and 1 queries
+# over a 4,096 cache under GQA 32/8 (hd 128), a windowed GQA call whose
+# window masks no key, and 512 queries under a window of 100, which leaves
+# rows with no live key in the first chunk (a block with none at all)
+SPLIT_FLASH = [(4, 64, 1500, 8, 8, 64, False, None, "float32", "cross attention, Lq 64, fp32"),
+               (1, 16, 4096, 32, 8, 128, False, None, "bfloat16", "Lq 16 over 4,096, GQA 32/8"),
+               (1, 1, 4096, 32, 8, 128, False, None, "bfloat16", "Lq 1 over 4,096, GQA 32/8"),
+               (1, 64, 4096, 32, 8, 64, False, 2048, "bfloat16",
+                "Lq 64 over 4,096, GQA 32/8, window 2,048"),
+               (1, 512, 4096, 1, 1, 128, False, 100, "bfloat16",
+                "Lq 512 over 4,096, window 100"),
+               (1, 512, 4096, 1, 1, 128, False, 100, "float32",
+                "Lq 512 over 4,096, window 100, fp32")]
+PEAK_FLOPS_TF32 = 495e12   # FLOP/s, an H100 SXM's dense TF32 tensor-core peak
 BF16_GAP = 5e-2   # a greedy flip between kernel and plain runs must be a near-tie:
 # a logit gap under this, or under two bf16 steps at the logits' magnitude;
 # past it, the fp32 reference must pick the kernel run's token
@@ -2739,18 +2763,6 @@ def phase_baselines_comm(torch, gm) -> dict:
     return total
 
 
-def _flash_bound(b, l, hq, hkv, hd, window, dtype) -> tuple[float, str, int]:
-    """(least ms, bound_by, live (q, k) pairs) of a causal kernel-8 call,
-    by ``roofline/analysis.kernel_bound``: q, k, v read once and out
-    written once; 4·B·Hq·hd FLOPs per live pair, at the bf16 tensor-core
-    peak for bf16 inputs, the fp32 peak for fp32."""
-    from repro_torch.roofline.analysis import kernel_bound, live_pairs
-
-    ms, by = kernel_bound("flash_attention", b=b, lq=l, lkv=l, hq=hq, hkv=hkv, hd=hd,
-                          causal=True, window=window, dtype=dtype)
-    return ms, by, live_pairs(l, l, True, window)
-
-
 def _ssd_bound(b, l, h, g, p, n, q, dtype, state) -> tuple[float, str]:
     """(least ms, bound_by) of a kernel-9 call, by
     ``roofline/analysis.kernel_bound``: x, B, C, dt, A (and s0) read once,
@@ -2762,11 +2774,11 @@ def _ssd_bound(b, l, h, g, p, n, q, dtype, state) -> tuple[float, str]:
 
 
 def tensor_core_counts(build, lib_path) -> dict:
-    """Counts of HMMA/HGMMA instructions in the built library, from
-    ``cuobjdump -sass`` (beside ``nvcc``): ``{hd: count}`` for each
-    instantiation of the bf16 flash kernel (``flash_mma_kernel<hd>``) and
-    ``{name: count}`` for kernel 9's tensor-core kernels
-    (``SSD_MMA_KERNELS``)."""
+    """Tensor-core instructions in the built library, from ``cuobjdump
+    -sass`` (beside ``nvcc``): ``{key: {"HMMA": n, "HGMMA": n}}`` for each
+    instantiation of kernel 8's kernels (key ``"flash_wgmma_kernel<64>"``
+    and so on: ``wgmma`` assembles to HGMMA, ``mma.sync`` to HMMA) and for
+    kernel 9's tensor-core kernels (key: the name, ``SSD_MMA_KERNELS``)."""
     cuobjdump = pathlib.Path(build.find_nvcc()).parent / "cuobjdump"
     r = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
                        text=True, timeout=300)
@@ -2774,14 +2786,39 @@ def tensor_core_counts(build, lib_path) -> dict:
     counts, key = {}, None
     for line in r.stdout.splitlines():
         if "Function :" in line:
-            m = re.search(r"flash_mma_kernelILi(\d+)E", line)
-            key = int(m.group(1)) if m else next((k for k in SSD_MMA_KERNELS if k in line),
-                                                 None)
+            m = re.search(r"(flash_(?:wgmma|mma|tf32)_kernel)ILi(\d+)E", line)
+            key = f"{m.group(1)}<{m.group(2)}>" if m else next(
+                (k for k in SSD_MMA_KERNELS if k in line), None)
             if key is not None:
-                counts[key] = 0
-        elif key is not None and re.search(r"\bHG?MMA\b", line):
-            counts[key] += 1
+                counts[key] = {"HMMA": 0, "HGMMA": 0}
+        elif key is not None:
+            m = re.search(r"\b(HG?MMA)\b", line)
+            if m:
+                counts[key][m.group(1)] += 1
     return counts
+
+
+def check_tensor_cores(counts: dict) -> None:
+    """Print and check ``tensor_core_counts``: every kernel-8 route of
+    (head dim, dtype) holds its instructions (HGMMA in a ``wgmma``-route
+    instantiation, HMMA in the ``mma.sync`` and 3xTF32 ones), and kernel
+    9's tensor-core kernels hold HMMA."""
+    from repro_torch.kernels.flash_attention import HEAD_DIMS, route
+
+    for dt in ("bfloat16", "float32"):
+        got = {}
+        for hd in HEAD_DIMS:
+            key = f"{route(hd, dt)}<{hd}>"
+            got[key] = counts.get(key, {"HMMA": 0, "HGMMA": 0})
+            op = "HGMMA" if key.startswith("flash_wgmma") else "HMMA"
+            check(got[key][op] > 0, f"kernel 8's {key} ({dt}) holds no {op} instruction")
+        print(f"sass flash_attention ({dt}) tensor-core instructions: " + json.dumps(got),
+              flush=True)
+    print("sass ssd_scan (bf16) HMMA/HGMMA per kernel: "
+          + json.dumps({k: counts.get(k) for k in SSD_MMA_KERNELS}), flush=True)
+    for k in SSD_MMA_KERNELS:
+        check(sum(counts.get(k, {}).values()) > 0,
+              f"kernel 9's {k} holds no tensor-core instruction")
 
 
 def _stage_ms(torch, fn, calls: int = 20) -> dict:
@@ -2803,56 +2840,132 @@ def _stage_ms(torch, fn, calls: int = 20) -> dict:
     return out
 
 
-def phase_lm_kernels(torch, mma_counts: dict) -> dict:
+def flash_tol(want, dt: str) -> float:
+    """Kernel 8's limit against a reference output ``want``: 2e-5 in fp32;
+    in bf16 2e-2 of the reference's largest |value|, at most 2e-2. A row
+    that sees n keys of unit-normal inputs averages them to about N(0, e/n)
+    (std 0.026 at 4,096 keys), and a kernel that dropped one of 16 chunks
+    would move it by about 0.006 std, under a fixed 2e-2; 2e-2·max|want| is
+    over two bf16 steps at the largest output, and a right kernel differs
+    from its plain version by one step there."""
+    if dt == "float32":
+        return 2e-5
+    return min(2e-2, 2e-2 * float(want.float().abs().max()))
+
+
+def _flash_row(torch, q, k, v, *, causal, window, label, counts) -> dict:
+    """One kernel-8 row: the kernel against its plain version (``flash_tol``)
+    and, with a kv split, against the plain split-and-merge; then timed by
+    CUDA-graph replay beside its bound (the one reckoning,
+    ``roofline/analysis.kernel_bound``; an fp32 row also beside the 3xTF32
+    route's own, three TF32 products at ``PEAK_FLOPS_TF32``), the plain
+    version and one
+    ``scaled_dot_product_attention`` ((B, H, L, hd), kv heads repeated for
+    GQA, a window as a boolean mask made outside the timing). The row
+    names its route, its split and its kernel's tensor-core counts."""
+    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_ref,
+                                                     flash_attention_split_ref, route,
+                                                     sm_count, split_plan)
+    from repro_torch.launch.mesh import HBM_BW
+    from repro_torch.roofline.analysis import kernel_bound, kernel_work, live_pairs
+
+    dev = q.device
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, lq, hq, hd = q.shape
+    lkv, hkv = k.shape[1], k.shape[2]
+    dt = str(q.dtype).removeprefix("torch.")
+    n_split, chunk = split_plan(b, lq, lkv, hq, hkv, hd, q.dtype, causal=causal,
+                                num_sms=sm_count(dev))
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    err = float((out.float() - want.float()).abs().max())
+    tol = flash_tol(want, dt)
+    where = f"flash_attention {label} ({dt}, {route(hd, dt)}, split {n_split})"
+    check(bool(torch.isfinite(out).all()), f"{where}: not finite")
+    check(err <= tol, f"{where}: max abs err {err} > {tol}")
+    split_err = None
+    if n_split > 1:
+        split_want = flash_attention_split_ref(q, k, v, causal=causal, window=window)
+        split_err = float((out.float() - split_want.float()).abs().max())
+        split_tol = min(tol, flash_tol(split_want, dt))
+        check(split_err <= split_tol, f"{where}: max abs err {split_err} > {split_tol} "
+                                      "against the plain split-and-merge")
+        del split_want
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (x.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).contiguous()
+              for x in (k, v))
+    if window is None:
+        def lib():
+            return sdpa(qt, kt, vt, is_causal=causal)
+    else:
+        i, j = torch.arange(lq, device=dev), torch.arange(lkv, device=dev)
+        mask = i[:, None] - j[None, :] < window
+        if causal:
+            mask &= i[:, None] >= j[None, :]
+
+        def lib():
+            return sdpa(qt, kt, vt, attn_mask=mask)
+    shape = dict(b=b, lq=lq, lkv=lkv, hq=hq, hkv=hkv, hd=hd, causal=causal, window=window,
+                 dtype=dt)
+    b_ms, b_by = kernel_bound("flash_attention", **shape)
+    flops, nbytes = kernel_work("flash_attention", **shape)
+    tf32x3_ms = (max(nbytes / HBM_BW, 3 * flops / PEAK_FLOPS_TF32) * 1e3
+                 if dt == "float32" else None)
+    row = dict(
+        b=b, l=lq, lkv=lkv, hq=hq, hkv=hkv, hd=hd, window=window, causal=causal, dtype=dt,
+        variant=label, route=route(hd, dt), split=n_split, chunk=chunk if n_split > 1 else None,
+        live_pairs=live_pairs(lq, lkv, causal, window),
+        tensor_core_instructions=counts[f"{route(hd, dt)}<{hd}>"] if counts else None,
+        tol=tol, max_abs_err=err, split_ref_max_abs_err=split_err,
+        ms=graph_ms(lambda: flash_attention(q, k, v, causal=causal, window=window), 20, 10),
+        plain_ms=graph_ms(lambda: flash_attention_ref(q, k, v, causal=causal,
+                                                      window=window), 3, 3),
+        library_ms=graph_ms(lib, 20, 10), bound_ms=b_ms, bound_by=b_by,
+        tf32x3_bound_ms=tf32x3_ms)
+    print("kernel flash_attention " + json.dumps(row), flush=True)
+    return row
+
+
+def _qkv_on_card(torch, b, lq, lkv, hq, hkv, hd, dt, seed):
+    dev = torch.device("cuda")
+    dtype = getattr(torch, dt)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, lq, hq, hd), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((b, lkv, hkv, hd), generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    return q, k, v
+
+
+def flash_shape_rows(torch, counts: dict) -> list:
+    """Kernel 8 at the LM path's shapes (``FLASH_SHAPES``, causal) and at
+    short query ranges whose keys split (``SPLIT_FLASH``)."""
+    rows = []
+    for b, l, hq, hkv, hd, window, dt in FLASH_SHAPES:
+        q, k, v = _qkv_on_card(torch, b, l, l, hq, hkv, hd, dt, seed=l + hq + hd)
+        rows.append(_flash_row(torch, q, k, v, causal=True, window=window,
+                               label=f"B={b} L={l} {hq}/{hkv} hd {hd}", counts=counts))
+        del q, k, v
+        torch.cuda.empty_cache()
+    for b, lq, lkv, hq, hkv, hd, causal, window, dt, label in SPLIT_FLASH:
+        q, k, v = _qkv_on_card(torch, b, lq, lkv, hq, hkv, hd, dt, seed=lq + lkv + hd)
+        rows.append(_flash_row(torch, q, k, v, causal=causal, window=window, label=label,
+                               counts=counts))
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_lm_kernels(torch, tc_counts: dict) -> dict:
     """Kernels 8 and 9 against their plain versions at the LM path's
     shapes, timed by CUDA-graph replay beside bound, plain and library;
-    each bf16 row carries its kernels' tensor-core instruction counts, and
-    each kernel 9 row its three stages' device ms (torch.profiler)."""
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    each kernel-8 row names its route and carries its kernel's
+    tensor-core instruction counts, and each kernel 9 row its three
+    stages' device ms (torch.profiler)."""
     from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
 
     dev = torch.device("cuda")
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    rows = {"flash_attention": [], "ssd_scan": []}
-    for b, l, hq, hkv, hd, window, dt in FLASH_SHAPES:
-        dtype = getattr(torch, dt)
-        g = torch.Generator(device=dev).manual_seed(l + hq + hd)
-        q = torch.randn((b, l, hq, hd), generator=g, device=dev).to(dtype)
-        k, v = (torch.randn((b, l, hkv, hd), generator=g, device=dev).to(dtype)
-                for _ in range(2))
-        out = flash_attention(q, k, v, causal=True, window=window)
-        torch.cuda.synchronize()
-        want = flash_attention_ref(q, k, v, causal=True, window=window)
-        err = float((out.float() - want.float()).abs().max())
-        tol = 2e-5 if dt == "float32" else 2e-2
-        check(bool(torch.isfinite(out).all()), f"flash_attention {dt} {tuple(q.shape)}: not finite")
-        check(err <= tol, f"flash_attention {dt} B={b} L={l} {hq}/{hkv} hd={hd} "
-                          f"window={window}: max abs err {err} > {tol}")
-        # the yardstick: one SDPA call, (B, H, L, hd), kv heads repeated
-        # for GQA and the window as a boolean mask (made outside the timing)
-        qt = q.transpose(1, 2).contiguous()
-        kt, vt = (x.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).contiguous()
-                  for x in (k, v))
-        if window is None:
-            def lib():
-                return sdpa(qt, kt, vt, is_causal=True)
-        else:
-            i = torch.arange(l, device=dev)
-            mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < window)
-
-            def lib():
-                return sdpa(qt, kt, vt, attn_mask=mask)
-        b_ms, b_by, live = _flash_bound(b, l, hq, hkv, hd, window, dt)
-        rows["flash_attention"].append(dict(
-            b=b, l=l, hq=hq, hkv=hkv, hd=hd, window=window, dtype=dt, live_pairs=live,
-            tensor_core_instructions=mma_counts[hd] if dt == "bfloat16" else 0,
-            max_abs_err=err,
-            ms=graph_ms(lambda: flash_attention(q, k, v, causal=True, window=window), 20, 10),
-            plain_ms=graph_ms(lambda: flash_attention_ref(q, k, v, causal=True,
-                                                          window=window), 5, 5),
-            library_ms=graph_ms(lib, 20, 10), bound_ms=b_ms, bound_by=b_by))
-        del q, k, v, out, want, qt, kt, vt
-        torch.cuda.empty_cache()
+    rows = {"flash_attention": flash_shape_rows(torch, tc_counts), "ssd_scan": []}
     for b, l, h, gr, p, n, chunk, dt, state in SSD_SHAPES:
         dtype = getattr(torch, dt)
         g = torch.Generator(device=dev).manual_seed(l + h + n + int(state))
@@ -2885,7 +2998,8 @@ def phase_lm_kernels(torch, mma_counts: dict) -> dict:
         rows["ssd_scan"].append(dict(
             b=b, l=l, h=h, g=gr, p=p, n=n, chunk=chunk, dtype=dt, initial_state=state,
             max_abs_err=err, launches_per_call=3, stage_ms=stages,
-            tensor_core_instructions=({k: mma_counts[k] for k in SSD_MMA_KERNELS}
+            tensor_core_instructions=({k: sum(tc_counts[k].values())
+                                       for k in SSD_MMA_KERNELS}
                                       if dt == "bfloat16" else 0),
             ms=graph_ms(lambda: ssd_scan(x, dts, a, bm, cm, chunk=chunk, initial_state=s0),
                         20, 10),
@@ -2893,9 +3007,8 @@ def phase_lm_kernels(torch, mma_counts: dict) -> dict:
             library_ms=None, bound_ms=b_ms, bound_by=b_by))
         del x, dts, bm, cm, s0, y, s, yr, sr
         torch.cuda.empty_cache()
-    for name, rs in rows.items():
-        for r in rs:
-            print(f"kernel {name} " + json.dumps(r), flush=True)
+    for r in rows["ssd_scan"]:
+        print("kernel ssd_scan " + json.dumps(r), flush=True)
     return rows
 
 
@@ -3902,45 +4015,15 @@ def _cuda_ms(torch, fn) -> float:
     return start.elapsed_time(end)
 
 
-def _ragged_flash_rows(torch) -> list:
-    """Kernel 8 at whisper's ragged lengths (RAGGED_FLASH) against its plain
-    version, timed by CUDA-graph replay beside its bound (the one
-    reckoning, ``roofline/analysis.kernel_bound``), the plain version and
-    one ``scaled_dot_product_attention`` (not causal: no mask)."""
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
-    from repro_torch.roofline.analysis import kernel_bound, live_pairs
-
-    dev = torch.device("cuda")
-    sdpa = torch.nn.functional.scaled_dot_product_attention
+def _ragged_flash_rows(torch, counts: dict | None = None) -> list:
+    """Kernel 8 at whisper's ragged lengths (RAGGED_FLASH), each row as
+    ``_flash_row`` makes it (not causal: SDPA with no mask)."""
     rows = []
     for b, lq, lkv, hq, hkv, hd, causal, dt, label in RAGGED_FLASH:
-        dtype = getattr(torch, dt)
-        g = torch.Generator(device=dev).manual_seed(lq + lkv + hd)
-        q = torch.randn((b, lq, hq, hd), generator=g, device=dev).to(dtype)
-        k, v = (torch.randn((b, lkv, hkv, hd), generator=g, device=dev).to(dtype)
-                for _ in range(2))
-        out = flash_attention(q, k, v, causal=causal)
-        torch.cuda.synchronize()
-        want = flash_attention_ref(q, k, v, causal=causal)
-        err = float((out.float() - want.float()).abs().max())
-        tol = 2e-5 if dt == "float32" else 2e-2
-        check(bool(torch.isfinite(out).all()), f"flash_attention ragged {label}: not finite")
-        check(err <= tol, f"flash_attention ragged {label} ({dt}): max abs err {err} > {tol}")
-        qt = q.transpose(1, 2).contiguous()
-        kt, vt = (x.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).contiguous()
-                  for x in (k, v))
-        b_ms, b_by = kernel_bound("flash_attention", b=b, lq=lq, lkv=lkv, hq=hq, hkv=hkv,
-                                  hd=hd, causal=causal, dtype=dt)
-        rows.append(dict(
-            b=b, l=lq, lkv=lkv, hq=hq, hkv=hkv, hd=hd, window=None, causal=causal, dtype=dt,
-            variant=f"whisper ragged: {label}",
-            live_pairs=live_pairs(lq, lkv, causal), max_abs_err=err,
-            ms=graph_ms(lambda: flash_attention(q, k, v, causal=causal), 20, 10),
-            plain_ms=graph_ms(lambda: flash_attention_ref(q, k, v, causal=causal), 3, 3),
-            library_ms=graph_ms(lambda: sdpa(qt, kt, vt, is_causal=causal), 20, 10),
-            bound_ms=b_ms, bound_by=b_by))
-        print("kernel flash_attention " + json.dumps(rows[-1]), flush=True)
-        del q, k, v, out, want, qt, kt, vt
+        q, k, v = _qkv_on_card(torch, b, lq, lkv, hq, hkv, hd, dt, seed=lq + lkv + hd)
+        rows.append(_flash_row(torch, q, k, v, causal=causal, window=None,
+                               label=f"whisper ragged: {label}", counts=counts))
+        del q, k, v
         torch.cuda.empty_cache()
     return rows
 
@@ -4156,12 +4239,13 @@ def _whisper_w2(torch, gm, card: str, launches: dict) -> None:
     _free(torch)
 
 
-def phase_whisper(torch, gm, card: str) -> tuple[dict, list]:
-    """Phase "whisper": kernel 8 at whisper's ragged lengths, W1 (serving
-    steps) and W2 (training). Returns (the launches of W1's driven run and
-    W2's loop, kernel 8's ragged rows)."""
+def phase_whisper(torch, gm, card: str, counts: dict | None = None) -> tuple[dict, list]:
+    """Phase "whisper": kernel 8 at whisper's ragged lengths (each row with
+    its kernel's tensor-core ``counts`` when given), W1 (serving steps)
+    and W2 (training). Returns (the launches of W1's driven run and W2's
+    loop, kernel 8's ragged rows)."""
     t = time.perf_counter()
-    rows = _ragged_flash_rows(torch)
+    rows = _ragged_flash_rows(torch, counts)
     launches: dict = {}
     _whisper_w1(torch, card, launches)
     _whisper_w2(torch, gm, card, launches)
@@ -4214,18 +4298,8 @@ def main() -> None:
     for line in lib_path.with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("ptxas " + line.strip(), flush=True)
-    from repro_torch.kernels.flash_attention import HEAD_DIMS
-
-    mma_counts = tensor_core_counts(build, lib_path)
-    print("sass flash_mma_kernel (bf16) HMMA/HGMMA per head dim: "
-          + json.dumps({str(hd): mma_counts.get(hd, 0) for hd in HEAD_DIMS}), flush=True)
-    for hd in HEAD_DIMS:
-        check(mma_counts.get(hd, 0) > 0,
-              f"the bf16 flash kernel for hd {hd} holds no tensor-core instruction")
-    print("sass ssd_scan (bf16) HMMA/HGMMA per kernel: "
-          + json.dumps({k: mma_counts.get(k, 0) for k in SSD_MMA_KERNELS}), flush=True)
-    for k in SSD_MMA_KERNELS:
-        check(mma_counts.get(k, 0) > 0, f"kernel 9's {k} holds no tensor-core instruction")
+    tc_counts = tensor_core_counts(build, lib_path)
+    check_tensor_cores(tc_counts)
 
     rows = timed("kernels", phase_kernels, torch, gm)
     stack_rows = timed("stack kernel", phase_stack_kernel, torch, gm)
@@ -4264,7 +4338,7 @@ def main() -> None:
     phase_profile(torch, sparse_round_ms, label="sparse+int8", sparse=SparseConfig(**SPARSE),
                   comm=CommConfig(codec="int8", error_feedback=True))
     print(f"profile phase: {time.perf_counter() - t:.1f} s", flush=True)
-    lm_rows = timed("lm kernels", phase_lm_kernels, torch, mma_counts)
+    lm_rows = timed("lm kernels", phase_lm_kernels, torch, tc_counts)
     t = time.perf_counter()
     lm_launches, lm_mix_rows = phase_lm_serve(torch, gm)
     for name, rs in lm_mix_rows.items():
@@ -4274,7 +4348,7 @@ def main() -> None:
     print(f"lm phases: {time.perf_counter() - t:.1f} s", flush=True)
     train_launches, train_flat, train_dequant = phase_train(torch, gm, card)
     phase_mesh(torch, card)
-    whisper_launches, whisper_rows = phase_whisper(torch, gm, card)
+    whisper_launches, whisper_rows = phase_whisper(torch, gm, card, tc_counts)
     lm_rows["flash_attention"].extend(whisper_rows)
     rows["gossip_mix_flat"].extend(train_flat["gossip_mix_flat"])
     serve_rows["gossip_mix_dequant"].extend(train_dequant["gossip_mix_dequant"])

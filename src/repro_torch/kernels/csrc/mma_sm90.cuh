@@ -1,15 +1,19 @@
-// Tensor-core and async-copy helpers shared by the bf16 kernels
+// Tensor-core and async-copy helpers shared by the mma.sync kernels
 // (flash_attention.cu, ssd_scan.cu): 16-byte cp.async global -> shared
-// copies, ldmatrix fragment loads and the mma.sync m16n8k16 bf16 product
-// with fp32 accumulation, as inline PTX for sm_90a. Internal linkage: each
-// .cu that includes it gets its own copy.
+// copies, ldmatrix fragment loads, the mma.sync m16n8k16 bf16 product and
+// the m16n8k8 tf32 product (with the split of an fp32 value into tf32
+// high and low parts), both with fp32 accumulation, as inline PTX for
+// sm_90a. Internal linkage: each .cu that includes it gets its own copy.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16): in a warp, lane l
 // has gr = l / 4 and tig = l % 4. The A fragment (16 × 16, row) is 4
 // registers of 2 bf16: rows gr and gr + 8, columns 2·tig, 2·tig + 1 and the
 // same + 8; the B fragment (16 × 8, col) is 2 registers: rows (k) 2·tig,
 // 2·tig + 1 and + 8, column gr; the accumulator d[4] is rows gr (d[0],
-// d[1]) and gr + 8 (d[2], d[3]), columns 2·tig and 2·tig + 1.
+// d[1]) and gr + 8 (d[2], d[3]), columns 2·tig and 2·tig + 1. With .tf32
+// (m16n8k8) the A fragment is rows gr (a[0], a[2]) and gr + 8 (a[1],
+// a[3]), columns tig (a[0], a[1]) and tig + 4 (a[2], a[3]); B is rows (k)
+// tig (b0) and tig + 4 (b1), column gr; the accumulator as above.
 
 #pragma once
 
@@ -57,6 +61,23 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
                                          uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x = hi + lo, both tf32 (10-bit mantissas, round to nearest): the
+// 3xTF32 operands, whose three products keep about fp32's precision
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
+}
+
+// d += a (16×8, row) · b (8×8, col), tf32 in, fp32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

@@ -35,6 +35,17 @@ from repro_torch.interop import params_from_numpy, state_from_numpy
 from repro_torch.kernels.gossip_mix import KERNELS, reset_launch_counts
 from repro_torch.models.smallnets import make_classifier
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread: the test workers share the host's
+    cores, and torch's default thread count in each oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # (codec, block, S, X): the paper-scale mlp's width with the serving and
 # gossip blocks, and small widths that are not a multiple of the block
 CASES = [("int8", 64, 2, 17226), ("int8", 256, 2, 17226), ("int4", 64, 2, 17226),

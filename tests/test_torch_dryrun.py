@@ -41,6 +41,17 @@ from repro_torch.launch.mesh import MeshShape
 from repro_torch.models import registry as tregistry
 from repro_torch.roofline import analysis as trl
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread: the test workers share the host's
+    cores, and torch's default thread count in each oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ARGS_ARCHS = ("whisper-base", "mamba2-370m", "olmo-1b")
 

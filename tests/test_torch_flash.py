@@ -1,23 +1,33 @@
-"""Kernel 8's numerics on the CPU: the bf16 tensor-core kernel rounds p to
-bf16 before p·v (the mma's A operand) and takes its row sum from the
+"""Kernel 8's numerics on the CPU: the bf16 tensor-core kernels round p to
+bf16 before p·v (the products' A operand) and take the row sum from the
 rounded p; its plain version ``flash_attention_ref`` rounds in the same
-place, and fp32 inputs keep the exact fp32 softmax.
+place, and fp32 inputs keep the exact fp32 softmax. Then the kv split
+(``split_plan``, ``flash_attention_split_ref``) and the route rule.
 
-- ``_kernel_like`` repeats the bf16 kernel's arithmetic in plain torch,
+- ``_kernel_like`` repeats the bf16 kernels' arithmetic in plain torch,
   block by block and tile by tile (``csrc/flash_attention.cu``): the G
-  query heads of a kv head folded into 64-row blocks, kv tiles of 64 keys
-  (32 at hd 256) over the range a block can see, exp2 of scores scaled by
-  log2 e, the running max per tile with base 0 while a row has seen no
-  live key, p rounded to bf16 relative to that running max, alpha
-  rescaling, l the sum of the rounded p, out = acc / max(l, 1e-30) in
-  bf16.
+  query heads of a kv head folded into blocks of ``rows_per_block`` rows
+  (128 on the wgmma route, 64 on mma.sync), kv tiles of 128 keys at hd 64
+  and 128 and 64 at hd 256 (wgmma) or 64 (mma.sync) over the range a
+  block can see, exp2 of scores scaled by log2 e, the running max per
+  tile with base 0 while a row has seen no live key, p rounded to bf16
+  relative to that running max, alpha rescaling, l the sum of the rounded
+  p, out = acc / max(l, 1e-30) in bf16.
 - Tolerances. bf16: 2e-2 abs at unit-normal inputs (tests/test_kernels.py's
   bf16 bound): each side rounds its output to bf16 (a step of at most
   2^-7 at |o| < 2, 2^-6 below 4) and the rounding of p moves each weight
   by at most 2^-9 of itself, so the output by at most 2^-9 · max|v| ≈
-  0.008 before that. fp32: 2e-5 (the same file's fp32 bound).
+  0.008 before that. fp32: 2e-5 (the same file's fp32 bound). Under a kv
+  split, bf16 is also held to 2e-2 of the reference's largest |value|
+  (``_split_tol``, chip_smoke's ``flash_tol``): a row over thousands of
+  keys averages them to a few hundredths, and a split that drops one chunk
+  fails that limit where it would pass a fixed 2e-2.
+- The split's plain version against ``flash_attention_ref`` at 1e-6
+  (fp32: the same sums, merged), against the Pallas kernel at 2e-5 where
+  its blocks divide the lengths, and against JAX's blocked and
+  materialized attention at ragged lengths at 2e-5.
 - The Pallas kernel runs in interpret mode, as tests/test_kernels.py runs
-  it. About 10 s on the CPU.
+  it; torch runs on one thread. About 15 s on the CPU.
 """
 import math
 
@@ -27,18 +37,44 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+from repro.models import attention as jattn
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, MAX_SPLIT, NUM_SMS, ROUTES,
+                                                 SPLIT_ALIGN, WGMMA_HEAD_DIMS,
+                                                 flash_attention, flash_attention_ref,
+                                                 flash_attention_split_ref, route,
+                                                 rows_per_block, sm_count, split_chunks,
+                                                 split_plan)
 from repro_torch.models.attention import ref_attention
 
 BF16_TOL, FP32_TOL = 2e-2, 2e-5
 
 
+def _split_tol(want):
+    """bf16 under a kv split: 2e-2 of the reference's largest |value|, at
+    most ``BF16_TOL`` (one bf16 step at the largest output is 2^-8 of it
+    at most, so a right split differs from the plain version by under
+    half of this)."""
+    return min(BF16_TOL, 2e-2 * float(want.float().abs().max()))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread, as the driver's workers share the
+    host."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _kernel_like(q, k, v, *, causal=True, window=None):
-    """The bf16 kernel's arithmetic, block by block, in plain torch."""
+    """The bf16 kernels' arithmetic, block by block, in plain torch."""
     b, lq, hq, hd = q.shape
     lkv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
-    bk = 32 if hd == 256 else 64
+    wgmma = route(hd, q.dtype) == "flash_wgmma_kernel"
+    bk = (64 if hd == 256 else 128) if wgmma else 64
+    block = rows_per_block(hd, q.dtype)
     rows = lq * g
     scale_log2 = math.log2(math.e) / math.sqrt(hd)
     pad = (-lkv) % bk   # keys past Lkv read as zeros, as the kernel's zero-filled copies
@@ -50,8 +86,8 @@ def _kernel_like(q, k, v, *, causal=True, window=None):
         for hk in range(hkv):
             qrows = q[bi, :, hk * g:(hk + 1) * g].float().reshape(rows, hd)
             orows = torch.empty((rows, hd))
-            for f0 in range(0, rows, 64):
-                qb, pos = qrows[f0:f0 + 64], pos_all[f0:f0 + 64]
+            for f0 in range(0, rows, block):
+                qb, pos = qrows[f0:f0 + block], pos_all[f0:f0 + block]
                 n = len(pos)
                 k_lo, k_hi = 0, lkv - 1
                 if causal:
@@ -153,3 +189,178 @@ def test_bf16_plain_version_rounds_p_and_fp32_does_not():
     fq, fk, fv = (torch.from_numpy(a) for a in (q, k, v))
     torch.testing.assert_close(flash_attention_ref(fq, fk, fv), ref_attention(fq, fk, fv),
                                atol=FP32_TOL, rtol=0)
+
+
+# (B, Lq, Lkv, Hq, Hkv, hd, causal): short queries over long keys
+# (whisper's cross attention, a decode-length query, GQA 32/8), ragged
+# lengths, causal and not, and shapes whose grid fills the card (a window
+# does not enter the plan)
+PLAN_CASES = [(4, 64, 1500, 8, 8, 64, False), (1, 1, 4096, 32, 8, 128, False),
+              (1, 16, 4096, 32, 8, 128, False), (1, 512, 512, 16, 16, 128, True),
+              (4, 512, 512, 4, 1, 256, True), (1, 77, 3001, 2, 1, 80, True),
+              (1, 300, 2999, 4, 2, 32, False), (2, 13, 1500, 4, 1, 16, True),
+              (4, 1500, 1500, 8, 8, 64, False), (1, 512, 4096, 1, 1, 128, False)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,lq,lkv,hq,hkv,hd,causal", PLAN_CASES)
+def test_split_plan_is_a_function_of_the_shape_and_covers_the_keys_once(
+        b, lq, lkv, hq, hkv, hd, causal, dtype):
+    plan = split_plan(b, lq, lkv, hq, hkv, hd, dtype, causal=causal)
+    assert plan == split_plan(b, lq, lkv, hq, hkv, hd, str(dtype), causal=causal,
+                              num_sms=sm_count(torch.device("cpu")))
+    n, chunk = plan
+    blocks = -(-lq * (hq // hkv) // rows_per_block(hd, dtype)) * hkv * b
+    if n == 1:
+        assert chunk == lkv
+    else:   # only a grid under half the card splits
+        assert 2 * blocks <= NUM_SMS and 2 <= n <= MAX_SPLIT
+        assert chunk % SPLIT_ALIGN == 0 and chunk >= 2 * SPLIT_ALIGN
+    chunks = split_chunks(lkv, n, chunk)
+    assert len(chunks) == n and chunks[0][0] == 0 and chunks[-1][1] == lkv
+    assert all(lo < hi for lo, hi in chunks)                  # none empty
+    assert all(a[1] == b_[0] for a, b_ in zip(chunks, chunks[1:]))   # no gap, no overlap
+    covered = np.zeros(lkv, np.int64)
+    for lo, hi in chunks:
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    if causal:   # a causal call's row tiles already spread its keys
+        assert n == 1
+
+
+def test_split_plan_splits_short_queries_and_not_full_grids():
+    # whisper's cross attention: 32 blocks of 128 rows, 4 chunks of 384 keys
+    assert split_plan(4, 64, 1500, 8, 8, 64, torch.bfloat16, causal=False) == (4, 384)
+    # a decode-length query over a 4,096 cache: as many chunks as the card wants
+    assert split_plan(1, 1, 4096, 32, 8, 128, torch.bfloat16, causal=False) == (16, 256)
+    # causal with no offset: 64 queries see 64 keys, whatever Lkv; and a
+    # short causal grid (olmoe's B = 1 prefill) keeps its keys whole
+    assert split_plan(1, 64, 4096, 32, 8, 128, torch.bfloat16, causal=True) == (1, 4096)
+    assert split_plan(1, 512, 512, 16, 16, 128, torch.bfloat16, causal=True) == (1, 512)
+    # olmo-1b's and whisper's encoder prefill fill the card
+    assert split_plan(4, 512, 512, 16, 16, 128, torch.bfloat16)[0] == 1
+    assert split_plan(4, 1500, 1500, 8, 8, 64, torch.float32, causal=False)[0] == 1
+    # the plan follows the card's SM count: off the card it is an H100
+    # SXM's; a card of 16 SMs leaves whisper's 32 cross blocks whole
+    assert sm_count(torch.device("cpu")) == NUM_SMS == 132
+    assert split_plan(4, 64, 1500, 8, 8, 64, torch.bfloat16, causal=False,
+                      num_sms=16) == (1, 1500)
+    assert split_plan(1, 1, 4096, 32, 8, 128, torch.bfloat16, causal=False,
+                      num_sms=16) == (2, 2048)
+
+
+# (B, Lq, Lkv, Hq, Hkv, hd, causal, window, chunks): the plan's chunks and
+# hand-made ones, with chunks that some rows (causal, window) or every row
+# sees no key of
+SPLIT_REF_CASES = [(2, 64, 700, 4, 2, 32, False, None, None),
+                   (1, 16, 1500, 4, 1, 64, False, None, None),
+                   (1, 300, 700, 4, 2, 32, True, 100, [(0, 256), (256, 512), (512, 700)]),
+                   (1, 30, 1000, 4, 2, 16, False, 50, [(0, 384), (384, 1000)]),
+                   (1, 200, 600, 2, 2, 80, True, None, [(0, 128), (128, 256), (256, 600)]),
+                   (2, 1, 900, 8, 8, 128, False, None, None),
+                   (1, 512, 4096, 1, 1, 128, False, 100, None)]
+
+
+@pytest.mark.parametrize("b,lq,lkv,hq,hkv,hd,causal,window,chunks", SPLIT_REF_CASES)
+def test_split_ref_equals_the_plain_version(b, lq, lkv, hq, hkv, hd, causal, window, chunks):
+    q, k, v = (torch.from_numpy(a) for a in _qkv(b, lq, lkv, hq, hkv, hd, seed=3))
+    if chunks is None:
+        assert split_plan(b, lq, lkv, hq, hkv, hd, torch.float32, causal=causal)[0] > 1
+    got = flash_attention_split_ref(q, k, v, causal=causal, window=window, chunks=chunks)
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    torch.testing.assert_close(got, want, atol=1e-6, rtol=0)
+    if window is not None and causal and lq > lkv + window:
+        assert bool((got[:, lkv + window:] == 0).all())
+    # bf16: p rounded per chunk (relative to the chunk's max), as the kernels
+    # round per tile: within the split's bf16 limit of the plain version
+    bq, bk, bv = _bf16(q.numpy(), k.numpy(), v.numpy())
+    want = flash_attention_ref(bq, bk, bv, causal=causal, window=window).float()
+    torch.testing.assert_close(
+        flash_attention_split_ref(bq, bk, bv, causal=causal, window=window,
+                                  chunks=chunks).float(),
+        want, atol=_split_tol(want), rtol=0)
+
+
+# (B, Lq, Lkv, Hq, Hkv, hd, window): chip_smoke's bf16 split rows, 1 and
+# 16 queries over 4,096 keys under GQA 32/8 and 512 under a window of 100
+DROP_CASES = [(1, 1, 4096, 32, 8, 128, None), (1, 16, 4096, 32, 8, 128, None),
+              (1, 512, 4096, 1, 1, 128, 100)]
+
+
+@pytest.mark.parametrize("drop", ["first", "middle", "last"])
+@pytest.mark.parametrize("b,lq,lkv,hq,hkv,hd,window", DROP_CASES)
+def test_split_limit_fails_a_split_that_drops_a_chunk(b, lq, lkv, hq, hkv, hd, window, drop):
+    """The split's bf16 limit holds the plain split-and-merge of the
+    plan and refuses one that leaves out a chunk (a combine that skips or
+    mis-weighs a chunk's partial), whichever chunk it is."""
+    bq, bk, bv = _bf16(*_qkv(b, lq, lkv, hq, hkv, hd, seed=6))
+    chunks = split_chunks(lkv, *split_plan(b, lq, lkv, hq, hkv, hd, torch.bfloat16,
+                                           causal=False))
+    assert len(chunks) > 2
+    want = flash_attention_ref(bq, bk, bv, causal=False, window=window).float()
+    tol = _split_tol(want)
+    whole = flash_attention_split_ref(bq, bk, bv, causal=False, window=window, chunks=chunks)
+    assert float((whole.float() - want).abs().max()) <= tol
+    i = {"first": 0, "middle": len(chunks) // 2, "last": len(chunks) - 1}[drop]
+    short = flash_attention_split_ref(bq, bk, bv, causal=False, window=window,
+                                      chunks=chunks[:i] + chunks[i + 1:])
+    assert float((short.float() - want).abs().max()) > tol
+
+
+# the Pallas kernel's blocks (min(128, L)) divide these lengths; the plan
+# splits each
+SPLIT_PALLAS_CASES = [(1, 64, 512, 2, 1, 64, False, None), (1, 128, 1024, 4, 2, 32, False, 256),
+                      (2, 32, 768, 2, 2, 16, True, None)]
+
+
+@pytest.mark.parametrize("b,lq,lkv,hq,hkv,hd,causal,window", SPLIT_PALLAS_CASES)
+def test_split_ref_matches_the_pallas_kernel(b, lq, lkv, hq, hkv, hd, causal, window):
+    q, k, v = _qkv(b, lq, lkv, hq, hkv, hd, seed=4)
+    chunks = [(0, 256), (256, lkv)] if causal else None   # causal: Lq keys live
+    if chunks is None:
+        assert split_plan(b, lq, lkv, hq, hkv, hd, torch.float32, causal=causal)[0] > 1
+    want = np.asarray(jops.flash_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                           causal=causal, window=window), np.float32)
+    got = flash_attention_split_ref(*(torch.from_numpy(a) for a in (q, k, v)), causal=causal,
+                                    window=window, chunks=chunks)
+    np.testing.assert_allclose(got.numpy(), want, atol=FP32_TOL)
+
+
+# ragged lengths, as tests/test_torch_whisper.py holds the plain version:
+# JAX's blocked and materialized attention
+SPLIT_RAGGED_CASES = [(2, 64, 1500, 2, 2, 64, False), (1, 13, 1500, 4, 1, 128, False),
+                      (1, 77, 1001, 2, 1, 80, True)]
+
+
+@pytest.mark.parametrize("b,lq,lkv,hq,hkv,hd,causal", SPLIT_RAGGED_CASES)
+def test_split_ref_at_ragged_lengths_matches_jax(b, lq, lkv, hq, hkv, hd, causal):
+    q, k, v = _qkv(b, lq, lkv, hq, hkv, hd, seed=5)
+    plan = split_plan(b, lq, lkv, hq, hkv, hd, torch.float32, causal=causal)
+    chunks = split_chunks(lkv, *plan) if plan[0] > 1 else [(0, 256), (256, 512), (512, lkv)]
+    got = flash_attention_split_ref(*(torch.from_numpy(a) for a in (q, k, v)), causal=causal,
+                                    chunks=chunks).numpy()
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    np.testing.assert_allclose(got, np.asarray(jattn.blocked_attention(jq, jk, jv,
+                                                                       causal=causal)),
+                               atol=FP32_TOL)
+    np.testing.assert_allclose(got, np.asarray(jattn.ref_attention(jq, jk, jv, causal=causal)),
+                               atol=FP32_TOL)
+
+
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_route_rule_names_one_kernel_per_head_dim_and_dtype(hd):
+    bf16, fp32 = route(hd, torch.bfloat16), route(hd, torch.float32)
+    assert bf16 in ROUTES and fp32 in ROUTES
+    assert bf16 == ("flash_wgmma_kernel" if hd in WGMMA_HEAD_DIMS else "flash_mma_kernel")
+    assert fp32 == "flash_tf32_kernel"
+    assert route(hd, "bfloat16") == bf16 and route(hd, "float32") == fp32
+    assert rows_per_block(hd, torch.bfloat16) == (128 if hd in WGMMA_HEAD_DIMS else 64)
+    with pytest.raises(ValueError, match="no kernel"):
+        route(hd, torch.float16)
+
+
+def test_route_rule_refuses_a_head_dim_it_was_not_built_for():
+    for hd in (8, 48, 192, 512):
+        with pytest.raises(ValueError, match="no kernel"):
+            route(hd, torch.bfloat16)

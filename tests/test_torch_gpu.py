@@ -1,7 +1,7 @@
 """PyTorch port on the card: each CUDA kernel against its plain PyTorch
 version on the same CUDA tensors (max abs error 1e-5 for the mixes, TF32
-off for both matmul and cuDNN; flash attention 2e-5 fp32 / 2e-2 bf16, the
-SSD scan 2e-3 and, on a bf16 y, one bf16 step), the wrappers' checks and launch counters, a short run
+off for both matmul and cuDNN; flash attention 2e-5 fp32 / 2e-2 bf16, and
+under a kv split also 2e-2 of the largest |output| in bf16, the SSD scan 2e-3 and, on a bf16 y, one bf16 step), the wrappers' checks and launch counters, a short run
 of the main path through the kernels, a short run of each baseline family
 through its exchange kernel, a short train → export → serve run through
 the dequant kernels, a short run of each codec and sparse path
@@ -48,7 +48,9 @@ from repro_torch.kernels.gossip_mix import (
     mixture_mix_dequant4_ref,
     reset_launch_counts,
 )
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, flash_attention,
+                                                 flash_attention_ref, flash_attention_split_ref,
+                                                 route, sm_count, split_plan)
 from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
 from repro_torch.launch.serve import encode_plane, random_plane
 from repro_torch.models.registry import build_model
@@ -658,6 +660,17 @@ FLASH_SHAPES = [
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
+def _split_tol(want, dtype):
+    """The kv split's limit: ``FLASH_TOL``, and in bf16 also 2e-2 of the
+    reference's largest |value| (chip_smoke's ``flash_tol``). A row over
+    thousands of keys averages them to a few hundredths, where a fixed 2e-2
+    would pass a kernel that dropped a chunk; a right kernel differs from
+    its plain version by one bf16 step at the largest output."""
+    if dtype == torch.float32:
+        return FLASH_TOL[dtype]
+    return min(FLASH_TOL[dtype], 2e-2 * float(want.float().abs().max()))
+
+
 def _qkv(dev, b, lq, lkv, hq, hkv, hd, dtype, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     return (torch.randn((b, lq, hq, hd), generator=g, device=dev).to(dtype),
@@ -731,6 +744,122 @@ def test_flash_kernel_at_ragged_lengths_matches_plain(cuda, b, lq, lkv, hq, hkv,
     want = flash_attention_ref(q, k, v, causal=causal)
     assert bool(torch.isfinite(out).all())
     assert _max_err(out.float(), want.float()) <= FLASH_TOL[dtype]
+
+
+# the wgmma route (bf16, hd 64 / 128 / 256; a persistent grid at 64 and
+# 128), each head dim causal and not, ragged, GQA, windowed and a grid
+# of many items per SM
+WGMMA_SHAPES = [(2, 300, 300, 4, 2, 64, True, None), (3, 200, 333, 8, 8, 64, False, None),
+                (4, 1100, 1100, 4, 4, 64, True, 200), (1, 257, 257, 16, 4, 128, True, None),
+                (2, 96, 700, 2, 1, 128, False, None), (2, 640, 640, 16, 16, 128, True, 100),
+                (1, 130, 130, 4, 1, 256, True, None), (2, 200, 77, 2, 2, 256, False, None),
+                (1, 300, 300, 4, 4, 256, True, 64)]
+
+
+@pytest.mark.parametrize("b,lq,lkv,hq,hkv,hd,causal,window", WGMMA_SHAPES)
+def test_flash_wgmma_route_matches_plain(cuda, b, lq, lkv, hq, hkv, hd, causal, window):
+    assert route(hd, torch.bfloat16) == "flash_wgmma_kernel"
+    q, k, v = _qkv(cuda, b, lq, lkv, hq, hkv, hd, torch.bfloat16, seed=lq + hd)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    assert flash_attention.launches == before + 1
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert bool(torch.isfinite(out).all())
+    assert _max_err(out.float(), want.float()) <= FLASH_TOL[torch.bfloat16]
+
+
+# the kv split: Lq in {1, 16, 64} over Lkv in {1,500, 4,096} under GQA
+# 32/8, not causal, windowed and causal (no offset: a causal row sees
+# keys up to its own position, so short causal queries do not split)
+SPLIT_SHAPES = [(lq, lkv, causal, window) for lq in (1, 16, 64) for lkv in (1500, 4096)
+                for causal, window in ((False, None), (False, 1024), (True, None))]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("lq,lkv,causal,window", SPLIT_SHAPES)
+def test_flash_kv_split_matches_plain(cuda, lq, lkv, causal, window, dtype):
+    hd = 128 if dtype == torch.bfloat16 else 64
+    q, k, v = _qkv(cuda, 1, lq, lkv, 32, 8, hd, dtype, seed=lq + lkv)
+    n_split, _ = split_plan(1, lq, lkv, 32, 8, hd, dtype, causal=causal,
+                            num_sms=sm_count(cuda))
+    assert (n_split > 1) == (not causal)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, window=window)
+    assert flash_attention.launches == before + 1   # one per call, with its merge
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert bool(torch.isfinite(out).all())
+    assert _max_err(out.float(), want.float()) <= _split_tol(want, dtype)
+    if n_split > 1:
+        split = flash_attention_split_ref(q, k, v, causal=causal, window=window)
+        assert _max_err(out.float(), split.float()) <= _split_tol(split, dtype)
+
+
+# the kv split where a window leaves chunks with no live key for some rows:
+# not causal, Lq > window, so row i sees keys i - window < j < Lkv, and the
+# first chunk holds none for the rows past it (a block of them, none at
+# all: the kernels' clipped key range is empty and the chunk's m is -inf)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
+@pytest.mark.parametrize("lq,window", [(512, 100), (700, 300)])
+def test_flash_kv_split_with_dead_chunks_matches_plain(cuda, lq, window, hd, dtype):
+    q, k, v = _qkv(cuda, 1, lq, 4096, 1, 1, hd, dtype, seed=lq + window + hd)
+    n_split, chunk = split_plan(1, lq, 4096, 1, 1, hd, dtype, causal=False,
+                                num_sms=sm_count(cuda))
+    assert n_split > 1 and lq - window > chunk   # rows that see nothing of chunk 0
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=False, window=window)
+    assert flash_attention.launches == before + 1
+    want = flash_attention_ref(q, k, v, causal=False, window=window)
+    assert bool(torch.isfinite(out).all())
+    assert _max_err(out.float(), want.float()) <= _split_tol(want, dtype)
+    split = flash_attention_split_ref(q, k, v, causal=False, window=window)
+    assert _max_err(out.float(), split.float()) <= _split_tol(split, dtype)
+
+
+# ragged tails on every route: Lq and Lkv one past and one short of the
+# kernels' tiles (64 and 128 rows; 32, 64 and 128 keys), under GQA
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("lq,lkv", [(129, 127), (63, 65), (1, 33)])
+def test_flash_ragged_tails_on_every_route(cuda, lq, lkv, hd, dtype):
+    q, k, v = _qkv(cuda, 2, lq, lkv, 6, 2, hd, dtype, seed=lq * lkv + hd)
+    for causal in (True, False):
+        out = flash_attention(q, k, v, causal=causal)
+        want = flash_attention_ref(q, k, v, causal=causal)
+        assert _max_err(out.float(), want.float()) <= FLASH_TOL[dtype], (route(hd, dtype),
+                                                                         causal)
+
+
+@pytest.mark.parametrize("hd", HEAD_DIMS)
+def test_flash_tf32_route_holds_the_fp32_bound(cuda, hd):
+    """3xTF32 at every head dim against the plain version in full fp32
+    (``allow_tf32`` off for its matmuls, as the cuda fixture sets)."""
+    assert route(hd, torch.float32) == "flash_tf32_kernel"
+    assert not torch.backends.cuda.matmul.allow_tf32
+    q, k, v = _qkv(cuda, 2, 300, 300, 4, 2, hd, torch.float32, seed=hd)
+    for causal, window in ((True, None), (False, None), (True, 100)):
+        out = flash_attention(q, k, v, causal=causal, window=window)
+        want = flash_attention_ref(q, k, v, causal=causal, window=window)
+        assert _max_err(out, want) <= FLASH_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_refuses_misaligned_or_strided_inputs(cuda, dtype):
+    """TMA boxes and 16-byte copies need a 16-byte aligned, contiguous base
+    on every route: the wrapper raises before any launch, for q, k and v."""
+    q, k, v = _qkv(cuda, 1, 128, 128, 4, 2, 64, dtype)
+    before = flash_attention.launches
+    for name in ("q", "k", "v"):
+        args = {"q": q, "k": k, "v": v}
+        t = args[name]
+        flat = torch.zeros(t.numel() + 16, dtype=dtype, device=cuda)
+        args[name] = flat[1:1 + t.numel()].view(t.shape)   # 2 or 4 bytes past a 16-byte line
+        with pytest.raises(ValueError, match="aligned"):
+            flash_attention(args["q"], args["k"], args["v"])
+        args[name] = t.transpose(1, 2).contiguous().transpose(1, 2)   # its shape, strided
+        with pytest.raises(ValueError, match="contiguous"):
+            flash_attention(args["q"], args["k"], args["v"])
+    assert flash_attention.launches == before
 
 
 def test_whisper_on_the_card_matches_the_cpu(cuda):

@@ -38,6 +38,17 @@ from repro_torch.models.layers import cast_params_for_compute
 from repro_torch.serve import ClusterPlaneServer, load_servable
 from repro_torch.serve.server import decode_eager
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread: the test workers share the host's
+    cores, and torch's default thread count in each oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCH = "zamba2-1.2b"
 CONFIGS = {"smoke": {}, "trailing": {"n_layers": 3, "attn_every": 2}}
 CACHE_KEYS = ("ssm", "conv", "attn_k", "attn_v")

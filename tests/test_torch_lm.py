@@ -44,6 +44,17 @@ from repro_torch.models import layers as tlayers
 from repro_torch.models import registry as tregistry
 from repro_torch.models import transformer as ttfm
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread: the test workers share the host's
+    cores, and torch's default thread count in each oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 DENSE = ["olmo-1b", "h2o-danube-1.8b", "gemma3-1b", "granite-3-8b", "chameleon-34b"]
 PORTED = DENSE + ["mamba2-370m", "olmoe-1b-7b", "phi3.5-moe-42b-a6.6b", "zamba2-1.2b"]
 

@@ -39,6 +39,17 @@ from repro_torch.models.layers import cast_params_for_compute
 from repro_torch.serve import ClusterPlaneServer, load_servable
 from repro_torch.serve.server import decode_eager
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread: the test workers share the host's
+    cores, and torch's default thread count in each oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCHS = ["olmoe-1b-7b", "phi3.5-moe-42b-a6.6b"]
 U = np.array([[0.7, 0.3], [0.5, 0.5], [0.0, 1.0], [0.2, 0.8]], np.float32)
 GEN = 6

@@ -32,6 +32,17 @@ import torch
 from repro.kernels import ops as jops
 from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread: the test workers share the host's
+    cores, and torch's default thread count in each oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROWS = 64   # query rows per output block, keys per key tile
 
 

@@ -98,6 +98,15 @@ def least_optimized():
         yield
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The port's side on one thread: the test workers share the host's
+    cores, and torch's default thread count in each oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
