@@ -216,13 +216,15 @@ Phases, in order; any failure exits non-zero before the result line:
    (checked right after the build: HGMMA in every wgmma-route
    instantiation, HMMA in every mma.sync and 3xTF32 one), and ``ssd_scan``
    (kernel 9) at mamba2-370m's prefill layer (B = 4, L = 512, H = 32, P =
-   64, N = 128, chunk 128, bf16; also fp32 and with an initial state) and
-   zamba2-1.2b's Mamba2 layer (H = 64, N = 64, bf16),
-   each row with its three stages' device ms from a torch.profiler pass
-   (which must see the tensor-core kernels ``ssd_chunk_state_mma`` and
-   ``ssd_chunk_out_mma`` in bf16, the CUDA-core ones in fp32) and, in
-   bf16, their tensor-core instruction counts (checked non-zero right
-   after the build),
+   64, N = 128, chunk 128, bf16; also fp32 and with an initial state),
+   zamba2-1.2b's Mamba2 layer (H = 64, N = 64, bf16) and mamba2-370m at
+   one request and a 4,096-token prompt (32 chunks of the state walk),
+   each row naming its route (``ssd_wgmma`` in bf16, ``ssd_tf32`` in fp32,
+   by ``route``) with its two kernels' device ms from a torch.profiler pass
+   (which must see exactly the route's kernels) and their tensor-core
+   instruction counts (checked right after the build: HGMMA in both bf16
+   kernels, HMMA or HGMMA in both fp32 ones), an fp32 row also its
+   3xTF32 ceiling,
    each against its plain version (attention 2e-5 fp32 / 2e-2 of the
    largest |output|, at most 2e-2, bf16 (``flash_tol``), SSD
    2e-3 and one bf16 step, 2^-7 of the value, on a bf16 y) and timed by
@@ -238,8 +240,9 @@ Phases, in order; any failure exits non-zero before the result line:
    request with its own mixture, prompt 512, 16 greedy tokens, every
    launch counter set to 0 just before each ``generate`` and read just
    after (one ``flash_attention`` launch per olmo / olmoe layer and per
-   invocation of zamba2's shared block, three ``ssd_scan`` launches per
-   mamba2 / zamba2 Mamba2 layer, one dequant launch per int8/int4 call:
+   invocation of zamba2's shared block, two ``ssd_scan`` launches
+   (``LAUNCHES_PER_CALL``) per mamba2 / zamba2 Mamba2 layer, one dequant
+   launch per int8/int4 call:
    the mix and the prefill stay eager, the decode tokens are replays of
    the server's captured CUDA graph); for olmoe, the (token, expert)
    pairs each MoE layer's capacity drops in the prefill;
@@ -421,8 +424,10 @@ SSD_SHAPES = [(4, 512, 32, 1, 64, 128, 128, "bfloat16", False),
               (4, 512, 32, 1, 64, 128, 128, "float32", False),
               (4, 512, 32, 1, 64, 128, 128, "float32", True),
               # zamba2-1.2b's Mamba2 layer: 64 heads, state 64
-              (4, 512, 64, 1, 64, 64, 128, "bfloat16", False)]
-SSD_MMA_KERNELS = ("ssd_chunk_state_mma", "ssd_chunk_out_mma")   # kernel 9's bf16 kernels
+              (4, 512, 64, 1, 64, 64, 128, "bfloat16", False),
+              # mamba2-370m at one request and a 4,096-token prompt: the
+              # state walk's carry over 32 chunks
+              (1, 4096, 32, 1, 64, 128, 128, "bfloat16", False)]
 # the scenarios phase (the slice's path on the main path's population):
 # scenario A, examples/connectivity_sweep.py's rewired ER schedule with
 # link dropout, and scenario B, a Markov client-system model with
@@ -2773,12 +2778,23 @@ def _ssd_bound(b, l, h, g, p, n, q, dtype, state) -> tuple[float, str]:
                         state=state)
 
 
+def _ssd_tc_kernels() -> dict:
+    """Kernel 9's tensor-core kernels by route (``ROUTE_KERNELS`` of the
+    ``ssd_wgmma`` and ``ssd_tf32`` routes) and the instruction each must
+    hold: HGMMA (``wgmma``) in the bf16 ones, HMMA or HGMMA in the fp32."""
+    from repro_torch.kernels.ssd_scan import ROUTE_KERNELS
+
+    return {**{k: ("HGMMA",) for k in ROUTE_KERNELS["ssd_wgmma"]},
+            **{k: ("HMMA", "HGMMA") for k in ROUTE_KERNELS["ssd_tf32"]}}
+
+
 def tensor_core_counts(build, lib_path) -> dict:
     """Tensor-core instructions in the built library, from ``cuobjdump
     -sass`` (beside ``nvcc``): ``{key: {"HMMA": n, "HGMMA": n}}`` for each
     instantiation of kernel 8's kernels (key ``"flash_wgmma_kernel<64>"``
     and so on: ``wgmma`` assembles to HGMMA, ``mma.sync`` to HMMA) and for
-    kernel 9's tensor-core kernels (key: the name, ``SSD_MMA_KERNELS``)."""
+    kernel 9's tensor-core kernels (key: the name, ``_ssd_tc_kernels``)."""
+    ssd = tuple(_ssd_tc_kernels())
     cuobjdump = pathlib.Path(build.find_nvcc()).parent / "cuobjdump"
     r = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
                        text=True, timeout=300)
@@ -2788,7 +2804,7 @@ def tensor_core_counts(build, lib_path) -> dict:
         if "Function :" in line:
             m = re.search(r"(flash_(?:wgmma|mma|tf32)_kernel)ILi(\d+)E", line)
             key = f"{m.group(1)}<{m.group(2)}>" if m else next(
-                (k for k in SSD_MMA_KERNELS if k in line), None)
+                (k for k in ssd if k in line), None)
             if key is not None:
                 counts[key] = {"HMMA": 0, "HGMMA": 0}
         elif key is not None:
@@ -2802,7 +2818,7 @@ def check_tensor_cores(counts: dict) -> None:
     """Print and check ``tensor_core_counts``: every kernel-8 route of
     (head dim, dtype) holds its instructions (HGMMA in a ``wgmma``-route
     instantiation, HMMA in the ``mma.sync`` and 3xTF32 ones), and kernel
-    9's tensor-core kernels hold HMMA."""
+    9's bf16 kernels hold HGMMA, its fp32 ones HMMA or HGMMA."""
     from repro_torch.kernels.flash_attention import HEAD_DIMS, route
 
     for dt in ("bfloat16", "float32"):
@@ -2814,15 +2830,16 @@ def check_tensor_cores(counts: dict) -> None:
             check(got[key][op] > 0, f"kernel 8's {key} ({dt}) holds no {op} instruction")
         print(f"sass flash_attention ({dt}) tensor-core instructions: " + json.dumps(got),
               flush=True)
-    print("sass ssd_scan (bf16) HMMA/HGMMA per kernel: "
-          + json.dumps({k: counts.get(k) for k in SSD_MMA_KERNELS}), flush=True)
-    for k in SSD_MMA_KERNELS:
-        check(sum(counts.get(k, {}).values()) > 0,
-              f"kernel 9's {k} holds no tensor-core instruction")
+    need = _ssd_tc_kernels()
+    print("sass ssd_scan HMMA/HGMMA per kernel: "
+          + json.dumps({k: counts.get(k) for k in need}), flush=True)
+    for k, ops in need.items():
+        check(sum(counts.get(k, {}).get(op, 0) for op in ops) > 0,
+              f"kernel 9's {k} holds no {' or '.join(ops)} instruction")
 
 
 def _stage_ms(torch, fn, calls: int = 20) -> dict:
-    """Device ms per call of each kernel 9 kernel that ``fn`` launches
+    """Device ms per call of each kernel-9 kernel that ``fn`` launches
     (``{name: ms}``), from one torch.profiler pass over ``calls`` calls."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -2956,16 +2973,21 @@ def flash_shape_rows(torch, counts: dict) -> list:
     return rows
 
 
-def phase_lm_kernels(torch, tc_counts: dict) -> dict:
-    """Kernels 8 and 9 against their plain versions at the LM path's
-    shapes, timed by CUDA-graph replay beside bound, plain and library;
-    each kernel-8 row names its route and carries its kernel's
-    tensor-core instruction counts, and each kernel 9 row its three
-    stages' device ms (torch.profiler)."""
-    from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
+def ssd_shape_rows(torch, tc_counts: dict) -> list:
+    """Kernel 9 at ``SSD_SHAPES``: each row against its plain version, its
+    route and two kernels' device ms (torch.profiler, which must see
+    exactly the route's kernels), their tensor-core instruction counts, and
+    its time by CUDA-graph replay beside its bound (an fp32 row also beside
+    the 3xTF32 route's own: three TF32 products at ``PEAK_FLOPS_TF32``) and
+    its plain version's."""
+    from repro_torch.kernels.ssd_scan import (LAUNCHES_PER_CALL, ROUTE_KERNELS,
+                                              heads_per_block, route, sm_count, ssd_chunked,
+                                              ssd_scan, walk_cols)
+    from repro_torch.launch.mesh import HBM_BW
+    from repro_torch.roofline.analysis import kernel_work
 
     dev = torch.device("cuda")
-    rows = {"flash_attention": flash_shape_rows(torch, tc_counts), "ssd_scan": []}
+    rows = []
     for b, l, h, gr, p, n, chunk, dt, state in SSD_SHAPES:
         dtype = getattr(torch, dt)
         g = torch.Generator(device=dev).manual_seed(l + h + n + int(state))
@@ -2984,32 +3006,47 @@ def phase_lm_kernels(torch, tc_counts: dict) -> dict:
         y_ok = bool(((y.float() - yr.float()).abs() <= 2e-3 + rtol * yr.float().abs()).all())
         s_ok = bool(((s - sr).abs() <= 2e-3 + 2e-3 * sr.abs()).all())
         err = max(float((y.float() - yr.float()).abs().max()), float((s - sr).abs().max()))
+        rt = route(dt, p, n)
+        where = f"ssd_scan {dt} B={b} L={l} H={h} P={p} N={n} state={state} ({rt})"
         check(bool(torch.isfinite(y).all()) and bool(torch.isfinite(s).all()),
-              f"ssd_scan {dt}: not finite")
-        check(y_ok and s_ok, f"ssd_scan {dt} B={b} L={l} H={h} P={p} N={n} state={state}: "
-                             f"max abs err {err} outside 2e-3 (+ rtol {rtol})")
+              f"{where}: not finite")
+        check(y_ok and s_ok, f"{where}: max abs err {err} outside 2e-3 (+ rtol {rtol})")
         b_ms, b_by = _ssd_bound(b, l, h, gr, p, n, chunk, dt, state)
+        flops, nbytes = kernel_work("ssd_scan", b=b, l=l, h=h, g=gr, p=p, n=n, chunk=chunk,
+                                    dtype=dt, state=state)
         stages = _stage_ms(torch, lambda: ssd_scan(x, dts, a, bm, cm, chunk=chunk,
                                                    initial_state=s0))
-        want = (SSD_MMA_KERNELS if dt == "bfloat16" else ("ssd_chunk_state", "ssd_chunk_out")) \
-            + ("ssd_state_pass",)
+        want = ROUTE_KERNELS[rt]
         check(sorted(stages) == sorted(want),
-              f"ssd_scan {dt}: the profiler saw {sorted(stages)}, expected {sorted(want)}")
-        rows["ssd_scan"].append(dict(
+              f"{where}: the profiler saw {sorted(stages)}, expected {sorted(want)}")
+        rows.append(dict(
             b=b, l=l, h=h, g=gr, p=p, n=n, chunk=chunk, dtype=dt, initial_state=state,
-            max_abs_err=err, launches_per_call=3, stage_ms=stages,
-            tensor_core_instructions=({k: sum(tc_counts[k].values())
-                                       for k in SSD_MMA_KERNELS}
-                                      if dt == "bfloat16" else 0),
+            route=rt, heads_per_block=(heads_per_block(b, l, h, gr, chunk, sm_count(dev))
+                                       if rt == "ssd_wgmma" else 1),
+            walk_cols=walk_cols(b, h, n, sm_count(dev)) if rt == "ssd_wgmma" else 64,
+            max_abs_err=err, launches_per_call=LAUNCHES_PER_CALL,
+            stage_ms={k: stages[k] for k in want},
+            tensor_core_instructions={k: tc_counts.get(k) for k in want},
             ms=graph_ms(lambda: ssd_scan(x, dts, a, bm, cm, chunk=chunk, initial_state=s0),
                         20, 10),
             plain_ms=graph_ms(lambda: ssd_chunked(x, dts, a, bm, cm, chunk, s0), 5, 5),
-            library_ms=None, bound_ms=b_ms, bound_by=b_by))
+            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            tf32x3_bound_ms=(max(nbytes / HBM_BW, 3 * flops / PEAK_FLOPS_TF32) * 1e3
+                             if dt == "float32" else None)))
+        print("kernel ssd_scan " + json.dumps(rows[-1]), flush=True)
         del x, dts, bm, cm, s0, y, s, yr, sr
         torch.cuda.empty_cache()
-    for r in rows["ssd_scan"]:
-        print("kernel ssd_scan " + json.dumps(r), flush=True)
     return rows
+
+
+def phase_lm_kernels(torch, tc_counts: dict) -> dict:
+    """Kernels 8 and 9 against their plain versions at the LM path's
+    shapes, timed by CUDA-graph replay beside bound, plain and library;
+    each row names its route and carries its kernels' tensor-core
+    instruction counts, and each kernel-9 row its two kernels' device ms
+    (torch.profiler)."""
+    return {"flash_attention": flash_shape_rows(torch, tc_counts),
+            "ssd_scan": ssd_shape_rows(torch, tc_counts)}
 
 
 class _PlainLMKernels:
@@ -3117,13 +3154,15 @@ def _lm_server(torch, arch: str, codec: str, gen: int = LM_GEN):
 def _lm_launches(cfg) -> dict:
     """Kernel 8 / 9 launches of one generate (the eager prefill; the
     decode launches neither): one flash launch per attention layer (per
-    invocation of zamba2's shared block), three SSD-scan launches per
-    Mamba2 layer."""
+    invocation of zamba2's shared block), ``LAUNCHES_PER_CALL`` SSD-scan
+    launches per Mamba2 layer."""
+    from repro_torch.kernels.ssd_scan import LAUNCHES_PER_CALL
+
     if cfg.family == "ssm":
-        return {"ssd_scan": 3 * cfg.n_layers}
+        return {"ssd_scan": LAUNCHES_PER_CALL * cfg.n_layers}
     if cfg.family == "hybrid":
         return {"flash_attention": cfg.n_layers // cfg.attn_every,
-                "ssd_scan": 3 * cfg.n_layers}
+                "ssd_scan": LAUNCHES_PER_CALL * cfg.n_layers}
     return {"flash_attention": cfg.n_layers}
 
 

@@ -52,9 +52,9 @@ SIGNATURES = {
     # q, k, v, o, part, ml, b, lq, lkv, hq, hkv, hd, causal, window, route,
     # n_split, chunk, stream
     "flash_attention": ([_P] * 6 + [ctypes.c_int] * 11 + [_P], ctypes.c_int),
-    # x, dt, a, bm, cm, s0, y, s_final, states, cum_last,
-    # b, l, h, g, p, n, chunk, bf16, stage, stream
-    "ssd_scan_stage": ([_P] * 10 + [ctypes.c_int] * 9 + [_P], ctypes.c_int),
+    # x, dt, a, bm, cm, s0, y, s_final, states, cum, dtt,
+    # b, l, h, g, p, n, chunk, bf16, route, hb, cols, stage, stream
+    "ssd_scan_stage": ([_P] * 11 + [ctypes.c_int] * 12 + [_P], ctypes.c_int),
 }
 
 

@@ -145,7 +145,6 @@
 // What bounds it: three tf32 products per product at mma.sync's rate, and
 // the splits (two cvt and a subtraction per element of each fragment).
 
-#include <cuda.h>  // CUtensorMap and its enums; the driver call is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -377,10 +376,6 @@ __device__ __forceinline__ int4 ld_shared_v4(uint32_t addr) {
                : "r"(addr)
                : "memory");
   return v;
-}
-
-__device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t v) {
-  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
 
 __device__ __forceinline__ void st_shared_v4(uint32_t addr, int4 v) {
@@ -672,49 +667,6 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tm_k,
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, looked up once (no -lcuda)
-EncodeTiled tensor_map_encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// k or v (B, Lkv, Hkv, hd) as a 4-d map (hd, Hkv, Lkv, B) of 128-byte
-// swizzled boxes (64, 1, keys, 1); reads past Lkv are zero
-int kv_tensor_map(CUtensorMap* map, const void* base, int nb, int lkv, int hkv, int hd,
-                  int keys) {
-  const EncodeTiled encode = tensor_map_encoder();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(hkv),
-                              static_cast<cuuint64_t>(lkv), static_cast<cuuint64_t>(nb)};
-  const cuuint64_t row = static_cast<cuuint64_t>(hd) * 2;  // bytes
-  const cuuint64_t strides[3] = {row, row * hkv, row * hkv * lkv};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(keys), 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r =
-      encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <int HD>
 int launch_wgmma(const void* q, const void* k, const void* v, const Params& p,
                  cudaStream_t stream) {
@@ -728,9 +680,9 @@ int launch_wgmma(const void* q, const void* k, const void* v, const Params& p,
     configured = true;
   }
   CUtensorMap tm_k, tm_v;
-  int err = kv_tensor_map(&tm_k, k, p.nb, p.lkv, p.hkv, HD, T::kKeys);
+  int err = blhw_tensor_map(&tm_k, k, p.nb, p.lkv, p.hkv, HD, T::kKeys);
   if (err != cudaSuccess) return err;
-  err = kv_tensor_map(&tm_v, v, p.nb, p.lkv, p.hkv, HD, T::kKeys);
+  err = blhw_tensor_map(&tm_v, v, p.nb, p.lkv, p.hkv, HD, T::kKeys);
   if (err != cudaSuccess) return err;
   // a persistent grid: one block an SM walks the work items
   static int sms = 0;

@@ -1,8 +1,10 @@
-// Hopper-only helpers for flash_attention.cu's bf16 kernel (sm_90a): TMA
-// tile loads completed on an mbarrier, the mbarrier ring's arrive / wait,
-// the wgmma shared-memory descriptor, and wgmma.mma_async m64nNk16 bf16 ×
-// bf16 -> fp32 with A from shared memory (SS) or from registers (RS), as
-// inline PTX. Internal linkage, like mma_sm90.cuh.
+// Hopper-only helpers for the wgmma kernels of flash_attention.cu and
+// ssd_scan.cu (sm_90a): TMA tile loads and bulk copies completed on an
+// mbarrier, bulk stores in bulk groups, the mbarrier ring's arrive / wait, the wgmma shared-memory
+// descriptor, wgmma.mma_async m64nNk16 bf16 × bf16 -> fp32 with A from
+// shared memory (SS) or from registers (RS), as inline PTX; and, on the
+// host, the 4-d bf16 tensor map of a (B, L, H, W) tensor encoded through
+// the driver's cuTensorMapEncodeTiled. Internal linkage, like mma_sm90.cuh.
 //
 // Shared-memory tiles are 128-byte-swizzled panels, the layout a TMA box
 // of 64 bf16 per row writes with CU_TENSOR_MAP_SWIZZLE_128B: a panel holds
@@ -20,6 +22,8 @@
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums; the driver call is looked up at run time
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
@@ -71,6 +75,47 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* tmap, uint
       : "memory");
 }
 
+// an arrival on bar once all of this thread's earlier cp.async copies have
+// landed (counted in the barrier's expected arrivals: .noinc)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// `bytes` (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, by the bulk-copy engine; completes `bytes` on bar
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from shared src to global dst, both 16-byte
+// aligned, by the bulk-copy engine, in the thread's current bulk group
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+                   reinterpret_cast<uint64_t>(dst)),
+               "r"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// until at most N of the thread's bulk groups are still reading shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// until at most N of the thread's bulk groups are pending (writes done)
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 __device__ __forceinline__ void tma_prefetch_desc(const void* tmap) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(tmap)) : "memory");
 }
@@ -78,6 +123,10 @@ __device__ __forceinline__ void tma_prefetch_desc(const void* tmap) {
 // generic-proxy writes to shared memory made visible to wgmma (async proxy)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
 
 // a barrier over `threads` threads (a multiple of 32) under id `id` (1..15)
@@ -258,6 +307,53 @@ __device__ __forceinline__ void wgmma_rs_n8(float (&d)[4], const uint32_t (&a)[4
       "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// --- tensor maps (host) ----------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, looked up once (no -lcuda)
+inline EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// a contiguous bf16 tensor (B, L, H, W) (kernel 8's k and v, kernel 9's x,
+// B and C) as a 4-d map (W, H, L, B) of 128-byte swizzled boxes (64, 1,
+// rows, 1); reads past L (or past W) are zero. W·2 must be a multiple of 16
+// bytes and base 16-byte aligned.
+inline int blhw_tensor_map(CUtensorMap* map, const void* base, int nb, int len, int heads,
+                           int width, int rows) {
+  const EncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(len), static_cast<cuuint64_t>(nb)};
+  const cuuint64_t row = static_cast<cuuint64_t>(width) * 2;  // bytes
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * len};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r =
+      encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -1,9 +1,10 @@
 // Tensor-core and async-copy helpers shared by the mma.sync kernels
-// (flash_attention.cu, ssd_scan.cu): 16-byte cp.async global -> shared
-// copies, ldmatrix fragment loads, the mma.sync m16n8k16 bf16 product and
-// the m16n8k8 tf32 product (with the split of an fp32 value into tf32
-// high and low parts), both with fp32 accumulation, as inline PTX for
-// sm_90a. Internal linkage: each .cu that includes it gets its own copy.
+// (flash_attention.cu, ssd_scan.cu): 16- and 4-byte cp.async global ->
+// shared copies, ldmatrix fragment loads, the mma.sync m16n8k16 bf16
+// product and the m16n8k8 tf32 product (with the split of an fp32 value
+// into tf32 high and low parts), both with fp32 accumulation, as inline
+// PTX for sm_90a.
+// Internal linkage: each .cu that includes it gets its own copy.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 with .bf16): in a warp, lane l
 // has gr = l / 4 and tig = l % 4. The A fragment (16 × 16, row) is 4
@@ -31,6 +32,11 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool v
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(valid ? 16 : 0)
                : "memory");
+}
+
+// 4 bytes global -> shared (cp.async.ca: sizes under 16 bytes)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {

@@ -51,7 +51,7 @@ from repro_torch.kernels.gossip_mix import (
 from repro_torch.kernels.flash_attention import (HEAD_DIMS, flash_attention,
                                                  flash_attention_ref, flash_attention_split_ref,
                                                  route, sm_count, split_plan)
-from repro_torch.kernels.ssd_scan import ssd_chunked, ssd_scan
+from repro_torch.kernels.ssd_scan import LAUNCHES_PER_CALL, ssd_chunked, ssd_scan
 from repro_torch.launch.serve import encode_plane, random_plane
 from repro_torch.models.registry import build_model
 from repro_torch.models.smallnets import make_classifier
@@ -899,11 +899,15 @@ def _to(node, dev):
 
 # kernel 9: the CPU sweep's shapes, then mamba2-370m's prefill layer (H =
 # 32, P = 64, N = 128, L = 512, chunk 128) at B = 1 and 4, a prompt shorter
-# than one chunk, and groups < heads; then the tensor-core kernels' edges
-# (bf16): Q = 5 (under one 16-token step), Q = 16, Q = 80 alone and over
-# two chunks (a ragged query tile), Q = 192 (three query and key tiles), P
-# = 128 (two passes of 64 columns) and N = 16, 64, 128 at G = 1, 2, 4; and
-# P = 24, N = 40, which bf16 runs on the CUDA-core kernels
+# than one chunk, and groups < heads (G = 4 of H = 16 and of H = 32); then
+# the tensor-core kernels' edges: Q = 5 (under one 16-token step), Q = 16,
+# Q = 80 alone (a ragged chunk: L = 80 under chunk 128) and over two chunks
+# (a ragged query tile), Q = 192 and 256 (three and four query and key
+# tiles: keys further back than the previous tile, formed again on the
+# wgmma route, whose second pair of query tiles swaps roles), P = 128 and
+# N = 16, 64, 128 at G = 1, 2, 4, N = 256 (the outputs' shared scores in
+# the place of B); and P = 24, N = 40, which both dtypes run on the CUDA
+# cores (``route``)
 SSD_SHAPES = [
     (1, 128, 8, 2, 32, 16, 64), (2, 256, 4, 1, 64, 64, 128),
     (2, 256, 4, 4, 64, 128, 128), (1, 512, 2, 1, 64, 64, 128),
@@ -911,7 +915,8 @@ SSD_SHAPES = [
     (2, 16, 8, 1, 32, 16, 128), (2, 384, 16, 4, 64, 128, 128),
     (2, 10, 4, 2, 32, 16, 5), (2, 64, 8, 4, 32, 64, 16), (1, 80, 4, 1, 64, 128, 128),
     (2, 160, 4, 2, 64, 64, 80), (1, 192, 4, 2, 64, 128, 192), (1, 128, 2, 1, 128, 64, 128),
-    (1, 64, 4, 2, 24, 40, 32),
+    (1, 64, 4, 2, 24, 40, 32), (2, 256, 32, 4, 64, 128, 128), (1, 256, 4, 1, 64, 256, 128),
+    (1, 512, 4, 2, 64, 128, 256),
 ]
 
 
@@ -944,7 +949,7 @@ def test_ssd_kernel_matches_plain(cuda, b, l, h, g, p, n, chunk, dtype):
     x, dt, a, bm, cm, _ = _ssd_inputs(cuda, b, l, h, g, p, n, dtype)
     before = ssd_scan.launches
     y, s = ssd_scan(x, dt, a, bm, cm, chunk=chunk)
-    assert ssd_scan.launches == before + 3      # chunk states, state pass, outputs
+    assert ssd_scan.launches == before + LAUNCHES_PER_CALL   # the state walk, the outputs
     assert y.dtype == dtype and y.shape == x.shape and s.dtype == torch.float32
     _assert_ssd_close((y, s), ssd_chunked(x, dt, a, bm, cm, min(chunk, l)), dtype)
 
@@ -959,9 +964,24 @@ def test_ssd_kernel_with_an_initial_state(cuda, per_request, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ssd_kernel_gives_the_same_bits_twice(cuda, dtype):
-    """No atomics: two identical calls agree bit for bit."""
-    x, dt, a, bm, cm, s0 = _ssd_inputs(cuda, 2, 384, 16, 4, 64, 128, dtype, seed=4,
+@pytest.mark.parametrize("l,h,p,n", [(4096, 32, 64, 128), (4096, 32, 64, 64)])
+@pytest.mark.parametrize("state", [False, True])
+def test_ssd_kernel_at_a_long_prompt(cuda, l, h, p, n, state, dtype):
+    """One request, 32 chunks of 128: the state walk's carry over every
+    chunk, with and without an initial state, at mamba2-370m's (and
+    zamba2-1.2b's N = 64) head shape."""
+    x, dt, a, bm, cm, s0 = _ssd_inputs(cuda, 1, l, h, 1, p, n, dtype, seed=5, state=state)
+    got = ssd_scan(x, dt, a, bm, cm, chunk=128, initial_state=s0)
+    _assert_ssd_close(got, ssd_chunked(x, dt, a, bm, cm, 128, s0), dtype)
+
+
+# one shape per route (``route``): ssd_tf32, ssd_wgmma, then ssd_cuda_core
+# in both dtypes
+@pytest.mark.parametrize("dtype,p,n", [(torch.float32, 64, 128), (torch.bfloat16, 64, 128),
+                                       (torch.float32, 24, 40), (torch.bfloat16, 24, 40)])
+def test_ssd_kernel_gives_the_same_bits_twice(cuda, dtype, p, n):
+    """No atomics: two identical calls agree bit for bit, on every route."""
+    x, dt, a, bm, cm, s0 = _ssd_inputs(cuda, 2, 384, 16, 4, p, n, dtype, seed=4,
                                        state=True)
     (y1, s1), (y2, s2) = (ssd_scan(x, dt, a, bm, cm, chunk=128, initial_state=s0)
                           for _ in range(2))
@@ -972,8 +992,8 @@ def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     x, dt, a, bm, cm, _ = _ssd_inputs(cuda, 1, 512, 4, 1, 64, 128, torch.float32)
     with pytest.raises(ValueError, match="not divisible"):
         ssd_scan(x, dt, a, bm, cm, chunk=96)
-    with pytest.raises(ValueError, match="shared memory"):
-        ssd_scan(x, dt, a, bm, cm, chunk=256)
+    with pytest.raises(ValueError, match="shared memory"):   # 8 key tiles a head slot
+        ssd_scan(x.bfloat16(), dt, a, bm.bfloat16(), cm.bfloat16(), chunk=512)
     with pytest.raises(ValueError, match="contiguous"):
         ssd_scan(torch.zeros((1, 512, 4, 128), device=cuda)[..., :64], dt, a, bm, cm)
     with pytest.raises(TypeError, match="dtypes"):
@@ -984,12 +1004,12 @@ def test_ssd_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 
 
 @pytest.mark.parametrize("arch,launches", [("olmo-1b", 1), ("gemma3-1b", 1),
-                                           ("mamba2-370m", 3)])
+                                           ("mamba2-370m", LAUNCHES_PER_CALL)])
 @pytest.mark.parametrize("codec", ["fp32", "int8", "int4"])
 def test_lm_generate_runs_the_kernels_and_matches_the_cpu(cuda, arch, launches, codec):
     """Generation on the card (kernels 8/9, and 4/7 for int8/int4) gives
     the CPU's tokens (plain versions) on the smoke arch in fp32: one
-    flash launch, or three SSD-scan launches, per layer per generate."""
+    flash launch, or LAUNCHES_PER_CALL SSD-scan launches, per layer per generate."""
     cfg = get_smoke_config(arch)
     bundle = build_model(cfg, attn_mode="cuda")
     spec = make_pack_spec(bundle.init(None))
@@ -1025,13 +1045,14 @@ def _lm_server(dev, arch, codec, compute="float32"):
 @pytest.mark.parametrize("codec", ["fp32", "int8", "int4"])
 @pytest.mark.parametrize("arch,compute,launches", [
     ("olmo-1b", "float32", 1), ("olmo-1b", "bfloat16", 1), ("gemma3-1b", "float32", 1),
-    ("mamba2-370m", "float32", 3), ("mamba2-370m", "bfloat16", 3)])
+    ("mamba2-370m", "float32", LAUNCHES_PER_CALL),
+    ("mamba2-370m", "bfloat16", LAUNCHES_PER_CALL)])
 def test_captured_generate_equals_the_eager_decode_bit_for_bit(
         cuda, arch, compute, launches, codec, temperature):
     """generate replays its captured decode step; the tokens and the last
     logits equal ``decode_eager``'s (the same steps launched one by one)
     bit for bit. The mix and the prefill stay eager: kernels 8 / 9 launch
-    once (three times) a layer and 4 / 7 once per generate."""
+    once (LAUNCHES_PER_CALL times) a layer and 4 / 7 once per generate."""
     cfg, server, prompts, u = _lm_server(cuda, arch, codec, compute)
     gen = 8
     noise = None
@@ -1069,9 +1090,9 @@ MOE_HYBRID = ["olmoe-1b-7b", "phi3.5-moe-42b-a6.6b", "zamba2-1.2b"]
 def _lm_kernel_launches(cfg) -> dict:
     """Kernels 8 and 9 in one generate: the eager prefill launches one
     flash kernel per attention layer (per shared-block invocation) and
-    three SSD-scan kernels per Mamba2 layer; the decode launches neither."""
+    LAUNCHES_PER_CALL SSD-scan kernels per Mamba2 layer; the decode launches neither."""
     if cfg.family == "hybrid":
-        return {"flash": cfg.n_layers // cfg.attn_every, "ssd": 3 * cfg.n_layers}
+        return {"flash": cfg.n_layers // cfg.attn_every, "ssd": LAUNCHES_PER_CALL * cfg.n_layers}
     return {"flash": cfg.n_layers, "ssd": 0}
 
 

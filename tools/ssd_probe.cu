@@ -46,26 +46,3 @@ __device__ __forceinline__ void probe_mark(int i) {
 extern "C" int probe_set_marks(void* p) {
   return cudaMemcpyToSymbol(g_marks, &p, sizeof(p));
 }
-
-// The mma.sync rate the kernels' products can reach: each warp runs 8
-// independent m16n8k16 bf16 accumulators for `iters` rounds on operands
-// held in registers (no memory traffic), and writes their sum.
-__global__ void __launch_bounds__(128) probe_mma_rate_kernel(float* out, int iters) {
-  uint32_t a[4], b0 = threadIdx.x, b1 = threadIdx.x * 3u;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) a[i] = 0x3f803f80u + threadIdx.x + i;  // bf16 pairs near 1
-  float acc[8][4] = {};
-  for (int it = 0; it < iters; ++it) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) mma_bf16(acc[j], a, b0, b1);
-  }
-  float s = 0.f;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) s += acc[j][0] + acc[j][1] + acc[j][2] + acc[j][3];
-  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
-}
-
-extern "C" int probe_mma_rate(float* out, int blocks, int iters, void* stream) {
-  probe_mma_rate_kernel<<<blocks, 128, 0, static_cast<cudaStream_t>(stream)>>>(out, iters);
-  return cudaGetLastError();
-}
